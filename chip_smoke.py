@@ -10,7 +10,7 @@ nothing of JAX or of the JAX package ``repro``. Phases, each failing loudly:
 1. the card's ``nvidia-smi`` name and power limit, torch and CUDA versions;
    TF32 off (it would reorder near-tied top-k scores);
 2. build the kernels from ``src/repro_torch/kernels/csrc`` with nvcc (timed);
-3. the main path, through ``examples/recall_torch.py``'s ``run``: the UB
+3. the serving path, through ``examples/recall_torch.py``'s ``run``: the UB
    dataset (8,000 users, 20,000 items), LightGCN at dim 64 with two
    relations, fanouts (4, 3) and side info in bag mode, random weights from a
    seed; every node embedded on the card, then U2I/ICF/UCF recall with the
@@ -18,16 +18,30 @@ nothing of JAX or of the JAX package ``repro``. Phases, each failing loudly:
    after, and the inputs of every kernel call are recorded. Device recall is
    then held against the numpy brute-force oracle (1e-3 on every metric) and
    a small graph's embeddings against the CPU path;
-4. kernel phases: each kernel against its plain PyTorch version on the
-   card, on the inputs of every call the main path made, then at synthetic
-   shapes (all ``seg_aggr`` modes, larger ``topk`` problems, an int-valued
-   tie case); one JSON line per shape with the kernel's device time, the
-   plain version's, one library call's and the card's bound;
-5. a ``kernels`` JSON line (times from the main path's largest call of
-   each kernel), then ``{"ok": true, "device": ...}`` last.
+4. the training path, through ``examples/train_torch.py``'s ``run``: the same
+   model on UB for 200 sparse steps (``sparse_min_rows=0``: the PS-style
+   gather -> step -> scatter update) of 512 pairs, in-batch softmax loss,
+   host sampling with prefetch 2. Launch counts are zeroed just before and
+   read just after; every output of the ``seg_aggr`` forward must carry a
+   ``grad_fn``, the loss must fall, each step's dispatch is timed (CUDA
+   events and the host clock, and the host time between steps), and the
+   inputs of the first calls of each kernel are recorded (``row_adagrad`` works in place, so its table
+   and accumulators are cloned before and after the call). Then U2I recall
+   of the trained embeddings;
+5. conformance: under deterministic algorithms, TOY trained 12 steps (sparse
+   and dense) on the card and on the CPU from the same initial weights, and
+   twice on the card: losses and tables agree, the two card runs exactly;
+6. kernel phases: each kernel against its plain PyTorch version on the card,
+   on the recorded inputs of the main paths (``seg_aggr``: of both), then (``seg_aggr``, ``topk``) at
+   synthetic shapes; one JSON line per shape with the kernel's device time,
+   the plain version's, one library call's and the card's bound;
+7. a summary line of the end-to-end numbers, a ``kernels`` JSON line (times
+   from each main path's largest call of each kernel), the card's name and
+   power limit, then ``{"ok": true, ...}`` last.
 """
 from __future__ import annotations
 
+import collections
 import contextlib
 import json
 import os
@@ -41,6 +55,9 @@ FP32_FLOP_PER_S = 67e12  # H100 SXM data sheet, non-tensor-core f32
 RTOL, ATOL = 1e-5, 1e-6  # kernel vs plain version: the two sum in other orders
 TOPK_TIE_TOL = 1e-5  # ids may differ only inside score near-ties this wide
 RECALL_TOL = 1e-3  # device vs brute-force recall, every metric
+TRAJ_RTOL, TRAJ_ATOL = 1e-4, 1e-4  # card vs CPU: 12 steps of f32 updates, other orders
+KEEP_CALLS = 3  # training calls recorded per kernel and shape
+WARM_S = 0.05  # seconds of back-to-back calls before each timing
 
 
 def fail(msg: str) -> None:
@@ -67,6 +84,13 @@ def measure(fn, iters: int, warmup: int = 2) -> dict:
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
+    # keep the card busy for a while first: an idle card clocks down, and a
+    # compute-bound kernel timed right after host-bound phases runs slow
+    busy_until = time.perf_counter() + WARM_S
+    while time.perf_counter() < busy_until:
+        for _ in range(10):
+            fn()
+        torch.cuda.synchronize()
     start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     start.record()
     for _ in range(iters):
@@ -83,6 +107,14 @@ def measure(fn, iters: int, warmup: int = 2) -> dict:
     if dev_us <= 0:
         fail("torch.profiler saw no device time: CUPTI tracing is not working")
     return {"call_ms": call_ms, "device_ms": dev_us / iters / 1e3}
+
+
+def sm_clocks() -> str:
+    """The card's current and maximum SM clock, as nvidia-smi reads them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm,power.draw",
+         "--format=csv,noheader"], capture_output=True, text=True, timeout=60,
+    ).stdout.strip()
 
 
 def bound_ms(nbytes: float, flops: float):
@@ -143,22 +175,26 @@ def _seg_record(torch, ref, seg_aggr_cuda, x, mask, mode, source: str, iters: in
     return rec
 
 
-def seg_aggr_phase(torch, ref, seg_aggr_cuda, calls: list) -> dict:
-    """Every main-path call against the plain version; each of its shapes
-    timed on its recorded inputs; then every mode at synthetic shapes."""
-    worst = 0.0
-    for (x, mask, mode), _ in calls:
-        got, want = seg_aggr_cuda(x, mask, mode), ref.seg_aggr_ref(x, mask, mode)
-        torch.cuda.synchronize()
-        if not torch.allclose(got, want, rtol=RTOL, atol=ATOL):
-            fail(f"seg_aggr {mode} {tuple(x.shape)}: a main-path call disagrees "
-                 "with its plain version")
-        worst = max(worst, (got - want).abs().max().item())
-    emit({"phase": "kernel", "name": "seg_aggr", "source": "main path, every call",
-          "calls": len(calls), "max_abs_err": worst})
-    recs = [_seg_record(torch, ref, seg_aggr_cuda, x, mask, mode, "main path", 200)
-            for (x, mask, mode), _ in first_of_each_shape(
-                calls, lambda c: (tuple(c[0][0].shape), c[0][2]))]
+def seg_aggr_phase(torch, ref, seg_aggr_cuda, paths: dict) -> dict:
+    """Every recorded call of each main path (``paths``: name -> calls)
+    against the plain version; each of its shapes timed on its recorded
+    inputs; then every mode at synthetic shapes."""
+    worst, recs = 0.0, []
+    for path, calls in paths.items():
+        path_worst = 0.0
+        for (x, mask, mode), _ in calls:
+            got, want = seg_aggr_cuda(x, mask, mode), ref.seg_aggr_ref(x, mask, mode)
+            torch.cuda.synchronize()
+            if not torch.allclose(got, want, rtol=RTOL, atol=ATOL):
+                fail(f"seg_aggr {mode} {tuple(x.shape)}: a {path} call disagrees "
+                     "with its plain version")
+            path_worst = max(path_worst, (got - want).abs().max().item())
+        emit({"phase": "kernel", "name": "seg_aggr", "source": f"{path} path, recorded calls",
+              "calls": len(calls), "max_abs_err": path_worst})
+        worst = max(worst, path_worst)
+        recs += [_seg_record(torch, ref, seg_aggr_cuda, x, mask, mode, f"{path} path", 200)
+                 for (x, mask, mode), _ in first_of_each_shape(
+                     calls, lambda c: (tuple(c[0][0].shape), c[0][2]))]
     main = max(recs, key=lambda r: r["shape"][0] * r["shape"][1])
 
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -321,7 +357,352 @@ def main_path(torch, np, modules) -> dict:
     return dict(out, calls=calls)
 
 
+# ------------------------------------------------------------- training
+class TrainRecorder:
+    """Spies on the four kernel entry points of the training step.
+
+    Every call is counted; each ``seg_aggr`` forward output is checked for a
+    ``grad_fn`` (the gradient fault: the card's forward once returned none);
+    the first ``KEEP_CALLS`` calls of each kernel and shape keep their
+    inputs. ``row_adagrad`` updates in place, so a kept call clones the table
+    and accumulators before the call and again after it. Nothing here syncs:
+    the step runs under ``set_sync_debug_mode("error")``.
+    """
+
+    def __init__(self):
+        self.calls = collections.Counter()
+        self.kept = collections.defaultdict(list)
+        self._per_shape = collections.Counter()
+        self.no_grad_fn = 0
+
+    def _keep(self, name: str, key) -> bool:
+        self._per_shape[(name, key)] += 1
+        return self._per_shape[(name, key)] <= KEEP_CALLS
+
+    @contextlib.contextmanager
+    def spying(self, ops):
+        real = {n: getattr(ops, n) for n in
+                ("seg_aggr", "seg_aggr_bwd", "inbatch_loss_rows", "rowwise_adagrad_scatter")}
+
+        def seg_aggr(x, mask, mode="mean"):
+            out = real["seg_aggr"](x, mask, mode)
+            self.calls["seg_aggr"] += 1
+            self.no_grad_fn += out.grad_fn is None
+            if self._keep("seg_aggr", (tuple(x.shape), mode)):
+                self.kept["seg_aggr"].append(((x.detach(), mask, mode), {}))
+            return out
+
+        def seg_aggr_bwd(g, mask, mode="mean"):
+            self.calls["seg_aggr_bwd"] += 1
+            if self._keep("seg_aggr_bwd", (tuple(mask.shape), mode)):
+                self.kept["seg_aggr_bwd"].append((g.clone(), mask, mode))
+            return real["seg_aggr_bwd"](g, mask, mode)
+
+        def inbatch_loss_rows(h_src, h_dst, temperature=1.0):
+            self.calls["inbatch_loss"] += 1
+            if self._keep("inbatch_loss", tuple(h_src.shape)):
+                self.kept["inbatch_loss"].append(
+                    (h_src.detach().clone(), h_dst.detach().clone(), temperature))
+            return real["inbatch_loss_rows"](h_src, h_dst, temperature)
+
+        def rowwise_adagrad_scatter(table, accum, ids, grads, lr=0.1, eps=1e-8):
+            self.calls["row_adagrad"] += 1
+            keep = self._keep("row_adagrad", (tuple(table.shape), ids.shape[0]))
+            pre = (table.clone(), accum.clone()) if keep else None
+            out = real["rowwise_adagrad_scatter"](table, accum, ids, grads, lr=lr, eps=eps)
+            if keep:
+                self.kept["row_adagrad"].append(dict(
+                    t0=pre[0], a0=pre[1], ids=ids.clone(), g=grads.detach().clone(),
+                    t1=table.clone(), a1=accum.clone(), lr=lr, eps=eps))
+            return out
+
+        spies = {"seg_aggr": seg_aggr, "seg_aggr_bwd": seg_aggr_bwd,
+                 "inbatch_loss_rows": inbatch_loss_rows,
+                 "rowwise_adagrad_scatter": rowwise_adagrad_scatter}
+        for n, f in spies.items():
+            setattr(ops, n, f)
+        try:
+            yield self
+        finally:
+            for n, f in real.items():
+                setattr(ops, n, f)
+
+
+@contextlib.contextmanager
+def step_events(torch, cls, name: str, events: list):
+    """Around every call of ``cls.name`` (no sync): a CUDA event pair and the
+    host clock on entry and exit. The gap from one exit to the next entry is
+    the trainer's loop outside the step: the wait for the next batch, its
+    H2D staging, the loss readback."""
+    real = getattr(cls, name)
+
+    def timed(self, *args, **kwargs):
+        start, stop = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        t_in = time.perf_counter()
+        start.record()
+        out = real(self, *args, **kwargs)
+        stop.record()
+        events.append((start, stop, t_in, time.perf_counter()))
+        return out
+
+    setattr(cls, name, timed)
+    try:
+        yield
+    finally:
+        setattr(cls, name, real)
+
+
+def training_path(torch, np, modules, serving_u2i: float) -> dict:
+    import recall_torch
+    import train_torch
+    from repro_torch.core.model import Graph4RecModel
+    from repro_torch.core.recall import evaluate_recall
+    from repro_torch.infer import embed_all_nodes
+    from repro_torch.kernels import ops
+    from repro_torch.train.trainer import Graph4RecTrainer
+
+    ckpt = os.path.join(ROOT, "build", "chip_smoke", "ub_lightgcn64_trained.npz")
+    args = train_torch.parser().parse_args(
+        ["--dataset", "ub", "--model", "lightgcn", "--dim", "64", "--side-info",
+         "--batch-pairs", "512", "--steps", "200", "--seed", "0",
+         "--prefetch-batches", "2", "--save", ckpt])
+    rec, events = TrainRecorder(), []
+    names = ("seg_aggr", "seg_aggr_bwd", "inbatch_loss", "row_adagrad")
+    with rec.spying(ops), step_events(torch, Graph4RecTrainer, "_sparse_step", events):
+        modules["seg_aggr"].launches = modules["seg_aggr"].bwd_launches = 0
+        modules["inbatch_loss"].launches = modules["row_adagrad"].launches = 0
+        res = train_torch.run(args, sparse_min_rows=0, eval_at_end=False)
+        torch.cuda.synchronize()
+        launches = {"seg_aggr": modules["seg_aggr"].launches,
+                    "seg_aggr_bwd": modules["seg_aggr"].bwd_launches,
+                    "inbatch_loss": modules["inbatch_loss"].launches,
+                    "row_adagrad": modules["row_adagrad"].launches}
+    r = res["result"]
+    losses = np.asarray(r.losses)
+    if len(losses) != 200 or not np.isfinite(losses).all():
+        fail(f"training: {len(losses)} losses, finite {np.isfinite(losses).all()}")
+    first, last = float(losses[:20].mean()), float(losses[-20:].mean())
+    if not last < first:
+        fail(f"training loss did not fall: first-20 mean {first}, last-20 mean {last}")
+    for n in names:
+        if launches[n] == 0:
+            fail(f"the training path launched no {n} kernel")
+    if rec.no_grad_fn:
+        fail(f"{rec.no_grad_fn} of {rec.calls['seg_aggr']} seg_aggr forward outputs on the "
+             "training path carry no grad_fn: the neighbour gradient is dropped")
+    def median(xs):
+        return sorted(xs)[len(xs) // 2]
+
+    dispatch_ms = sorted(a.elapsed_time(b) for a, b, _, _ in events)
+    dispatch_host_ms = [(t1 - t0) * 1e3 for _, _, t0, t1 in events]
+    between_ms = [(nxt[2] - cur[3]) * 1e3 for cur, nxt in zip(events, events[1:])]
+
+    # U2I recall of the trained embeddings (the serving phase measured the
+    # random-weight model on the same held-out pairs)
+    ds, cfg, trainer = res["dataset"], res["config"], res["trainer"]
+    t0 = time.perf_counter()
+    emb = embed_all_nodes(Graph4RecModel(cfg, r.params), trainer.engine, ds.graph,
+                          batch_size=1024, seed=0, device="cuda")
+    ue, ie = emb[: ds.num_users], emb[ds.num_users : ds.num_users + ds.num_items]
+    u2i = evaluate_recall(ue, ie, recall_torch.train_pairs(ds), ds.test_pairs,
+                          strategies=("u2i",), device="cuda")
+    # where the step time goes: a separate 40-step run under torch.profiler
+    # (not the run above, whose times the profiler would disturb)
+    from torch.profiler import ProfilerActivity, profile
+
+    pargs = train_torch.parser().parse_args(
+        ["--dataset", "ub", "--model", "lightgcn", "--dim", "64", "--side-info",
+         "--batch-pairs", "512", "--steps", "40", "--seed", "1", "--prefetch-batches", "2"])
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        pres = train_torch.run(pargs, sparse_min_rows=0, eval_at_end=False)["result"]
+        torch.cuda.synchronize()
+    kern = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA
+            and e.self_device_time_total > 0]
+    busy_us = sum(e.self_device_time_total for e in kern)
+    top = sorted(kern, key=lambda e: -e.self_device_time_total)[:8]
+    emit({"phase": "training_profile", "steps": len(pres.losses),
+          "wall_s": pres.wall_time_s, "device_busy_ms_per_step": busy_us / 1e3 / 40,
+          "device_busy_share": busy_us / 1e6 / pres.wall_time_s,
+          "top_device_ms_per_step": {e.key[:80]: e.self_device_time_total / 1e3 / 40
+                                     for e in top}})
+
+    out = {
+        "phase": "training", "dataset": "ub", "model": "lightgcn", "dim": 64,
+        "steps": len(losses), "batch_pairs": 512, "update": "sparse",
+        "plan": r.plan["reason"], "train_s": r.wall_time_s, "pairs": r.pairs_seen,
+        "pairs_per_s": r.pairs_seen / r.wall_time_s,
+        "step_wall_ms": r.wall_time_s / len(losses) * 1e3,
+        "dispatch_ms_median": median(dispatch_ms), "dispatch_ms_min": dispatch_ms[0],
+        "dispatch_ms_max": dispatch_ms[-1],
+        "dispatch_host_ms_median": median(dispatch_host_ms),
+        "between_steps_host_ms_median": median(between_ms),
+        "between_steps_host_ms_mean": sum(between_ms) / len(between_ms),
+        "loss_first20_mean": first, "loss_last20_mean": last,
+        "launches": launches, "wrapper_calls": dict(rec.calls),
+        "seg_aggr_outputs_without_grad_fn": rec.no_grad_fn, "checkpoint":
+        os.path.relpath(res["saved"], ROOT), "eval_s": time.perf_counter() - t0,
+        "u2i_trained": u2i["u2i"], "u2i_random_weights": serving_u2i,
+        "u2i_ndcg_trained": u2i["u2i_ndcg"],
+    }
+    emit(out)
+    return dict(out, kept=rec.kept)
+
+
+def conformance_phase(torch, np) -> dict:
+    """TOY, 12 steps, card vs CPU from the same initial weights, and twice
+    on the card, under deterministic algorithms."""
+    import train_torch
+
+    args = train_torch.parser().parse_args(
+        ["--dataset", "toy", "--model", "lightgcn", "--dim", "64", "--side-info",
+         "--batch-pairs", "256", "--steps", "12", "--seed", "3", "--prefetch-batches", "0"])
+    out = {"phase": "conformance", "dataset": "toy", "steps": 12}
+    torch.use_deterministic_algorithms(True)
+    try:
+        for update, smr in (("sparse", 0), ("dense", 1 << 30)):
+            runs = [train_torch.run(args, device=dev, sparse_min_rows=smr,
+                                    eval_at_end=False)["result"]
+                    for dev in ("cpu", "cuda", "cuda")]
+            cpu, card, again = runs
+            loss_diff = float(np.max(np.abs(np.subtract(card.losses, cpu.losses))))
+            if not np.allclose(card.losses, cpu.losses, rtol=TRAJ_RTOL, atol=TRAJ_ATOL):
+                fail(f"conformance ({update}): card vs CPU losses differ by {loss_diff}")
+            table_diff = 0.0
+            for k, v in card.params.items():
+                d = (v.cpu() - cpu.params[k]).abs().max().item()
+                table_diff = max(table_diff, d)
+                if d > TRAJ_ATOL:
+                    fail(f"conformance ({update}): {k} card vs CPU differs by {d}")
+            if card.losses != again.losses or any(
+                    not torch.equal(v, again.params[k]) for k, v in card.params.items()):
+                fail(f"conformance ({update}): two same-seed card runs differ")
+            out[update] = {"loss_max_abs_diff": loss_diff, "param_max_abs_diff": table_diff,
+                           "card_runs_identical": True, "losses_card": card.losses}
+    finally:
+        torch.use_deterministic_algorithms(False)
+    emit(out)
+    return out
+
+
+# ------------------------------------------------------ training kernels
+def seg_aggr_bwd_phase(torch, ref, seg_aggr_bwd_cuda, kept: list) -> dict:
+    worst, recs = 0.0, []
+    for g, mask, mode in kept:
+        got, want = seg_aggr_bwd_cuda(g, mask, mode), ref.seg_aggr_bwd_ref(g, mask, mode)
+        torch.cuda.synchronize()
+        if not torch.allclose(got, want, rtol=RTOL, atol=ATOL):
+            fail(f"seg_aggr_bwd {mode} {tuple(mask.shape)}: a training call disagrees with "
+                 "its plain version")
+        worst = max(worst, (got - want).abs().max().item())
+    for g, mask, mode in first_of_each_shape(kept, lambda c: (tuple(c[1].shape), c[2])):
+        (n, f), d = mask.shape, g.shape[1]
+        mf = mask.float()
+        w = mf / mf.sum(1, keepdim=True).clamp(min=1.0) if mode == "mean" else mf
+        kern = measure(lambda: seg_aggr_bwd_cuda(g, mask, mode), 200)
+        plain = measure(lambda: ref.seg_aggr_bwd_ref(g, mask, mode), 200)
+        # one broadcast product against precomputed per-neighbour weights
+        lib = measure(lambda: g[:, None, :] * w[..., None], 200)
+        rec = {"phase": "kernel", "name": "seg_aggr_bwd", "source": "training path",
+               "mode": mode, "shape": [n, f, d],
+               "kernel_ms": kern["device_ms"], "plain_ms": plain["device_ms"],
+               "library_ms": lib["device_ms"], "kernel_call_ms": kern["call_ms"],
+               "plain_call_ms": plain["call_ms"], "library_call_ms": lib["call_ms"]}
+        rec["bound_ms"], rec["bound_by"] = bound_ms(n * d * 4 + n * f + n * f * d * 4, n * f * d)
+        emit(rec)
+        recs.append(rec)
+    emit({"phase": "kernel", "name": "seg_aggr_bwd", "source": "training path, kept calls",
+          "calls": len(kept), "max_abs_err": worst})
+    return dict(max(recs, key=lambda r: r["shape"][0] * r["shape"][1]), max_abs_err=worst)
+
+
+def inbatch_phase(torch, ref, inbatch_loss_rows_cuda, kept: list) -> dict:
+    import torch.nn.functional as F
+
+    worst = 0.0
+    for s, d, t in kept:
+        got, want = inbatch_loss_rows_cuda(s, d, t), ref.inbatch_loss_rows_ref(s, d, t)
+        torch.cuda.synchronize()
+        err = (got - want).abs().max().item()
+        if err > RTOL * max(1.0, want.abs().max().item()):
+            fail(f"inbatch_loss {tuple(s.shape)}: a training call disagrees with its plain "
+                 f"version by {err}")
+        worst = max(worst, err)
+    s, d, t = kept[0]
+    P, dim = s.shape
+    labels = torch.arange(P, device=s.device)
+    kern = measure(lambda: inbatch_loss_rows_cuda(s, d, t), 200)
+    plain = measure(lambda: ref.inbatch_loss_rows_ref(s, d, t), 200)
+    lib = measure(lambda: F.cross_entropy(s @ d.T / t, labels, reduction="none"), 200)
+    rec = {"phase": "kernel", "name": "inbatch_loss", "source": "training path",
+           "shape": [P, dim], "calls": len(kept), "max_abs_err": worst,
+           "kernel_ms": kern["device_ms"], "plain_ms": plain["device_ms"],
+           "library_ms": lib["device_ms"], "kernel_call_ms": kern["call_ms"],
+           "plain_call_ms": plain["call_ms"], "library_call_ms": lib["call_ms"]}
+    rec["bound_ms"], rec["bound_by"] = bound_ms(2 * P * dim * 4 + P * 4, 2.0 * P * P * dim)
+    emit(rec)
+    return rec
+
+
+def row_adagrad_phase(torch, ref, row_adagrad_scatter_cuda, kept: list) -> dict:
+    """Each kept call: the main path's own result vs the plain version on the
+    cloned inputs, untouched rows exactly unchanged, and the kernel re-run."""
+    worst, recs = 0.0, []
+    for c in kept:
+        t0, a0, ids, g = c["t0"], c["a0"], c["ids"], c["g"]
+        tp, ap = t0.clone(), a0.clone()
+        ref.row_adagrad_scatter_ref(tp, ap, ids, g, c["lr"], c["eps"])
+        tk, ak = t0.clone(), a0.clone()
+        row_adagrad_scatter_cuda(tk, ak, ids, g, c["lr"], c["eps"])
+        torch.cuda.synchronize()
+        touched = torch.zeros(t0.shape[0], dtype=torch.bool, device=t0.device)
+        touched[ids[ids >= 0]] = True
+        for what, t, a in (("main path", c["t1"], c["a1"]), ("re-run", tk, ak)):
+            err = max((t - tp).abs().max().item(), (a - ap).abs().max().item())
+            if not (torch.allclose(t, tp, rtol=RTOL, atol=ATOL)
+                    and torch.allclose(a, ap, rtol=RTOL, atol=ATOL)):
+                fail(f"row_adagrad {tuple(t0.shape)} ({what}) disagrees with its plain "
+                     f"version by {err}")
+            if not (torch.equal(t[~touched], t0[~touched])
+                    and torch.equal(a[~touched], a0[~touched])):
+                fail(f"row_adagrad {tuple(t0.shape)} ({what}) changed rows no id names")
+            worst = max(worst, err)
+    for c in first_of_each_shape(kept, lambda c: tuple(c["t0"].shape)):
+        t0, a0, ids, g, lr, eps = c["t0"], c["a0"], c["ids"], c["g"], c["lr"], c["eps"]
+        keep = torch.nonzero(ids >= 0).squeeze(1)
+        rows, g_real = ids[keep], g[keep]
+        n_real, (n, dim) = rows.shape[0], t0.shape
+        tk, ak, tp, ap, tl, al = (x.clone() for x in (t0, a0, t0, a0, t0, a0))
+
+        def library():  # index_select -> the row-wise step -> index_copy_
+            acc = al.index_select(0, rows) + (g_real * g_real).mean(-1, keepdim=True)
+            new = tl.index_select(0, rows) - lr * g_real / (torch.sqrt(acc) + eps)
+            tl.index_copy_(0, rows, new)
+            al.index_copy_(0, rows, acc)
+
+        kern = measure(lambda: row_adagrad_scatter_cuda(tk, ak, ids, g, lr, eps), 200)
+        plain = measure(lambda: ref.row_adagrad_scatter_ref(tp, ap, ids, g, lr, eps), 50)
+        lib = measure(library, 200)
+        rec = {"phase": "kernel", "name": "row_adagrad", "source": "training path",
+               "shape": {"N": n, "D": dim, "bucket": ids.shape[0], "real_ids": n_real},
+               "kernel_ms": kern["device_ms"], "plain_ms": plain["device_ms"],
+               "library_ms": lib["device_ms"], "kernel_call_ms": kern["call_ms"],
+               "plain_call_ms": plain["call_ms"], "library_call_ms": lib["call_ms"]}
+        # this run's data: the ids and grads read once, and each real row's
+        # table row and accumulator read and written
+        rec["bound_ms"], rec["bound_by"] = bound_ms(
+            ids.shape[0] * 8 + ids.shape[0] * dim * 4 + n_real * (2 * dim * 4 + 2 * 4),
+            n_real * dim * 6)
+        emit(rec)
+        recs.append(rec)
+    emit({"phase": "kernel", "name": "row_adagrad", "source": "training path, kept calls",
+          "calls": len(kept), "max_abs_err": worst})
+    return dict(max(recs, key=lambda r: r["shape"]["N"]), max_abs_err=worst)
+
+
 def main() -> None:
+    # cuBLAS reads this when CUDA starts; without it deterministic algorithms
+    # (the conformance phase) make cuBLAS raise
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     import torch
 
     if not torch.cuda.is_available():
@@ -337,11 +718,14 @@ def main() -> None:
     ).stdout.strip().splitlines()[0]
     print(f"card: {smi}", flush=True)
     print(f"python {sys.version.split()[0]}, torch {torch.__version__}, "
-          f"CUDA {torch.version.cuda}, {torch.cuda.get_device_name(0)}", flush=True)
+          f"CUDA {torch.version.cuda}, numpy {np.__version__}, "
+          f"{torch.cuda.get_device_name(0)}", flush=True)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
     from repro_torch.kernels import build, ref
+    from repro_torch.kernels import inbatch_loss as inbatch_mod
+    from repro_torch.kernels import row_adagrad as adagrad_mod
     from repro_torch.kernels import seg_aggr as seg_mod
     from repro_torch.kernels import topk as topk_mod
 
@@ -351,22 +735,53 @@ def main() -> None:
     emit({"phase": "build", "library": os.path.relpath(lib, ROOT),
           "seconds": time.perf_counter() - t0})
 
-    mp = main_path(torch, np, {"seg_aggr": seg_mod, "topk": topk_mod})
-    seg = seg_aggr_phase(torch, ref, seg_mod.seg_aggr_cuda, mp["calls"]["seg_aggr"])
+    modules = {"seg_aggr": seg_mod, "topk": topk_mod, "inbatch_loss": inbatch_mod,
+               "row_adagrad": adagrad_mod}
+    mp = main_path(torch, np, modules)
+    tr = training_path(torch, np, modules, mp["recall"]["u2i"])
+    conf = conformance_phase(torch, np)
+    emit({"phase": "clocks", "before_kernel_phases": sm_clocks()})
+    seg = seg_aggr_phase(torch, ref, seg_mod.seg_aggr_cuda,
+                         {"serving": mp["calls"]["seg_aggr"], "training": tr["kept"]["seg_aggr"]})
     topk = topk_phase(torch, ref, topk_mod.streaming_topk_cuda, mp["calls"]["topk"])
+    seg_bwd = seg_aggr_bwd_phase(torch, ref, seg_mod.seg_aggr_bwd_cuda, tr["kept"]["seg_aggr_bwd"])
+    inbatch = inbatch_phase(torch, ref, inbatch_mod.inbatch_loss_rows_cuda,
+                            tr["kept"]["inbatch_loss"])
+    adagrad = row_adagrad_phase(torch, ref, adagrad_mod.row_adagrad_scatter_cuda,
+                                tr["kept"]["row_adagrad"])
 
-    def entry(name, rec, source, replaces):
+    def entry(name, rec, source, replaces, by_path):
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
-                "launches": mp["launches"][name], "max_abs_err": rec["max_abs_err"],
-                "ms": rec["kernel_ms"], "plain_ms": rec["plain_ms"],
-                "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
-                "library_ms": rec["library_ms"]}
+                "launches": sum(by_path.values()), "launches_by_path": by_path,
+                "max_abs_err": rec["max_abs_err"], "ms": rec["kernel_ms"],
+                "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
+                "bound_by": rec["bound_by"], "library_ms": rec["library_ms"]}
 
+    tl = tr["launches"]
+    emit({"phase": "clocks", "after_kernel_phases": sm_clocks()})
+    # the end-to-end numbers again, here, where the end of the output keeps them
+    emit({"phase": "summary",
+          "serving": {k: mp[k] for k in ("nodes_per_s", "embed_s", "recall_s",
+                                         "u2i_queries_per_s", "launches")},
+          "training": {k: tr[k] for k in (
+              "pairs_per_s", "train_s", "step_wall_ms", "dispatch_ms_median",
+              "dispatch_host_ms_median", "between_steps_host_ms_median",
+              "loss_first20_mean", "loss_last20_mean", "u2i_trained", "launches")},
+          "conformance": {u: {k: conf[u][k] for k in ("loss_max_abs_diff",
+                                                      "param_max_abs_diff")}
+                          for u in ("sparse", "dense")}})
     emit({"kernels": [
         entry("seg_aggr", seg, "src/repro_torch/kernels/csrc/seg_aggr.cu",
-              "src/repro/kernels/seg_aggr.py:45"),
+              "src/repro/kernels/seg_aggr.py:45",
+              {"serving": mp["launches"]["seg_aggr"], "training": tl["seg_aggr"]}),
         entry("topk", topk, "src/repro_torch/kernels/csrc/topk.cu",
-              "src/repro/kernels/topk.py:77"),
+              "src/repro/kernels/topk.py:77", {"serving": mp["launches"]["topk"]}),
+        entry("seg_aggr_bwd", seg_bwd, "src/repro_torch/kernels/csrc/seg_aggr.cu",
+              "src/repro/kernels/seg_aggr.py:45", {"training": tl["seg_aggr_bwd"]}),
+        entry("inbatch_loss", inbatch, "src/repro_torch/kernels/csrc/inbatch_loss.cu",
+              "src/repro/kernels/inbatch_loss.py:41", {"training": tl["inbatch_loss"]}),
+        entry("row_adagrad", adagrad, "src/repro_torch/kernels/csrc/row_adagrad.cu",
+              "src/repro/kernels/row_adagrad.py:41", {"training": tl["row_adagrad"]}),
     ]})
     print(smi, flush=True)  # the card's name and power limit, as nvidia-smi gives them
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

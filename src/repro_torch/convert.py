@@ -11,6 +11,12 @@ the config) and ``model_to_numpy`` is its inverse. ``load_params`` reads a
 ``init_params`` draws fresh parameters from a ``torch.Generator`` for runs
 without a checkpoint. It cannot reproduce ``jax.random``'s draws, so every
 conformance check starts from parameters ``repro`` made, converted.
+
+Optimizer states cross the same way: ``state_to_numpy`` turns the trainer's
+state (``RowAdagradState.accum``, ``AdamState`` step/mu/nu, nested in
+tuples and dicts as ``repro`` nests them) into numpy, and
+``state_from_numpy`` rebuilds the port's state from such a tree, whichever
+package made it: a NamedTuple maps by its field names.
 """
 from __future__ import annotations
 
@@ -63,6 +69,51 @@ def init_params(cfg: Graph4RecConfig, seed: int = 0, device: DeviceLike = None) 
     dev = resolve_device(device)
     params = init_model_params(torch.Generator().manual_seed(int(seed)), cfg)
     return Graph4RecModel(cfg, {k: v.to(dev) for k, v in params.items()})
+
+
+# ------------------------------------------------------- optimizer states
+def state_to_numpy(tree: Any) -> Any:
+    """An optimizer state (NamedTuples, tuples, dicts of tensors) -> the
+    same structure of host numpy arrays."""
+    if isinstance(tree, torch.Tensor):
+        return tree.detach().cpu().numpy()
+    if isinstance(tree, dict):
+        return {k: state_to_numpy(v) for k, v in tree.items()}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(state_to_numpy(v) for v in tree))
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(state_to_numpy(v) for v in tree)
+    return tree
+
+
+def _state_types() -> Dict[tuple, type]:
+    from repro_torch.embedding.optimizer import RowAdagradState
+    from repro_torch.train.optimizer import AdamState
+
+    return {AdamState._fields: AdamState, RowAdagradState._fields: RowAdagradState}
+
+
+def state_from_numpy(tree: Any, device: DeviceLike = None) -> Any:
+    """The inverse of ``state_to_numpy`` onto ``device``; also takes
+    ``repro``'s states (``RowAdagradState``, ``AdamState``) as numpy."""
+    dev = resolve_device(device)
+    types = _state_types()
+
+    def conv(t):
+        if isinstance(t, (np.ndarray, np.generic)):
+            return torch.from_numpy(np.array(t)).to(dev)
+        if isinstance(t, dict):
+            return {k: conv(v) for k, v in t.items()}
+        if isinstance(t, tuple) and hasattr(t, "_fields"):
+            cls = types.get(tuple(t._fields))
+            if cls is None:
+                raise TypeError(f"no port optimizer state has fields {t._fields}")
+            return cls(*(conv(v) for v in t))
+        if isinstance(t, (list, tuple)):
+            return type(t)(conv(v) for v in t)
+        return t
+
+    return conv(tree)
 
 
 # ------------------------------------------- repro.train.checkpoint's format

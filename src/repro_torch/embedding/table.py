@@ -10,15 +10,19 @@ both, one representation per slot. The count-matrix products stay
 PAD ids (-1) give zero rows. ``table[-1]`` would read the *last* row in
 PyTorch, so ``lookup`` clamps and masks, as ``repro`` does.
 
-The numpy helpers ``slot_count_matrix`` and ``pad_slot_values`` are copies.
+The numpy helpers ``slot_count_matrix``, ``pad_slot_values``,
+``unique_pad_ids`` and ``remap_ids`` are copies. ``gather_rows`` and
+``scatter_rows`` are the device half of the sparse step's
+gather→step→scatter contract.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Mapping, Optional, Tuple
+from typing import Dict, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from repro_torch.utils.ragged import ragged_row_offsets
 
@@ -60,9 +64,15 @@ def init_params(generator: torch.Generator, cfg: EmbeddingConfig) -> Dict[str, t
 
 # ----------------------------------------------------------------- lookups
 def lookup(table: torch.Tensor, ids: torch.Tensor, pad_id: int = -1) -> torch.Tensor:
-    """Masked gather: PAD (negative) ids give zero rows."""
+    """Masked gather: PAD (negative) ids give zero rows.
+
+    The gather is ``F.embedding``, whose backward on the card sums the
+    gradients of repeated ids in parallel segments; the backward of
+    ``table[ids]`` (an accumulating index-put) sums each id's repeats in
+    one serial loop, and a batch's popular nodes repeat thousands of times.
+    """
     valid = ids >= 0
-    rows = table[torch.where(valid, ids, torch.zeros_like(ids))]
+    rows = F.embedding(torch.where(valid, ids, torch.zeros_like(ids)), table)
     return torch.where(valid[..., None], rows, torch.zeros((), dtype=rows.dtype,
                                                            device=rows.device))
 
@@ -120,6 +130,65 @@ def embed_nodes_mixed(
         for name, vals in slot_values.items():
             h = h + lookup(params[f"slot:{name}"], vals, pad_id).sum(dim=-2)
     return h
+
+
+# ------------------------------------------------- unique-id (sparse) path
+def unique_pad_ids(
+    id_arrays: Sequence[np.ndarray], bucket: int = 0, min_bucket: int = 8
+) -> np.ndarray:
+    """Deduplicated touched ids, PAD-padded *in front* to a stable bucket.
+
+    Host-side prologue of the gather→step→scatter contract: the returned
+    array holds ``width - n`` leading PADs (-1) followed by the ``n`` unique
+    non-PAD ids in ascending order. ``width`` is ``max(min_bucket, bucket)``
+    doubled until it fits, so a caller that persists the width across
+    batches sees O(log n) distinct shapes. (The PADs lead for ``repro``'s
+    Pallas kernel, which clamps them to row 0; the port's kernel skips
+    them, kernels/csrc/row_adagrad.cu.)
+    """
+    arrays = [np.asarray(a).reshape(-1) for a in id_arrays]
+    flat = np.concatenate(arrays) if arrays else np.empty(0, np.int64)
+    real = np.unique(flat)
+    real = real[real >= 0]
+    width = max(int(min_bucket), int(bucket))
+    while width < len(real):
+        width *= 2
+    out = np.full(width, -1, dtype=np.int64)
+    if len(real):
+        out[width - len(real):] = real
+    return out
+
+
+def remap_ids(uniq: np.ndarray, ids: np.ndarray) -> np.ndarray:
+    """Global ids -> row indices into ``gather_rows(table, uniq)``.
+
+    Every non-PAD id must be present in ``uniq`` (guaranteed when ``uniq``
+    came from ``unique_pad_ids`` over arrays that include ``ids``); PAD stays
+    PAD so downstream masking is unchanged.
+    """
+    ids = np.asarray(ids, dtype=np.int64)
+    real = uniq[uniq >= 0]
+    if len(real) == 0:
+        return np.full(ids.shape, -1, dtype=np.int64)
+    offset = len(uniq) - len(real)
+    loc = np.searchsorted(real, np.clip(ids, real[0], real[-1]))
+    return np.where(ids >= 0, loc + offset, -1)
+
+
+def gather_rows(table: torch.Tensor, uniq: torch.Tensor) -> torch.Tensor:
+    """Pull the touched rows: (bucket, dim), a fresh tensor. PAD slots read
+    row 0; no remapped id points at them and their updates are dropped."""
+    return table[torch.clamp(uniq, min=0)]
+
+
+def scatter_rows(table: torch.Tensor, uniq: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
+    """Push updated rows back, in place: ``table[uniq] = rows`` with PAD
+    slots dropped; returns ``table``. Selecting the real slots syncs with a
+    card (``nonzero``), so the trainer's step uses the fused
+    ``kernels.ops.rowwise_adagrad_scatter`` instead."""
+    keep = torch.nonzero(uniq >= 0).squeeze(1)
+    table[uniq[keep]] = rows[keep]
+    return table
 
 
 # --------------------------------------------------------------- side info

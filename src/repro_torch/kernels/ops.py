@@ -1,22 +1,33 @@
 """Dispatcher for the port's kernels: the device decides the path.
 
-A CUDA tensor launches the hand-written kernel (``seg_aggr``, ``topk``) or
-raises: a build or launch failure is never caught to run the plain version
-instead. A CPU tensor runs the plain PyTorch version in ``kernels/ref``,
-which is what the CPU tests exercise. Any other device raises.
+A CUDA tensor launches the hand-written kernel (``seg_aggr`` and its
+backward, ``topk``, ``inbatch_loss``, ``row_adagrad``) or raises: a build or
+launch failure is never caught to run the plain version instead. A CPU
+tensor runs the plain PyTorch version in ``kernels/ref``, which is what the
+CPU tests exercise. Any other device raises.
+
+``seg_aggr`` and ``inbatch_loss`` are ``torch.autograd.Function``s on both
+devices, so the CPU tests drive the very functions the card runs. The
+backward of ``seg_aggr`` is a kernel; that of ``inbatch_loss`` is the closed
+form ``(softmax - I) g / (P t)`` in plain tensor ops, as ``repro`` computes
+it in jnp outside its kernel (``repro/kernels/ops.py:_inbatch_bwd``).
 
 ``repro``'s opt-in flags (``HeteroGNNConfig.use_kernel_aggr``,
-``Graph4RecConfig.use_kernel_loss``) are kept in the port's config classes
-so configs stay interchangeable, but they select nothing here.
+``Graph4RecConfig.use_kernel_loss``, ``TrainerConfig.use_kernel_rowopt``)
+are kept in the port's config classes so configs stay interchangeable, but
+they select nothing here.
 """
 from __future__ import annotations
 
 from typing import Optional, Tuple
 
 import torch
+from torch.autograd.function import once_differentiable
 
 from repro_torch.kernels import ref
-from repro_torch.kernels.seg_aggr import seg_aggr_cuda
+from repro_torch.kernels.inbatch_loss import inbatch_loss_rows_cuda
+from repro_torch.kernels.row_adagrad import row_adagrad_scatter_cuda
+from repro_torch.kernels.seg_aggr import seg_aggr_bwd_cuda, seg_aggr_cuda
 from repro_torch.kernels.topk import streaming_topk_cuda
 
 
@@ -29,13 +40,98 @@ def _route(t: torch.Tensor, what: str) -> bool:
     raise ValueError(f"{what}: no kernel or plain version for device {t.device}")
 
 
+# ------------------------------------------------------------------ seg_aggr
+class _SegAggr(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mask, mode):
+        ctx.mode = mode
+        ctx.save_for_backward(mask)
+        if _route(x, "seg_aggr"):
+            return seg_aggr_cuda(x, mask, mode)
+        return ref.seg_aggr_ref(x, mask, mode)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        (mask,) = ctx.saved_tensors
+        # a dense (N, F, D) gradient; autograd scatters it into the base of
+        # a strided input view
+        return seg_aggr_bwd(g.contiguous(), mask, ctx.mode), None, None
+
+
 def seg_aggr(x: torch.Tensor, mask: torch.Tensor, mode: str = "mean") -> torch.Tensor:
-    """(N, F, D), (N, F) -> (N, D) masked segment aggregation."""
-    if _route(x, "seg_aggr"):
-        return seg_aggr_cuda(x, mask, mode)
-    return ref.seg_aggr_ref(x, mask, mode)
+    """(N, F, D), (N, F) -> (N, D) masked segment aggregation, differentiable
+    in ``x`` for ``sum`` and ``mean``."""
+    return _SegAggr.apply(x, mask, mode)
 
 
+def seg_aggr_bwd(g: torch.Tensor, mask: torch.Tensor, mode: str = "mean") -> torch.Tensor:
+    """(N, D) output gradient, (N, F) mask -> (N, F, D) input gradient."""
+    if mode == "max":
+        raise NotImplementedError(
+            "seg_aggr 'max' has no backward: nothing calls it in training "
+            "(ROADMAP Queue 2, B1 max backward)"
+        )
+    if _route(g, "seg_aggr backward"):
+        return seg_aggr_bwd_cuda(g, mask, mode)
+    return ref.seg_aggr_bwd_ref(g, mask, mode)
+
+
+# -------------------------------------------------------------- inbatch loss
+def inbatch_loss_rows(h_src: torch.Tensor, h_dst: torch.Tensor,
+                      temperature: float = 1.0) -> torch.Tensor:
+    """(P, d), (P, d) -> (P,) in-batch softmax cross-entropy rows."""
+    if _route(h_src, "inbatch_loss"):
+        return inbatch_loss_rows_cuda(h_src.contiguous(), h_dst.contiguous(), temperature)
+    return ref.inbatch_loss_rows_ref(h_src, h_dst, temperature)
+
+
+class _InbatchLoss(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, h_src, h_dst, temperature):
+        ctx.temperature = temperature
+        ctx.save_for_backward(h_src, h_dst)
+        return inbatch_loss_rows(h_src, h_dst, temperature).mean()
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        h_src, h_dst = ctx.saved_tensors
+        t = ctx.temperature
+        P = h_src.shape[0]
+        logits = (h_src @ h_dst.T) / t
+        soft = torch.softmax(logits, dim=-1)
+        eye = torch.eye(P, dtype=soft.dtype, device=soft.device)
+        dlogits = (soft - eye) * (g / (P * t))
+        return dlogits @ h_dst, dlogits.T @ h_src, None
+
+
+def inbatch_loss(h_src: torch.Tensor, h_dst: torch.Tensor,
+                 temperature: float = 1.0) -> torch.Tensor:
+    """Mean in-batch softmax cross-entropy with diagonal positives -> scalar."""
+    return _InbatchLoss.apply(h_src, h_dst, float(temperature))
+
+
+# ------------------------------------------------------------- row adagrad
+def rowwise_adagrad_scatter(
+    table: torch.Tensor,
+    accum: torch.Tensor,
+    ids: torch.Tensor,
+    grads: torch.Tensor,
+    lr: float = 0.1,
+    eps: float = 1e-8,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Row-wise AdaGrad on the rows ``ids`` names, IN PLACE on ``table`` and
+    ``accum`` (PAD slots skipped); returns the two, updated."""
+    with torch.no_grad():
+        if _route(table, "rowwise_adagrad_scatter"):
+            row_adagrad_scatter_cuda(table, accum, ids, grads.contiguous(), lr, eps)
+        else:
+            ref.row_adagrad_scatter_ref(table, accum, ids, grads, lr, eps)
+    return table, accum
+
+
+# ----------------------------------------------------------------- retrieval
 def streaming_topk(
     queries: torch.Tensor,
     items: torch.Tensor,

@@ -40,6 +40,65 @@ def seg_aggr_ref(
     raise ValueError(mode)
 
 
+def seg_aggr_bwd_ref(
+    g: torch.Tensor,  # (N, D) gradient of the output
+    mask: torch.Tensor,  # (N, F) bool validity
+    mode: str = "mean",
+) -> torch.Tensor:
+    """The input gradient of ``seg_aggr_ref`` -> dense (N, F, D).
+
+    ``sum``: mask * g; ``mean``: (g / max(count, 1)) * mask, in the order
+    autodiff of the forward multiplies. No gradient reaches the mask.
+    ``max`` has no backward (it has no caller; ROADMAP Queue 2, B1).
+    """
+    m = mask[..., None].to(g.dtype)
+    if mode == "sum":
+        return g[:, None, :] * m
+    if mode == "mean":
+        c = torch.clamp(m.sum(dim=1), min=1.0)  # (N, 1)
+        return (g / c)[:, None, :] * m
+    if mode == "max":
+        raise NotImplementedError(
+            "seg_aggr 'max' has no backward: nothing calls it in training "
+            "(ROADMAP Queue 2, B1 max backward)"
+        )
+    raise ValueError(mode)
+
+
+# -------------------------------------------------------------- inbatch loss
+def inbatch_loss_rows_ref(
+    h_src: torch.Tensor, h_dst: torch.Tensor, temperature: float = 1.0
+) -> torch.Tensor:
+    """Per-row in-batch softmax CE with diagonal positives -> (P,).
+
+    Mirrors ``repro/kernels/ref.py:inbatch_loss_rows_ref``.
+    """
+    logits = (h_src @ h_dst.T).to(torch.float32) / temperature
+    labels = torch.arange(h_src.shape[0], device=h_src.device)
+    return torch.logsumexp(logits, dim=-1) - logits[labels, labels]
+
+
+# ------------------------------------------------------------- row adagrad
+def row_adagrad_scatter_ref(
+    table: torch.Tensor,  # (N, D), updated in place
+    accum: torch.Tensor,  # (N, 1), updated in place
+    ids: torch.Tensor,  # (B,) int; PADs (-1) allowed, real ids distinct
+    grads: torch.Tensor,  # (B, D)
+    lr: float = 0.1,
+    eps: float = 1e-8,
+) -> None:
+    """Gather -> row-wise AdaGrad -> scatter, in place; PAD slots dropped.
+
+    The rule of ``repro/kernels/ref.py:row_adagrad_scatter_ref``; ids at or
+    past N are dropped too, as its ``mode="drop"`` scatter drops them.
+    """
+    keep = torch.nonzero((ids >= 0) & (ids < table.shape[0])).squeeze(1)
+    rows, g = ids[keep], grads[keep]
+    acc = accum[rows] + (g * g).mean(dim=-1, keepdim=True)
+    table[rows] = table[rows] - lr * g / (torch.sqrt(acc) + eps)
+    accum[rows] = acc
+
+
 # ----------------------------------------------------------------- topk MIPS
 def chunked_topk_ref(
     queries: torch.Tensor,  # (Q, d)

@@ -1,8 +1,11 @@
-"""CUDA wrapper: masked segment aggregation (``csrc/seg_aggr.cu``).
+"""CUDA wrappers: masked segment aggregation and its backward
+(``csrc/seg_aggr.cu``).
 
 The Hopper counterpart of ``repro/kernels/seg_aggr.py:seg_aggr_pallas``:
 (N, F, D) f32 neighbour features and an (N, F) bool mask give (N, D) in mode
-``sum``, ``mean`` or ``max``. The source file carries the design note.
+``sum``, ``mean`` or ``max``. ``seg_aggr_bwd_cuda`` is the backward of
+``sum`` and ``mean``: (N, D) output gradients and the mask give the dense
+(N, F, D) input gradient. The source file carries the design note.
 
 Inputs are read in place with a row stride, so the strided per-relation
 view of the ego layout needs no copy; the F and D axes must be dense. A
@@ -17,8 +20,10 @@ from repro_torch.kernels import build
 
 MODES = {"sum": 0, "mean": 1, "max": 2}
 
-# Kernel launches since the last reset (chip_smoke.py reads and resets it).
+# Kernel launches since the last reset (chip_smoke.py reads and resets them):
+# the forward kernel, and the backward kernel.
 launches = 0
+bwd_launches = 0
 
 
 def seg_aggr_cuda(x: torch.Tensor, mask: torch.Tensor, mode: str = "mean") -> torch.Tensor:
@@ -56,3 +61,40 @@ def seg_aggr_cuda(x: torch.Tensor, mask: torch.Tensor, mode: str = "mean") -> to
     build.check(err, "seg_aggr")
     launches += 1
     return out
+
+
+def seg_aggr_bwd_cuda(g: torch.Tensor, mask: torch.Tensor, mode: str = "mean") -> torch.Tensor:
+    """(N, D) f32 output gradient, (N, F) bool mask on one CUDA device ->
+    (N, F, D) f32 input gradient of ``sum`` or ``mean``. ``g`` must be
+    contiguous; the mask takes a row stride."""
+    global bwd_launches
+    if mode not in ("sum", "mean"):
+        raise ValueError(f"seg_aggr backward kernel covers 'sum' and 'mean'; got {mode!r}")
+    if g.dim() != 2 or mask.dim() != 2 or mask.shape[0] != g.shape[0]:
+        raise ValueError(f"seg_aggr backward wants g (N, D) and mask (N, F); got "
+                         f"{tuple(g.shape)} and {tuple(mask.shape)}")
+    if g.dtype != torch.float32 or mask.dtype != torch.bool:
+        raise TypeError(f"seg_aggr backward wants f32 g and bool mask; got {g.dtype}, "
+                        f"{mask.dtype}")
+    if not (g.is_cuda and mask.device == g.device):
+        raise ValueError(f"seg_aggr backward kernel wants both inputs on one CUDA "
+                         f"device; got {g.device} and {mask.device}")
+    N, D = g.shape
+    F = mask.shape[1]
+    if not g.is_contiguous() or (mask.stride(1) != 1 and F > 1):
+        raise ValueError(f"seg_aggr backward kernel wants a contiguous g and a mask "
+                         f"with unit column stride; got strides {g.stride()} and "
+                         f"{mask.stride()}")
+    dx = torch.empty((N, F, D), dtype=torch.float32, device=g.device)
+    if N == 0 or D == 0 or F == 0:
+        return dx
+    lib = build.library()
+    with torch.cuda.device(g.device):
+        stream = torch.cuda.current_stream(g.device).cuda_stream
+        err = lib.g4r_seg_aggr_bwd_f32(
+            g.data_ptr(), mask.data_ptr(), dx.data_ptr(), N, F, D, mask.stride(0),
+            MODES[mode], stream,
+        )
+    build.check(err, "seg_aggr backward")
+    bwd_launches += 1
+    return dx

@@ -1,0 +1,626 @@
+"""Graph4Rec trainer on a CUDA card: host walk → pair → ego batches through a
+grad step, with the sparse/dense optimizer split and recall evaluation.
+
+The port of ``repro.train.trainer`` for the host sampling backend:
+
+- **Batches.** ``SamplePipeline`` (numpy, the same stream as ``repro``'s)
+  feeds ``host_batch`` / ``sparse_host_batch``, in a named background
+  prefetch thread (``prefetch_batches`` deep) or inline (0). The one H2D
+  copy per batch happens in the consumer-side stager ``_staged_batches``:
+  fresh pinned buffers per batch, ``.to(device, non_blocking=True)``,
+  double-buffered when prefetching.
+- **Dense step** (tables below ``sparse_min_rows``, or
+  ``sparse_updates=False``): the gradient of every parameter, row-wise
+  AdaGrad on the ``emb/*`` tables and Adam on the GNN weights, functional.
+- **Sparse step** (the paper's PS pull/push, §3.6): the batch arrives
+  remapped onto each table's touched rows (``uniq``); the step gathers those
+  rows, differentiates w.r.t. them and the GNN weights, applies Adam to the
+  weights and row-wise AdaGrad to the touched rows IN PLACE through the
+  ``row_adagrad`` kernel. O(unique ids) per step. Both steps are the same
+  rule: ``tests/test_torch_train.py`` holds them equal.
+- Every step dispatch runs under ``torch.cuda.set_sync_debug_mode("error")``
+  (``sanitize_transfers``), the counterpart of ``jax.transfer_guard``: a
+  host sync inside the step raises. Losses stay on the device and are read
+  back in windows by asynchronous copies into pinned memory, resolved a
+  window later.
+- ``prefetch_batches=None`` lets a short calibration (host batch cost, step
+  time, queue handoff) choose serial or prefetch, as ``repro`` does.
+
+Not ported (each raises ``NotImplementedError`` naming its ROADMAP item):
+the mp graph service (``engine_backend="mp"``, Queue 1 item 5), the fused
+device sampler (``sampling_backend`` "fused"/"auto", item 4), and the
+observability hooks (``telemetry``, ``health``, ``attribution``, item 6).
+``use_kernel_aggr`` and ``use_kernel_rowopt`` are kept for config parity and
+select nothing: on the card the kernels always run.
+"""
+from __future__ import annotations
+
+import contextlib
+import dataclasses
+import logging
+import queue
+import threading
+import time
+from typing import Dict, Iterator, List, Mapping, Optional, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch import convert
+from repro_torch.core import model as model_lib
+from repro_torch.core.recall import evaluate_recall
+from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.embedding import optimizer as emb_opt
+from repro_torch.embedding import table as emb
+from repro_torch.graph.generator import RecsysDataset
+from repro_torch.infer import embed_all_nodes
+from repro_torch.sampling.pipeline import PipelineConfig, SamplePipeline, make_train_sampler
+from repro_torch.train import optimizer as opt_lib
+
+log = logging.getLogger("repro_torch.train")
+
+Params = Dict[str, torch.Tensor]
+
+
+@dataclasses.dataclass
+class TrainerConfig:
+    """``repro.train.TrainerConfig``, field for field (see its comments)."""
+
+    num_steps: int = 200
+    sparse_lr: float = 0.2
+    dense_lr: float = 1e-3
+    eval_every: int = 0  # 0 -> only at end
+    eval_top_k: int = 100
+    eval_top_n: int = 20
+    eval_max_users: int = 0  # 0 -> every held-out user
+    eval_method: str = "device"  # device | bruteforce ("ivf" is not ported)
+    eval_batch_size: int = 1024
+    eval_at_end: bool = True
+    log_every: int = 50
+    seed: int = 0
+    # 0 = serial loop; an int always wins; None = calibrate (or 2 when
+    # auto_backend is off / the run is too short to calibrate)
+    prefetch_batches: Optional[int] = None
+    auto_backend: bool = True
+    calibrate_batches: int = 3
+    calibrate_min_steps: int = 32
+    sync_every_step: bool = False
+    use_kernel_aggr: Optional[bool] = None  # kept for config parity; unused
+    sparse_updates: bool = True
+    sparse_min_rows: int = 32768  # 0 forces the sparse path
+    unique_bucket: int = 0
+    adagrad_init_accum: float = 0.1
+    use_kernel_rowopt: bool = False  # kept for config parity; unused
+    loss_fetch_every: int = 64
+    engine_backend: str = "inproc"  # inproc ("mp" is not ported)
+    num_engine_workers: int = 0
+    num_engine_partitions: int = 4
+    engine_local_threshold: int = 8192
+    sampling_backend: str = "host"  # host ("fused"/"auto" are not ported)
+    fused_max_degree: int = 32
+    fused_budget_mb: float = 256.0
+    fused_oversample: float = 2.0
+    fused_use_kernel_pairs: bool = True
+    # every step dispatch under torch.cuda.set_sync_debug_mode("error")
+    sanitize_transfers: bool = True
+    attribution: bool = False
+    telemetry: Optional[object] = None
+    health: Optional[object] = None
+
+
+@dataclasses.dataclass
+class TrainResult:
+    params: Params  # on the trainer's device, ``repro``'s key names
+    losses: List[float]
+    eval_history: List[Dict[str, float]]
+    wall_time_s: float
+    pairs_seen: int
+    plan: Optional[Dict] = None
+    attribution: Optional[Dict] = None  # not ported; always None
+
+
+def _not_ported(cfg: TrainerConfig) -> None:
+    if cfg.engine_backend == "mp":
+        raise NotImplementedError(
+            "engine_backend='mp' (the shared-memory graph service) is not ported "
+            "yet: ROADMAP Queue 1, item 5")
+    if cfg.engine_backend != "inproc":
+        raise ValueError(f"unknown engine_backend {cfg.engine_backend!r}")
+    if cfg.sampling_backend in ("fused", "auto"):
+        raise NotImplementedError(
+            f"sampling_backend={cfg.sampling_backend!r} (the fused device sampler) "
+            "is not ported yet: ROADMAP Queue 1, item 4")
+    if cfg.sampling_backend != "host":
+        raise ValueError(f"unknown sampling_backend {cfg.sampling_backend!r}")
+    for name in ("telemetry", "health"):
+        if getattr(cfg, name) is not None:
+            raise NotImplementedError(
+                f"TrainerConfig.{name} is not ported yet: ROADMAP Queue 1, item 6")
+    if cfg.attribution:
+        raise NotImplementedError(
+            "TrainerConfig.attribution is not ported yet: ROADMAP Queue 1, item 6")
+    if cfg.eval_method not in ("device", "bruteforce"):
+        raise NotImplementedError(
+            f"eval_method={cfg.eval_method!r} is not ported yet (IVF retrieval: "
+            "ROADMAP Queue 1, item 3)")
+
+
+@contextlib.contextmanager
+def _sync_guard(device: torch.device, enabled: bool):
+    """A host<->device sync inside the block raises (CUDA only)."""
+    if not (enabled and device.type == "cuda"):
+        yield
+        return
+    prev = torch.cuda.get_sync_debug_mode()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        yield
+    finally:
+        torch.cuda.set_sync_debug_mode(prev)
+
+
+class _LossWindow:
+    """An asynchronous readback of a window of on-device losses: one stack,
+    one copy into fresh pinned memory, one event; ``resolve`` waits on the
+    event only."""
+
+    def __init__(self, losses: List[torch.Tensor]):
+        vals = torch.stack(losses)
+        self._event = None
+        if vals.is_cuda:
+            self._host = torch.empty(vals.shape, dtype=vals.dtype, pin_memory=True)
+            self._host.copy_(vals, non_blocking=True)
+            self._event = torch.cuda.Event()
+            self._event.record()
+        else:
+            self._host = vals
+
+    def resolve(self) -> List[float]:
+        if self._event is not None:
+            self._event.synchronize()
+        return self._host.tolist()
+
+
+_DONE = object()
+
+
+class _Prefetcher:
+    """Bounded background-thread prefetch between the host pipeline and the
+    step loop. Producer exceptions re-raise in the consumer, and a producer
+    that dies without its sentinel surfaces as an error, not a hang."""
+
+    def __init__(self, it: Iterator, depth: int):
+        self._q: "queue.Queue" = queue.Queue(maxsize=max(1, int(depth)))
+        self._err: Optional[BaseException] = None
+        self._stop = threading.Event()
+        self._thread = threading.Thread(
+            target=self._fill, args=(it,), name="repro-torch-prefetch", daemon=True
+        )
+        self._thread.start()
+
+    def _fill(self, it: Iterator) -> None:
+        try:
+            for item in it:
+                while not self._stop.is_set():
+                    try:
+                        self._q.put(item, timeout=0.1)
+                        break
+                    except queue.Full:
+                        continue
+                if self._stop.is_set():
+                    return
+        except BaseException as e:  # re-raised by __next__
+            self._err = e
+        finally:
+            while not self._stop.is_set():
+                try:
+                    self._q.put(_DONE, timeout=0.1)
+                    break
+                except queue.Full:
+                    continue
+
+    def __iter__(self) -> "_Prefetcher":
+        return self
+
+    def __next__(self):
+        while True:
+            try:
+                item = self._q.get(timeout=0.5)
+            except queue.Empty:
+                if self._thread.is_alive():
+                    continue
+                try:  # it may have delivered between the timeout and the check
+                    item = self._q.get_nowait()
+                except queue.Empty:
+                    if self._err is not None:
+                        raise self._err
+                    raise RuntimeError("prefetch producer thread died without "
+                                       "delivering a batch or its error")
+            if item is _DONE:
+                self._thread.join(timeout=5.0)
+                if self._thread.is_alive():
+                    log.warning("prefetch producer still running after its "
+                                "end-of-stream sentinel; it is a daemon and will "
+                                "exit with the process")
+                if self._err is not None:
+                    raise self._err
+                raise StopIteration
+            return item
+
+    def close(self) -> None:
+        """Unblock and retire the producer (early consumer exit)."""
+        self._stop.set()
+        try:
+            while True:
+                self._q.get_nowait()
+        except queue.Empty:
+            pass
+        self._thread.join(timeout=5.0)
+        if self._thread.is_alive():
+            log.warning("prefetch producer still running after close(); it will "
+                        "exit after its current sampling round")
+
+
+def _stage(item: Tuple[Dict, int], device: torch.device):
+    """The one H2D copy of a host batch: fresh pinned buffers on CUDA."""
+    host, npairs = item
+    if device.type == "cuda":
+        host = model_lib.pin(host)
+    return model_lib.to_device(host, device), npairs
+
+
+def _staged_batches(it: Iterator, device: torch.device,
+                    double_buffer: bool = True) -> Iterator:
+    """Consumer-side H2D stager. With ``double_buffer`` (any prefetching
+    run) batch k+1's copy is issued before batch k is yielded, so the next
+    device batch is resident when its step is dispatched; two device
+    batches rotate. The serial path stages one batch at a time."""
+    it = iter(it)
+    if not double_buffer:
+        for item in it:
+            yield _stage(item, device)
+        return
+    item = next(it, _DONE)
+    if item is _DONE:
+        return
+    pending = _stage(item, device)
+    for item in it:
+        staged = _stage(item, device)
+        yield pending
+        pending = staged
+    yield pending
+
+
+def measure_handoff_overhead(items: int = 512, depth: int = 2) -> float:
+    """Per-item cost (seconds) of the prefetch queue handoff: a producer
+    thread pushes ``items`` tokens through a bounded queue while the caller
+    drains it."""
+    q: "queue.Queue" = queue.Queue(maxsize=max(1, depth))
+    token = object()
+
+    def produce() -> None:
+        for _ in range(items):
+            q.put(token)
+
+    t = threading.Thread(target=produce, name="repro-torch-handoff-probe", daemon=True)
+    t0 = time.perf_counter()
+    t.start()
+    for _ in range(items):
+        q.get()
+    wall = time.perf_counter() - t0
+    t.join(timeout=5.0)
+    if t.is_alive():
+        log.warning("handoff probe thread still running after its last item")
+    return wall / items
+
+
+def _median(xs: List[float]) -> float:
+    s = sorted(xs)
+    mid = len(s) // 2
+    return s[mid] if len(s) % 2 else 0.5 * (s[mid - 1] + s[mid])
+
+
+def _round_spikes(durs: List[float]) -> List[int]:
+    """Indices of round-paying batches (4x over the median) in a series of
+    per-batch host costs; carry batches cost microseconds."""
+    if len(durs) < 2:
+        return []
+    thr = 4.0 * _median(durs)
+    return [i for i, d in enumerate(durs) if d > thr]
+
+
+class Graph4RecTrainer:
+    def __init__(
+        self,
+        dataset: RecsysDataset,
+        engine,
+        model_cfg: model_lib.Graph4RecConfig,
+        pipe_cfg: PipelineConfig,
+        cfg: TrainerConfig = TrainerConfig(),
+        device: DeviceLike = None,
+    ):
+        _not_ported(cfg)
+        self.device = resolve_device(device)
+        self.dataset = dataset
+        self.engine = engine
+        self.model_cfg = model_cfg
+        self.pipe_cfg = pipe_cfg
+        self.cfg = cfg
+        # both paths step the tables with the same row-wise AdaGrad rule
+        self.opt = opt_lib.masked(
+            opt_lib.rowwise_adagrad(cfg.sparse_lr, init_accum=cfg.adagrad_init_accum),
+            opt_lib.adam(cfg.dense_lr),
+            select_a=lambda k: k.startswith("emb/"),
+        )
+        self._dense_opt = opt_lib.adam(cfg.dense_lr)
+        # per-table unique-id bucket widths, grown and kept by sparse_host_batch
+        self._buckets: Dict[str, int] = {}
+        if cfg.unique_bucket:
+            self._buckets["node"] = cfg.unique_bucket
+            for slot in model_cfg.embedding.slots:
+                self._buckets[f"slot:{slot.name}"] = cfg.unique_bucket
+        num_nodes = dataset.graph.num_nodes
+        self._sparse_on = cfg.sparse_updates and (
+            cfg.sparse_min_rows <= 0 or num_nodes >= cfg.sparse_min_rows
+        )
+        if cfg.sparse_updates and not self._sparse_on:
+            log.info("sparse_updates requested but num_nodes=%d < sparse_min_rows=%d; "
+                     "using the equivalent dense step", num_nodes, cfg.sparse_min_rows)
+        # 'bag' side info on the dense path: the full count matrices, on the
+        # device once; the sparse path ships a per-batch sub matrix instead
+        self._slot_counts = (
+            model_lib.slot_count_arrays(dataset.graph, model_cfg, self.device)
+            if model_lib.bag_slot_specs(model_cfg) and not self._sparse_on else None
+        )
+        self._plan: Optional[Dict] = None
+        self._train_pairs = np.concatenate(
+            [np.stack([u, i], 1) for (u, i) in dataset.train_edges.values()], axis=0)
+
+    # ---------------------------------------------------------- parameters
+    def init_params(self, flat: Optional[Mapping[str, np.ndarray]] = None) -> Params:
+        """Parameters on the trainer's device under ``repro``'s keys: the
+        given numpy arrays (converted weights, checked against the config)
+        or, with none, draws from ``torch.Generator`` seeded by ``cfg.seed``."""
+        if flat is None:
+            model = convert.init_params(self.model_cfg, seed=self.cfg.seed, device=self.device)
+        else:
+            model = convert.params_from_numpy(flat, self.model_cfg, device=self.device)
+        return {k: v.detach() for k, v in model.params.items()}
+
+    def _device_params(self, params) -> Params:
+        """Fresh device copies: the sparse step updates tables in place, so
+        a caller-held dict survives ``train``."""
+        if params is None:
+            return self.init_params()
+        if any(isinstance(v, np.ndarray) for v in params.values()):
+            return self.init_params(params)
+        return {k: v.detach().to(self.device).clone() for k, v in params.items()}
+
+    # ---------------------------------------------------------------- steps
+    def _dense_step(self, params: Params, opt_state, batch: Dict):
+        leaves = {k: v.detach().requires_grad_(True) for k, v in params.items()}
+        loss = model_lib.loss_fn(leaves, self.model_cfg, batch)
+        grads = torch.autograd.grad(loss, list(leaves.values()), allow_unused=True)
+        with torch.no_grad():
+            g = {k: torch.zeros_like(v) if gk is None else gk
+                 for (k, v), gk in zip(params.items(), grads)}
+            updates, opt_state = self.opt.update(g, opt_state, params)
+            params = opt_lib.apply_updates(params, updates)
+        return params, opt_state, loss.detach()
+
+    def _sparse_step(self, params: Params, opt_state, batch: Dict):
+        """Gather → step → scatter: ``batch`` arrives id-remapped, its
+        ``uniq`` entry names each table's touched global rows."""
+        uniq = {f"emb/{k}": v for k, v in batch["uniq"].items()}
+        model_batch = {k: v for k, v in batch.items() if k != "uniq"}
+        sparse_p, dense_p = model_lib.sparse_dense_split(params)
+        row_state, dense_state = opt_state
+        # tables the batch never touches pass straight through
+        touched = {k: v for k, v in sparse_p.items() if k in uniq}
+        sub = {k: emb.gather_rows(v, uniq[k]).requires_grad_(True) for k, v in touched.items()}
+        dense_leaves = {k: v.detach().requires_grad_(True) for k, v in dense_p.items()}
+        loss = model_lib.loss_fn({**dense_leaves, **sub}, self.model_cfg, model_batch)
+        leaves = list(sub.values()) + list(dense_leaves.values())
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+        grads = [torch.zeros_like(v) if g is None else g for v, g in zip(leaves, grads)]
+        g_sub = dict(zip(sub, grads[: len(sub)]))
+        g_dense = dict(zip(dense_leaves, grads[len(sub):]))
+        with torch.no_grad():
+            d_updates, dense_state = self._dense_opt.update(g_dense, dense_state, dense_p)
+            dense_p = opt_lib.apply_updates(dense_p, d_updates)
+            new_touched, touched_state = emb_opt.rowwise_adagrad_scatter_update(
+                touched, g_sub, uniq, row_state, lr=self.cfg.sparse_lr, eps=1e-8)
+        row_state = emb_opt.RowAdagradState(accum={**row_state.accum, **touched_state.accum})
+        params = {**dense_p, **sparse_p, **new_touched}
+        return params, (row_state, dense_state), loss.detach()
+
+    def _init_opt_state(self, params: Params):
+        if not self._sparse_on:
+            return self.opt.init(params)
+        sparse_p, dense_p = model_lib.sparse_dense_split(params)
+        return (emb_opt.rowwise_adagrad_init(sparse_p, init_accum=self.cfg.adagrad_init_accum),
+                self._dense_opt.init(dense_p))
+
+    def _step_fn(self):
+        return self._sparse_step if self._sparse_on else self._dense_step
+
+    def _host_batches(self, pipeline: SamplePipeline, num: int) -> Iterator[Tuple[Dict, int]]:
+        """Host pipeline -> (host numpy batch, pairs); runs in the prefetch
+        thread when there is one. No H2D copy here: the stager makes it."""
+        for batch in pipeline.batches(num):
+            if self._sparse_on:
+                host = model_lib.sparse_host_batch(self.dataset.graph, batch, self.model_cfg,
+                                                   buckets=self._buckets)
+            else:
+                host = model_lib.host_batch(self.dataset.graph, batch, self.model_cfg,
+                                            slot_counts=self._slot_counts)
+            yield host, len(batch.src_ids)
+
+    def _barrier(self) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    # ------------------------------------------------------------- planning
+    def _calibrate(self, params: Params) -> Dict:
+        """Per-batch host cost, step time and queue handoff, measured on a
+        separate same-seed pipeline and on throwaway parameter copies, so a
+        calibrated run trains exactly as an explicitly configured one."""
+        cfg = self.cfg
+        n = max(2, cfg.calibrate_batches)
+        pipeline = make_train_sampler(self.engine, self.pipe_cfg, backend="host", seed=cfg.seed)
+        # Batches come in rounds: one walk + ego round fills a carry buffer
+        # that the next batches drain in microseconds. Average the window
+        # between two round spikes; without two, the plain mean (an
+        # over-estimate, which can only bias toward prefetching).
+        cap, budget_s = 64, 0.5
+        host_it = self._host_batches(pipeline, cap)
+        durs: List[float] = []
+        host_batches: List[Dict] = []
+        elapsed = 0.0
+        for i in range(cap):
+            t0 = time.perf_counter()
+            item = next(host_it, None)
+            if item is None:
+                break
+            d = time.perf_counter() - t0
+            durs.append(d)
+            elapsed += d
+            if len(host_batches) < n:
+                host_batches.append(item)
+            if i + 1 < n:
+                continue
+            if len(_round_spikes(durs)) >= 2 or elapsed >= budget_s:
+                break
+        spikes = _round_spikes(durs)
+        if len(spikes) >= 2:
+            host_s = sum(durs[spikes[0]:spikes[-1]]) / (spikes[-1] - spikes[0])
+        else:
+            host_s = elapsed / max(1, len(durs))
+        step_fn = self._step_fn()
+        step_times: List[float] = []
+        for i in range(n):
+            p = {k: v.clone() for k, v in params.items()}
+            st = self._init_opt_state(p)
+            dev, _ = _stage(host_batches[i % len(host_batches)], self.device)
+            self._barrier()
+            t0 = time.perf_counter()
+            step_fn(p, st, dev)
+            self._barrier()
+            step_times.append(time.perf_counter() - t0)
+        return {"host_batch_s": host_s, "step_s": _median(step_times[1:]),
+                "handoff_s": measure_handoff_overhead()}
+
+    def _resolve_plan(self, params: Params) -> Dict:
+        """Serial vs prefetch: an explicit ``prefetch_batches`` wins; None is
+        decided by calibration (or depth 2 when it is off or the run is too
+        short to calibrate). Cached per trainer."""
+        if self._plan is not None:
+            return self._plan
+        cfg = self.cfg
+        plan: Dict = {"engine_backend": cfg.engine_backend, "sampling": "host",
+                      "calibrated": False}
+        auto = cfg.prefetch_batches is None
+        if not (auto and cfg.auto_backend and cfg.num_steps >= cfg.calibrate_min_steps):
+            plan["prefetch"] = 2 if auto else cfg.prefetch_batches
+            plan["reason"] = (
+                "explicit settings" if not auto
+                else "auto_backend off" if not cfg.auto_backend
+                else f"run too short to calibrate (num_steps={cfg.num_steps} < "
+                     f"{cfg.calibrate_min_steps}); legacy defaults")
+            self._plan = plan
+            return plan
+        meas = self._calibrate(params)
+        plan["calibrated"] = True
+        plan["measurements"] = {k: round(v, 6) for k, v in meas.items()}
+        host_s, step_s, handoff_s = meas["host_batch_s"], meas["step_s"], meas["handoff_s"]
+        # prefetch pays only on a clear (>10%) predicted win: the pipelined
+        # step is bounded by the slower side plus the handoff
+        serial_est = host_s + step_s
+        prefetch_est = max(host_s, step_s) + handoff_s
+        if serial_est > 1.1 * prefetch_est:
+            plan["prefetch"] = 2
+            plan["reason"] = (
+                f"prefetch: serial est {serial_est * 1e3:.2f}ms > 1.1x pipelined est "
+                f"{prefetch_est * 1e3:.2f}ms (host {host_s * 1e3:.2f}ms, step "
+                f"{step_s * 1e3:.2f}ms, handoff {handoff_s * 1e6:.0f}us)")
+        else:
+            plan["prefetch"] = 0
+            plan["reason"] = (
+                f"serial: pipelining would save <10% (serial est {serial_est * 1e3:.2f}ms "
+                f"vs pipelined est {prefetch_est * 1e3:.2f}ms)")
+        log.info("backend plan: %s", plan["reason"])
+        self._plan = plan
+        return plan
+
+    # ------------------------------------------------------------ evaluation
+    def evaluate(self, params: Params, split: str = "val") -> Dict[str, float]:
+        """Full-graph inference on the device, then recall on the device
+        top-k (or the numpy brute force), every held-out user by default."""
+        ds = self.dataset
+        model = model_lib.Graph4RecModel(self.model_cfg, params)
+        all_emb = embed_all_nodes(model, self.engine, ds.graph,
+                                  batch_size=self.cfg.eval_batch_size,
+                                  seed=self.cfg.seed + 7, device=self.device)
+        user_emb = all_emb[: ds.num_users]
+        item_emb = all_emb[ds.num_users : ds.num_users + ds.num_items]
+        eval_pairs = ds.val_pairs if split == "val" else ds.test_pairs
+        return evaluate_recall(
+            user_emb, item_emb, self._train_pairs, eval_pairs,
+            top_k=self.cfg.eval_top_k, top_n=self.cfg.eval_top_n,
+            max_users=self.cfg.eval_max_users, method=self.cfg.eval_method,
+            device=self.device,
+        )
+
+    # ----------------------------------------------------------------- train
+    def train(self, params: Optional[Mapping] = None) -> TrainResult:
+        cfg = self.cfg
+        params = self._device_params(params)
+        plan = self._resolve_plan(params)
+        opt_state = self._init_opt_state(params)
+        step_fn = self._step_fn()
+        loss_hist: List[torch.Tensor] = []  # in-flight on-device tail
+        losses: List[float] = []
+        pending: List[_LossWindow] = []  # started readbacks, FIFO
+        depth = plan["prefetch"]
+        drain_tail = max(1, depth + 1)
+        evals: List[Dict[str, float]] = []
+        pairs_seen = 0
+        pipeline = make_train_sampler(self.engine, self.pipe_cfg, backend="host",
+                                      seed=cfg.seed)
+        host_iter: Iterator = self._host_batches(pipeline, cfg.num_steps)
+        prefetcher = _Prefetcher(host_iter, depth) if depth > 0 else None
+        batch_iter = _staged_batches(prefetcher if prefetcher is not None else host_iter,
+                                     self.device, double_buffer=depth > 0)
+        t0 = time.perf_counter()
+        try:
+            for step, (dev, npairs) in enumerate(batch_iter):
+                with _sync_guard(self.device, cfg.sanitize_transfers):
+                    params, opt_state, loss = step_fn(params, opt_state, dev)
+                loss_hist.append(loss)
+                pairs_seen += npairs
+                if cfg.sync_every_step:
+                    self._barrier()
+                if cfg.loss_fetch_every and len(loss_hist) >= cfg.loss_fetch_every + drain_tail:
+                    done, loss_hist = loss_hist[:-drain_tail], loss_hist[-drain_tail:]
+                    # resolve the previous window (long complete by now) and
+                    # start this one's copy without waiting on it
+                    if pending:
+                        losses.extend(pending.pop(0).resolve())
+                    pending.append(_LossWindow(done))
+                if cfg.log_every and (step + 1) % cfg.log_every == 0:
+                    log.info("step %d loss %.4f", step + 1, float(loss))
+                if cfg.eval_every and (step + 1) % cfg.eval_every == 0:
+                    evals.append(self.evaluate(params))
+        finally:
+            if prefetcher is not None:
+                prefetcher.close()
+        self._barrier()
+        wall = time.perf_counter() - t0
+        for window in pending:
+            losses.extend(window.resolve())
+        if loss_hist:
+            losses.extend(_LossWindow(loss_hist).resolve())
+        if cfg.eval_at_end:
+            evals.append(self.evaluate(params))
+        return TrainResult(params=params, losses=losses, eval_history=evals,
+                           wall_time_s=wall, pairs_seen=pairs_seen, plan=dict(plan))

@@ -1,7 +1,8 @@
 """The port stands alone: no JAX, no ``repro``, and no silent CPU fallback.
 
-- No module under ``src/repro_torch/``, nor ``chip_smoke.py`` or
-  ``examples/recall_torch.py``, imports ``jax`` or ``repro[.*]``.
+- No module under ``src/repro_torch/``, nor ``chip_smoke.py``,
+  ``examples/recall_torch.py`` or ``examples/train_torch.py``, imports
+  ``jax`` or ``repro[.*]``.
 - Importing the port's entry modules in a fresh interpreter loads neither.
 - ``device=None`` means CUDA: without a card the entry points raise before
   any work, and ``chip_smoke.py`` exits non-zero at its device check.
@@ -23,6 +24,7 @@ pytestmark = pytest.mark.quick
 REPO = pathlib.Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((REPO / "src" / "repro_torch").rglob("*.py")) + [
     REPO / "chip_smoke.py", REPO / "examples" / "recall_torch.py",
+    REPO / "examples" / "train_torch.py",
 ]
 
 
@@ -46,6 +48,7 @@ def test_entry_modules_load_no_jax():
         "import sys\n"
         "import repro_torch, repro_torch.core, repro_torch.infer, repro_torch.retrieval\n"
         "import repro_torch.convert, repro_torch.kernels.ops, recall_torch\n"
+        "import repro_torch.train, repro_torch.walk, repro_torch.sampling, train_torch\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
         "assert not bad, bad\n"
     )
@@ -89,6 +92,25 @@ def test_entry_points_default_to_cuda():
         chunked_topk(q, q, 2)
     with pytest.raises(RuntimeError, match="CUDA"):
         evaluate_recall(q, q, np.array([[0, 1]]), np.array([[0, 2]]), method="device")
+
+
+def test_training_entry_points_default_to_cuda():
+    """The trainer and ``examples/train_torch.py`` take device=None as CUDA."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: device=None runs there")
+    sys.path.insert(0, str(REPO / "examples"))
+    import train_torch
+    from repro_torch import graph
+    from repro_torch.train import Graph4RecTrainer
+
+    args = train_torch.parser().parse_args(["--steps", "1"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        train_torch.run(args)
+    ds = graph.generate(graph.TOY, seed=0)
+    mcfg, pcfg = train_torch.configs(ds, args)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Graph4RecTrainer(ds, graph.DistributedGraphEngine(ds.graph, 2), mcfg, pcfg)
+    assert Graph4RecTrainer(ds, ds.graph, mcfg, pcfg, device="cpu").device.type == "cpu"
 
 
 def test_chip_smoke_fails_at_the_device_check():
