@@ -28,14 +28,26 @@ nothing of JAX or of the JAX package ``repro``. Phases, each failing loudly:
    inputs of the first calls of each kernel are recorded (``row_adagrad`` works in place, so its table
    and accumulators are cloned before and after the call). Then U2I recall
    of the trained embeddings;
-5. conformance: under deterministic algorithms, TOY trained 12 steps (sparse
+5. the fused training path, through the same ``run`` with
+   ``--sampling-backend fused``: the same model and batch on UB for 200
+   steps, walk -> pair -> ego sampled on the card inside each step (the
+   ``window_pairs`` kernel), dense update. It must plan ``fused`` (the
+   memory gate must not put it back on the host) and launch ``window_pairs``
+   once a step; the inputs of every ``window_pairs`` call are recorded. The
+   same numbers as phase 4, the device tables' bytes, and the trained U2I
+   recall; then a ``sampling_backend="auto"`` run prints its plan;
+6. conformance: under deterministic algorithms, TOY trained 12 steps (sparse
    and dense) on the card and on the CPU from the same initial weights, and
    twice on the card: losses and tables agree, the two card runs exactly;
-6. kernel phases: each kernel against its plain PyTorch version on the card,
-   on the recorded inputs of the main paths (``seg_aggr``: of both), then (``seg_aggr``, ``topk``) at
-   synthetic shapes; one JSON line per shape with the kernel's device time,
-   the plain version's, one library call's and the card's bound;
-7. a summary line of the end-to-end numbers, a ``kernels`` JSON line (times
+   the fused step likewise, card vs CPU fed the same CPU-drawn draws, and
+   two same-seed fused card runs;
+7. kernel phases: each kernel against its plain PyTorch version on the card,
+   on the recorded inputs of the main paths (``seg_aggr``: of all three;
+   ``window_pairs``: every call, exactly), then (``seg_aggr``, ``topk``,
+   ``window_pairs``) at synthetic shapes; one JSON line per shape with the
+   kernel's device time, the plain version's, one library call's and the
+   card's bound;
+8. a summary line of the end-to-end numbers, a ``kernels`` JSON line (times
    from each main path's largest call of each kernel), the card's name and
    power limit, then ``{"ok": true, ...}`` last.
 """
@@ -452,100 +464,252 @@ def step_events(torch, cls, name: str, events: list):
         setattr(cls, name, real)
 
 
-def training_path(torch, np, modules, serving_u2i: float) -> dict:
+def _losses_fell(np, r, steps: int, what: str):
+    """First-20 and last-20 loss means of a run, which must be finite and fall."""
+    losses = np.asarray(r.losses)
+    if len(losses) != steps or not np.isfinite(losses).all():
+        fail(f"{what}: {len(losses)} losses, finite {np.isfinite(losses).all()}")
+    first, last = float(losses[:20].mean()), float(losses[-20:].mean())
+    if not last < first:
+        fail(f"{what} loss did not fall: first-20 mean {first}, last-20 mean {last}")
+    return first, last
+
+
+def _step_split(events: list) -> dict:
+    """Each step's dispatch (CUDA events, host clock) and the host time from
+    one step's exit to the next one's entry."""
+    def median(xs):
+        return sorted(xs)[len(xs) // 2]
+
+    dispatch_ms = sorted(a.elapsed_time(b) for a, b, _, _ in events)
+    between_ms = [(nxt[2] - cur[3]) * 1e3 for cur, nxt in zip(events, events[1:])]
+    return {"dispatch_ms_median": median(dispatch_ms), "dispatch_ms_min": dispatch_ms[0],
+            "dispatch_ms_max": dispatch_ms[-1],
+            "dispatch_host_ms_median": median([(t1 - t0) * 1e3 for _, _, t0, t1 in events]),
+            "between_steps_host_ms_median": median(between_ms),
+            "between_steps_host_ms_mean": sum(between_ms) / len(between_ms)}
+
+
+def _trained_u2i(res) -> dict:
+    """U2I recall of a run's trained embeddings (the serving phase measured
+    the random-weight model on the same held-out pairs)."""
     import recall_torch
-    import train_torch
     from repro_torch.core.model import Graph4RecModel
     from repro_torch.core.recall import evaluate_recall
     from repro_torch.infer import embed_all_nodes
+
+    ds, r = res["dataset"], res["result"]
+    t0 = time.perf_counter()
+    emb = embed_all_nodes(Graph4RecModel(res["config"], r.params), res["trainer"].engine,
+                          ds.graph, batch_size=1024, seed=0, device="cuda")
+    ue, ie = emb[: ds.num_users], emb[ds.num_users : ds.num_users + ds.num_items]
+    u2i = evaluate_recall(ue, ie, recall_torch.train_pairs(ds), ds.test_pairs,
+                          strategies=("u2i",), device="cuda")
+    return {"eval_s": time.perf_counter() - t0, "u2i_trained": u2i["u2i"],
+            "u2i_ndcg_trained": u2i["u2i_ndcg"]}
+
+
+def _train_profile(torch, train_torch, args, phase: str, **overrides) -> dict:
+    """Where the step time goes: a separate 40-step run under torch.profiler
+    (not the timed run, whose times the profiler would disturb)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        pres = train_torch.run(args, eval_at_end=False, **overrides)["result"]
+        torch.cuda.synchronize()
+    steps = len(pres.losses)
+    kern = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA
+            and e.self_device_time_total > 0]
+    busy_us = sum(e.self_device_time_total for e in kern)
+    top = sorted(kern, key=lambda e: -e.self_device_time_total)[:8]
+    rec = {"phase": phase, "steps": steps, "wall_s": pres.wall_time_s,
+           "device_busy_ms_per_step": busy_us / 1e3 / steps,
+           "device_busy_share": busy_us / 1e6 / pres.wall_time_s,
+           "top_device_ms_per_step": {e.key[:80]: e.self_device_time_total / 1e3 / steps
+                                      for e in top}}
+    emit(rec)
+    return rec
+
+
+def training_path(torch, np, modules, serving_u2i: float) -> dict:
+    import train_torch
     from repro_torch.kernels import ops
     from repro_torch.train.trainer import Graph4RecTrainer
 
+    def args(seed: int, steps: int, *extra: str):
+        return train_torch.parser().parse_args(
+            ["--dataset", "ub", "--model", "lightgcn", "--dim", "64", "--side-info",
+             "--batch-pairs", "512", "--steps", str(steps), "--seed", str(seed),
+             "--prefetch-batches", "2", *extra])
+
     ckpt = os.path.join(ROOT, "build", "chip_smoke", "ub_lightgcn64_trained.npz")
-    args = train_torch.parser().parse_args(
-        ["--dataset", "ub", "--model", "lightgcn", "--dim", "64", "--side-info",
-         "--batch-pairs", "512", "--steps", "200", "--seed", "0",
-         "--prefetch-batches", "2", "--save", ckpt])
     rec, events = TrainRecorder(), []
     names = ("seg_aggr", "seg_aggr_bwd", "inbatch_loss", "row_adagrad")
     with rec.spying(ops), step_events(torch, Graph4RecTrainer, "_sparse_step", events):
         modules["seg_aggr"].launches = modules["seg_aggr"].bwd_launches = 0
         modules["inbatch_loss"].launches = modules["row_adagrad"].launches = 0
-        res = train_torch.run(args, sparse_min_rows=0, eval_at_end=False)
+        res = train_torch.run(args(0, 200, "--save", ckpt), sparse_min_rows=0,
+                              eval_at_end=False)
         torch.cuda.synchronize()
         launches = {"seg_aggr": modules["seg_aggr"].launches,
                     "seg_aggr_bwd": modules["seg_aggr"].bwd_launches,
                     "inbatch_loss": modules["inbatch_loss"].launches,
                     "row_adagrad": modules["row_adagrad"].launches}
     r = res["result"]
-    losses = np.asarray(r.losses)
-    if len(losses) != 200 or not np.isfinite(losses).all():
-        fail(f"training: {len(losses)} losses, finite {np.isfinite(losses).all()}")
-    first, last = float(losses[:20].mean()), float(losses[-20:].mean())
-    if not last < first:
-        fail(f"training loss did not fall: first-20 mean {first}, last-20 mean {last}")
+    first, last = _losses_fell(np, r, 200, "training")
     for n in names:
         if launches[n] == 0:
             fail(f"the training path launched no {n} kernel")
     if rec.no_grad_fn:
         fail(f"{rec.no_grad_fn} of {rec.calls['seg_aggr']} seg_aggr forward outputs on the "
              "training path carry no grad_fn: the neighbour gradient is dropped")
-    def median(xs):
-        return sorted(xs)[len(xs) // 2]
-
-    dispatch_ms = sorted(a.elapsed_time(b) for a, b, _, _ in events)
-    dispatch_host_ms = [(t1 - t0) * 1e3 for _, _, t0, t1 in events]
-    between_ms = [(nxt[2] - cur[3]) * 1e3 for cur, nxt in zip(events, events[1:])]
-
-    # U2I recall of the trained embeddings (the serving phase measured the
-    # random-weight model on the same held-out pairs)
-    ds, cfg, trainer = res["dataset"], res["config"], res["trainer"]
-    t0 = time.perf_counter()
-    emb = embed_all_nodes(Graph4RecModel(cfg, r.params), trainer.engine, ds.graph,
-                          batch_size=1024, seed=0, device="cuda")
-    ue, ie = emb[: ds.num_users], emb[ds.num_users : ds.num_users + ds.num_items]
-    u2i = evaluate_recall(ue, ie, recall_torch.train_pairs(ds), ds.test_pairs,
-                          strategies=("u2i",), device="cuda")
-    # where the step time goes: a separate 40-step run under torch.profiler
-    # (not the run above, whose times the profiler would disturb)
-    from torch.profiler import ProfilerActivity, profile
-
-    pargs = train_torch.parser().parse_args(
-        ["--dataset", "ub", "--model", "lightgcn", "--dim", "64", "--side-info",
-         "--batch-pairs", "512", "--steps", "40", "--seed", "1", "--prefetch-batches", "2"])
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        pres = train_torch.run(pargs, sparse_min_rows=0, eval_at_end=False)["result"]
-        torch.cuda.synchronize()
-    kern = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA
-            and e.self_device_time_total > 0]
-    busy_us = sum(e.self_device_time_total for e in kern)
-    top = sorted(kern, key=lambda e: -e.self_device_time_total)[:8]
-    emit({"phase": "training_profile", "steps": len(pres.losses),
-          "wall_s": pres.wall_time_s, "device_busy_ms_per_step": busy_us / 1e3 / 40,
-          "device_busy_share": busy_us / 1e6 / pres.wall_time_s,
-          "top_device_ms_per_step": {e.key[:80]: e.self_device_time_total / 1e3 / 40
-                                     for e in top}})
+    split = _step_split(events)
+    recall = _trained_u2i(res)
+    _train_profile(torch, train_torch, args(1, 40), "training_profile", sparse_min_rows=0)
 
     out = {
         "phase": "training", "dataset": "ub", "model": "lightgcn", "dim": 64,
-        "steps": len(losses), "batch_pairs": 512, "update": "sparse",
+        "steps": len(r.losses), "batch_pairs": 512, "update": "sparse",
         "plan": r.plan["reason"], "train_s": r.wall_time_s, "pairs": r.pairs_seen,
         "pairs_per_s": r.pairs_seen / r.wall_time_s,
-        "step_wall_ms": r.wall_time_s / len(losses) * 1e3,
-        "dispatch_ms_median": median(dispatch_ms), "dispatch_ms_min": dispatch_ms[0],
-        "dispatch_ms_max": dispatch_ms[-1],
-        "dispatch_host_ms_median": median(dispatch_host_ms),
-        "between_steps_host_ms_median": median(between_ms),
-        "between_steps_host_ms_mean": sum(between_ms) / len(between_ms),
+        "step_wall_ms": r.wall_time_s / len(r.losses) * 1e3, **split,
         "loss_first20_mean": first, "loss_last20_mean": last,
         "launches": launches, "wrapper_calls": dict(rec.calls),
         "seg_aggr_outputs_without_grad_fn": rec.no_grad_fn, "checkpoint":
-        os.path.relpath(res["saved"], ROOT), "eval_s": time.perf_counter() - t0,
-        "u2i_trained": u2i["u2i"], "u2i_random_weights": serving_u2i,
-        "u2i_ndcg_trained": u2i["u2i_ndcg"],
+        os.path.relpath(res["saved"], ROOT), **recall, "u2i_random_weights": serving_u2i,
     }
     emit(out)
     return dict(out, kept=rec.kept)
+
+
+def fused_training_path(torch, np, modules, serving_u2i: float) -> dict:
+    """The training path with the fused device sampler (phase 5)."""
+    import train_torch
+    from repro_torch.kernels import ops
+    from repro_torch.train.trainer import Graph4RecTrainer
+
+    def args(seed: int, steps: int, backend: str = "fused"):
+        flags = ["--dataset", "ub", "--model", "lightgcn", "--dim", "64", "--side-info",
+                 "--batch-pairs", "512", "--seed", str(seed), "--steps", str(steps),
+                 "--sampling-backend", backend]
+        # no prefetcher on the fused path; "auto" leaves it to the calibration
+        return train_torch.parser().parse_args(
+            flags + (["--prefetch-batches", "0"] if backend == "fused" else []))
+
+    rec, events, wp_calls = TrainRecorder(), [], []
+    with rec.spying(ops), recording(ops, "window_pair_ids", wp_calls), \
+            step_events(torch, Graph4RecTrainer, "_fused_step", events):
+        for m in modules.values():
+            m.launches = 0
+        modules["seg_aggr"].bwd_launches = 0
+        res = train_torch.run(args(0, 200), eval_at_end=False)
+        torch.cuda.synchronize()
+        launches = {"seg_aggr": modules["seg_aggr"].launches,
+                    "seg_aggr_bwd": modules["seg_aggr"].bwd_launches,
+                    "inbatch_loss": modules["inbatch_loss"].launches,
+                    "row_adagrad": modules["row_adagrad"].launches,
+                    "window_pairs": modules["window_pairs"].launches,
+                    "topk": modules["topk"].launches}
+    r, sampler = res["result"], res["trainer"]._fused_sampler
+    if r.plan["sampling"] != "fused":
+        fail(f"fused training planned {r.plan['sampling']!r}: {r.plan['reason']}")
+    first, last = _losses_fell(np, r, 200, "fused training")
+    if launches["window_pairs"] != 200 or len(wp_calls) != 200:
+        fail(f"fused training launched window_pairs {launches['window_pairs']} times over "
+             f"{len(wp_calls)} calls; want one a step, 200")
+    for n in ("seg_aggr", "seg_aggr_bwd", "inbatch_loss"):
+        if launches[n] == 0:
+            fail(f"the fused training path launched no {n} kernel")
+    if rec.no_grad_fn:
+        fail(f"{rec.no_grad_fn} seg_aggr forward outputs on the fused path carry no grad_fn")
+    split = _step_split(events)
+    recall = _trained_u2i(res)
+    if not recall["u2i_trained"] > serving_u2i:
+        fail(f"fused training: trained U2I {recall['u2i_trained']} not above the "
+             f"random-weight {serving_u2i}")
+    prof = _train_profile(torch, train_torch, args(1, 40), "fused_training_profile")
+
+    out = {
+        "phase": "fused_training", "dataset": "ub", "model": "lightgcn", "dim": 64,
+        "steps": len(r.losses), "batch_pairs": 512, "update": "dense", "sampling": "fused",
+        "plan": r.plan["reason"], "walks_per_step": sampler.num_walks,
+        "device_table_bytes": sampler.device_table_bytes(),
+        "train_s": r.wall_time_s, "pairs": r.pairs_seen,
+        "pairs_per_s": r.pairs_seen / r.wall_time_s,
+        "step_wall_ms": r.wall_time_s / len(r.losses) * 1e3, **split,
+        "device_busy_share": prof["device_busy_share"],
+        "device_busy_ms_per_step": prof["device_busy_ms_per_step"],
+        "loss_first20_mean": first, "loss_last20_mean": last,
+        "launches": launches, "wrapper_calls": dict(rec.calls, window_pairs=len(wp_calls)),
+        **recall, "u2i_random_weights": serving_u2i,
+    }
+    emit(out)
+
+    # sampling_backend="auto": calibration picks host or fused (either is
+    # accepted); its plan and measurements are the result
+    ares = train_torch.run(args(0, 40, "auto"), eval_at_end=False)["result"]
+    auto = {"phase": "auto_sampling", "steps": len(ares.losses),
+            "sampling": ares.plan["sampling"], "prefetch": ares.plan["prefetch"],
+            "reason": ares.plan["reason"], "measurements": ares.plan.get("measurements"),
+            "fused_measured_bytes": ares.plan.get("fused_measured_bytes"),
+            "pairs_per_s": ares.pairs_seen / ares.wall_time_s}
+    if not ares.plan["calibrated"] or "fused_step_s" not in auto["measurements"]:
+        fail(f"auto sampling did not time the fused step: {ares.plan}")
+    emit(auto)
+    return dict(out, kept=rec.kept, window_pairs_calls=wp_calls, auto=auto)
+
+
+def fused_conformance(torch, np) -> dict:
+    """The fused step on TOY, card vs CPU on the same CPU-drawn draws for 12
+    steps, and two same-seed fused card runs (under deterministic
+    algorithms, which the caller turns on)."""
+    import train_torch
+    from repro_torch.graph import SPECS, generate
+    from repro_torch.train import Graph4RecTrainer, TrainerConfig
+
+    args = train_torch.parser().parse_args(
+        ["--dataset", "toy", "--model", "lightgcn", "--dim", "64", "--side-info",
+         "--batch-pairs", "256", "--seed", "3", "--sampling-backend", "fused"])
+    ds = generate(SPECS["toy"], seed=3)
+    mcfg, pcfg = train_torch.configs(ds, args)
+    tcfg = TrainerConfig(num_steps=12, sparse_lr=1.0, log_every=0, seed=3, prefetch_batches=0,
+                         sampling_backend="fused", eval_at_end=False)
+    cpu, card = (Graph4RecTrainer(ds, ds.graph, mcfg, pcfg, tcfg, device=d)
+                 for d in ("cpu", "cuda"))
+    if cpu._fused_sampler is None or card._fused_sampler is None:
+        fail("fused conformance: the TOY sampler failed its memory gate")
+    p_cpu = cpu.init_params()
+    p_card = card.init_params({k: v.numpy() for k, v in p_cpu.items()})
+    s_cpu, s_card = cpu.opt.init(p_cpu), card.opt.init(p_card)
+    gen = torch.Generator().manual_seed(3)
+    losses_cpu, losses_card = [], []
+    for _ in range(12):
+        draws = cpu._fused_sampler.draw(gen)
+        draws_card = draws.to("cuda")
+        p_cpu, s_cpu, l_cpu = cpu._fused_step(p_cpu, s_cpu, draws)
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            p_card, s_card, l_card = card._fused_step(p_card, s_card, draws_card)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        losses_cpu.append(l_cpu.item())
+        losses_card.append(l_card.item())
+    loss_diff = float(np.max(np.abs(np.subtract(losses_card, losses_cpu))))
+    if not np.allclose(losses_card, losses_cpu, rtol=TRAJ_RTOL, atol=TRAJ_ATOL):
+        fail(f"fused conformance: card vs CPU losses differ by {loss_diff}")
+    table_diff = 0.0
+    for k, v in p_card.items():
+        d = (v.cpu() - p_cpu[k]).abs().max().item()
+        table_diff = max(table_diff, d)
+        if d > TRAJ_ATOL:
+            fail(f"fused conformance: {k} card vs CPU differs by {d}")
+    runs = [Graph4RecTrainer(ds, ds.graph, mcfg, pcfg, tcfg, device="cuda").train()
+            for _ in range(2)]
+    if runs[0].plan["sampling"] != "fused" or runs[0].losses != runs[1].losses or any(
+            not torch.equal(v, runs[1].params[k]) for k, v in runs[0].params.items()):
+        fail("fused conformance: two same-seed fused card runs differ")
+    return {"loss_max_abs_diff": loss_diff, "param_max_abs_diff": table_diff,
+            "card_runs_identical": True, "losses_card": losses_card}
 
 
 def conformance_phase(torch, np) -> dict:
@@ -578,6 +742,7 @@ def conformance_phase(torch, np) -> dict:
                 fail(f"conformance ({update}): two same-seed card runs differ")
             out[update] = {"loss_max_abs_diff": loss_diff, "param_max_abs_diff": table_diff,
                            "card_runs_identical": True, "losses_card": card.losses}
+        out["fused"] = fused_conformance(torch, np)
     finally:
         torch.use_deterministic_algorithms(False)
     emit(out)
@@ -699,6 +864,62 @@ def row_adagrad_phase(torch, ref, row_adagrad_scatter_cuda, kept: list) -> dict:
     return dict(max(recs, key=lambda r: r["shape"]["N"]), max_abs_err=worst)
 
 
+def _wp_record(torch, ref, window_pair_ids_cuda, paths, pos, source: str, iters: int) -> dict:
+    B, L = paths.shape
+    npos = pos.shape[0]
+    got, want = window_pair_ids_cuda(paths, pos), ref.window_pair_ids_ref(paths, pos)
+    torch.cuda.synchronize()
+    if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
+        fail(f"window_pairs {(B, L, npos)} ({source}) is not equal to its plain version")
+    kern = measure(lambda: window_pair_ids_cuda(paths, pos), iters)
+    plain = measure(lambda: ref.window_pair_ids_ref(paths, pos), iters)
+    rec = {"phase": "kernel", "name": "window_pairs", "source": source,
+           "shape": {"B": B, "L": L, "npos": npos}, "max_abs_err": 0,
+           "kernel_ms": kern["device_ms"], "plain_ms": plain["device_ms"],
+           # no single PyTorch call computes the jointly PAD-masked gather
+           "library_ms": None, "kernel_call_ms": kern["call_ms"],
+           "plain_call_ms": plain["call_ms"]}
+    # each path read once, both id outputs written once
+    rec["bound_ms"], rec["bound_by"] = bound_ms(B * L * 4 + 2 * B * npos * 4, 0)
+    emit(rec)
+    return rec
+
+
+def window_pairs_phase(torch, ref, window_pair_ids_cuda, calls: list) -> dict:
+    """Every main-path call against the plain version, exactly (int ids);
+    its shape timed on the first call's inputs; then edge shapes: B not a
+    multiple of the block, all-PAD rows, L = 32 with a window of 5, and
+    B = 65,536 for a time that is not launch-sized."""
+    from repro_torch.sampling.pairs import window_positions
+
+    for (paths, pos), _ in calls:
+        p32 = paths.to(torch.int32).contiguous()
+        got, want = window_pair_ids_cuda(p32, pos), ref.window_pair_ids_ref(paths, pos)
+        torch.cuda.synchronize()
+        if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
+            fail(f"window_pairs {tuple(paths.shape)}: a fused training call is not equal to "
+                 "its plain version")
+    emit({"phase": "kernel", "name": "window_pairs", "source": "fused training path, every call",
+          "calls": len(calls), "max_abs_err": 0})
+    (paths, pos), _ = calls[0]
+    main = _wp_record(torch, ref, window_pair_ids_cuda, paths.to(torch.int32).contiguous(), pos,
+                      "fused training path", 200)
+
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    for B, L, win, all_pad in ((1000, 6, 2, False), (1000, 6, 2, True), (4096, 32, 5, False),
+                               (65536, 6, 2, False)):
+        paths = torch.randint(0, 1 << 20, (B, L), device="cuda", generator=gen,
+                              dtype=torch.int32)
+        cut = torch.randint(0, L + 1, (B, 1), device="cuda", generator=gen)
+        paths[torch.arange(L, device="cuda")[None, :] >= cut] = -1  # PAD suffixes
+        if all_pad:
+            paths[::3] = -1
+        pos = torch.from_numpy(window_positions(L, win).astype("int32")).to("cuda")
+        _wp_record(torch, ref, window_pair_ids_cuda, paths, pos,
+                   f"synthetic{', all-PAD rows' if all_pad else ''}", 200)
+    return main
+
+
 def main() -> None:
     # cuBLAS reads this when CUDA starts; without it deterministic algorithms
     # (the conformance phase) make cuBLAS raise
@@ -728,6 +949,7 @@ def main() -> None:
     from repro_torch.kernels import row_adagrad as adagrad_mod
     from repro_torch.kernels import seg_aggr as seg_mod
     from repro_torch.kernels import topk as topk_mod
+    from repro_torch.kernels import window_pairs as wp_mod
 
     t0 = time.perf_counter()
     lib = build.build(verbose=True)
@@ -736,19 +958,22 @@ def main() -> None:
           "seconds": time.perf_counter() - t0})
 
     modules = {"seg_aggr": seg_mod, "topk": topk_mod, "inbatch_loss": inbatch_mod,
-               "row_adagrad": adagrad_mod}
+               "row_adagrad": adagrad_mod, "window_pairs": wp_mod}
     mp = main_path(torch, np, modules)
     tr = training_path(torch, np, modules, mp["recall"]["u2i"])
+    fu = fused_training_path(torch, np, modules, mp["recall"]["u2i"])
     conf = conformance_phase(torch, np)
     emit({"phase": "clocks", "before_kernel_phases": sm_clocks()})
     seg = seg_aggr_phase(torch, ref, seg_mod.seg_aggr_cuda,
-                         {"serving": mp["calls"]["seg_aggr"], "training": tr["kept"]["seg_aggr"]})
+                         {"serving": mp["calls"]["seg_aggr"], "training": tr["kept"]["seg_aggr"],
+                          "fused training": fu["kept"]["seg_aggr"]})
     topk = topk_phase(torch, ref, topk_mod.streaming_topk_cuda, mp["calls"]["topk"])
     seg_bwd = seg_aggr_bwd_phase(torch, ref, seg_mod.seg_aggr_bwd_cuda, tr["kept"]["seg_aggr_bwd"])
     inbatch = inbatch_phase(torch, ref, inbatch_mod.inbatch_loss_rows_cuda,
                             tr["kept"]["inbatch_loss"])
     adagrad = row_adagrad_phase(torch, ref, adagrad_mod.row_adagrad_scatter_cuda,
                                 tr["kept"]["row_adagrad"])
+    wp = window_pairs_phase(torch, ref, wp_mod.window_pair_ids_cuda, fu["window_pairs_calls"])
 
     def entry(name, rec, source, replaces, by_path):
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -757,7 +982,7 @@ def main() -> None:
                 "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
                 "bound_by": rec["bound_by"], "library_ms": rec["library_ms"]}
 
-    tl = tr["launches"]
+    tl, fl = tr["launches"], fu["launches"]
     emit({"phase": "clocks", "after_kernel_phases": sm_clocks()})
     # the end-to-end numbers again, here, where the end of the output keeps them
     emit({"phase": "summary",
@@ -767,21 +992,33 @@ def main() -> None:
               "pairs_per_s", "train_s", "step_wall_ms", "dispatch_ms_median",
               "dispatch_host_ms_median", "between_steps_host_ms_median",
               "loss_first20_mean", "loss_last20_mean", "u2i_trained", "launches")},
+          "fused_training": {k: fu[k] for k in (
+              "pairs_per_s", "train_s", "step_wall_ms", "dispatch_ms_median",
+              "dispatch_host_ms_median", "between_steps_host_ms_median", "device_busy_share",
+              "device_table_bytes", "loss_first20_mean", "loss_last20_mean", "u2i_trained",
+              "launches")},
+          "auto_sampling": {k: fu["auto"][k] for k in ("sampling", "reason", "measurements")},
           "conformance": {u: {k: conf[u][k] for k in ("loss_max_abs_diff",
                                                       "param_max_abs_diff")}
-                          for u in ("sparse", "dense")}})
+                          for u in ("sparse", "dense", "fused")}})
     emit({"kernels": [
         entry("seg_aggr", seg, "src/repro_torch/kernels/csrc/seg_aggr.cu",
               "src/repro/kernels/seg_aggr.py:45",
-              {"serving": mp["launches"]["seg_aggr"], "training": tl["seg_aggr"]}),
+              {"serving": mp["launches"]["seg_aggr"], "training": tl["seg_aggr"],
+               "fused training": fl["seg_aggr"]}),
         entry("topk", topk, "src/repro_torch/kernels/csrc/topk.cu",
               "src/repro/kernels/topk.py:77", {"serving": mp["launches"]["topk"]}),
         entry("seg_aggr_bwd", seg_bwd, "src/repro_torch/kernels/csrc/seg_aggr.cu",
-              "src/repro/kernels/seg_aggr.py:45", {"training": tl["seg_aggr_bwd"]}),
+              "src/repro/kernels/seg_aggr.py:45",
+              {"training": tl["seg_aggr_bwd"], "fused training": fl["seg_aggr_bwd"]}),
         entry("inbatch_loss", inbatch, "src/repro_torch/kernels/csrc/inbatch_loss.cu",
-              "src/repro/kernels/inbatch_loss.py:41", {"training": tl["inbatch_loss"]}),
+              "src/repro/kernels/inbatch_loss.py:41",
+              {"training": tl["inbatch_loss"], "fused training": fl["inbatch_loss"]}),
         entry("row_adagrad", adagrad, "src/repro_torch/kernels/csrc/row_adagrad.cu",
-              "src/repro/kernels/row_adagrad.py:41", {"training": tl["row_adagrad"]}),
+              "src/repro/kernels/row_adagrad.py:41",
+              {"training": tl["row_adagrad"], "fused training": fl["row_adagrad"]}),
+        entry("window_pairs", wp, "src/repro_torch/kernels/csrc/window_pairs.cu",
+              "src/repro/kernels/window_pairs.py:38", {"fused training": fl["window_pairs"]}),
     ]})
     print(smi, flush=True)  # the card's name and power limit, as nvidia-smi gives them
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -4,7 +4,9 @@
         --dim 64 --batch-pairs 512 --steps 200 --side-info --save build/model.npz
 
 The port's counterpart of ``examples/train_recsys.py``, with the flags of it
-that the port supports: host walk → pair → ego sampling, the GNN forward and
+that the port supports: walk → pair → ego sampling on the host or, with
+``--sampling-backend fused``, on the device inside the step (the
+``window_pairs`` kernel for the pairs), the GNN forward and
 backward with the ``seg_aggr`` kernels, the in-batch softmax loss on the
 ``inbatch_loss`` kernel, row-wise AdaGrad on the tables (the ``row_adagrad``
 kernel on the sparse path) and Adam on the GNN weights, then recall of the
@@ -42,6 +44,11 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--side-info", action="store_true")
     ap.add_argument("--partitions", type=int, default=4,
                     help="graph engine partitions (simulated servers)")
+    ap.add_argument("--sampling-backend", default="host", choices=["host", "fused", "auto"],
+                    help="'fused' samples walk->pair->ego on the device inside the "
+                         "step when the graph fits the padded-adjacency budget "
+                         "(falls back to 'host' otherwise); 'auto' lets start-of-run "
+                         "calibration choose")
     ap.add_argument("--prefetch-batches", type=int, default=None,
                     help="prefetch queue depth; 0 = serial loop; unset = let the "
                          "calibrated backend plan decide")
@@ -87,6 +94,7 @@ def run(args: argparse.Namespace, device: DeviceLike = None, **trainer_overrides
     model_cfg, pipe_cfg = configs(ds, args)
     tcfg = TrainerConfig(num_steps=args.steps, sparse_lr=1.0, log_every=50, seed=args.seed,
                          prefetch_batches=args.prefetch_batches,
+                         sampling_backend=args.sampling_backend,
                          eval_method=args.eval_recall, eval_max_users=args.eval_max_users)
     trainer = Graph4RecTrainer(ds, engine, model_cfg, pipe_cfg,
                                dataclasses.replace(tcfg, **trainer_overrides), device=device)

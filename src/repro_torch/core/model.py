@@ -26,6 +26,7 @@ from typing import Dict, List, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.core import loss as loss_lib
@@ -90,6 +91,10 @@ def _split_slot_specs(
 
 def bag_slot_specs(cfg: Graph4RecConfig) -> Tuple[emb.SlotSpec, ...]:
     return _split_slot_specs(cfg)[0]
+
+
+def value_slot_specs(cfg: Graph4RecConfig) -> Tuple[emb.SlotSpec, ...]:
+    return _split_slot_specs(cfg)[1]
 
 
 def init_model_params(generator: torch.Generator, cfg: Graph4RecConfig) -> Dict[str, torch.Tensor]:
@@ -161,10 +166,12 @@ def loss_fn(params: Params, cfg: Graph4RecConfig, batch: Mapping) -> torch.Tenso
     slot_counts = batch.get("slot_counts")
     if "shared" in batch:
         # Shared-tower layout: encode the unique ego towers once, then
-        # gather per-pair embeddings by index (the encoder is row-independent)
+        # gather per-pair embeddings by index (the encoder is row-independent).
+        # F.embedding, not h_all[sel]: its backward sums repeated rows in
+        # parallel segments, deterministically (see embedding.table.lookup)
         h_all = encode(params, cfg, batch["shared"], slot_counts)
-        h_src = h_all[batch["src_sel"]]
-        h_dst = h_all[batch["dst_sel"]]
+        h_src = F.embedding(batch["src_sel"], h_all)
+        h_dst = F.embedding(batch["dst_sel"], h_all)
     else:
         h_src = encode(params, cfg, batch["src"], slot_counts)
         h_dst = encode(params, cfg, batch["dst"], slot_counts)

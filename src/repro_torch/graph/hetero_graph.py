@@ -17,8 +17,8 @@ Side information (paper §3.5 "configurable sparse features with multiple
 slots", variable length per node) is stored per slot as a ragged
 (indptr, values) pair.
 
-NumPy copy of ``repro.graph.hetero_graph`` for the PyTorch port; the
-dense padded-adjacency export of the fused device sampler is not here yet.
+NumPy copy of ``repro.graph.hetero_graph`` for the PyTorch port, the dense
+padded-adjacency export of the fused device sampler included.
 """
 from __future__ import annotations
 
@@ -26,6 +26,8 @@ import dataclasses
 from typing import Dict, List, Mapping, Optional, Tuple
 
 import numpy as np
+
+from repro_torch.utils.ragged import ragged_row_offsets
 
 DELIM = "2"  # the paper uses "2" as the triple delimiter
 
@@ -68,6 +70,12 @@ class CSR:
     @property
     def num_edges(self) -> int:
         return int(self.indices.shape[0])
+
+    def degrees(self) -> np.ndarray:
+        return np.diff(self.indptr)
+
+    def neighbors(self, node: int) -> np.ndarray:
+        return self.indices[self.indptr[node] : self.indptr[node + 1]]
 
 
 @dataclasses.dataclass
@@ -158,6 +166,9 @@ class HeteroGraph:
     def num_edges(self) -> int:
         return sum(csr.num_edges for csr in self.relations.values())
 
+    def degrees(self, relation: str) -> np.ndarray:
+        return self.relations[relation].degrees()
+
     # --------------------------------------------------------------- sampling
     def sample_neighbors(
         self,
@@ -185,6 +196,37 @@ class HeteroGraph:
             )
             out[has] = csr.indices[starts[has][:, None] + offs]
         return out
+
+    # ------------------------------------------------- dense device export
+    def padded_adjacency(
+        self, relation: str, max_degree: int, pad_id: int = -1, seed: int = 0
+    ) -> Tuple[np.ndarray, np.ndarray]:
+        """Fixed-width adjacency (num_nodes, max_degree) + clipped degrees.
+
+        The table of the fused device sampler: wide rows are truncated
+        (uniform subsample), short rows padded. Returns (adj, degree).
+
+        The subsample is keyed by ``[seed, node id]`` (the partition_rng
+        spawn-key idiom), so two builds with the same seed are bitwise
+        identical while the caller's seed still reaches every draw.
+        """
+        csr = self.relations[relation]
+        adj = np.full((self.num_nodes, max_degree), pad_id, dtype=np.int64)
+        degs = csr.degrees()
+        # rows that fit: one vectorized ragged-to-padded scatter
+        clipped = np.minimum(degs, max_degree).astype(np.int64)
+        starts = np.asarray(csr.indptr[:-1], dtype=np.int64)
+        if clipped.sum():
+            row_of, col = ragged_row_offsets(clipped)
+            adj[row_of, col] = csr.indices[starts[row_of] + col]
+        # over-wide rows: per-row uniform subsample without replacement,
+        # keyed by (seed, node id): stable across calls and derived from
+        # the caller's seed, never the node id alone
+        for v in np.flatnonzero(degs > max_degree):
+            adj[v] = np.random.default_rng([seed, int(v)]).choice(
+                csr.neighbors(v), max_degree, replace=False
+            )
+        return adj, clipped
 
 
 def _csr_from_pairs(num_nodes: int, src: np.ndarray, dst: np.ndarray) -> CSR:

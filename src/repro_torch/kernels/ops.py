@@ -1,7 +1,8 @@
 """Dispatcher for the port's kernels: the device decides the path.
 
 A CUDA tensor launches the hand-written kernel (``seg_aggr`` and its
-backward, ``topk``, ``inbatch_loss``, ``row_adagrad``) or raises: a build or
+backward, ``topk``, ``inbatch_loss``, ``row_adagrad``, ``window_pairs``) or
+raises: a build or
 launch failure is never caught to run the plain version instead. A CPU
 tensor runs the plain PyTorch version in ``kernels/ref``, which is what the
 CPU tests exercise. Any other device raises.
@@ -13,7 +14,8 @@ form ``(softmax - I) g / (P t)`` in plain tensor ops, as ``repro`` computes
 it in jnp outside its kernel (``repro/kernels/ops.py:_inbatch_bwd``).
 
 ``repro``'s opt-in flags (``HeteroGNNConfig.use_kernel_aggr``,
-``Graph4RecConfig.use_kernel_loss``, ``TrainerConfig.use_kernel_rowopt``)
+``Graph4RecConfig.use_kernel_loss``, ``TrainerConfig.use_kernel_rowopt``,
+``TrainerConfig.fused_use_kernel_pairs``)
 are kept in the port's config classes so configs stay interchangeable, but
 they select nothing here.
 """
@@ -29,6 +31,7 @@ from repro_torch.kernels.inbatch_loss import inbatch_loss_rows_cuda
 from repro_torch.kernels.row_adagrad import row_adagrad_scatter_cuda
 from repro_torch.kernels.seg_aggr import seg_aggr_bwd_cuda, seg_aggr_cuda
 from repro_torch.kernels.topk import streaming_topk_cuda
+from repro_torch.kernels.window_pairs import window_pair_ids_cuda
 
 
 def _route(t: torch.Tensor, what: str) -> bool:
@@ -142,3 +145,15 @@ def streaming_topk(
     if _route(queries, "streaming_topk"):
         return streaming_topk_cuda(queries, items, k, exclude)
     return ref.chunked_topk_ref(queries, items, k, exclude)
+
+
+# -------------------------------------------------------------- window pairs
+def window_pair_ids(paths: torch.Tensor,
+                    positions: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(B, L) walk paths, (npos, 2) (src_col, dst_col) table on the same
+    device -> ((B, npos) int32 src, (B, npos) int32 dst); pairs touching a
+    PAD node come back with BOTH sides PAD."""
+    if _route(paths, "window_pair_ids"):
+        return window_pair_ids_cuda(paths.to(torch.int32).contiguous(),
+                                    positions.to(torch.int32).contiguous())
+    return ref.window_pair_ids_ref(paths, positions)

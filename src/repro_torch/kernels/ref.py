@@ -99,6 +99,24 @@ def row_adagrad_scatter_ref(
     accum[rows] = acc
 
 
+# -------------------------------------------------------------- window pairs
+def window_pair_ids_ref(
+    paths: torch.Tensor,  # (B, L) int paths, PAD = -1
+    positions: torch.Tensor,  # (npos, 2) int (src_col, dst_col) table
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Skip-gram pair gather -> ((B, npos) int32 src, (B, npos) int32 dst).
+
+    Mirrors ``repro/kernels/ref.py:window_pair_ids_ref``: both ids are PAD
+    wherever either endpoint is PAD.
+    """
+    pos = positions.to(device=paths.device, dtype=torch.int64).reshape(-1, 2)
+    paths = paths.to(torch.int32)
+    src, dst = paths[:, pos[:, 0]], paths[:, pos[:, 1]]
+    valid = (src != -1) & (dst != -1)
+    pad = torch.full_like(src, -1)
+    return torch.where(valid, src, pad), torch.where(valid, dst, pad)
+
+
 # ----------------------------------------------------------------- topk MIPS
 def chunked_topk_ref(
     queries: torch.Tensor,  # (Q, d)

@@ -13,7 +13,8 @@ next round, never dropped.
 
 A copy of the host half of ``repro.sampling.pipeline``: it draws the same
 ``np.random.Generator`` stream, so batches are bitwise equal to ``repro``'s
-from one seed. ``make_train_sampler`` takes only the host backend.
+from one seed. ``make_train_sampler`` also builds the fused device sampler
+(``sampling/fused.py``).
 """
 from __future__ import annotations
 
@@ -87,23 +88,35 @@ def make_train_sampler(
     config: "PipelineConfig",
     backend: str = "host",
     seed: int = 0,
+    value_slots=(),
+    bag_slots=(),
+    fused_cfg=None,
+    bag_counts=None,
     timer=None,
+    device=None,
 ):
     """Sampling-backend factory for the trainer.
 
     ``backend="host"`` returns the streaming ``SamplePipeline`` over the
     given engine (HeteroGraph or DistributedGraphEngine), seeded by
-    ``seed``. ``timer`` (anything with a ``phase(name)`` context manager)
-    records the pipeline's sampling cost under the "sample" phase.
-    ``backend="fused"`` (walk, pair and ego on the device) is not ported
-    yet: ROADMAP Queue 1, item 4.
+    ``seed``; ``timer`` (anything with a ``phase(name)`` context manager)
+    records its sampling cost under the "sample" phase. ``backend="fused"``
+    returns a ``sampling.fused.FusedSampler`` over the engine's graph with
+    its tables on ``device``: walk, pair and ego as device ops. Callers
+    gate it with ``fused.fused_eligibility`` first (the trainer does, and
+    falls back to "host" with a warning). ``seed`` reaches both backends:
+    the host stream and the fused build-time adjacency subsample.
     """
     if backend == "host":
         return SamplePipeline(engine, config, seed=seed, timer=timer)
     if backend == "fused":
-        raise NotImplementedError(
-            "the fused on-device sampler is not ported yet (ROADMAP Queue 1, "
-            "item 4); use backend='host'"
+        from repro_torch.sampling.fused import FusedConfig, FusedSampler
+
+        graph = engine.graph if hasattr(engine, "graph") else engine
+        return FusedSampler(
+            graph, config, value_slots=value_slots, bag_slots=bag_slots,
+            fused=fused_cfg if fused_cfg is not None else FusedConfig(),
+            bag_counts=bag_counts, seed=seed, device=device,
         )
     raise ValueError(f"unknown sampling backend {backend!r}")
 

@@ -1,7 +1,7 @@
-"""Graph4Rec trainer on a CUDA card: host walk → pair → ego batches through a
+"""Graph4Rec trainer on a CUDA card: walk → pair → ego batches through a
 grad step, with the sparse/dense optimizer split and recall evaluation.
 
-The port of ``repro.train.trainer`` for the host sampling backend:
+The port of ``repro.train.trainer``, for both sampling backends:
 
 - **Batches.** ``SamplePipeline`` (numpy, the same stream as ``repro``'s)
   feeds ``host_batch`` / ``sparse_host_batch``, in a named background
@@ -23,15 +23,25 @@ The port of ``repro.train.trainer`` for the host sampling backend:
   host sync inside the step raises. Losses stay on the device and are read
   back in windows by asynchronous copies into pinned memory, resolved a
   window later.
+- **Fused step** (``sampling_backend="fused"``): the batch is sampled on
+  the device inside the step (``sampling.fused.FusedSampler``: walk, the
+  ``window_pairs`` kernel, ego gathers) from draws of one device
+  ``torch.Generator`` seeded by ``cfg.seed``, then the dense step runs on
+  it, as ``repro``'s fused step uses the dense full-table rule. No
+  prefetcher and no stager: there is no host batch. A graph whose padded
+  tables exceed ``fused_budget_mb`` (estimated, then measured) falls back
+  to the host pipeline with a logged warning.
 - ``prefetch_batches=None`` lets a short calibration (host batch cost, step
-  time, queue handoff) choose serial or prefetch, as ``repro`` does.
+  time, queue handoff) choose serial or prefetch, and
+  ``sampling_backend="auto"`` adds the fused step's time to choose the
+  backend, as ``repro`` does.
 
 Not ported (each raises ``NotImplementedError`` naming its ROADMAP item):
-the mp graph service (``engine_backend="mp"``, Queue 1 item 5), the fused
-device sampler (``sampling_backend`` "fused"/"auto", item 4), and the
-observability hooks (``telemetry``, ``health``, ``attribution``, item 6).
-``use_kernel_aggr`` and ``use_kernel_rowopt`` are kept for config parity and
-select nothing: on the card the kernels always run.
+the mp graph service (``engine_backend="mp"``, Queue 1 item 5), IVF
+evaluation (``eval_method="ivf"``, item 3) and the observability hooks
+(``telemetry``, ``health``, ``attribution``, item 6). ``use_kernel_aggr``,
+``use_kernel_rowopt`` and ``fused_use_kernel_pairs`` are kept for config
+parity and select nothing: on the card the kernels always run.
 """
 from __future__ import annotations
 
@@ -54,6 +64,7 @@ from repro_torch.embedding import optimizer as emb_opt
 from repro_torch.embedding import table as emb
 from repro_torch.graph.generator import RecsysDataset
 from repro_torch.infer import embed_all_nodes
+from repro_torch.sampling.fused import FusedConfig, FusedDraws, fused_eligibility
 from repro_torch.sampling.pipeline import PipelineConfig, SamplePipeline, make_train_sampler
 from repro_torch.train import optimizer as opt_lib
 
@@ -96,11 +107,11 @@ class TrainerConfig:
     num_engine_workers: int = 0
     num_engine_partitions: int = 4
     engine_local_threshold: int = 8192
-    sampling_backend: str = "host"  # host ("fused"/"auto" are not ported)
+    sampling_backend: str = "host"  # host | fused | auto (calibration decides)
     fused_max_degree: int = 32
     fused_budget_mb: float = 256.0
     fused_oversample: float = 2.0
-    fused_use_kernel_pairs: bool = True
+    fused_use_kernel_pairs: bool = True  # kept for config parity; unused
     # every step dispatch under torch.cuda.set_sync_debug_mode("error")
     sanitize_transfers: bool = True
     attribution: bool = False
@@ -126,11 +137,7 @@ def _not_ported(cfg: TrainerConfig) -> None:
             "yet: ROADMAP Queue 1, item 5")
     if cfg.engine_backend != "inproc":
         raise ValueError(f"unknown engine_backend {cfg.engine_backend!r}")
-    if cfg.sampling_backend in ("fused", "auto"):
-        raise NotImplementedError(
-            f"sampling_backend={cfg.sampling_backend!r} (the fused device sampler) "
-            "is not ported yet: ROADMAP Queue 1, item 4")
-    if cfg.sampling_backend != "host":
+    if cfg.sampling_backend not in ("host", "fused", "auto"):
         raise ValueError(f"unknown sampling_backend {cfg.sampling_backend!r}")
     for name in ("telemetry", "health"):
         if getattr(cfg, name) is not None:
@@ -373,8 +380,51 @@ class Graph4RecTrainer:
             if model_lib.bag_slot_specs(model_cfg) and not self._sparse_on else None
         )
         self._plan: Optional[Dict] = None
+        # the fused sampler: built now for "fused" (or the host fallback
+        # with a warning), lazily by the calibration for "auto"
+        self._fused_sampler = None
+        self._fused_measured_bytes: Optional[int] = None
+        if cfg.sampling_backend == "fused":
+            ok, why = self._build_fused()
+            if ok:
+                log.info("fused sampling backend active (%s)", why)
+            else:
+                log.warning("sampling_backend='fused' ineligible: %s; falling back "
+                            "to the host pipeline", why)
         self._train_pairs = np.concatenate(
             [np.stack([u, i], 1) for (u, i) in dataset.train_edges.values()], axis=0)
+
+    def _build_fused(self) -> Tuple[bool, str]:
+        """Build the fused sampler if the graph passes the memory gate, on
+        the estimate and then on the measured bytes. Idempotent; returns
+        (built, reason)."""
+        if self._fused_sampler is not None:
+            return True, "already built"
+        cfg = self.cfg
+        fused_cfg = FusedConfig(max_degree=cfg.fused_max_degree, budget_mb=cfg.fused_budget_mb,
+                                oversample=cfg.fused_oversample)
+        graph = self.dataset.graph
+        bspecs = model_lib.bag_slot_specs(self.model_cfg)
+        vspecs = model_lib.value_slot_specs(self.model_cfg)
+        ok, why = fused_eligibility(graph, self.pipe_cfg, vspecs, bspecs, fused_cfg)
+        if not ok:
+            return False, why
+        sampler = make_train_sampler(
+            graph, self.pipe_cfg, backend="fused", seed=cfg.seed, value_slots=vspecs,
+            bag_slots=bspecs, fused_cfg=fused_cfg, device=self.device,
+            bag_counts=(model_lib.slot_count_arrays(graph, self.model_cfg, self.device)
+                        if bspecs else None),
+        )
+        # the estimate admitted it; re-gate on the bytes actually resident
+        measured = sampler.device_table_bytes()
+        self._fused_measured_bytes = measured
+        ok, why = fused_eligibility(graph, self.pipe_cfg, vspecs, bspecs, fused_cfg,
+                                    measured_bytes=measured)
+        log.info("fused eligibility: %s (measured %.1f MiB, budget %.1f MiB)",
+                 why, measured / (1 << 20), cfg.fused_budget_mb)
+        if ok:
+            self._fused_sampler = sampler
+        return ok, why
 
     # ---------------------------------------------------------- parameters
     def init_params(self, flat: Optional[Mapping[str, np.ndarray]] = None) -> Params:
@@ -434,6 +484,11 @@ class Graph4RecTrainer:
         params = {**dense_p, **sparse_p, **new_touched}
         return params, (row_state, dense_state), loss.detach()
 
+    def _fused_step(self, params: Params, opt_state, draws: FusedDraws):
+        """The batch sampled on the device from ``draws``, then the dense
+        full-table step on it (``repro``'s fused step uses the dense rule)."""
+        return self._dense_step(params, opt_state, self._fused_sampler.sample_from(draws))
+
     def _init_opt_state(self, params: Params):
         if not self._sparse_on:
             return self.opt.init(params)
@@ -455,6 +510,14 @@ class Graph4RecTrainer:
                 host = model_lib.host_batch(self.dataset.graph, batch, self.model_cfg,
                                             slot_counts=self._slot_counts)
             yield host, len(batch.src_ids)
+
+    def _fused_batch_iter(self) -> Iterator[Tuple[FusedDraws, int]]:
+        """The fused run's batch stream: each step's draws, taken when the
+        step comes from one device generator seeded by ``cfg.seed``."""
+        gen = torch.Generator(device=self.device).manual_seed(self.cfg.seed)
+        npairs = self.pipe_cfg.batch_pairs
+        for _ in range(self.cfg.num_steps):
+            yield self._fused_sampler.draw(gen), npairs
 
     def _barrier(self) -> None:
         if self.device.type == "cuda":
@@ -507,37 +570,78 @@ class Graph4RecTrainer:
             step_fn(p, st, dev)
             self._barrier()
             step_times.append(time.perf_counter() - t0)
-        return {"host_batch_s": host_s, "step_s": _median(step_times[1:]),
-                "handoff_s": measure_handoff_overhead()}
+        meas: Dict = {"host_batch_s": host_s, "step_s": _median(step_times[1:]),
+                      "handoff_s": measure_handoff_overhead()}
+        if cfg.sampling_backend == "auto":
+            ok, why = self._build_fused()
+            if ok:
+                # its own same-seed generator: the run's stream is untouched
+                gen = torch.Generator(device=self.device).manual_seed(cfg.seed)
+                fused_times: List[float] = []
+                for _ in range(n):
+                    p = {k: v.clone() for k, v in params.items()}
+                    st = self.opt.init(p)
+                    self._barrier()
+                    t0 = time.perf_counter()
+                    self._fused_step(p, st, self._fused_sampler.draw(gen))
+                    self._barrier()
+                    fused_times.append(time.perf_counter() - t0)
+                meas["fused_step_s"] = _median(fused_times[1:])
+            else:
+                meas["fused_ineligible"] = why
+        return meas
 
     def _resolve_plan(self, params: Params) -> Dict:
-        """Serial vs prefetch: an explicit ``prefetch_batches`` wins; None is
-        decided by calibration (or depth 2 when it is off or the run is too
-        short to calibrate). Cached per trainer."""
+        """The run's plan: sampling backend and prefetch depth. Explicit
+        settings win; "auto" knobs are decided by calibration (or legacy
+        defaults when it is off or the run is too short to calibrate).
+        Cached per trainer."""
         if self._plan is not None:
             return self._plan
         cfg = self.cfg
-        plan: Dict = {"engine_backend": cfg.engine_backend, "sampling": "host",
-                      "calibrated": False}
-        auto = cfg.prefetch_batches is None
-        if not (auto and cfg.auto_backend and cfg.num_steps >= cfg.calibrate_min_steps):
-            plan["prefetch"] = 2 if auto else cfg.prefetch_batches
+        auto_prefetch = cfg.prefetch_batches is None
+        auto_sampling = cfg.sampling_backend == "auto"
+        plan: Dict = {"engine_backend": cfg.engine_backend, "calibrated": False}
+        calibrate = (cfg.auto_backend and (auto_prefetch or auto_sampling)
+                     and cfg.num_steps >= cfg.calibrate_min_steps)
+        if not calibrate:
+            plan["sampling"] = ("fused" if self._fused_sampler is not None
+                                and cfg.sampling_backend == "fused" else "host")
+            plan["prefetch"] = (0 if plan["sampling"] == "fused"
+                                else (2 if auto_prefetch else cfg.prefetch_batches))
             plan["reason"] = (
-                "explicit settings" if not auto
+                "explicit settings" if not (auto_prefetch or auto_sampling)
                 else "auto_backend off" if not cfg.auto_backend
                 else f"run too short to calibrate (num_steps={cfg.num_steps} < "
                      f"{cfg.calibrate_min_steps}); legacy defaults")
+            plan["fused_measured_bytes"] = self._fused_measured_bytes
             self._plan = plan
             return plan
         meas = self._calibrate(params)
         plan["calibrated"] = True
-        plan["measurements"] = {k: round(v, 6) for k, v in meas.items()}
+        plan["measurements"] = {k: round(v, 6) if isinstance(v, float) else v
+                                for k, v in meas.items()}
         host_s, step_s, handoff_s = meas["host_batch_s"], meas["step_s"], meas["handoff_s"]
         # prefetch pays only on a clear (>10%) predicted win: the pipelined
         # step is bounded by the slower side plus the handoff
         serial_est = host_s + step_s
         prefetch_est = max(host_s, step_s) + handoff_s
-        if serial_est > 1.1 * prefetch_est:
+        host_est = min(serial_est, prefetch_est)
+        sampling = "host" if auto_sampling else cfg.sampling_backend
+        if auto_sampling and meas.get("fused_step_s", float("inf")) < host_est:
+            sampling = "fused"
+        if sampling == "fused" and self._fused_sampler is None:
+            sampling = "host"  # an explicit "fused" that failed the memory gate
+        plan["sampling"] = sampling
+        if sampling == "fused":
+            plan["prefetch"] = 0
+            plan["reason"] = (
+                f"fused step {meas.get('fused_step_s', 0.0) * 1e3:.2f}ms < host pipeline "
+                f"est {host_est * 1e3:.2f}ms" if auto_sampling else "explicit fused sampling")
+        elif not auto_prefetch:
+            plan["prefetch"] = cfg.prefetch_batches
+            plan["reason"] = "explicit prefetch_batches"
+        elif serial_est > 1.1 * prefetch_est:
             plan["prefetch"] = 2
             plan["reason"] = (
                 f"prefetch: serial est {serial_est * 1e3:.2f}ms > 1.1x pipelined est "
@@ -549,6 +653,7 @@ class Graph4RecTrainer:
                 f"serial: pipelining would save <10% (serial est {serial_est * 1e3:.2f}ms "
                 f"vs pipelined est {prefetch_est * 1e3:.2f}ms)")
         log.info("backend plan: %s", plan["reason"])
+        plan["fused_measured_bytes"] = self._fused_measured_bytes
         self._plan = plan
         return plan
 
@@ -576,8 +681,13 @@ class Graph4RecTrainer:
         cfg = self.cfg
         params = self._device_params(params)
         plan = self._resolve_plan(params)
-        opt_state = self._init_opt_state(params)
-        step_fn = self._step_fn()
+        use_fused = plan["sampling"] == "fused"
+        if use_fused:
+            opt_state = self.opt.init(params)
+            step_fn = self._fused_step
+        else:
+            opt_state = self._init_opt_state(params)
+            step_fn = self._step_fn()
         loss_hist: List[torch.Tensor] = []  # in-flight on-device tail
         losses: List[float] = []
         pending: List[_LossWindow] = []  # started readbacks, FIFO
@@ -585,12 +695,16 @@ class Graph4RecTrainer:
         drain_tail = max(1, depth + 1)
         evals: List[Dict[str, float]] = []
         pairs_seen = 0
-        pipeline = make_train_sampler(self.engine, self.pipe_cfg, backend="host",
-                                      seed=cfg.seed)
-        host_iter: Iterator = self._host_batches(pipeline, cfg.num_steps)
-        prefetcher = _Prefetcher(host_iter, depth) if depth > 0 else None
-        batch_iter = _staged_batches(prefetcher if prefetcher is not None else host_iter,
-                                     self.device, double_buffer=depth > 0)
+        prefetcher: Optional[_Prefetcher] = None
+        if use_fused:
+            batch_iter: Iterator = self._fused_batch_iter()
+        else:
+            pipeline = make_train_sampler(self.engine, self.pipe_cfg, backend="host",
+                                          seed=cfg.seed)
+            host_iter: Iterator = self._host_batches(pipeline, cfg.num_steps)
+            prefetcher = _Prefetcher(host_iter, depth) if depth > 0 else None
+            batch_iter = _staged_batches(prefetcher if prefetcher is not None else host_iter,
+                                         self.device, double_buffer=depth > 0)
         t0 = time.perf_counter()
         try:
             for step, (dev, npairs) in enumerate(batch_iter):

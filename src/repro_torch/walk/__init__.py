@@ -1,1 +1,3 @@
-from repro_torch.walk.metapath import WalkConfig, MetapathWalker, parse_metapath
+from repro_torch.walk.metapath import (
+    WalkConfig, MetapathWalker, parse_metapath, walk_from_bits, walk_multi_from_bits,
+)

@@ -6,11 +6,17 @@ requested walk length is reached (metapath2vec semantics). Multiple metapaths
 may be given ("multi-metapaths random walk"): each walk draws one of them.
 A homogeneous random walk (DeepWalk) is the degenerate metapath ``"u2u - u2u"``.
 
-A copy of the numpy part of ``repro.walk.metapath`` (``parse_metapath``,
-``WalkConfig``, ``MetapathWalker``): it draws the same ``np.random.Generator``
-stream, so walks are bitwise equal to ``repro``'s from one seed. The jittable
-``jax_walk``/``jax_walk_multi`` belong to the fused device sampler, which is
-not ported yet (ROADMAP Queue 1, item 4).
+Two implementations, as in ``repro.walk.metapath``:
+
+- ``MetapathWalker``, a copy of the numpy walker: it draws the same
+  ``np.random.Generator`` stream, so walks are bitwise equal to ``repro``'s
+  from one seed.
+- ``walk_multi_from_bits`` / ``walk_from_bits``, the device walker of the
+  fused sampler (``sampling/fused.py``), the counterparts of ``jax_walk_multi``
+  / ``jax_walk``. The random draw is split from the walk: the walk is a pure
+  function of a ``(walk_len - 1, B)`` tensor of integers in ``[0, 2**32)``,
+  held as int64, so ``bits % max(deg, 1)`` is JAX's uint32 modulo and the
+  tests can feed it the very bits ``repro`` draws.
 """
 from __future__ import annotations
 
@@ -18,6 +24,7 @@ import dataclasses
 from typing import List, Sequence, Tuple
 
 import numpy as np
+import torch
 
 from repro_torch.graph.engine import engine_sample_many
 from repro_torch.graph.hetero_graph import Relation
@@ -137,3 +144,55 @@ class MetapathWalker:
             np.arange(len(self.paths), dtype=np.int64), np.asarray(counts, dtype=np.int64)
         )
         return self._walk_batched(rng, np.concatenate(starts), path_of)
+
+
+# ------------------------------------------------------------------- device
+def walk_multi_from_bits(
+    bits: torch.Tensor,  # (max(walk_len - 1, 1), B) int64 in [0, 2**32)
+    adj: torch.Tensor,  # (R, num_nodes, max_degree) padded adjacency per relation
+    degree: torch.Tensor,  # (R, num_nodes)
+    starts: torch.Tensor,  # (B,)
+    sched: torch.Tensor,  # (num_paths, walk_len - 1) relation id per step
+    path_of: torch.Tensor,  # (B,) metapath index of each walk
+    walk_len: int,
+) -> torch.Tensor:
+    """Multi-metapath random walk on the device -> (B, walk_len) int64.
+
+    Each walk ``b`` follows its own metapath ``path_of[b]``: at step ``t`` it
+    takes neighbor ``bits[t - 1, b] % max(deg, 1)`` under relation
+    ``sched[path_of[b], t - 1]`` of the stacked padded adjacency. Dead ends
+    self-loop and are masked to PAD in the output, so PAD is suffix-only,
+    matching ``MetapathWalker``. A PAD (or degree-0) start emits PAD from
+    step 1 on. ``walk_len`` is small and static: a Python loop over the
+    steps, as ``repro`` unrolls its scan.
+    """
+    starts = starts.to(torch.int64)
+    step_rels = sched[path_of].T.to(torch.int64)  # (walk_len - 1, B)
+    cur = starts.clamp(min=0)
+    alive = starts >= 0
+    cols = [starts]
+    for t in range(walk_len - 1):
+        rel = step_rels[t]
+        deg = degree[rel, cur].to(torch.int64)
+        off = bits[t] % deg.clamp(min=1)
+        nxt = adj[rel, cur, off].to(torch.int64)
+        alive = alive & (deg > 0)
+        cur = torch.where(alive, nxt, cur)
+        cols.append(torch.where(alive, nxt, PAD))
+    return torch.stack(cols, dim=1)
+
+
+def walk_from_bits(
+    bits: torch.Tensor,  # (max(walk_len - 1, 1), B) int64 in [0, 2**32)
+    adj: torch.Tensor,  # (num_nodes, max_degree) padded adjacency of ONE relation chain
+    degree: torch.Tensor,  # (num_nodes,)
+    starts: torch.Tensor,  # (B,)
+    walk_len: int,
+) -> torch.Tensor:
+    """Homogeneous (or relation-collapsed) walk: the single-relation case
+    of ``walk_multi_from_bits``, as ``jax_walk`` is of ``jax_walk_multi``."""
+    B = starts.shape[0]
+    sched = torch.zeros((1, max(walk_len - 1, 1)), dtype=torch.int64, device=starts.device)
+    path_of = torch.zeros((B,), dtype=torch.int64, device=starts.device)
+    return walk_multi_from_bits(bits, adj[None], degree[None], starts, sched, path_of,
+                                walk_len)

@@ -49,6 +49,7 @@ def test_entry_modules_load_no_jax():
         "import repro_torch, repro_torch.core, repro_torch.infer, repro_torch.retrieval\n"
         "import repro_torch.convert, repro_torch.kernels.ops, recall_torch\n"
         "import repro_torch.train, repro_torch.walk, repro_torch.sampling, train_torch\n"
+        "import repro_torch.sampling.fused, repro_torch.kernels.window_pairs\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
         "assert not bad, bad\n"
     )

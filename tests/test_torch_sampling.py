@@ -151,11 +151,6 @@ def test_walk_only_pipeline_bitwise(both):
         _assert_batches_equal(a, b)
 
 
-def test_fused_backend_is_not_ported(both):
-    with pytest.raises(NotImplementedError, match="Queue 1, item 4"):
-        make_train_sampler(both[1].graph, _pipes()[1], backend="fused")
-
-
 # ----------------------------------------------------------- unique ids
 @pytest.mark.parametrize("bucket", [0, 8, 64])
 def test_unique_pad_ids_and_remap_bitwise(bucket):

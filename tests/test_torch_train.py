@@ -290,8 +290,7 @@ def test_checkpoint_loads_in_repro(both, tmp_path):
 
 
 @pytest.mark.parametrize("override,match", [
-    (dict(engine_backend="mp"), "item 5"), (dict(sampling_backend="fused"), "item 4"),
-    (dict(sampling_backend="auto"), "item 4"), (dict(telemetry=object()), "item 6"),
+    (dict(engine_backend="mp"), "item 5"), (dict(telemetry=object()), "item 6"),
     (dict(health=object()), "item 6"), (dict(attribution=True), "item 6"),
     (dict(eval_method="ivf"), "item 3"),
 ])
