@@ -18,6 +18,18 @@ nothing of JAX or of the JAX package ``repro``. Phases, each failing loudly:
    after, and the inputs of every kernel call are recorded. Device recall is
    then held against the numpy brute-force oracle (1e-3 on every metric) and
    a small graph's embeddings against the CPU path;
+3b. IVF serving, through the same ``run`` with ``--method ivf`` (nlist 64,
+   nprobe 8): recall on an int8 IVF index per corpus, whose shortlist is the
+   ``ivf_list_topk`` kernel (launches zeroed before, read after, every call
+   recorded); then, on the serving phase's embeddings with 1,000 users, IVF
+   at nprobe == nlist held against the brute force (1e-3 on every metric)
+   and the default nprobe reported beside it; U2I search rates of IVF and
+   the exact ``topk`` kernel back to back, and the IVF search's time split
+   (centroid probe, kernel, re-rank, host);
+3c. the 1M-item arm of ``benchmarks/bench_recall.py`` (its clustered
+   corpus, d 32, nlist 2048, nprobe 12, k 100, 16 exclusions, 512 queries):
+   build seconds, lpad, spilled items, Recall@100 against the exact
+   ``topk`` kernel, IVF and exact queries/s back to back, the time split;
 4. the training path, through ``examples/train_torch.py``'s ``run``: the same
    model on UB for 200 sparse steps (``sparse_min_rows=0``: the PS-style
    gather -> step -> scatter update) of 512 pairs, in-batch softmax loss,
@@ -43,10 +55,12 @@ nothing of JAX or of the JAX package ``repro``. Phases, each failing loudly:
    two same-seed fused card runs;
 7. kernel phases: each kernel against its plain PyTorch version on the card,
    on the recorded inputs of the main paths (``seg_aggr``: of all three;
-   ``window_pairs``: every call, exactly), then (``seg_aggr``, ``topk``,
+   ``window_pairs``: every call, exactly; ``ivf_list_topk``: every call of
+   the three IVF runs, rows exactly), then (``seg_aggr``, ``topk``,
    ``window_pairs``) at synthetic shapes; one JSON line per shape with the
-   kernel's device time, the plain version's, one library call's and the
-   card's bound;
+   kernel's device time, the plain version's, one library call's (for
+   ``ivf_list_topk`` none; the plain version with ``torch.topk`` as a
+   yardstick) and the card's bound;
 8. a summary line of the end-to-end numbers, a ``kernels`` JSON line (times
    from each main path's largest call of each kernel), the card's name and
    power limit, then ``{"ok": true, ...}`` last.
@@ -55,6 +69,8 @@ from __future__ import annotations
 
 import collections
 import contextlib
+import dataclasses
+import gc
 import json
 import os
 import subprocess
@@ -66,10 +82,12 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 FP32_FLOP_PER_S = 67e12  # H100 SXM data sheet, non-tensor-core f32
 RTOL, ATOL = 1e-5, 1e-6  # kernel vs plain version: the two sum in other orders
 TOPK_TIE_TOL = 1e-5  # ids may differ only inside score near-ties this wide
-RECALL_TOL = 1e-3  # device vs brute-force recall, every metric
+RECALL_TOL = 1e-3  # device (and IVF at nprobe == nlist) vs brute-force recall, every metric
+IVF_RTOL, IVF_ATOL = 2e-5, 1e-4  # ivf_list_topk vs plain: repro's own kernel tolerance
 TRAJ_RTOL, TRAJ_ATOL = 1e-4, 1e-4  # card vs CPU: 12 steps of f32 updates, other orders
 KEEP_CALLS = 3  # training calls recorded per kernel and shape
 WARM_S = 0.05  # seconds of back-to-back calls before each timing
+T0 = time.perf_counter()
 
 
 def fail(msg: str) -> None:
@@ -78,7 +96,8 @@ def fail(msg: str) -> None:
 
 
 def emit(obj) -> None:
-    print(json.dumps(obj), flush=True)
+    """One JSON line, stamped with the seconds since the script started."""
+    print(json.dumps(dict(obj, t_s=round(time.perf_counter() - T0, 1))), flush=True)
 
 
 def measure(fn, iters: int, warmup: int = 2) -> dict:
@@ -110,15 +129,20 @@ def measure(fn, iters: int, warmup: int = 2) -> dict:
     stop.record()
     torch.cuda.synchronize()
     call_ms = start.elapsed_time(stop) / iters
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    dev_us = sum(e.self_device_time_total for e in prof.key_averages()
-                 if e.device_type == torch.autograd.DeviceType.CUDA)
-    if dev_us <= 0:
-        fail("torch.profiler saw no device time: CUPTI tracing is not working")
-    return {"call_ms": call_ms, "device_ms": dev_us / iters / 1e3}
+    for attempt in range(2):  # CUPTI has dropped a whole profile's device records
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        events = prof.key_averages()
+        dev_us = sum(e.self_device_time_total for e in events
+                     if e.device_type == torch.autograd.DeviceType.CUDA)
+        if dev_us > 0:
+            return {"call_ms": call_ms, "device_ms": dev_us / iters / 1e3}
+        print(f"chip_smoke: profile {attempt + 1} saw no device time ({len(events)} "
+              f"op kinds, {torch.cuda.memory_reserved() / 2**30:.2f} GiB reserved)",
+              file=sys.stderr, flush=True)
+    fail("torch.profiler saw no device time: CUPTI tracing is not working")
 
 
 def sm_clocks() -> str:
@@ -366,7 +390,316 @@ def main_path(torch, np, modules) -> dict:
         "toy_card_vs_cpu_max_diff": float(np.abs(e_gpu - e_cpu).max()),
     }
     emit(out)
+    return dict(out, calls=calls, embeddings=emb, bruteforce=bf)
+
+
+# -------------------------------------------------------------- IVF serving
+def clustered_corpus(np, rng, I: int, Q: int, d: int = 32):
+    """Mixture-of-gaussians item table + queries near the same centers (a
+    copy of ``benchmarks/bench_recall.py:clustered_corpus``)."""
+    C = int(max(16, min(1024, I // 2048)))
+    centers = rng.normal(size=(C, d)).astype(np.float32) * 3.0
+    it = (centers[rng.integers(0, C, I)]
+          + rng.normal(size=(I, d)).astype(np.float32))
+    q = (centers[rng.integers(0, C, Q)]
+         + 0.5 * rng.normal(size=(Q, d)).astype(np.float32))
+    return it, q
+
+
+def _zero(modules) -> None:
+    """Every kernel wrapper's launch counts to 0."""
+    for m in modules.values():
+        m.launches = 0
+    modules["seg_aggr"].bwd_launches = 0
+
+
+def _u2i_queries(np, ds, train):
+    """U2I's queries as ``evaluate_recall`` makes them: every held-out user
+    with a training history, and that history as the exclusion rows."""
+    from repro_torch.retrieval import pad_id_rows
+
+    hist = {}
+    for u, i in train:
+        hist.setdefault(int(u), []).append(int(i))
+    users = sorted({int(u) for u in ds.test_pairs[:, 0]} & hist.keys())
+    return np.array(users), pad_id_rows([np.unique(hist[u]) for u in users])
+
+
+def _interleaved(torch, fns: dict, reps: int) -> dict:
+    """Host seconds per call of each fn, run in turns (a, b, b, a, ...),
+    each ending in a host copy of its result; the median of each and of the
+    per-turn ratios."""
+    times = {n: [] for n in fns}
+    names = list(fns)
+    for r in range(reps):
+        for n in (names if r % 2 == 0 else names[::-1]):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fns[n]()
+            times[n].append(time.perf_counter() - t0)
+
+    def median(xs):
+        return sorted(xs)[len(xs) // 2]
+
+    a, b = names
+    return {"s": {n: median(t) for n, t in times.items()},
+            "ratio": median([x / y for x, y in zip(times[a], times[b])])}
+
+
+def ivf_split(torch, index, q, ex, k: int, reps: int = 15) -> dict:
+    """Where one IVF search's time goes (median of ``reps``): CUDA events
+    around its device stages (the centroid probe; the ``ivf_list_topk``
+    kernel; ids, exclusion and the exact re-rank), each the device
+    timeline's span from one stage's first enqueued op to the next's, and
+    the host clock around the whole search, uploads and the result copy
+    included; ``host_ms`` is the wall less the three spans."""
+    from repro_torch.kernels import ops
+    from repro_torch.retrieval import ivf as tivf
+
+    plan, dev = index.plan(k, len(q), ex.shape[1]), index._dev
+    if plan["block"] < len(q):
+        fail(f"ivf_split wants one search block; the plan splits {len(q)} queries")
+    spans = {"probe_ms": [], "kernel_ms": [], "rerank_ms": [], "wall_ms": []}
+    for _ in range(reps):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        dq, dex = tivf.to_device(q, index.device), tivf.to_device(ex, index.device)
+        ev[0].record()
+        starts, lens = tivf._probe(dq, dev["centroids"], dev["offsets"], plan["nprobe"])
+        ev[1].record()
+        s, rows = ops.ivf_list_topk(dq, dev["codes"], dev["scales"], starts, lens,
+                                    lpad=index.lpad, shortlist=plan["shortlist"])
+        ev[2].record()
+        s, ids = tivf._to_ids(s, rows, dex, dev["order"])
+        bs, bi = tivf._rerank_exact_device(dq, s, ids, dev["items"], k=plan["k"])
+        ev[3].record()
+        bs.cpu(), bi.cpu()
+        spans["wall_ms"].append((time.perf_counter() - t0) * 1e3)
+        for name, a in (("probe_ms", 0), ("kernel_ms", 1), ("rerank_ms", 2)):
+            spans[name].append(ev[a].elapsed_time(ev[a + 1]))
+    out = {n: sorted(v)[len(v) // 2] for n, v in spans.items()}
+    out["host_ms"] = out["wall_ms"] - out["probe_ms"] - out["kernel_ms"] - out["rerank_ms"]
+    return out
+
+
+def ivf_serving_path(torch, np, modules, mp) -> dict:
+    """UB recall on an IVF index through ``recall_torch.run(--method ivf)``;
+    IVF at full probing against brute force on the serving phase's
+    embeddings; U2I search rates, IVF and exact, back to back."""
+    import recall_torch
+    from repro_torch.core.recall import _normalize, evaluate_recall
+    from repro_torch.kernels import ops
+    from repro_torch.retrieval import IVFConfig, IVFIndex, chunked_topk
+
+    args = recall_torch.parser().parse_args(
+        ["--dataset", "ub", "--model", "lightgcn", "--dim", "64", "--side-info",
+         "--seed", "0", "--batch-size", "1024", "--method", "ivf"])
+    calls = {"ivf serving": [], "ivf exhaustive": []}
+    with recording(ops, "ivf_list_topk", calls["ivf serving"]):
+        _zero(modules)
+        res = recall_torch.run(args)
+        torch.cuda.synchronize()
+        launches = {n: m.launches for n, m in modules.items()}
+    if launches["ivf_list_topk"] == 0:
+        fail("the IVF serving path launched no ivf_list_topk kernel")
+    ds, emb = res["dataset"], res["embeddings"]
+    train = recall_torch.train_pairs(ds)
+    cfg = res["ivf"]
+    # the run's two indexes again (the build is deterministic), for their
+    # sizes and the U2I search rates
+    ue, ie = (_normalize(x) for x in (emb[: ds.num_users],
+                                      emb[ds.num_users : ds.num_users + ds.num_items]))
+    idx = {"item": IVFIndex.build(ie, cfg), "user": IVFIndex.build(ue, cfg)}
+    users, seen = _u2i_queries(np, ds, train)
+    rates = _interleaved(torch, {
+        "ivf": lambda: idx["item"].search(ue[users], 100, exclude=seen),
+        "exact": lambda: chunked_topk(ue[users], ie, 100, exclude=seen, device="cuda")}, 7)
+    split = ivf_split(torch, idx["item"], ue[users], seen, 100)
+
+    emb = mp["embeddings"]  # the serving phase's, which brute force scored
+    ue, ie = emb[: ds.num_users], emb[ds.num_users : ds.num_users + ds.num_items]
+
+    # full probing is exhaustive: equal to brute force on the same embeddings
+    kw = dict(max_users=1000, seed=0, device="cuda")
+    full_cfg = IVFConfig(nlist=cfg.nlist, nprobe=cfg.nlist, seed=cfg.seed)
+    with recording(ops, "ivf_list_topk", calls["ivf exhaustive"]):
+        modules["ivf_list_topk"].launches = 0
+        t0 = time.perf_counter()
+        full = evaluate_recall(ue, ie, train, ds.test_pairs, method="ivf", ivf=full_cfg, **kw)
+        full_s = time.perf_counter() - t0
+        full_launches = modules["ivf_list_topk"].launches
+    bf = mp["bruteforce"]
+    diff = {k: abs(full[k] - bf[k]) for k in bf}
+    if full.keys() != bf.keys() or max(diff.values()) > RECALL_TOL:
+        fail(f"IVF at nprobe == nlist vs brute-force recall differ: {diff}")
+    part = evaluate_recall(ue, ie, train, ds.test_pairs, method="ivf", ivf=cfg, **kw)
+
+    t0 = time.perf_counter()
+    u2i = evaluate_recall(ue, ie, train, ds.test_pairs, strategies=("u2i",), method="ivf",
+                          ivf=cfg, device="cuda")
+    u2i_s = time.perf_counter() - t0
+    out = {
+        "phase": "ivf_serving", "dataset": "ub", "model": "lightgcn", "dim": 64,
+        "nlist": cfg.nlist, "nprobe": cfg.nprobe, "recall_s": res["recall_s"],
+        "recall": res["recall"], "launches": launches,
+        "wrapper_calls": len(calls["ivf serving"]),
+        "embeddings_vs_serving_max_diff": float(np.abs(res["embeddings"] - emb).max()),
+        "item_index": {"lpad": idx["item"].lpad, "spilled_items": idx["item"].spilled_items},
+        "user_index": {"lpad": idx["user"].lpad, "spilled_items": idx["user"].spilled_items},
+        "u2i_queries": len(users), "u2i_s": u2i_s, "u2i_queries_per_s": len(users) / u2i_s,
+        "u2i_recall": u2i["u2i"],
+        "u2i_search_queries_per_s": {n: len(users) / t for n, t in rates["s"].items()},
+        "u2i_search_ivf_over_exact_time": rates["ratio"], "u2i_search_split": split,
+        "max_users_1000": {"ivf_nprobe_default": part, "ivf_nprobe_nlist": full,
+                           "bruteforce": bf},
+        "exhaustive": {"launches": full_launches, "recall_s": full_s,
+                       "ivf_vs_bruteforce_max_diff": max(diff.values())},
+    }
+    emit(out)
     return dict(out, calls=calls)
+
+
+def million_arm(torch, np, modules, I: int = 1_000_000, Q: int = 512) -> dict:
+    """``benchmarks/bench_recall.py``'s 1M-item IVF arm on the card: 512
+    clustered queries, k 100, 16 exclusions each; Recall@100 against the
+    exact ``topk`` kernel, and the two searches' rates back to back."""
+    from repro_torch.kernels import ops
+    from repro_torch.retrieval import IVFConfig, IVFIndex, chunked_topk
+
+    K = 100
+    rng = np.random.default_rng(0)
+    it, q = clustered_corpus(np, rng, I, Q)
+    ex = rng.integers(0, I, size=(Q, 16)).astype(np.int32)
+    cfg = IVFConfig(nlist=2048, nprobe=12, kmeans_iters=4, train_size=131_072,
+                    balance_factor=1.25, seed=0)
+    t0 = time.perf_counter()
+    index = IVFIndex.build(it, cfg)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    calls = []
+    with recording(ops, "ivf_list_topk", calls):
+        modules["ivf_list_topk"].launches = 0
+        _, ivf_ids = index.search(q, K, exclude=ex)
+        launches = modules["ivf_list_topk"].launches
+    if launches == 0:
+        fail("the 1M-item arm launched no ivf_list_topk kernel")
+    _, exact_ids = chunked_topk(q, it, K, exclude=ex, device="cuda")
+    recall = float(np.mean([len(set(a.tolist()) & set(b.tolist())) / K
+                            for a, b in zip(exact_ids, ivf_ids)]))
+    rates = _interleaved(torch, {
+        "ivf": lambda: index.search(q, K, exclude=ex),
+        "exact": lambda: chunked_topk(q, it, K, exclude=ex, device="cuda")}, 11)
+    split = ivf_split(torch, index, q, ex, K)
+    out = {"phase": "ivf_1m", "items": I, "queries": Q, "k": K, "exclude": 16,
+           "config": dataclasses.asdict(index.config), "build_s": build_s,
+           "lpad": index.lpad, "spilled_items": index.spilled_items,
+           "shortlist": index.plan(K, Q, 16)["shortlist"],
+           "recall_at_100": recall, "launches": launches,
+           "queries_per_s": {n: Q / t for n, t in rates["s"].items()},
+           "exact_over_ivf_time": 1.0 / rates["ratio"], "search_split": split}
+    emit(out)
+    return dict(out, calls=calls)
+
+
+def _composed_topk(torch, ref, q, codes, scales, starts, lens, lpad: int, S: int,
+                   batch: int):
+    """The plain version with ``torch.topk`` in place of its stable
+    total-order sort (no tie rule): a yardstick, used nowhere."""
+    out_s, out_r = [], []
+    for lo in range(0, q.shape[0], batch):
+        s, r = ref.ivf_list_scores(q[lo : lo + batch], codes, scales,
+                                   starts[lo : lo + batch], lens[lo : lo + batch], lpad)
+        best, pos = torch.topk(s, S, dim=1)
+        out_s.append(best)
+        out_r.append(r.gather(1, pos))
+    return torch.cat(out_s), torch.cat(out_r)
+
+
+def _plain_batch(q, starts, lpad: int) -> int:
+    """Queries per block of the plain version here: ~1 GiB of gathered f32
+    codes' worth of slots (a quarter of it as int8), not 32 queries. The
+    results are the same (its sums are elementwise), with a few thousand
+    launches a call, not tens of thousands: a profile of that many saw no
+    device time at all."""
+    return max(32, (1 << 30) // (starts.shape[1] * lpad * q.shape[1] * 4))
+
+
+def _ivf_args(torch, call):
+    (q, codes, scales, starts, lens), kw = call
+    return (q, codes, scales, starts.to(torch.int32).contiguous(),
+            lens.to(torch.int32).contiguous(), kw["lpad"], kw["shortlist"])
+
+
+def _ivf_record(torch, ref, ivf_list_topk_cuda, call, source: str) -> dict:
+    q, codes, scales, starts, lens, lpad, S = _ivf_args(torch, call)
+    (Q, d), P = q.shape, starts.shape[1]
+    big = Q * P * lpad > 50_000_000
+    pb = _plain_batch(q, starts, lpad)
+    kern = measure(lambda: ivf_list_topk_cuda(q, codes, scales, starts, lens, lpad, S),
+                   5 if big else 50)
+    plain = measure(lambda: ref.ivf_list_topk_ref(q, codes, scales, starts, lens, lpad=lpad,
+                                                  shortlist=S, batch_size=pb),
+                    1 if big else 3, warmup=1)
+    comp = measure(lambda: _composed_topk(torch, ref, q, codes, scales, starts, lens, lpad,
+                                          S, pb), 1 if big else 3, warmup=1)
+    n = lens.clamp(0, lpad).to(torch.int64).flatten()
+    scored = int(n.sum().item())  # (query, row) pairs scored
+    # distinct rows the lists cover: +1 at each start, -1 past each end
+    st = starts.to(torch.int64).flatten()
+    cover = torch.zeros(codes.shape[0] + 1, dtype=torch.int64, device=q.device)
+    cover.index_add_(0, st, torch.ones_like(st)).index_add_(0, st + n, -torch.ones_like(st))
+    distinct = int((cover.cumsum(0) > 0).sum().item())
+    rec = {"phase": "kernel", "name": "ivf_list_topk", "source": source,
+           "shape": {"Q": Q, "d": d, "P": P, "lpad": lpad, "S": S, "rows_scored": scored,
+                     "distinct_rows": distinct},
+           "plain_batch": pb,
+           "kernel_ms": kern["device_ms"], "plain_ms": plain["device_ms"],
+           # no single PyTorch call computes the masked CSR gather-score-select
+           "library_ms": None, "composed_topk_ms": comp["device_ms"],
+           "kernel_call_ms": kern["call_ms"], "plain_call_ms": plain["call_ms"],
+           "composed_topk_call_ms": comp["call_ms"]}
+    # each input read once (the codes and scale of every row some list
+    # covers, queries, starts, lengths), both (Q, S) outputs written once,
+    # and 2d FLOP for each (query, row) pair scored
+    io = Q * d * 4 + Q * P * 8 + Q * S * 8
+    rec["bound_ms"], rec["bound_by"] = bound_ms(distinct * (d + 4) + io, 2.0 * scored * d)
+    # the same with every (query, row) pair's codes read from memory, as
+    # if no query shared a row with another through the cache
+    rec["read_bound_ms"] = bound_ms(scored * (d + 4) + io, 2.0 * scored * d)[0]
+    emit(rec)
+    return rec
+
+
+def ivf_phase(torch, ref, ivf_list_topk_cuda, paths: dict) -> dict:
+    """Every recorded call of each IVF path against the plain version (rows
+    exactly, scores to rtol 2e-5 / atol 1e-4); the UB calls, the first
+    exhaustive call and the 1M call timed on their recorded inputs."""
+    worst, recs = 0.0, {}
+    for path, calls in paths.items():
+        path_worst = 0.0
+        for c in calls:
+            q, codes, scales, starts, lens, lpad, S = _ivf_args(torch, c)
+            s, r = ivf_list_topk_cuda(q, codes, scales, starts, lens, lpad, S)
+            s0, r0 = ref.ivf_list_topk_ref(q, codes, scales, starts, lens, lpad=lpad,
+                                           shortlist=S, batch_size=_plain_batch(q, starts, lpad))
+            torch.cuda.synchronize()
+            if not torch.equal(r, r0):
+                fail(f"ivf_list_topk Q={q.shape[0]} S={S}: a {path} call's rows differ from "
+                     f"its plain version at {int((r != r0).sum().item())} slots")
+            if not torch.allclose(s, s0, rtol=IVF_RTOL, atol=IVF_ATOL):
+                fail(f"ivf_list_topk Q={q.shape[0]} S={S}: a {path} call's scores differ "
+                     "from its plain version")
+            fin = torch.isfinite(s0)
+            path_worst = max(path_worst, (s[fin] - s0[fin]).abs().max().item()
+                             if fin.any() else 0.0)
+        emit({"phase": "kernel", "name": "ivf_list_topk", "source": f"{path}, every call",
+              "calls": len(calls), "max_abs_err": path_worst,
+              "max_shortlist": max(c[1]["shortlist"] for c in calls)})
+        worst = max(worst, path_worst)
+        timed = calls if path == "ivf serving" else calls[:1]
+        recs[path] = [_ivf_record(torch, ref, ivf_list_topk_cuda, c, path) for c in timed]
+    return dict(recs["1M arm"][0], max_abs_err=worst)
 
 
 # ------------------------------------------------------------- training
@@ -599,9 +932,7 @@ def fused_training_path(torch, np, modules, serving_u2i: float) -> dict:
     rec, events, wp_calls = TrainRecorder(), [], []
     with rec.spying(ops), recording(ops, "window_pair_ids", wp_calls), \
             step_events(torch, Graph4RecTrainer, "_fused_step", events):
-        for m in modules.values():
-            m.launches = 0
-        modules["seg_aggr"].bwd_launches = 0
+        _zero(modules)
         res = train_torch.run(args(0, 200), eval_at_end=False)
         torch.cuda.synchronize()
         launches = {"seg_aggr": modules["seg_aggr"].launches,
@@ -946,6 +1277,7 @@ def main() -> None:
 
     from repro_torch.kernels import build, ref
     from repro_torch.kernels import inbatch_loss as inbatch_mod
+    from repro_torch.kernels import ivf as ivf_mod
     from repro_torch.kernels import row_adagrad as adagrad_mod
     from repro_torch.kernels import seg_aggr as seg_mod
     from repro_torch.kernels import topk as topk_mod
@@ -958,12 +1290,17 @@ def main() -> None:
           "seconds": time.perf_counter() - t0})
 
     modules = {"seg_aggr": seg_mod, "topk": topk_mod, "inbatch_loss": inbatch_mod,
-               "row_adagrad": adagrad_mod, "window_pairs": wp_mod}
+               "row_adagrad": adagrad_mod, "window_pairs": wp_mod, "ivf_list_topk": ivf_mod}
     mp = main_path(torch, np, modules)
+    iv = ivf_serving_path(torch, np, modules, mp)
+    m1 = million_arm(torch, np, modules)
     tr = training_path(torch, np, modules, mp["recall"]["u2i"])
     fu = fused_training_path(torch, np, modules, mp["recall"]["u2i"])
     conf = conformance_phase(torch, np)
-    emit({"phase": "clocks", "before_kernel_phases": sm_clocks()})
+    gc.collect()
+    torch.cuda.empty_cache()  # the IVF phases' blocks: leave the card's memory free
+    emit({"phase": "clocks", "before_kernel_phases": sm_clocks(),
+          "reserved_gib": torch.cuda.memory_reserved() / 2**30})
     seg = seg_aggr_phase(torch, ref, seg_mod.seg_aggr_cuda,
                          {"serving": mp["calls"]["seg_aggr"], "training": tr["kept"]["seg_aggr"],
                           "fused training": fu["kept"]["seg_aggr"]})
@@ -974,6 +1311,9 @@ def main() -> None:
     adagrad = row_adagrad_phase(torch, ref, adagrad_mod.row_adagrad_scatter_cuda,
                                 tr["kept"]["row_adagrad"])
     wp = window_pairs_phase(torch, ref, wp_mod.window_pair_ids_cuda, fu["window_pairs_calls"])
+    ivf = ivf_phase(torch, ref, ivf_mod.ivf_list_topk_cuda,
+                    {"ivf serving": iv["calls"]["ivf serving"],
+                     "ivf exhaustive": iv["calls"]["ivf exhaustive"], "1M arm": m1["calls"]})
 
     def entry(name, rec, source, replaces, by_path):
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -998,10 +1338,19 @@ def main() -> None:
               "device_table_bytes", "loss_first20_mean", "loss_last20_mean", "u2i_trained",
               "launches")},
           "auto_sampling": {k: fu["auto"][k] for k in ("sampling", "reason", "measurements")},
+          "ivf_serving": {k: iv[k] for k in (
+              "recall_s", "recall", "u2i_queries_per_s", "u2i_search_queries_per_s",
+              "u2i_search_ivf_over_exact_time", "u2i_search_split", "item_index",
+              "user_index", "launches")},
+          "ivf_exhaustive": iv["exhaustive"],
+          "ivf_1m": {k: m1[k] for k in ("build_s", "lpad", "spilled_items", "shortlist",
+                                        "recall_at_100", "queries_per_s",
+                                        "exact_over_ivf_time", "search_split",
+                                        "launches")},
           "conformance": {u: {k: conf[u][k] for k in ("loss_max_abs_diff",
                                                       "param_max_abs_diff")}
                           for u in ("sparse", "dense", "fused")}})
-    emit({"kernels": [
+    print(json.dumps({"kernels": [
         entry("seg_aggr", seg, "src/repro_torch/kernels/csrc/seg_aggr.cu",
               "src/repro/kernels/seg_aggr.py:45",
               {"serving": mp["launches"]["seg_aggr"], "training": tl["seg_aggr"],
@@ -1019,10 +1368,15 @@ def main() -> None:
               {"training": tl["row_adagrad"], "fused training": fl["row_adagrad"]}),
         entry("window_pairs", wp, "src/repro_torch/kernels/csrc/window_pairs.cu",
               "src/repro/kernels/window_pairs.py:38", {"fused training": fl["window_pairs"]}),
-    ]})
+        entry("ivf_list_topk", ivf, "src/repro_torch/kernels/csrc/ivf.cu",
+              "src/repro/kernels/ivf.py:97",
+              {"ivf serving": iv["launches"]["ivf_list_topk"],
+               "ivf exhaustive": iv["exhaustive"]["launches"], "1M arm": m1["launches"]}),
+    ]}), flush=True)
     print(smi, flush=True)  # the card's name and power limit, as nvidia-smi gives them
-    emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
-                                 "count": torch.cuda.device_count()}})
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
 
 
 if __name__ == "__main__":

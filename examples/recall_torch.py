@@ -6,9 +6,12 @@
 Generates the dataset, takes the model's parameters from a checkpoint that
 ``examples/train_recsys.py --save`` wrote (``--params``) or draws them from
 ``--seed``, embeds every node on the card (``repro_torch.infer``, the
-``seg_aggr`` kernel), and evaluates U2I/ICF/UCF recall with the streaming
-``topk`` kernel (``repro_torch.core.recall``). ``--device cpu`` runs the
-plain PyTorch path instead; without it a machine with no CUDA raises.
+``seg_aggr`` kernel), and evaluates U2I/ICF/UCF recall
+(``repro_torch.core.recall``) with the streaming ``topk`` kernel
+(``--method device``), an IVF index on the ``ivf_list_topk`` kernel
+(``--method ivf``, ``--ivf-nlist`` cells, ``--ivf-nprobe`` probed) or the
+numpy brute force. ``--device cpu`` runs the plain PyTorch path instead;
+without it a machine with no CUDA raises.
 """
 from __future__ import annotations
 
@@ -27,6 +30,7 @@ from repro_torch.device import resolve_device
 from repro_torch.embedding import EmbeddingConfig, SlotSpec
 from repro_torch.graph import SPECS, DistributedGraphEngine, generate
 from repro_torch.infer import embed_all_nodes
+from repro_torch.retrieval import IVFConfig
 
 WALK_MODELS = ("deepwalk", "metapath2vec")
 GNN_MODELS = ("lightgcn", "sage-mean", "sage-sum", "gat", "gin", "ngcf", "gatne")
@@ -67,6 +71,10 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--batch-size", type=int, default=1024)
     ap.add_argument("--top-k", type=int, default=100)
+    ap.add_argument("--method", default="device", choices=["device", "ivf", "bruteforce"],
+                    help="retrieval implementation (see repro_torch/core/recall.py)")
+    ap.add_argument("--ivf-nlist", type=int, default=64)
+    ap.add_argument("--ivf-nprobe", type=int, default=8)
     ap.add_argument("--device", default=None, help="cuda (default) or cpu")
     return ap
 
@@ -92,11 +100,12 @@ def run(args: argparse.Namespace) -> dict:
     user_emb = emb[: ds.num_users]
     item_emb = emb[ds.num_users : ds.num_users + ds.num_items]
     t0 = time.perf_counter()
+    ivf = IVFConfig(nlist=args.ivf_nlist, nprobe=args.ivf_nprobe, seed=args.seed)
     recall = evaluate_recall(user_emb, item_emb, train_pairs(ds), ds.test_pairs,
-                             top_k=args.top_k, device=dev)
+                             top_k=args.top_k, method=args.method, device=dev, ivf=ivf)
     recall_s = time.perf_counter() - t0
     return {"dataset": ds, "config": cfg, "embeddings": emb, "recall": recall,
-            "embed_s": embed_s, "recall_s": recall_s, "device": str(dev)}
+            "embed_s": embed_s, "recall_s": recall_s, "device": str(dev), "ivf": ivf}
 
 
 def main() -> None:

@@ -53,9 +53,11 @@ def parser() -> argparse.ArgumentParser:
                     help="prefetch queue depth; 0 = serial loop; unset = let the "
                          "calibrated backend plan decide")
     ap.add_argument("--save", default=None, metavar="CKPT.npz")
-    ap.add_argument("--eval-recall", default="device", choices=["device", "bruteforce"],
+    ap.add_argument("--eval-recall", default="device",
+                    choices=["device", "ivf", "bruteforce"],
                     help="retrieval path for the final recall evaluation: 'device' = "
-                         "the streaming top-k kernel over every held-out user, "
+                         "the streaming top-k kernel over every held-out user, 'ivf' = "
+                         "the default IVF index (ivf_list_topk kernel), "
                          "'bruteforce' = the O(U*I) numpy oracle")
     ap.add_argument("--eval-max-users", type=int, default=0,
                     help="cap evaluated users (0 = all)")

@@ -7,9 +7,11 @@ sampling, slot helpers) is copied in and draws the same
 ``np.random.Generator`` stream, so both packages see bitwise-identical host
 batches from one seed.
 
-This slice is the serving path: full-graph inference (``infer``) and exact
-streaming top-k recall (``retrieval``, ``core.recall``). Its two kernels,
-``seg_aggr`` and ``topk``, are CUDA C++ for ``sm_90a`` under
+Ported so far: serving (full-graph inference in ``infer``; exact top-k and
+IVF recall in ``retrieval`` and ``core.recall``) and training on host or
+fused device sampling (``train``, ``sampling``). The kernels (``seg_aggr``
+and its backward, ``topk``, ``inbatch_loss``, ``row_adagrad``,
+``window_pairs``, ``ivf_list_topk``) are CUDA C++ for ``sm_90a`` under
 ``kernels/csrc``; ``kernels/ops`` runs them for CUDA tensors and their plain
 PyTorch versions (``kernels/ref``) for CPU tensors.
 

@@ -12,6 +12,10 @@ the config) and ``model_to_numpy`` is its inverse. ``load_params`` reads a
 without a checkpoint. It cannot reproduce ``jax.random``'s draws, so every
 conformance check starts from parameters ``repro`` made, converted.
 
+An IVF index crosses as its numpy fields: ``ivf_index_from_numpy`` makes
+the port's ``IVFIndex`` on a device from ``repro``'s (or any object with
+the same fields), so both packages can search the very same index.
+
 Optimizer states cross the same way: ``state_to_numpy`` turns the trainer's
 state (``RowAdagradState.accum``, ``AdamState`` step/mu/nu, nested in
 tuples and dicts as ``repro`` nests them) into numpy, and
@@ -20,6 +24,7 @@ package made it: a NamedTuple maps by its field names.
 """
 from __future__ import annotations
 
+import dataclasses
 import os
 from typing import Any, Dict, Mapping
 
@@ -28,6 +33,7 @@ import torch
 
 from repro_torch.core.model import Graph4RecConfig, Graph4RecModel, init_model_params
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.retrieval.ivf import IVFConfig, IVFIndex
 
 
 def expected_shapes(cfg: Graph4RecConfig) -> Dict[str, tuple]:
@@ -69,6 +75,22 @@ def init_params(cfg: Graph4RecConfig, seed: int = 0, device: DeviceLike = None) 
     dev = resolve_device(device)
     params = init_model_params(torch.Generator().manual_seed(int(seed)), cfg)
     return Graph4RecModel(cfg, {k: v.to(dev) for k, v in params.items()})
+
+
+# ----------------------------------------------------------------- IVF index
+def ivf_index_from_numpy(index: Any, device: DeviceLike = None) -> IVFIndex:
+    """An IVF index's fields (``config`` with ``IVFConfig``'s fields,
+    ``centroids``, ``order``, ``offsets``, ``codes``, ``scales``, ``items``,
+    ``lpad``, ``spilled_items``) -> the port's ``IVFIndex`` on ``device``,
+    uploaded there once. Takes ``repro.retrieval.IVFIndex`` as it is."""
+    cfg = IVFConfig(**{f.name: getattr(index.config, f.name)
+                       for f in dataclasses.fields(IVFConfig)})
+    cfg.validate()
+    arrays = {name: np.array(getattr(index, name), dtype=dtype) for name, dtype in (
+        ("centroids", np.float32), ("order", np.int32), ("offsets", np.int32),
+        ("codes", np.int8), ("scales", np.float32), ("items", np.float32))}
+    return IVFIndex(config=cfg, lpad=int(index.lpad),
+                    spilled_items=int(index.spilled_items), device=device, **arrays)
 
 
 # ------------------------------------------------------- optimizer states

@@ -13,20 +13,23 @@ users. Every similarity search goes through one top-k primitive:
 - ``method="device"`` — ``retrieval.chunked_topk`` on ``device``: the CUDA
   ``topk`` kernel on the card (``device=None``), its plain version on the
   CPU;
-- ``method="bruteforce"`` — the numpy full-matrix oracle;
-- ``method="ivf"`` is not ported yet.
+- ``method="ivf"`` — one ``retrieval.IVFIndex`` over the items and one
+  over the users, built on ``device`` (the ``ivf_list_topk`` kernel on the
+  card): approximate unless ``nprobe >= nlist``;
+- ``method="bruteforce"`` — the numpy full-matrix oracle.
 
 All paths share one tie-break rule (equal scores -> lower id wins), so the
-device path recommends the oracle's ids. The vote aggregation after the
+device path, and IVF at full probing, recommend the oracle's ids. The vote aggregation after the
 searches is the same numpy code for every method.
 """
 from __future__ import annotations
 
-from typing import Callable, Dict, Sequence
+from typing import Callable, Dict, Optional, Sequence
 
 import numpy as np
 
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.retrieval.ivf import IVFConfig, IVFIndex
 from repro_torch.retrieval.topk import (
     _deterministic_topk_rows, brute_force_topk, chunked_topk, pad_id_rows,
 )
@@ -74,7 +77,7 @@ def ranked_metrics(rec: np.ndarray, truths: Sequence[set], top_k: int) -> Dict[s
 
 
 def _make_searchers(method: str, ue: np.ndarray, ie: np.ndarray, query_chunk: int,
-                    device: DeviceLike) -> Dict[str, Callable]:
+                    device: DeviceLike, ivf: Optional[IVFConfig]) -> Dict[str, Callable]:
     """One top-k callable per corpus ("item", "user")."""
     if method == "bruteforce":
         return {"item": lambda q, k, ex=None: brute_force_topk(q, ie, k, exclude=ex),
@@ -90,10 +93,11 @@ def _make_searchers(method: str, ue: np.ndarray, ie: np.ndarray, query_chunk: in
 
         return {"item": make(ie), "user": make(ue)}
     if method == "ivf":
-        raise NotImplementedError(
-            "method='ivf' is not ported yet: IVF retrieval and its ivf_list_topk "
-            "kernel come in a later slice of the port (ROADMAP Queue 1)"
-        )
+        cfg = ivf or IVFConfig()
+        idx = {"item": IVFIndex.build(ie, cfg, device=device),
+               "user": IVFIndex.build(ue, cfg, device=device)}
+        return {name: (lambda ix: lambda q, k, ex=None: ix.search(q, k, exclude=ex))(ix)
+                for name, ix in idx.items()}
     raise ValueError(f"unknown recall method {method!r}")
 
 
@@ -106,15 +110,17 @@ def evaluate_recall(
     top_n: int = 20,
     max_users: int = 0,  # 0 -> every held-out user
     seed: int = 0,
-    method: str = "device",  # device | bruteforce
+    method: str = "device",  # device | ivf | bruteforce
     strategies: Sequence[str] = STRATEGIES,
     user_chunk: int = 512,
     device: DeviceLike = None,
+    ivf: Optional[IVFConfig] = None,  # method="ivf"; None -> IVFConfig()
 ) -> Dict[str, float]:
     """Recall/HitRate/NDCG @ top_k per strategy over the held-out pairs.
 
     Returns ``{"u2i": recall, "u2i_hit": …, "u2i_ndcg": …}`` per strategy.
-    ``device`` is where ``method="device"`` searches (None -> CUDA).
+    ``device`` is where ``method="device"`` and ``method="ivf"`` search
+    (None -> CUDA).
     """
     strategies = tuple(strategies)
     unknown = set(strategies) - set(STRATEGIES)
@@ -131,7 +137,8 @@ def evaluate_recall(
     for u, i in eval_pairs:
         held.setdefault(int(u), set()).add(int(i))
     users = [u for u in held if u in hist]
-    search = _make_searchers(method, ue, ie, user_chunk, device)
+    if method in ("device", "ivf"):
+        device = resolve_device(device)
     if not users:
         out = {}
         for s in strategies:
@@ -141,6 +148,7 @@ def evaluate_recall(
         rng = np.random.default_rng(seed)
         users = list(rng.choice(np.array(users), size=max_users, replace=False))
 
+    search = _make_searchers(method, ue, ie, user_chunk, device, ivf)
     uarr = np.array(users, dtype=np.int64)
     truths = [held[u] for u in users]
     seen_pad = pad_id_rows([hist[u] for u in users])  # (B, E)

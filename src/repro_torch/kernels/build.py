@@ -45,6 +45,7 @@ _SIGNATURES = {
     "g4r_row_adagrad_f32": (_P, _P, _P, _P, _LL, _LL, _I, _F, _F, _P),
     "g4r_topk_f32": (_P, _P, _P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     "g4r_window_pairs_i32": (_P, _P, _P, _P, _LL, _I, _I, _P),
+    "g4r_ivf_list_topk_i8": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _LL, _P),
 }
 
 

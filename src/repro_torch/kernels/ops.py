@@ -1,9 +1,9 @@
 """Dispatcher for the port's kernels: the device decides the path.
 
 A CUDA tensor launches the hand-written kernel (``seg_aggr`` and its
-backward, ``topk``, ``inbatch_loss``, ``row_adagrad``, ``window_pairs``) or
-raises: a build or
-launch failure is never caught to run the plain version instead. A CPU
+backward, ``topk``, ``inbatch_loss``, ``row_adagrad``, ``window_pairs``,
+``ivf_list_topk``) or raises: a build or launch failure is never caught to
+run the plain version instead. A CPU
 tensor runs the plain PyTorch version in ``kernels/ref``, which is what the
 CPU tests exercise. Any other device raises.
 
@@ -15,7 +15,7 @@ it in jnp outside its kernel (``repro/kernels/ops.py:_inbatch_bwd``).
 
 ``repro``'s opt-in flags (``HeteroGNNConfig.use_kernel_aggr``,
 ``Graph4RecConfig.use_kernel_loss``, ``TrainerConfig.use_kernel_rowopt``,
-``TrainerConfig.fused_use_kernel_pairs``)
+``TrainerConfig.fused_use_kernel_pairs``, ``IVFConfig.backend``)
 are kept in the port's config classes so configs stay interchangeable, but
 they select nothing here.
 """
@@ -28,6 +28,7 @@ from torch.autograd.function import once_differentiable
 
 from repro_torch.kernels import ref
 from repro_torch.kernels.inbatch_loss import inbatch_loss_rows_cuda
+from repro_torch.kernels.ivf import ivf_list_topk_cuda
 from repro_torch.kernels.row_adagrad import row_adagrad_scatter_cuda
 from repro_torch.kernels.seg_aggr import seg_aggr_bwd_cuda, seg_aggr_cuda
 from repro_torch.kernels.topk import streaming_topk_cuda
@@ -145,6 +146,28 @@ def streaming_topk(
     if _route(queries, "streaming_topk"):
         return streaming_topk_cuda(queries, items, k, exclude)
     return ref.chunked_topk_ref(queries, items, k, exclude)
+
+
+def ivf_list_topk(
+    queries: torch.Tensor,
+    codes: torch.Tensor,
+    scales: torch.Tensor,
+    starts: torch.Tensor,
+    lengths: torch.Tensor,
+    *,
+    lpad: int,
+    shortlist: int,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """IVF gather-then-score over CSR inverted lists -> ((Q, S) f32 approx
+    scores, (Q, S) int32 packed-row indices, -1 for empty slots); on equal
+    scores the lower flat (probe, offset) index wins."""
+    if _route(queries, "ivf_list_topk"):
+        return ivf_list_topk_cuda(
+            queries.contiguous(), codes.contiguous(), scales.contiguous(),
+            starts.to(torch.int32).contiguous(), lengths.to(torch.int32).contiguous(),
+            lpad, shortlist)
+    return ref.ivf_list_topk_ref(queries, codes, scales, starts, lengths, lpad=lpad,
+                                 shortlist=shortlist)
 
 
 # -------------------------------------------------------------- window pairs

@@ -161,3 +161,88 @@ def chunked_topk_ref(
         best_i = torch.gather(all_i, 1, order)
     best_i = torch.where(torch.isneginf(best_s), torch.full_like(best_i, -1), best_i)
     return best_s, best_i.to(torch.int32)
+
+
+# ------------------------------------------------------------ IVF list topk
+def total_order_key(x: torch.Tensor) -> torch.Tensor:
+    """f32 -> int32 whose signed order is the float's total order
+    (-inf < ... < -0.0 < +0.0 < ... < +inf): the order ``lax.top_k`` ranks
+    by, where a float ``>`` would call the two zeros equal. The CUDA
+    ``ivf_list_topk`` kernel sorts on the same bits."""
+    b = x.to(torch.float32).contiguous().view(torch.int32)
+    return b ^ ((b >> 31) & 0x7FFFFFFF)
+
+
+def desc_order(x: torch.Tensor, k: int) -> torch.Tensor:
+    """Positions of the k largest along the last axis, best first, in the
+    total order of ``total_order_key``; on equal keys the lower position
+    wins (``lax.top_k``'s first-occurrence rule: a stable sort, since
+    ``torch.topk`` promises no order among ties)."""
+    return torch.sort(total_order_key(x), dim=-1, descending=True, stable=True).indices[..., :k]
+
+
+def ivf_list_scores(
+    queries: torch.Tensor,  # (B, d) float32
+    codes: torch.Tensor,  # (Ip, d) int8
+    scales: torch.Tensor,  # (Ip, 1) float32
+    starts: torch.Tensor,  # (B, P) int
+    lengths: torch.Tensor,  # (B, P) int
+    lpad: int,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Every probed slot of a block of queries, flat in (probe, offset)
+    order -> ((B, P * lpad) f32 scores, (B, P * lpad) int64 rows), (-inf,
+    -1) at or past each list's length.
+
+    A score is ``(codes . q) * scale``: the dot summed over d in order, one
+    rounded product and one rounded sum a term (no fused multiply-add), the
+    scale a separate multiply after it, as the CUDA kernel computes it, so
+    the two agree bitwise and near-tied scores rank alike."""
+    off = torch.arange(lpad, device=queries.device)
+    rows = starts.to(torch.int64)[:, :, None] + off  # (B, P, lpad)
+    valid = off < lengths.to(torch.int64)[:, :, None]
+    safe = torch.where(valid, rows, torch.zeros_like(rows))
+    c = codes[safe]  # (B, P, lpad, d) int8
+    q = queries.to(torch.float32)
+    s = torch.zeros(c.shape[:-1], dtype=torch.float32, device=queries.device)
+    for t in range(c.shape[-1]):
+        s = s + c[..., t].to(torch.float32) * q[:, None, None, t]
+    s = s * scales.reshape(-1)[safe]
+    s = torch.where(valid, s, torch.full_like(s, float("-inf")))
+    r = torch.where(valid, rows, torch.full_like(rows, -1))
+    return s.flatten(1), r.flatten(1)
+
+
+def ivf_list_topk_ref(
+    queries: torch.Tensor,  # (Q, d) float32
+    codes: torch.Tensor,  # (Ip, d) int8 cell-sorted quantized rows
+    scales: torch.Tensor,  # (Ip, 1) float32 per-row dequant scales
+    starts: torch.Tensor,  # (Q, P) int packed-row offset of each probed list
+    lengths: torch.Tensor,  # (Q, P) int true list lengths
+    *,
+    lpad: int,  # max list length: the slice width scored per probe
+    shortlist: int,  # survivors kept per query (S)
+    batch_size: int = 32,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Gather-then-score over CSR inverted lists -> ((Q, S) f32 approx
+    scores, (Q, S) int32 packed-row indices, -1 for empty slots).
+
+    Mirrors ``repro/kernels/ref.py:ivf_list_topk_ref``: per block of
+    ``batch_size`` queries, score every probed slot (``ivf_list_scores``),
+    and keep the ``shortlist`` best in flat (probe, offset) order; on equal
+    scores the lower flat index wins, and +0.0 ranks above -0.0.
+    """
+    Q = queries.shape[0]
+    P = starts.shape[1]
+    if not 0 < shortlist <= P * lpad:
+        raise ValueError(f"shortlist={shortlist} must be in [1, nprobe * lpad = {P * lpad}]")
+    dev = queries.device
+    out_s = torch.empty((Q, shortlist), dtype=torch.float32, device=dev)
+    out_r = torch.empty((Q, shortlist), dtype=torch.int32, device=dev)
+    for lo in range(0, Q, batch_size):
+        hi = min(lo + batch_size, Q)
+        s, r = ivf_list_scores(queries[lo:hi], codes, scales, starts[lo:hi],
+                               lengths[lo:hi], lpad)
+        pos = desc_order(s, shortlist)
+        out_s[lo:hi] = torch.gather(s, 1, pos)
+        out_r[lo:hi] = torch.gather(r, 1, pos).to(torch.int32)
+    return out_s, out_r

@@ -37,9 +37,8 @@ The port of ``repro.train.trainer``, for both sampling backends:
   backend, as ``repro`` does.
 
 Not ported (each raises ``NotImplementedError`` naming its ROADMAP item):
-the mp graph service (``engine_backend="mp"``, Queue 1 item 5), IVF
-evaluation (``eval_method="ivf"``, item 3) and the observability hooks
-(``telemetry``, ``health``, ``attribution``, item 6). ``use_kernel_aggr``,
+the mp graph service (``engine_backend="mp"``, Queue 1 item 5) and the
+observability hooks (``telemetry``, ``health``, ``attribution``, item 6). ``use_kernel_aggr``,
 ``use_kernel_rowopt`` and ``fused_use_kernel_pairs`` are kept for config
 parity and select nothing: on the card the kernels always run.
 """
@@ -84,7 +83,7 @@ class TrainerConfig:
     eval_top_k: int = 100
     eval_top_n: int = 20
     eval_max_users: int = 0  # 0 -> every held-out user
-    eval_method: str = "device"  # device | bruteforce ("ivf" is not ported)
+    eval_method: str = "device"  # device | ivf | bruteforce
     eval_batch_size: int = 1024
     eval_at_end: bool = True
     log_every: int = 50
@@ -146,10 +145,8 @@ def _not_ported(cfg: TrainerConfig) -> None:
     if cfg.attribution:
         raise NotImplementedError(
             "TrainerConfig.attribution is not ported yet: ROADMAP Queue 1, item 6")
-    if cfg.eval_method not in ("device", "bruteforce"):
-        raise NotImplementedError(
-            f"eval_method={cfg.eval_method!r} is not ported yet (IVF retrieval: "
-            "ROADMAP Queue 1, item 3)")
+    if cfg.eval_method not in ("device", "ivf", "bruteforce"):
+        raise ValueError(f"unknown eval_method {cfg.eval_method!r}")
 
 
 @contextlib.contextmanager
@@ -659,8 +656,10 @@ class Graph4RecTrainer:
 
     # ------------------------------------------------------------ evaluation
     def evaluate(self, params: Params, split: str = "val") -> Dict[str, float]:
-        """Full-graph inference on the device, then recall on the device
-        top-k (or the numpy brute force), every held-out user by default."""
+        """Full-graph inference on the device, then recall by
+        ``eval_method``: the device top-k, IVF with the default
+        ``IVFConfig()`` (as ``repro``'s trainer), or the numpy brute force;
+        every held-out user by default."""
         ds = self.dataset
         model = model_lib.Graph4RecModel(self.model_cfg, params)
         all_emb = embed_all_nodes(model, self.engine, ds.graph,

@@ -81,9 +81,13 @@ def test_evaluate_recall_bruteforce_and_max_users(trained_embeddings, toy_ds):
 
 
 def test_ivf_is_not_ported_yet(trained_embeddings, toy_ds):
+    """IVF recall is ported now (tests/test_torch_ivf.py holds it in full):
+    method="ivf" runs on the CPU path and recommends repro's ids."""
     ue, ie, train_pairs = trained_embeddings
-    with pytest.raises(NotImplementedError, match="later slice"):
-        evaluate_recall(ue, ie, train_pairs, toy_ds.test_pairs, method="ivf")
+    want = j_evaluate_recall(ue, ie, train_pairs, toy_ds.test_pairs, method="ivf")
+    got = evaluate_recall(ue, ie, train_pairs, toy_ds.test_pairs, method="ivf",
+                          device="cpu")
+    assert got == want
 
 
 def test_embedding_export_is_interchangeable(tmp_path):

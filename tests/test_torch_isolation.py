@@ -60,6 +60,21 @@ def test_entry_modules_load_no_jax():
     assert res.returncode == 0, res.stderr
 
 
+def test_ivf_module_loads_no_jax():
+    """IVF retrieval and its kernel wrapper stand alone too."""
+    code = (
+        "import sys\n"
+        "import repro_torch.retrieval.ivf, repro_torch.kernels.ivf\n"
+        "from repro_torch.convert import ivf_index_from_numpy\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
+        "assert not bad, bad\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
+    res = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True,
+                         text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+
+
 def test_resolve_device():
     assert resolve_device("cpu") == torch.device("cpu")
     with pytest.raises(ValueError):

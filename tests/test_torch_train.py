@@ -292,7 +292,6 @@ def test_checkpoint_loads_in_repro(both, tmp_path):
 @pytest.mark.parametrize("override,match", [
     (dict(engine_backend="mp"), "item 5"), (dict(telemetry=object()), "item 6"),
     (dict(health=object()), "item 6"), (dict(attribution=True), "item 6"),
-    (dict(eval_method="ivf"), "item 3"),
 ])
 def test_unported_options_raise(both, override, match):
     with pytest.raises(NotImplementedError, match=match):
