@@ -8,7 +8,8 @@ work. It puts ``src/`` and ``examples/`` on ``sys.path`` itself and imports
 nothing of JAX or of the JAX package ``repro``. Phases, each failing loudly:
 
 1. the card's ``nvidia-smi`` name and power limit, torch and CUDA versions;
-   TF32 off (it would reorder near-tied top-k scores);
+   TF32 off (it would reorder near-tied top-k scores), and bf16 GEMMs
+   without reduced-precision split-K reductions;
 2. build the kernels from ``src/repro_torch/kernels/csrc`` with nvcc (timed);
 3. the serving path, through ``examples/recall_torch.py``'s ``run``: the UB
    dataset (8,000 users, 20,000 items), LightGCN at dim 64 with two
@@ -53,23 +54,45 @@ nothing of JAX or of the JAX package ``repro``. Phases, each failing loudly:
    twice on the card: losses and tables agree, the two card runs exactly;
    the fused step likewise, card vs CPU fed the same CPU-drawn draws, and
    two same-seed fused card runs;
+6b. the LM substrate's serving side, smollm-135m at full width (30 layers,
+   d_model 576, 9 heads over 3 KV heads, bf16; random weights from the
+   port's init, seed 0): the prefill through ``examples/serve_lm_torch.py``'s
+   ``run`` (``make_prefill`` on B 4 x S 2,048 tokens from ``default_rng(0)``,
+   a warm-up and 5 timed forwards; ``flash_attention`` launches zeroed
+   before, read after, 30 a forward; the first call of each shape
+   recorded) and the flash kernel's share of one profiled forward's device
+   time; prefill vs decode on 4 prompts of 256 tokens (relative max), held
+   to 3e-2 in bf16 and to 1e-4 with the same weights in f32, beside each
+   bf16 path's distance to f32; ``BatchedServer`` (batch 8, 32 new tokens,
+   cache 256) twice on 16 requests of 8-64 tokens, greedy outputs equal,
+   and the tokens the requests hold (prompts and outputs) per second;
+   the reduced model in f32, card vs CPU under deterministic algorithms,
+   forward and 16 decode steps to rtol/atol 1e-4;
 7. kernel phases: each kernel against its plain PyTorch version on the card,
    on the recorded inputs of the main paths (``seg_aggr``: of all three;
    ``window_pairs``: every call, exactly; ``ivf_list_topk``: every call of
-   the three IVF runs, rows exactly), then (``seg_aggr``, ``topk``,
-   ``window_pairs``) at synthetic shapes; one JSON line per shape with the
-   kernel's device time, the plain version's, one library call's (for
-   ``ivf_list_topk`` none; the plain version with ``torch.topk`` as a
-   yardstick) and the card's bound;
+   the three IVF runs, rows exactly; ``flash_attention``: the LM
+   prefill's recorded call, bf16 to atol 3e-2), then (``seg_aggr``,
+   ``topk``, ``window_pairs``, ``flash_attention``) at synthetic shapes
+   (flash: f32 to rtol 1e-5 / atol 2e-5, causal and not, a tail tile,
+   qwen2's G 7, starcoder2's bf16 (1, 8,192, 36, 4, 128) with its 4,096
+   window); one JSON line per shape with the kernel's device time, the
+   plain version's, one library call's (for ``ivf_list_topk`` none, the
+   plain version with ``torch.topk`` as a yardstick; for
+   ``flash_attention`` ``scaled_dot_product_attention``), each with its
+   source (``measure``), and the card's bound for the inputs' type (flash:
+   also the f32 CUDA-core and bf16 tensor-core bounds and, in bf16, the
+   share of elements exactly equal to the plain version's);
 8. a summary line of the end-to-end numbers, a ``kernels`` JSON line (times
-   from each main path's largest call of each kernel), the card's name and
-   power limit, then ``{"ok": true, ...}`` last.
+   and their sources from each main path's largest call of each kernel),
+   the card's name and power limit, then ``{"ok": true, ...}`` last.
 """
 from __future__ import annotations
 
 import collections
 import contextlib
 import dataclasses
+import functools
 import gc
 import json
 import os
@@ -88,6 +111,8 @@ TRAJ_RTOL, TRAJ_ATOL = 1e-4, 1e-4  # card vs CPU: 12 steps of f32 updates, other
 KEEP_CALLS = 3  # training calls recorded per kernel and shape
 WARM_S = 0.05  # seconds of back-to-back calls before each timing
 T0 = time.perf_counter()
+EVENT_MS = 0.05  # measure(): device spans this long per call stand; shorter ones go to CUPTI
+CUPTI_TRIES = 3  # profiles taken before the records CUPTI lost fail the run
 
 
 def fail(msg: str) -> None:
@@ -100,14 +125,26 @@ def emit(obj) -> None:
     print(json.dumps(dict(obj, t_s=round(time.perf_counter() - T0, 1))), flush=True)
 
 
-def measure(fn, iters: int, warmup: int = 2) -> dict:
+def measure(fn, iters: int, warmup: int = 2, floor_ms: float = 0.0) -> dict:
     """Time ``iters`` back-to-back calls of ``fn`` on the card.
 
     ``call_ms``: CUDA events around the loop, per call; it includes launch
-    overhead whenever the host is slower than the kernels. ``device_ms``:
-    the device time of every kernel and copy in the loop, per call, from
-    ``torch.profiler`` (CUPTI). Every time the script reports as ``ms`` is
-    a ``device_ms``; it fails where the profiler saw no device time.
+    overhead whenever the host is slower than the kernels. ``device_ms``,
+    the time the script reports as ``ms`` (``ms_from`` names its source):
+    the loop again behind a sleep kernel that holds the stream while the
+    host queues every call, so CUDA events bracket the calls' device work
+    back to back, whatever the host's speed. That span stands when the card
+    was still asleep once every call was queued and it is ``EVENT_MS`` or
+    more a call. Else (a call that waits on the card, a loop whose launches
+    fill the queue, a call so short that the microsecond or so between two
+    launches would count) the device time of every kernel and copy in the
+    loop comes from ``torch.profiler`` (CUPTI). CUPTI drops some of a
+    loop's kernel records (on an H100, 1 to 7 of 200 in most profiles, half
+    in a few), so the call's device time is each kernel's mean over the
+    records kept, times its launches per call. A profile that kept fewer
+    than half of some kernel's records, or whose time is under ``floor_ms``
+    (a bound the card cannot beat), is taken again, and after
+    ``CUPTI_TRIES`` such the run fails.
     """
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -129,20 +166,57 @@ def measure(fn, iters: int, warmup: int = 2) -> dict:
     stop.record()
     torch.cuda.synchronize()
     call_ms = start.elapsed_time(stop) / iters
-    for attempt in range(2):  # CUPTI has dropped a whole profile's device records
+    torch.cuda._sleep(int(_sleep_cycles_per_ms() * (1.25 * iters * call_ms + 1.0)))
+    start.record()
+    for _ in range(iters):
+        fn()
+    stop.record()
+    queued = not start.query()  # the card had not yet reached the first call
+    torch.cuda.synchronize()
+    span_ms = start.elapsed_time(stop) / iters
+    if queued and span_ms >= EVENT_MS:
+        return {"call_ms": call_ms, "device_ms": span_ms, "ms_from": "cuda events"}
+    for attempt in range(CUPTI_TRIES):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             for _ in range(iters):
                 fn()
             torch.cuda.synchronize()
-        events = prof.key_averages()
-        dev_us = sum(e.self_device_time_total for e in events
-                     if e.device_type == torch.autograd.DeviceType.CUDA)
-        if dev_us > 0:
-            return {"call_ms": call_ms, "device_ms": dev_us / iters / 1e3}
-        print(f"chip_smoke: profile {attempt + 1} saw no device time ({len(events)} "
-              f"op kinds, {torch.cuda.memory_reserved() / 2**30:.2f} GiB reserved)",
-              file=sys.stderr, flush=True)
-    fail("torch.profiler saw no device time: CUPTI tracing is not working")
+        dev = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA and e.count > 0]
+        per_call = [max(1, round(e.count / iters)) for e in dev]
+        dev_ms = sum(e.self_device_time_total / e.count * n for e, n in zip(dev, per_call)) / 1e3
+        if (dev and all(2 * e.count >= n * iters for e, n in zip(dev, per_call))
+                and dev_ms > floor_ms):
+            return {"call_ms": call_ms, "device_ms": dev_ms, "ms_from": "cupti"}
+        print(f"chip_smoke: profile {attempt + 1} of {iters} calls kept "
+              f"{[e.count for e in dev]} kernel records, {dev_ms} ms a call "
+              f"(floor {floor_ms} ms)", file=sys.stderr, flush=True)
+    fail(f"torch.profiler lost the device records of a {call_ms} ms call {CUPTI_TRIES} times")
+
+
+@functools.lru_cache(maxsize=None)
+def _sleep_cycles_per_ms() -> float:
+    """``torch.cuda._sleep``'s cycles per millisecond on this card."""
+    import torch
+
+    cycles = 20_000_000
+    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    torch.cuda._sleep(cycles)
+    stop.record()
+    torch.cuda.synchronize()
+    return cycles / start.elapsed_time(stop)
+
+
+def times(**ms) -> dict:
+    """``<name>_ms`` (device), ``<name>_call_ms`` and ``ms_from[name]`` of
+    each ``measure()`` result (None where there is none)."""
+    out: dict = {"ms_from": {}}
+    for name, m in ms.items():
+        out[f"{name}_ms"] = None if m is None else m["device_ms"]
+        out[f"{name}_call_ms"] = None if m is None else m["call_ms"]
+        out["ms_from"][name] = None if m is None else m["ms_from"]
+    return out
 
 
 def sm_clocks() -> str:
@@ -201,10 +275,7 @@ def _seg_record(torch, ref, seg_aggr_cuda, x, mask, mode, source: str, iters: in
         "phase": "kernel", "name": "seg_aggr", "source": source, "mode": mode,
         "shape": [n, f, d], "contiguous": x.is_contiguous(),
         "max_abs_err": (got - want).abs().max().item(),
-        "kernel_ms": kern["device_ms"], "plain_ms": plain["device_ms"],
-        "library_ms": None if lib is None else lib["device_ms"],
-        "kernel_call_ms": kern["call_ms"], "plain_call_ms": plain["call_ms"],
-        "library_call_ms": None if lib is None else lib["call_ms"],
+        **times(kernel=kern, plain=plain, library=lib),
     }
     rec["bound_ms"], rec["bound_by"] = bound_ms(n * f * d * 4 + n * f + n * d * 4, n * f * d)
     emit(rec)
@@ -273,9 +344,7 @@ def _topk_record(torch, ref, streaming_topk_cuda, q, it, k, ex, source: str) -> 
         "phase": "kernel", "name": "topk", "source": source,
         "shape": {"Q": Q, "I": I, "d": d, "k": k, "E": E},
         "max_abs_err": err, "ids_mismatched": int((i != i0).sum().item()),
-        "kernel_ms": kern["device_ms"], "plain_ms": plain["device_ms"],
-        "library_ms": lib["device_ms"], "kernel_call_ms": kern["call_ms"],
-        "plain_call_ms": plain["call_ms"], "library_call_ms": lib["call_ms"],
+        **times(kernel=kern, plain=plain, library=lib),
     }
     rec["bound_ms"], rec["bound_by"] = bound_ms(
         (Q * d + I * d + Q * E) * 4 + Q * k * 8, 2.0 * Q * I * d)
@@ -654,11 +723,8 @@ def _ivf_record(torch, ref, ivf_list_topk_cuda, call, source: str) -> dict:
            "shape": {"Q": Q, "d": d, "P": P, "lpad": lpad, "S": S, "rows_scored": scored,
                      "distinct_rows": distinct},
            "plain_batch": pb,
-           "kernel_ms": kern["device_ms"], "plain_ms": plain["device_ms"],
            # no single PyTorch call computes the masked CSR gather-score-select
-           "library_ms": None, "composed_topk_ms": comp["device_ms"],
-           "kernel_call_ms": kern["call_ms"], "plain_call_ms": plain["call_ms"],
-           "composed_topk_call_ms": comp["call_ms"]}
+           **times(kernel=kern, plain=plain, library=None, composed_topk=comp)}
     # each input read once (the codes and scale of every row some list
     # covers, queries, starts, lengths), both (Q, S) outputs written once,
     # and 2d FLOP for each (query, row) pair scored
@@ -1099,10 +1165,7 @@ def seg_aggr_bwd_phase(torch, ref, seg_aggr_bwd_cuda, kept: list) -> dict:
         # one broadcast product against precomputed per-neighbour weights
         lib = measure(lambda: g[:, None, :] * w[..., None], 200)
         rec = {"phase": "kernel", "name": "seg_aggr_bwd", "source": "training path",
-               "mode": mode, "shape": [n, f, d],
-               "kernel_ms": kern["device_ms"], "plain_ms": plain["device_ms"],
-               "library_ms": lib["device_ms"], "kernel_call_ms": kern["call_ms"],
-               "plain_call_ms": plain["call_ms"], "library_call_ms": lib["call_ms"]}
+               "mode": mode, "shape": [n, f, d], **times(kernel=kern, plain=plain, library=lib)}
         rec["bound_ms"], rec["bound_by"] = bound_ms(n * d * 4 + n * f + n * f * d * 4, n * f * d)
         emit(rec)
         recs.append(rec)
@@ -1131,9 +1194,7 @@ def inbatch_phase(torch, ref, inbatch_loss_rows_cuda, kept: list) -> dict:
     lib = measure(lambda: F.cross_entropy(s @ d.T / t, labels, reduction="none"), 200)
     rec = {"phase": "kernel", "name": "inbatch_loss", "source": "training path",
            "shape": [P, dim], "calls": len(kept), "max_abs_err": worst,
-           "kernel_ms": kern["device_ms"], "plain_ms": plain["device_ms"],
-           "library_ms": lib["device_ms"], "kernel_call_ms": kern["call_ms"],
-           "plain_call_ms": plain["call_ms"], "library_call_ms": lib["call_ms"]}
+           **times(kernel=kern, plain=plain, library=lib)}
     rec["bound_ms"], rec["bound_by"] = bound_ms(2 * P * dim * 4 + P * 4, 2.0 * P * P * dim)
     emit(rec)
     return rec
@@ -1180,9 +1241,7 @@ def row_adagrad_phase(torch, ref, row_adagrad_scatter_cuda, kept: list) -> dict:
         lib = measure(library, 200)
         rec = {"phase": "kernel", "name": "row_adagrad", "source": "training path",
                "shape": {"N": n, "D": dim, "bucket": ids.shape[0], "real_ids": n_real},
-               "kernel_ms": kern["device_ms"], "plain_ms": plain["device_ms"],
-               "library_ms": lib["device_ms"], "kernel_call_ms": kern["call_ms"],
-               "plain_call_ms": plain["call_ms"], "library_call_ms": lib["call_ms"]}
+               **times(kernel=kern, plain=plain, library=lib)}
         # this run's data: the ids and grads read once, and each real row's
         # table row and accumulator read and written
         rec["bound_ms"], rec["bound_by"] = bound_ms(
@@ -1206,10 +1265,8 @@ def _wp_record(torch, ref, window_pair_ids_cuda, paths, pos, source: str, iters:
     plain = measure(lambda: ref.window_pair_ids_ref(paths, pos), iters)
     rec = {"phase": "kernel", "name": "window_pairs", "source": source,
            "shape": {"B": B, "L": L, "npos": npos}, "max_abs_err": 0,
-           "kernel_ms": kern["device_ms"], "plain_ms": plain["device_ms"],
            # no single PyTorch call computes the jointly PAD-masked gather
-           "library_ms": None, "kernel_call_ms": kern["call_ms"],
-           "plain_call_ms": plain["call_ms"]}
+           **times(kernel=kern, plain=plain, library=None)}
     # each path read once, both id outputs written once
     rec["bound_ms"], rec["bound_by"] = bound_ms(B * L * 4 + 2 * B * npos * 4, 0)
     emit(rec)
@@ -1251,6 +1308,295 @@ def window_pairs_phase(torch, ref, window_pair_ids_cuda, calls: list) -> dict:
     return main
 
 
+# --------------------------------------------------------------- LM serving
+LM_ARCH, LM_BATCH, LM_SEQ = "smollm-135m", 4, 2048  # the prefill: full width, B x S
+# prefill vs decode, max |a - b| / max |b| (repro's measure, tests/test_models.py:124-128):
+# in f32 the two paths compute one function in other orders (held as card vs CPU is); in
+# bf16 to tests/test_torch_lm.py's bf16 logit bound, since repro's own 2e-2 does not hold
+# for repro in bf16 at full width: its flash path reads 2.76e-2 on these weights and
+# prompts on the CPU (tests/lm_bf16_consistency.py)
+LM_F32_REL, LM_BF16_REL = 1e-4, 3e-2
+LM_RTOL, LM_ATOL = 1e-4, 1e-4  # card vs CPU, reduced f32: other summation orders
+FLASH_RTOL, FLASH_ATOL = 1e-5, 2e-5  # f32 kernel vs plain: one function, another order
+FLASH_BF16_ATOL = 3e-2  # bf16: the plain version rounds its weights to bf16, the kernel not
+BF16_FLOP_PER_S = 989e12  # H100 SXM data sheet, dense bf16 tensor cores
+FLASH_SYNTHETIC = (  # ((B, S, H, K, hd), dtype, causal, window)
+    ((2, 256, 4, 2, 64), "float32", True, None),
+    ((2, 256, 4, 2, 64), "float32", False, None),
+    ((2, 200, 4, 2, 64), "float32", True, None),  # a tail tile
+    ((1, 512, 14, 2, 64), "float32", True, None),  # qwen2-0.5b's G 7
+    ((1, 8192, 36, 4, 128), "bfloat16", True, 4096),  # starcoder2-7b's layout and window
+)
+
+
+def _rel(a, b) -> float:
+    """max |a - b| / max |b| in f32: repro's forward-vs-decode measure."""
+    a, b = a.float(), b.float()
+    return ((a - b).abs().max() / b.abs().max()).item()
+
+
+def _flash_key(call):
+    (q, k, *_), kwargs = call
+    return (tuple(q.shape), tuple(k.shape), str(q.dtype), kwargs.get("causal", True),
+            kwargs.get("window"))
+
+
+def _decode_all(torch, T, model, cfg, tokens):
+    """Step every column of ``tokens`` (B, S) through a fresh cache; the
+    last step's logits and the seconds the steps took."""
+    cache = T.init_cache(cfg, tokens.shape[0], tokens.shape[1], tokens.device)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(tokens.shape[1]):
+        logits, cache = T.decode_step(model, cfg, cache, tokens[:, i:i + 1])
+    torch.cuda.synchronize()
+    return logits, time.perf_counter() - t0
+
+
+def lm_path(torch, np, fa_mod) -> dict:
+    """The LM substrate's serving side on smollm-135m at full width (random
+    weights from the port's init, seed 0): the prefill through
+    ``examples/serve_lm_torch.py``'s ``run`` (``make_prefill`` on B 4 x S
+    2,048, 30 ``flash_attention`` launches a forward; counts zeroed before,
+    read after; the first call of each shape recorded), the flash share of
+    one forward's device time, prefill vs decode on 256-token prompts (bf16
+    and the same weights in f32), ``BatchedServer`` twice on 16 requests,
+    and the reduced model in f32 on the card vs the CPU."""
+    import copy
+
+    import serve_lm_torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer as T
+    from repro_torch.serve import BatchedServer, ServeConfig
+
+    args = serve_lm_torch.parser().parse_args(
+        ["--arch", LM_ARCH, "--batch", str(LM_BATCH), "--prefill-len", str(LM_SEQ),
+         "--tokens", "0", "--seed", "0"])
+    calls: list = []
+    fa_mod.launches = 0
+    with recording(ops, "flash_attention", calls):
+        res = serve_lm_torch.run(args)
+    launches = fa_mod.launches
+    calls = first_of_each_shape(calls, _flash_key)
+    spec, model = res["spec"], res["model"]
+    cfg = spec.lm
+    if launches != cfg.n_layers * res["prefill_forwards"]:
+        fail(f"lm prefill: {launches} flash_attention launches in {res['prefill_forwards']} "
+             f"forwards of {cfg.n_layers} layers")
+    last = res["prefill_last_logits"]
+    if last.shape != (LM_BATCH, cfg.vocab_padded) or not torch.isfinite(last).all():
+        fail(f"lm prefill: last logits {tuple(last.shape)} not finite or misshapen")
+    out = {"phase": "lm prefill", "arch": spec.arch_id, "batch": LM_BATCH, "seq": LM_SEQ,
+           "dtype": cfg.dtype, "params": sum(p.numel() for p in model.parameters()),
+           "launches": {"flash_attention": launches}, "forwards": res["prefill_forwards"],
+           "launches_per_forward": launches / res["prefill_forwards"],
+           "prefill_s": res["prefill_s"], "prefill_tokens_per_s": res["prefill_tokens_per_s"]}
+
+    prefill = spec.make_prefill()
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab, size=(LM_BATCH, LM_SEQ))).to("cuda")
+    for _ in range(CUPTI_TRIES):  # until the profile keeps the kernel's 30 records
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            prefill(model, {"tokens": toks})
+            torch.cuda.synchronize()
+        dev = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+        flash = [e for e in dev if "flash_fwd_kernel" in e.key]
+        if sum(e.count for e in flash) == cfg.n_layers:
+            break
+    else:
+        fail(f"lm prefill: {CUPTI_TRIES} profiles of the forward lost flash_attention records")
+    total_us = sum(e.self_device_time_total for e in dev)
+    flash_us = sum(e.self_device_time_total for e in flash)
+    out.update(forward_device_ms=total_us / 1e3, flash_device_ms=flash_us / 1e3,
+               flash_share=flash_us / total_us)
+    emit(out)
+
+    # prefill vs decode, 256-token prompts: bf16 as served, and the same
+    # weights in f32 (the regime of repro's bound)
+    p256 = toks[:, :256].contiguous()
+    full = prefill(model, {"tokens": p256})
+    dec, dec_s = _decode_all(torch, T, model, cfg, p256)
+    spec32 = dataclasses.replace(spec, lm=dataclasses.replace(cfg, dtype="float32"))
+    m32 = copy.deepcopy(model).float()
+    full32 = spec32.make_prefill()(m32, {"tokens": p256})
+    dec32, _ = _decode_all(torch, T, m32, spec32.lm, p256)
+    del m32
+    cons = {"phase": "lm consistency", "prompts": list(p256.shape),
+            "f32_prefill_vs_decode": _rel(dec32, full32),
+            "bf16_prefill_vs_decode": _rel(dec, full),
+            "bf16_prefill_vs_f32": _rel(full, full32), "bf16_decode_vs_f32": _rel(dec, full32),
+            "f32_bound": LM_F32_REL, "bf16_bound": LM_BF16_REL,
+            "decode_steps_per_s": p256.shape[1] / dec_s}
+    emit(cons)
+    for dtype, bound in (("f32", LM_F32_REL), ("bf16", LM_BF16_REL)):
+        if not cons[f"{dtype}_prefill_vs_decode"] < bound:
+            fail(f"lm consistency: {dtype} prefill vs decode differ by "
+                 f"{cons[f'{dtype}_prefill_vs_decode']} (bound {bound})")
+    for k in ("bf16_prefill_vs_f32", "bf16_decode_vs_f32"):
+        if not np.isfinite(cons[k]):
+            fail(f"lm consistency: {k} is not finite")
+
+    # serving: 16 requests, prompts of 8-64 tokens, served twice
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab, size=int(n)).tolist()
+               for n in rng.integers(8, 65, size=16)]
+    scfg = ServeConfig(batch_size=8, max_new_tokens=32, cache_len=256)
+    outs, times = [], []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        outs.append(BatchedServer(spec, model, scfg).generate(prompts))
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    if outs[0] != outs[1]:
+        fail("lm serving: two greedy runs of the same requests differ")
+    if any(len(o) != 32 or not all(0 <= t < cfg.vocab for t in o) for o in outs[0]):
+        fail("lm serving: an output is not 32 in-vocabulary tokens")
+    steps = sum(max(len(p) for p in prompts[lo:lo + 8]) + 31 for lo in (0, 8))
+    # the tokens the requests hold: each prompt and what it generated (a
+    # shorter prompt's row repeats its last token until the batch's longest
+    # prompt is in, and those repeats are not counted), over both runs' wall
+    served = sum(len(p) + len(o) for p, o in zip(prompts, outs[0]))
+    generated = sum(len(o) for o in outs[0])
+    serve = {"phase": "lm serving", "requests": 16, "batch": 8, "new_tokens": 32,
+             "prompt_lens": [len(p) for p in prompts], "decode_steps": steps,
+             "serve_s": times, "identical": True,
+             "decode_tokens_per_s": 2 * served / sum(times),
+             "generated_tokens_per_s": 2 * generated / sum(times),
+             "first_outputs": outs[0][:2]}
+    emit(serve)
+    out.update(consistency=cons, serving=serve)
+
+    # card vs CPU: the reduced model in f32, forward and 16 decode steps
+    red = get_arch(LM_ARCH, reduced=True)
+    m_cpu = red.init_params(torch.Generator().manual_seed(0), "cpu")
+    m_gpu = copy.deepcopy(m_cpu).to("cuda")
+    t_cpu = torch.from_numpy(np.random.default_rng(1).integers(0, red.lm.vocab, size=(2, 32)))
+    torch.use_deterministic_algorithms(True)
+    try:
+        with torch.no_grad():
+            got = T.forward(m_gpu, red.lm, t_cpu.cuda())[0].cpu()
+            want = T.forward(m_cpu, red.lm, t_cpu)[0]
+        if not torch.allclose(got, want, rtol=LM_RTOL, atol=LM_ATOL):
+            fail("lm card vs CPU: forward logits differ")
+        diffs = [got - want]
+        c_cpu = T.init_cache(red.lm, 2, 16, "cpu")
+        c_gpu = T.init_cache(red.lm, 2, 16, "cuda")
+        for i in range(16):
+            a, c_cpu = T.decode_step(m_cpu, red.lm, c_cpu, t_cpu[:, i:i + 1])
+            b, c_gpu = T.decode_step(m_gpu, red.lm, c_gpu, t_cpu[:, i:i + 1].cuda())
+            if not torch.allclose(b.cpu(), a, rtol=LM_RTOL, atol=LM_ATOL):
+                fail(f"lm card vs CPU: decode step {i} logits differ")
+            diffs.append(b.cpu() - a)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    conf = {"phase": "lm card vs cpu", "arch": red.arch_id, "dtype": red.lm.dtype,
+            "tokens": [2, 32], "decode_steps": 16,
+            "max_abs_diff": max(d.abs().max().item() for d in diffs),
+            "rtol": LM_RTOL, "atol": LM_ATOL}
+    emit(conf)
+    out.update(card_vs_cpu=conf, calls=calls)
+    del model, res
+    return out
+
+
+def _band_pairs(np, Sq: int, Skv: int, causal: bool, window) -> int:
+    """(query, key) pairs inside the causal / window band."""
+    i = np.arange(Sq, dtype=np.int64)
+    hi = np.minimum(i, Skv - 1) if causal else np.full(Sq, Skv - 1)
+    lo = np.maximum(0, i - window + 1) if window is not None else np.zeros(Sq, np.int64)
+    return int(np.maximum(hi - lo + 1, 0).sum())
+
+
+def _flash_plain(torch, ref, q, k, v, causal, window, block: int = 1024):
+    """The plain version, in query blocks of ``block`` (their logits are
+    (B, H, block, Skv) f32) where Sq is larger."""
+    if q.shape[1] <= block:
+        return ref.attention_ref(q, k, v, causal, window)
+    return torch.cat([ref.attention_ref(q[:, i:i + block], k, v, causal, window, i)
+                      for i in range(0, q.shape[1], block)], dim=1)
+
+
+def _flash_record(torch, np, ref, fa_cuda, q, k, v, causal, window, source: str) -> dict:
+    import torch.nn.functional as F
+
+    B, Sq, H, hd = q.shape
+    Skv, K = k.shape[1], k.shape[2]
+    got = fa_cuda(q, k, v, causal, window)
+    want = _flash_plain(torch, ref, q, k, v, causal, window)
+    torch.cuda.synchronize()
+    err = (got.float() - want.float()).abs().max().item()
+    bf16 = q.dtype == torch.bfloat16
+    ok = err <= FLASH_BF16_ATOL if bf16 else torch.allclose(got, want, rtol=FLASH_RTOL,
+                                                            atol=FLASH_ATOL)
+    if not ok:
+        fail(f"flash_attention {tuple(q.shape)} K={K} {q.dtype} causal={causal} "
+             f"window={window} ({source}) disagrees with its plain version: {err}")
+    pairs = _band_pairs(np, Sq, Skv, causal, window)
+    flops = 4.0 * hd * pairs * B * H
+    nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    # the card's bound for the inputs' type (bf16 on the tensor cores, f32
+    # on the CUDA cores), and both of the others for comparison: this
+    # kernel multiplies in f32 on the CUDA cores whatever its inputs
+    f32_core_ms = max(t_bytes, flops / FP32_FLOP_PER_S * 1e3)
+    tc_ms = max(t_bytes, flops / BF16_FLOP_PER_S * 1e3)
+    t_ops = flops / (BF16_FLOP_PER_S if bf16 else FP32_FLOP_PER_S) * 1e3
+    big = flops > 1e11
+    kern = measure(lambda: fa_cuda(q, k, v, causal, window), 5 if big else 50, floor_ms=tc_ms)
+    plain = measure(lambda: _flash_plain(torch, ref, q, k, v, causal, window),
+                    2 if big else 10, warmup=1, floor_ms=tc_ms)
+    qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+    if window is None:
+        def lib_call():
+            return F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal, enable_gqa=True)
+    else:
+        i = torch.arange(Sq, device=q.device)[:, None]
+        j = torch.arange(Skv, device=q.device)[None, :]
+        band = j > i - window
+        if causal:
+            band &= j <= i
+
+        def lib_call():
+            return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=band, enable_gqa=True)
+    lib = measure(lib_call, 5 if big else 50, floor_ms=tc_ms)
+    rec = {"phase": "kernel", "name": "flash_attention", "source": source,
+           "shape": {"B": B, "Sq": Sq, "Skv": Skv, "H": H, "K": K, "hd": hd},
+           "dtype": str(q.dtype).replace("torch.", ""), "causal": causal, "window": window,
+           "max_abs_err": err, **times(kernel=kern, plain=plain, library=lib),
+           "band_pairs": pairs, "flop": flops,
+           "kernel_tflop_per_s": flops / kern["device_ms"] / 1e9,
+           "bound_ms": max(t_bytes, t_ops),
+           "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+           "f32_core_bound_ms": f32_core_ms, "bf16_tc_bound_ms": tc_ms}
+    if bf16:
+        rec["exact_share"] = (got == want).float().mean().item()
+    emit(rec)
+    return rec
+
+
+def flash_phase(torch, np, ref, fa_cuda, calls: list) -> dict:
+    """The kernel against its plain version on the first prefill call of
+    each shape, then at synthetic shapes: f32 causal and not, a tail tile,
+    qwen2's G 7, starcoder2's bf16 layout with its 4,096 window."""
+    recs = [_flash_record(torch, np, ref, fa_cuda, q, k, v, kw.get("causal", True),
+                          kw.get("window"), "lm prefill path")
+            for (q, k, v), kw in calls]
+    main = max(recs, key=lambda r: r["flop"])
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    for (B, S, H, K, hd), dtype, causal, window in FLASH_SYNTHETIC:
+        dtype = getattr(torch, dtype)
+        q = torch.randn(B, S, H, hd, device="cuda", generator=gen).to(dtype)
+        k = torch.randn(B, S, K, hd, device="cuda", generator=gen).to(dtype)
+        v = torch.randn(B, S, K, hd, device="cuda", generator=gen).to(dtype)
+        _flash_record(torch, np, ref, fa_cuda, q, k, v, causal, window, "synthetic")
+    return main
+
+
 def main() -> None:
     # cuBLAS reads this when CUDA starts; without it deterministic algorithms
     # (the conformance phase) make cuBLAS raise
@@ -1276,6 +1622,7 @@ def main() -> None:
     torch.backends.cudnn.allow_tf32 = False
 
     from repro_torch.kernels import build, ref
+    from repro_torch.kernels import flash_attn as fa_mod
     from repro_torch.kernels import inbatch_loss as inbatch_mod
     from repro_torch.kernels import ivf as ivf_mod
     from repro_torch.kernels import row_adagrad as adagrad_mod
@@ -1297,6 +1644,7 @@ def main() -> None:
     tr = training_path(torch, np, modules, mp["recall"]["u2i"])
     fu = fused_training_path(torch, np, modules, mp["recall"]["u2i"])
     conf = conformance_phase(torch, np)
+    lm = lm_path(torch, np, fa_mod)
     gc.collect()
     torch.cuda.empty_cache()  # the IVF phases' blocks: leave the card's memory free
     emit({"phase": "clocks", "before_kernel_phases": sm_clocks(),
@@ -1314,13 +1662,15 @@ def main() -> None:
     ivf = ivf_phase(torch, ref, ivf_mod.ivf_list_topk_cuda,
                     {"ivf serving": iv["calls"]["ivf serving"],
                      "ivf exhaustive": iv["calls"]["ivf exhaustive"], "1M arm": m1["calls"]})
+    flash = flash_phase(torch, np, ref, fa_mod.flash_attention_cuda, lm["calls"])
 
     def entry(name, rec, source, replaces, by_path):
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
                 "launches": sum(by_path.values()), "launches_by_path": by_path,
                 "max_abs_err": rec["max_abs_err"], "ms": rec["kernel_ms"],
                 "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
-                "bound_by": rec["bound_by"], "library_ms": rec["library_ms"]}
+                "bound_by": rec["bound_by"], "library_ms": rec["library_ms"],
+                "ms_from": {k: rec["ms_from"][k] for k in ("kernel", "plain", "library")}}
 
     tl, fl = tr["launches"], fu["launches"]
     emit({"phase": "clocks", "after_kernel_phases": sm_clocks()})
@@ -1349,7 +1699,16 @@ def main() -> None:
                                         "launches")},
           "conformance": {u: {k: conf[u][k] for k in ("loss_max_abs_diff",
                                                       "param_max_abs_diff")}
-                          for u in ("sparse", "dense", "fused")}})
+                          for u in ("sparse", "dense", "fused")},
+          "lm_serving": {
+              "arch": lm["arch"], "prefill_tokens_per_s": lm["prefill_tokens_per_s"],
+              "decode_tokens_per_s": lm["serving"]["decode_tokens_per_s"],
+              "generated_tokens_per_s": lm["serving"]["generated_tokens_per_s"],
+              "flash_share": lm["flash_share"], "launches": lm["launches"],
+              "consistency": {k: lm["consistency"][k] for k in (
+                  "f32_prefill_vs_decode", "bf16_prefill_vs_decode", "bf16_prefill_vs_f32",
+                  "bf16_decode_vs_f32")},
+              "card_vs_cpu_max_abs_diff": lm["card_vs_cpu"]["max_abs_diff"]}})
     print(json.dumps({"kernels": [
         entry("seg_aggr", seg, "src/repro_torch/kernels/csrc/seg_aggr.cu",
               "src/repro/kernels/seg_aggr.py:45",
@@ -1372,6 +1731,9 @@ def main() -> None:
               "src/repro/kernels/ivf.py:97",
               {"ivf serving": iv["launches"]["ivf_list_topk"],
                "ivf exhaustive": iv["exhaustive"]["launches"], "1M arm": m1["launches"]}),
+        entry("flash_attention", flash, "src/repro_torch/kernels/csrc/flash_attn.cu",
+              "src/repro/kernels/flash_attn.py:81",
+              {"lm prefill": lm["launches"]["flash_attention"]}),
     ]}), flush=True)
     print(smi, flush=True)  # the card's name and power limit, as nvidia-smi gives them
     print(json.dumps({"ok": True, "device": {

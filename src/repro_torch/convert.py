@@ -16,6 +16,14 @@ An IVF index crosses as its numpy fields: ``ivf_index_from_numpy`` makes
 the port's ``IVFIndex`` on a device from ``repro``'s (or any object with
 the same fields), so both packages can search the very same index.
 
+The LM substrate's weights cross as ``repro``'s parameter tree of numpy
+arrays (``jax.tree_util.tree_map(np.asarray, params)``):
+``lm_params_from_numpy`` unstacks its per-offset ``layers`` (leaf leading
+dim R, layer = rep * period + off) into the port's per-layer blocks, and
+``lm_model_to_numpy`` stacks them back. bf16 arrives as an ``ml_dtypes``
+array; it is recognised by its dtype's name and moved as its 16 bits, so
+the round trip is bitwise.
+
 Optimizer states cross the same way: ``state_to_numpy`` turns the trainer's
 state (``RowAdagradState.accum``, ``AdamState`` step/mu/nu, nested in
 tuples and dicts as ``repro`` nests them) into numpy, and
@@ -33,6 +41,8 @@ import torch
 
 from repro_torch.core.model import Graph4RecConfig, Graph4RecModel, init_model_params
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.models import layers as L
+from repro_torch.models import transformer as T
 from repro_torch.retrieval.ivf import IVFConfig, IVFIndex
 
 
@@ -91,6 +101,127 @@ def ivf_index_from_numpy(index: Any, device: DeviceLike = None) -> IVFIndex:
         ("codes", np.int8), ("scales", np.float32), ("items", np.float32))}
     return IVFIndex(config=cfg, lpad=int(index.lpad),
                     spilled_items=int(index.spilled_items), device=device, **arrays)
+
+
+# ----------------------------------------------------------------- LM weights
+def _lm_tensor(a: Any) -> torch.Tensor:
+    """A numpy leaf -> a CPU tensor; bf16 (``ml_dtypes``) by its bits."""
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        bits = np.ascontiguousarray(a).view(np.uint16)
+        return torch.from_numpy(bits.copy()).view(torch.bfloat16)
+    return torch.from_numpy(np.array(a))
+
+
+def _lm_array(t: torch.Tensor) -> np.ndarray:
+    """A tensor -> a host numpy array; bf16 as ``np.dtype("bfloat16")``
+    where numpy knows that name (``ml_dtypes`` imported by some other
+    module), else as its raw uint16 bits."""
+    t = t.detach().cpu()
+    if t.dtype != torch.bfloat16:
+        return t.numpy()
+    bits = t.contiguous().view(torch.int16).numpy().view(np.uint16)
+    try:
+        return bits.view(np.dtype("bfloat16"))
+    except TypeError:
+        return bits
+
+
+def _lm_block_params(cfg: T.LMConfig, layer: Dict[str, Any], rep: int) -> T.Block:
+    def group(name):
+        return {k: _lm_tensor(np.asarray(v)[rep]) for k, v in layer[name].items()}
+
+    def norm(name):
+        g = group(name)
+        if not set(g) <= {"scale", "bias"}:
+            raise KeyError(f"{name} params {sorted(g)}: a norm has scale and bias only")
+        return L.Norm(cfg.norm, g["scale"], g.get("bias"))
+
+    return T.Block(norm("norm1"), L.Attention(cfg.attn_cfg(), group("attn")), norm("norm2"),
+                   L.MLP(cfg.mlp_kind, group("mlp")))
+
+
+def lm_params_from_numpy(cfg: T.LMConfig, tree: Mapping[str, Any],
+                         device: DeviceLike = None) -> T.LM:
+    """``repro``'s LM parameter tree (numpy leaves) -> an ``LM`` on
+    ``device``. Every name, shape and dtype is checked against ``cfg``."""
+    dev = resolve_device(device)
+    for spec in cfg.block_list():
+        T.check_block(spec)
+    p = cfg.period()
+    R = cfg.n_layers // p
+    stacked = tree["layers"]
+    if len(stacked) != p:
+        raise ValueError(f"{len(stacked)} stacked offsets for a block period of {p}")
+    blocks = [_lm_block_params(cfg, stacked[i % p], i // p) for i in range(cfg.n_layers)]
+    for off, layer in enumerate(stacked):
+        for name, group in layer.items():
+            for leaf, a in group.items():
+                if np.shape(a)[0] != R:
+                    raise ValueError(f"layers[{off}].{name}.{leaf}: leading dim "
+                                     f"{np.shape(a)[0]}, want {R} repetitions")
+    fn = {k: _lm_tensor(v) for k, v in tree["final_norm"].items()}
+    head = tree.get("lm_head")
+    model = T.LM(cfg, _lm_tensor(tree["embed"]), L.Norm(cfg.norm, fn["scale"], fn.get("bias")),
+                 blocks, None if head is None else _lm_tensor(head))
+    want = lm_param_shapes(cfg)
+    got = {k: tuple(v.shape) for k, v in model.state_dict().items()}
+    if got != want:
+        bad = sorted(set(got.items()) ^ set(want.items()))
+        raise ValueError(f"LM params do not match the config: {bad[:8]}")
+    dtype = T.torch_dtype(cfg.dtype)
+    wrong = sorted(k for k, v in model.state_dict().items() if v.dtype != dtype)
+    if wrong:
+        raise TypeError(f"LM params not in {dtype}: {wrong[:8]}")
+    return model.to(dev)
+
+
+def lm_param_shapes(cfg: T.LMConfig) -> Dict[str, tuple]:
+    """Every parameter of ``cfg``'s ``LM`` (``state_dict`` names) with its shape."""
+    a = cfg.attn_cfg()
+    d, H, K, hd, ff = cfg.d_model, a.n_heads_padded, cfg.n_kv, cfg.head_dim, cfg.d_ff
+    norm = {"scale": (d,)} if cfg.norm == "rms" else {"scale": (d,), "bias": (d,)}
+    attn = {"wq": (d, H * hd), "wk": (d, K * hd), "wv": (d, K * hd), "wo": (H * hd, d)}
+    if cfg.qkv_bias:
+        attn.update(bq=(H * hd,), bk=(K * hd,), bv=(K * hd,))
+    mlp = ({"wg": (d, ff), "wu": (d, ff), "wd": (ff, d)} if cfg.mlp_kind == "swiglu"
+           else {"wu": (d, ff), "bu": (ff,), "wd": (ff, d), "bd": (d,)})
+    out = {"embed": (cfg.vocab_padded, d)}
+    for i in range(cfg.n_layers):
+        for gname, g in (("norm1", norm), ("attn", attn), ("norm2", norm), ("mlp", mlp)):
+            out.update({f"layers.{i}.{gname}.{k}": s for k, s in g.items()})
+    out.update({f"final_norm.{k}": s for k, s in norm.items()})
+    if not cfg.tie_embeddings:
+        out["lm_head"] = (d, cfg.vocab_padded)
+    return out
+
+
+def lm_model_to_numpy(model: T.LM) -> Dict[str, Any]:
+    """The inverse of ``lm_params_from_numpy``: ``repro``'s tree, per-offset
+    stacked, as host arrays (bf16 as ``_lm_array`` gives it)."""
+    cfg = model.cfg
+    p = cfg.period()
+    R = cfg.n_layers // p
+
+    def module_leaves(m):
+        return {k: v for k, v in m.named_parameters(recurse=False)}
+
+    stacked = []
+    for off in range(p):
+        layer = {}
+        for gname in ("norm1", "attn", "norm2", "mlp"):
+            names = module_leaves(getattr(model.layers[off], gname))
+            layer[gname] = {
+                k: np.stack([_lm_array(getattr(getattr(model.layers[rep * p + off], gname), k))
+                             for rep in range(R)])
+                for k in names}
+        stacked.append(layer)
+    tree = {"embed": _lm_array(model.embed),
+            "final_norm": {k: _lm_array(v) for k, v in module_leaves(model.final_norm).items()},
+            "layers": stacked}
+    if model.lm_head is not None:
+        tree["lm_head"] = _lm_array(model.lm_head)
+    return tree
 
 
 # ------------------------------------------------------- optimizer states

@@ -2,13 +2,13 @@
 
 A CUDA tensor launches the hand-written kernel (``seg_aggr`` and its
 backward, ``topk``, ``inbatch_loss``, ``row_adagrad``, ``window_pairs``,
-``ivf_list_topk``) or raises: a build or launch failure is never caught to
+``ivf_list_topk``, ``flash_attention``) or raises: a build or launch failure is never caught to
 run the plain version instead. A CPU
 tensor runs the plain PyTorch version in ``kernels/ref``, which is what the
 CPU tests exercise. Any other device raises.
 
-``seg_aggr`` and ``inbatch_loss`` are ``torch.autograd.Function``s on both
-devices, so the CPU tests drive the very functions the card runs. The
+``seg_aggr``, ``inbatch_loss`` and ``flash_attention`` are
+``torch.autograd.Function``s on both devices, so the CPU tests drive the very functions the card runs. The
 backward of ``seg_aggr`` is a kernel; that of ``inbatch_loss`` is the closed
 form ``(softmax - I) g / (P t)`` in plain tensor ops, as ``repro`` computes
 it in jnp outside its kernel (``repro/kernels/ops.py:_inbatch_bwd``).
@@ -27,6 +27,7 @@ import torch
 from torch.autograd.function import once_differentiable
 
 from repro_torch.kernels import ref
+from repro_torch.kernels.flash_attn import flash_attention_cuda
 from repro_torch.kernels.inbatch_loss import inbatch_loss_rows_cuda
 from repro_torch.kernels.ivf import ivf_list_topk_cuda
 from repro_torch.kernels.row_adagrad import row_adagrad_scatter_cuda
@@ -180,3 +181,29 @@ def window_pair_ids(paths: torch.Tensor,
         return window_pair_ids_cuda(paths.to(torch.int32).contiguous(),
                                     positions.to(torch.int32).contiguous())
     return ref.window_pair_ids_ref(paths, positions)
+
+
+# ----------------------------------------------------------------- attention
+class _FlashAttention(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window):
+        if _route(q, "flash_attention"):
+            return flash_attention_cuda(q, k, v, causal, window)
+        return ref.attention_ref(q, k, v, causal, window)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        raise NotImplementedError(
+            "flash_attention has no backward yet: LM training is not ported "
+            "(ROADMAP Queue 1 item 8a, the attention backward)"
+        )
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    causal: bool = True, window: Optional[int] = None) -> torch.Tensor:
+    """GQA attention in the model's layout: (B, Sq, H, hd) queries against
+    (B, Skv, K, hd) keys and values -> (B, Sq, H, hd), causal and/or with a
+    sliding window, f32 softmax. Any Sq, Skv (``repro``'s Pallas kernel
+    asserts ``Sq % block_q == 0``; that is a TPU tiling limit)."""
+    return _FlashAttention.apply(q, k, v, bool(causal), window)

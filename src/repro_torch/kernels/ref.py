@@ -7,6 +7,7 @@ them on the card. On a card nothing else calls them.
 """
 from __future__ import annotations
 
+import math
 from typing import Optional, Tuple
 
 import torch
@@ -246,3 +247,39 @@ def ivf_list_topk_ref(
         out_s[lo:hi] = torch.gather(s, 1, pos)
         out_r[lo:hi] = torch.gather(r, 1, pos).to(torch.int32)
     return out_s, out_r
+
+
+# ----------------------------------------------------------------- attention
+def attention_ref(
+    q: torch.Tensor,  # (B, Sq, H, hd)
+    k: torch.Tensor,  # (B, Skv, K, hd)
+    v: torch.Tensor,  # (B, Skv, K, hd)
+    causal: bool = True,
+    window: Optional[int] = None,
+    q_offset: int = 0,
+) -> torch.Tensor:
+    """GQA attention with causal and sliding-window masking -> (B, Sq, H, hd).
+
+    Mirrors ``repro/kernels/ref.py:attention_ref``: query head h reads KV
+    head h // G (G = H / K); query i sits at position i + ``q_offset``;
+    masked logits are ``NEG_INF``; the softmax runs in f32 and its weights
+    are cast to the input dtype before the PV product. The flash kernel
+    (``csrc/flash_attn.cu``) keeps them in f32, so in bf16 the two differ
+    by the weights' rounding.
+    """
+    B, Sq, H, hd = q.shape
+    Kh = k.shape[2]
+    G = H // Kh
+    qg = q.reshape(B, Sq, Kh, G, hd)
+    logits = torch.einsum("bqkgd,bskd->bkgqs", qg, k).float() / math.sqrt(hd)
+    qi = torch.arange(Sq, device=q.device)[:, None] + q_offset
+    ki = torch.arange(k.shape[1], device=q.device)[None, :]
+    ok = torch.ones((Sq, k.shape[1]), dtype=torch.bool, device=q.device)
+    if causal:
+        ok &= ki <= qi
+    if window is not None:
+        ok &= ki > qi - window
+    logits = logits.masked_fill(~ok, NEG_INF)
+    att = torch.softmax(logits, dim=-1).to(q.dtype)
+    out = torch.einsum("bkgqs,bskd->bqkgd", att, v)
+    return out.reshape(B, Sq, H, hd)

@@ -1,0 +1,275 @@
+"""The decoder-only LM substrate, dense-attention blocks: the counterpart of
+``repro/models/transformer.py``.
+
+One ``LMConfig`` describes every family; each layer is a (mixer, ffn)
+block. The port runs ``("attn", "dense")`` blocks (SmolLM, Qwen2,
+StarCoder2, DeepSeek-Coder); a MoE or Mamba2 block raises
+``NotImplementedError`` naming its ROADMAP item.
+
+``repro`` stacks each parameter per offset of the block pattern and runs
+the layers with ``lax.scan`` (leaf leading dim R, layer = rep * period +
+off); here an ``LM`` module holds one ``Block`` per layer in order and the
+forward is a Python loop, as PyTorch runs eagerly (``convert`` unstacks
+``repro``'s tree). ``LMConfig``'s compiler and mesh knobs (``remat``,
+``remat_policy``, ``scan_layers``, ``use_flash``, ``block_q``,
+``gather_head``, ``shard_cache_seq``, ``pad_heads`` beyond the head count)
+are kept so configs stay interchangeable, and select nothing: the
+full-sequence attention is the flash kernel on CUDA whatever they say.
+
+Weights come from the port's own init (``init_lm``): ``repro``'s
+distributions and scales, drawn from an explicit ``torch.Generator``, so
+not ``jax.random``'s numbers; conformance starts from ``repro``'s
+parameters, converted.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+from torch import nn
+
+from repro_torch.models import layers as L
+
+BlockSpec = Tuple[str, str]  # (mixer, ffn)
+
+_UNPORTED_BLOCK = {
+    "moe": "MoE blocks are not ported yet (ROADMAP Queue 1 item 8b, MoE)",
+    "mamba": "Mamba2 blocks are not ported yet (ROADMAP Queue 1 item 8c, Mamba2 and Jamba)",
+}
+
+
+def torch_dtype(name: str) -> torch.dtype:
+    return {"bfloat16": torch.bfloat16, "float32": torch.float32}[name]
+
+
+@dataclasses.dataclass(frozen=True)
+class LMConfig:
+    name: str
+    vocab: int
+    d_model: int
+    n_layers: int
+    n_heads: int
+    n_kv: int
+    d_ff: int
+    head_dim: int = 128
+    blocks: Tuple[BlockSpec, ...] = ()  # len == n_layers; default all (attn, dense)
+    qkv_bias: bool = False
+    rope_theta: float = 10000.0
+    mrope_sections: Optional[Tuple[int, ...]] = None
+    sliding_window: Optional[int] = None
+    mlp_kind: str = "swiglu"
+    norm: str = "rms"
+    moe: Optional[Any] = None  # repro's MoEConfig; MoE is not ported
+    mamba: Optional[Any] = None  # repro's Mamba2Config; Mamba2 is not ported
+    tie_embeddings: bool = False
+    dtype: str = "bfloat16"
+    remat: bool = True  # selects nothing (no backward yet)
+    use_flash: bool = False  # selects nothing: the flash kernel always runs on CUDA
+    aux_loss_weight: float = 0.01
+    scan_layers: bool = True  # selects nothing (layers are a Python loop)
+    block_q: int = 256  # selects nothing
+    remat_policy: str = "full"  # selects nothing
+    gather_head: bool = False  # selects nothing (one card)
+    shard_cache_seq: bool = False  # selects nothing (one card)
+    pad_heads: bool = False  # only shapes the weights (AttnConfig.n_heads_padded)
+
+    @property
+    def vocab_padded(self) -> int:
+        """Embedding rows, padded to a multiple of 256 as ``repro`` pads them
+        for its mesh; logits past ``vocab`` are masked."""
+        return -(-self.vocab // 256) * 256
+
+    def block_list(self) -> Tuple[BlockSpec, ...]:
+        return self.blocks if self.blocks else tuple([("attn", "dense")] * self.n_layers)
+
+    def attn_cfg(self) -> L.AttnConfig:
+        return L.AttnConfig(
+            d_model=self.d_model, n_heads=self.n_heads, n_kv=self.n_kv,
+            head_dim=self.head_dim, qkv_bias=self.qkv_bias, causal=True,
+            sliding_window=self.sliding_window, rope_theta=self.rope_theta,
+            mrope_sections=self.mrope_sections, chunk_unroll=not self.scan_layers,
+            block_q=self.block_q, shard_cache_seq=self.shard_cache_seq,
+            pad_heads=self.pad_heads,
+        )
+
+    def mamba_cfg(self):
+        raise NotImplementedError(_UNPORTED_BLOCK["mamba"])
+
+    def period(self) -> int:
+        """Smallest repeating period of the block pattern (``repro``'s scan
+        unit: its parameters are stacked per offset of it)."""
+        blocks = self.block_list()
+        n = len(blocks)
+        for p in range(1, n + 1):
+            if n % p == 0 and all(blocks[i] == blocks[i % p] for i in range(n)):
+                return p
+        return n
+
+
+def check_block(spec: BlockSpec) -> None:
+    """Raise for a block the port does not run."""
+    mixer, ffn = spec
+    if mixer != "attn":
+        raise NotImplementedError(_UNPORTED_BLOCK["mamba"])
+    if ffn == "moe":
+        raise NotImplementedError(_UNPORTED_BLOCK["moe"])
+    if ffn != "dense":
+        raise NotImplementedError(f"block {spec} is not ported")
+
+
+# ---------------------------------------------------------------- parameters
+class Block(nn.Module):
+    """One ``("attn", "dense")`` layer: ``norm1``, ``attn``, ``norm2``, ``mlp``."""
+
+    def __init__(self, norm1: L.Norm, attn: L.Attention, norm2: L.Norm, mlp: L.MLP):
+        super().__init__()
+        self.norm1, self.attn, self.norm2, self.mlp = norm1, attn, norm2, mlp
+
+
+class LM(nn.Module):
+    """``embed`` (vocab_padded, d), ``final_norm``, one ``Block`` per layer
+    in ``layers``, and ``lm_head`` (d, vocab_padded) unless tied."""
+
+    def __init__(self, cfg: LMConfig, embed: torch.Tensor, final_norm: L.Norm,
+                 layers: List[Block], lm_head: Optional[torch.Tensor] = None):
+        super().__init__()
+        for spec in cfg.block_list():
+            check_block(spec)
+        if len(layers) != cfg.n_layers:
+            raise ValueError(f"{len(layers)} blocks for {cfg.n_layers} layers")
+        if cfg.tie_embeddings != (lm_head is None):
+            raise ValueError("lm_head must be given exactly when embeddings are not tied")
+        self.cfg = cfg
+        self.embed = nn.Parameter(embed)
+        self.final_norm = final_norm
+        self.layers = nn.ModuleList(layers)
+        self.lm_head = None if lm_head is None else nn.Parameter(lm_head)
+
+    def head(self) -> torch.Tensor:
+        return self.embed.t() if self.cfg.tie_embeddings else self.lm_head
+
+
+def init_lm(gen: torch.Generator, cfg: LMConfig, device=None) -> LM:
+    """Fresh weights with ``repro``'s distributions and scales: N(0, 1/d)
+    projections (1/(H*hd) for ``wo``, 1/d_ff for ``wd``), unit norms, zero
+    biases, N(0, 1/d) embedding and head; drawn in f32 from ``gen`` (on its
+    device), layer by layer, then cast to ``cfg.dtype`` on ``device``."""
+    dtype = torch_dtype(cfg.dtype)
+    acfg = cfg.attn_cfg()
+    layers = []
+    for spec in cfg.block_list():
+        check_block(spec)
+        layers.append(Block(
+            L.init_norm(cfg.norm, cfg.d_model, dtype, device),
+            L.init_attn(gen, acfg, dtype, device),
+            L.init_norm(cfg.norm, cfg.d_model, dtype, device),
+            L.init_mlp(gen, cfg.mlp_kind, cfg.d_model, cfg.d_ff, dtype, device),
+        ))
+    scale = 1.0 / np.sqrt(cfg.d_model)
+    embed = L.init_normal(gen, (cfg.vocab_padded, cfg.d_model), scale, dtype, device)
+    head = None if cfg.tie_embeddings else L.init_normal(
+        gen, (cfg.d_model, cfg.vocab_padded), scale, dtype, device)
+    return LM(cfg, embed, L.init_norm(cfg.norm, cfg.d_model, dtype, device), layers, head)
+
+
+# ------------------------------------------------------------------- forward
+def embed_tokens(model: LM, cfg: LMConfig, tokens: torch.Tensor) -> torch.Tensor:
+    return torch.nn.functional.embedding(tokens, model.embed)
+
+
+def _block_apply(cfg: LMConfig, spec: BlockSpec, bp: Block, x: torch.Tensor,
+                 positions: Optional[torch.Tensor],
+                 acfg: Optional[L.AttnConfig] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+    check_block(spec)
+    h = L.apply_norm(cfg.norm, bp.norm1, x)
+    x = x + L.attn_forward(bp.attn, acfg or cfg.attn_cfg(), h, positions, cfg.use_flash)
+    x = x + L.mlp_forward(bp.mlp, cfg.mlp_kind, L.apply_norm(cfg.norm, bp.norm2, x))
+    return x, torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+def hidden_states(model: LM, cfg: LMConfig, tokens: Optional[torch.Tensor] = None,
+                  inputs_embeds: Optional[torch.Tensor] = None,
+                  positions: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Every layer and the final norm -> ((B, S, d), aux_loss)."""
+    x = inputs_embeds if inputs_embeds is not None else embed_tokens(model, cfg, tokens)
+    acfg = cfg.attn_cfg()
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for spec, bp in zip(cfg.block_list(), model.layers):
+        x, a = _block_apply(cfg, spec, bp, x, positions, acfg)
+        aux = aux + a
+    return L.apply_norm(cfg.norm, model.final_norm, x), aux
+
+
+def forward(model: LM, cfg: LMConfig, tokens: Optional[torch.Tensor] = None,
+            inputs_embeds: Optional[torch.Tensor] = None,
+            positions: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Full-sequence forward -> (logits (B, S, vocab_padded), aux_loss)."""
+    x, aux = hidden_states(model, cfg, tokens, inputs_embeds, positions)
+    return _mask_padded_vocab(cfg, x @ model.head()), aux
+
+
+def _mask_padded_vocab(cfg: LMConfig, logits: torch.Tensor) -> torch.Tensor:
+    if cfg.vocab_padded == cfg.vocab:
+        return logits
+    pad = torch.arange(logits.shape[-1], device=logits.device) >= cfg.vocab
+    return logits.masked_fill(pad, -1e30)
+
+
+def gold_logit(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """The label's logit, as ``repro``'s compare-select-reduce form."""
+    hit = torch.arange(logits.shape[-1], device=logits.device) == labels[..., None]
+    return torch.where(hit, logits, 0.0).sum(dim=-1)
+
+
+def lm_loss(model: LM, cfg: LMConfig, tokens: torch.Tensor, labels: torch.Tensor,
+            positions: Optional[torch.Tensor] = None,
+            inputs_embeds: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Mean next-token cross-entropy over labels >= 0 (+ the aux loss).
+    Forward only: the attention has no backward yet."""
+    logits, aux = forward(model, cfg, tokens, inputs_embeds, positions)
+    logits = logits.float()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = gold_logit(logits, labels)
+    mask = (labels >= 0).float()
+    ce = ((logz - gold) * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+    return ce + cfg.aux_loss_weight * aux
+
+
+# -------------------------------------------------------------------- decode
+def init_cache(cfg: LMConfig, batch: int, cache_len: int, device=None) -> Dict[str, Any]:
+    """One {"k", "v"} cache per layer and the position ``t`` (a host int).
+    ``cache_len`` is the context for dense archs; SWA archs keep a ring of
+    ``min(cache_len, window)`` slots."""
+    dtype = torch_dtype(cfg.dtype)
+    caches = []
+    for spec in cfg.block_list():
+        check_block(spec)
+        s_max = min(cache_len, cfg.sliding_window) if cfg.sliding_window else cache_len
+        caches.append(L.init_kv_cache(
+            L.KVCacheSpec(batch, s_max, cfg.n_kv, cfg.head_dim,
+                          ring=cfg.sliding_window is not None), dtype, device))
+    return {"layers": caches, "t": 0}
+
+
+@torch.no_grad()
+def decode_step(model: LM, cfg: LMConfig, cache: Dict[str, Any],
+                token: torch.Tensor) -> Tuple[torch.Tensor, Dict[str, Any]]:
+    """One-token serve step -> (logits (B, vocab_padded), cache).
+
+    The cache is updated IN PLACE (one slot per layer) and returned with
+    ``t`` advanced; ``repro`` returns a new cache instead.
+    """
+    x = embed_tokens(model, cfg, token)
+    t = int(cache["t"])
+    acfg = cfg.attn_cfg()
+    for spec, bp, c in zip(cfg.block_list(), model.layers, cache["layers"]):
+        check_block(spec)
+        y, _ = L.attn_decode_step(bp.attn, acfg, c, L.apply_norm(cfg.norm, bp.norm1, x), t)
+        x = x + y
+        x = x + L.mlp_forward(bp.mlp, cfg.mlp_kind, L.apply_norm(cfg.norm, bp.norm2, x))
+    x = L.apply_norm(cfg.norm, model.final_norm, x)
+    logits = _mask_padded_vocab(cfg, x @ model.head())[:, 0, :]
+    cache["t"] = t + 1
+    return logits, cache

@@ -1,0 +1,111 @@
+"""Batched serving over the one-token decode step: the counterpart of
+``repro/serve/engine.py``.
+
+Static batching: requests go in fixed-size batches, one ``decode_step`` per
+token across the whole batch. Prompts are left-aligned and stepped through
+the cache (prefill-by-decode: a short prompt repeats its last token, and the
+extra steps are overwritten by the first sampled token); rows that emitted
+``eos_id`` stop. No kernel runs on this path: the decode step's attention
+is one query against the cache, the einsum path, as in ``repro``.
+
+Greedy decoding (``temperature <= 0``) is the conformance mode: the argmax
+of the logits, lower id first on ties, as ``jnp.argmax``. Temperature
+sampling draws with ``torch.multinomial`` from a generator seeded with
+``cfg.seed`` afresh for each batch, on the logits' device; it cannot
+reproduce ``jax.random.categorical``'s draws, so sampled outputs differ from
+``repro``'s bit for bit while following the same distribution.
+
+``telemetry`` other than ``None`` raises: the port's spans and metrics come
+with ROADMAP Queue 1 item 6.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import List, Optional, Sequence
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ArchSpec
+from repro_torch.models import transformer as T
+
+
+@dataclasses.dataclass
+class ServeConfig:
+    batch_size: int = 4
+    max_new_tokens: int = 32
+    cache_len: int = 256
+    temperature: float = 0.0  # 0 -> greedy
+    eos_id: Optional[int] = None
+    seed: int = 0
+
+
+class BatchedServer:
+    def __init__(self, spec: ArchSpec, params: T.LM, cfg: ServeConfig, telemetry=None):
+        if spec.kind != "lm":
+            raise NotImplementedError(f"serving {spec.kind!r} archs is not ported yet "
+                                      "(ROADMAP Queue 1 items 8d, 8e)")
+        if telemetry is not None:
+            raise NotImplementedError("serving telemetry is not ported yet (ROADMAP Queue 1 "
+                                      "item 6): pass telemetry=None")
+        self.spec = spec
+        self.lm = spec.lm
+        self.params = params
+        self.cfg = cfg
+        self.device = params.embed.device
+        if self.lm.sliding_window:
+            self.cache_len = min(cfg.cache_len, self.lm.sliding_window)
+        else:
+            self.cache_len = cfg.cache_len
+
+    def _step(self, cache, tok: np.ndarray):
+        t = torch.from_numpy(np.ascontiguousarray(tok, np.int64)).to(self.device)
+        return T.decode_step(self.params, self.lm, cache, t)
+
+    def _sample(self, logits: torch.Tensor, gen: Optional[torch.Generator]) -> np.ndarray:
+        if self.cfg.temperature <= 0.0:
+            nxt = torch.argmax(logits, dim=-1)
+        else:
+            probs = torch.softmax(logits.float() / self.cfg.temperature, dim=-1)
+            nxt = torch.multinomial(probs, 1, generator=gen)[:, 0]
+        return nxt.to(torch.int32).cpu().numpy()
+
+    def _run_batch(self, prompts: List[List[int]]) -> List[List[int]]:
+        B = self.cfg.batch_size
+        if len(prompts) > B:
+            raise ValueError(f"{len(prompts)} prompts for a batch of {B}")
+        pad = B - len(prompts)
+        prompts = prompts + [[0]] * pad
+        max_p = max(len(p) for p in prompts)
+        cache = T.init_cache(self.lm, B, self.cache_len, self.device)
+        gen = None
+        if self.cfg.temperature > 0.0:
+            gen = torch.Generator(device=self.device).manual_seed(int(self.cfg.seed))
+
+        logits = None
+        for i in range(max_p):
+            tok = np.array([p[min(i, len(p) - 1)] for p in prompts], dtype=np.int64)[:, None]
+            logits, cache = self._step(cache, tok)
+
+        outs: List[List[int]] = [[] for _ in range(B)]
+        done = np.zeros(B, bool)
+        for _ in range(self.cfg.max_new_tokens):
+            nxt = self._sample(logits, gen)
+            for b in range(B):
+                if not done[b]:
+                    outs[b].append(int(nxt[b]))
+                    if self.cfg.eos_id is not None and nxt[b] == self.cfg.eos_id:
+                        done[b] = True
+            if done.all():
+                break
+            logits, cache = self._step(cache, nxt[:, None])
+        return outs[: len(outs) - pad if pad else None]
+
+    def generate(self, prompts: Sequence[Sequence[int]]) -> List[List[int]]:
+        """Serve any number of requests in fixed-size batches."""
+        prompts = [list(p) for p in prompts]
+        out: List[List[int]] = []
+        B = self.cfg.batch_size
+        for lo in range(0, len(prompts), B):
+            out.extend(self._run_batch(prompts[lo:lo + B]))
+        return out

@@ -1,8 +1,8 @@
 """The port stands alone: no JAX, no ``repro``, and no silent CPU fallback.
 
 - No module under ``src/repro_torch/``, nor ``chip_smoke.py``,
-  ``examples/recall_torch.py`` or ``examples/train_torch.py``, imports
-  ``jax`` or ``repro[.*]``.
+  ``examples/recall_torch.py``, ``examples/train_torch.py`` or
+  ``examples/serve_lm_torch.py``, imports ``jax`` or ``repro[.*]``.
 - Importing the port's entry modules in a fresh interpreter loads neither.
 - ``device=None`` means CUDA: without a card the entry points raise before
   any work, and ``chip_smoke.py`` exits non-zero at its device check.
@@ -24,7 +24,7 @@ pytestmark = pytest.mark.quick
 REPO = pathlib.Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((REPO / "src" / "repro_torch").rglob("*.py")) + [
     REPO / "chip_smoke.py", REPO / "examples" / "recall_torch.py",
-    REPO / "examples" / "train_torch.py",
+    REPO / "examples" / "train_torch.py", REPO / "examples" / "serve_lm_torch.py",
 ]
 
 
@@ -73,6 +73,44 @@ def test_ivf_module_loads_no_jax():
     res = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True,
                          text=True, timeout=120)
     assert res.returncode == 0, res.stderr
+
+
+def test_lm_modules_load_no_jax():
+    """The LM substrate, its configs, the server and its example stand alone."""
+    code = (
+        "import sys\n"
+        "import repro_torch.models, repro_torch.configs, repro_torch.serve, serve_lm_torch\n"
+        "import repro_torch.kernels.flash_attn\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
+        "assert not bad, bad\n"
+    )
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(REPO / "src"), str(REPO / "examples")]))
+    res = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True,
+                         text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+
+
+def test_lm_entry_points_default_to_cuda():
+    """``ArchSpec.init_params`` and ``examples/serve_lm_torch.py`` take
+    device=None as CUDA."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: device=None runs there")
+    sys.path.insert(0, str(REPO / "examples"))
+    import serve_lm_torch
+    from repro_torch.configs import get_arch
+
+    spec = get_arch("smollm-135m", reduced=True)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        spec.init_params(torch.Generator().manual_seed(0))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        serve_lm_torch.run(serve_lm_torch.parser().parse_args(["--reduced"]))
+    res = serve_lm_torch.run(serve_lm_torch.parser().parse_args(
+        ["--reduced", "--tokens", "3", "--prefill-len", "8"]),
+        device="cpu")
+    assert res["device"] == "cpu" and len(res["tokens"]) == 4
+    assert all(len(t) == 3 for t in res["tokens"])
+    assert res["prefill_last_logits"].shape == (4, spec.lm.vocab_padded)
 
 
 def test_resolve_device():
