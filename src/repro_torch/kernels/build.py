@@ -48,6 +48,8 @@ _SIGNATURES = {
     "g4r_ivf_list_topk_i8": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _LL, _P),
     "g4r_flash_attn_fwd": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, *(_LL,) * 12, _F, _I,
                            _I, _P),
+    "g4r_flash_wgmma_probe": (_P, _P, _P, _P, _P, _P),
+    "g4r_flash_attn_attrs": (_I, _I, _P),
 }
 
 

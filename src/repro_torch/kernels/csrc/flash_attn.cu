@@ -8,41 +8,75 @@
 // with G = H / K, scale = 1 / sqrt(hd), key j masked (logit -1e30) unless
 // j <= i (causal) and j > i - window (sliding window). The softmax is the
 // Pallas kernel's online one in f32: m starts at -1e30, alpha =
-// exp(m_prev - m_new), p stays f32 in the PV product, and the output is
-// acc / max(l, 1e-30), written in q's dtype (f32 or bf16).
-//
-// Unlike the Pallas kernel, which asserts Sq % block_q == 0, any Sq and Skv
-// work: query rows past Sq are computed and not stored, and keys past Skv
+// exp(m_prev - m_new), and the output is acc / max(l, 1e-30), written in q's
+// dtype. Unlike the Pallas kernel, which asserts Sq % block_q == 0, any Sq and
+// Skv work: query rows past Sq are computed and not stored, and keys past Skv
 // get p = 0 (a logit of -inf, not -1e30, so a tile whose real keys are all
-// masked behaves exactly as in the Pallas kernel).
+// masked behaves exactly as in the Pallas kernel: p = 1, wiped later by
+// alpha = 0). KV tiles wholly outside the causal band or the window are never
+// loaded (the Pallas kernel's pl.when), which keeps a window linear in S.
 //
 // What bounds it on this card: operations. Attention at the model's shapes
-// does 4 * hd FLOP per (query, key) pair in the band against 2 * hd * 2
-// bytes (bf16) read per key row once, far above the 295 FLOP/byte where
-// bf16 turns compute-bound; this first version runs the products on f32
-// CUDA cores (67 TFLOP/s), so its bound is the band's FLOP over 67 TFLOP/s
-// (the tensor cores' 989 TFLOP/s is the bound of a later wgmma version).
+// does 4 * hd FLOP per (query, key) pair in the band against 2 * hd * 2 bytes
+// (bf16) read per key row once, far above the 295 FLOP/byte where bf16 turns
+// compute-bound. Two kernels, chosen by dtype:
 //
-// How the design answers it, simply:
-//   - One block of 256 threads per (64-query tile, head, batch row). It
-//     loops over the 64-key tiles of its band in order, so the running max,
-//     sum and accumulator never leave the block (the Pallas kernel carries
-//     them in VMEM scratch across its sequential KV grid axis).
-//   - KV tiles wholly outside the causal band or the window are never
-//     loaded (the Pallas kernel's pl.when): the loop runs from the first
-//     tile that reaches the window to the last tile at or below the tile's
-//     last query, which is what keeps a window linear in S.
-//   - The Q tile, the K tile (transposed) and the V tile are staged in
-//     shared memory as f32, with padded rows so that the reads of the
-//     register-tiled products hit distinct banks. Each thread owns a 4 x 4
-//     block of the 64 x 64 score tile and a 4 x hd/16 block of the
-//     accumulator; a query row's 16 threads sit in one half-warp, so the
-//     row max and sum are shuffles. P goes through shared memory to the PV
-//     product.
-//   - Shared memory is 41 KB (hd 32), 66 KB (hd 64) or 115 KB (hd 128),
-//     above the 48 KB default for the last two: the launcher raises the
-//     limit with cudaFuncSetAttribute first.
+// bf16: flash_fwd_kernel_wgmma, on the tensor cores (bound: the band's FLOP
+// over 989 TFLOP/s).
+//   - S = Q K^T and O += P V run as wgmma.mma_async m64nNk16, bf16 inputs, f32
+//     accumulators (bf16 x bf16 products are exact in f32, so S differs from
+//     the f32 kernel's only in summation order). Q and K are K-major as they
+//     lie in (S, hd) rows; V's tile is MN-major for the PV product, which the
+//     descriptor's transpose bit takes, so nothing is transposed in memory.
+//   - Tiles arrive by TMA (cp.async.bulk.tensor, 4-d maps over (hd, heads, S,
+//     B) in elements, encoded on the host per call and passed
+//     __grid_constant__) into 128-byte-swizzled shared rows, the layout the
+//     wgmma descriptors name: one 64-column bf16 panel is one 128-byte row, hd
+//     128 takes two panels and hd 32 one panel whose columns 32-63 TMA fills
+//     with zeros (the QK product skips them; the PV product's extra columns
+//     are not stored). TMA needs 16-byte strides and base addresses: the
+//     wrapper checks both and raises before the launch; there is no fallback.
+//   - A block is 128 query rows of one (head, batch row): two consumer
+//     warpgroups of 64 rows and a producer. One lane of the producer's first
+//     warp keeps the next K/V tile (128 keys) in flight in a ring of two
+//     stages, with a full and an empty mbarrier per stage, while the
+//     consumers multiply the current one. Q comes once, on its own mbarrier.
+//   - P stays in registers: after the row max, exp2 and rescale, the f32 S
+//     accumulator is rounded to bf16 in place and fed as the register A
+//     operand of the PV wgmma (the accumulator's fragment layout is the A
+//     fragment's: no shared-memory round trip, no __syncthreads). The row sum
+//     l accumulates the f32 p, kept per thread and summed over the row's quad
+//     once at the end. The softmax runs in the log2 domain (logits times
+//     scale * log2 e, exp2), which is exp() rounded differently.
+//   - Only tiles that straddle the diagonal, the window's edge or Skv
+//     evaluate the mask. Query tiles are issued longest band first (blockIdx.z
+//     counts down along Sq), so the causal triangle leaves no tail of idle
+//     SMs.
+//   - Registers are the limit. A consumer thread holds 64 f32 of S, 32 (hd
+//     32, 64) or 64 (hd 128) of O and 32 of the bf16 P fragment. With a lone
+//     producer warp (288 threads) ptxas still capped a thread at 168
+//     registers, the share of 384 threads (384 x 168 = 64,512 of 65,536): at
+//     hd 128 that serialised the wgmmas or spilled. So the producer is a
+//     warpgroup whose setmaxnreg.dec gives back all but 24
+//     registers a thread, and the consumers' setmaxnreg.inc takes them, 240
+//     a thread (256 x 240 + 128 x 24 = 64,512). nvcc -Xptxas -v: 168 at
+//     entry, no spills, for every head dim; chip_smoke.py prints registers
+//     and local memory per instantiation and fails on a spill.
+//   - Shared memory: Q 16 KB a panel, each of the 2 stages 2 x 16 KB a
+//     panel, 1 KB for alignment: 81 KB at hd 32 and 64, 161 KB at hd 128,
+//     above the 48 KB default, so the launcher raises the limit with
+//     cudaFuncSetAttribute first.
+//
+// f32: flash_fwd_kernel<HD> (f32 only), on the CUDA cores (bound: the band's
+// FLOP over 67 TFLOP/s). The tensor cores cannot keep the f32 contract (TF32
+// off, rtol 1e-5 against the plain version). One block of 256 threads per
+// (64-query tile, head, batch row) loops over the 64-key tiles of its band;
+// the Q tile, the K tile (transposed) and the V tile are staged in shared
+// memory with padded rows, each thread owns a 4 x 4 block of the score tile
+// and a 4 x hd/16 block of the accumulator, and P goes through shared memory
+// to the PV product. 41, 66 or 115 KB of shared memory (hd 32, 64, 128).
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -50,26 +84,24 @@
 
 namespace {
 
+constexpr float kNegInf = -1e30f;
+
+// ------------------------------------------------------------- f32 kernel
 constexpr int kBQ = 64;        // query rows per block
 constexpr int kBK = 64;        // keys per tile
 constexpr int kThreads = 256;  // 16 row groups x 16 column lanes
-constexpr float kNegInf = -1e30f;
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
-__device__ __forceinline__ void from_f32(float* p, float x) { *p = x; }
-__device__ __forceinline__ void from_f32(__nv_bfloat16* p, float x) { *p = __float2bfloat16(x); }
-
+// dynamic shared memory bytes: Q (kBQ x HD+1), K^T (HD x kBK+1), V (kBK x
+// HD), P (kBQ x kBK+1), all f32
 template <int HD>
-constexpr int smem_floats() {
-  // Q (kBQ x HD+1), K^T (HD x kBK+1), V (kBK x HD), P (kBQ x kBK+1)
-  return kBQ * (HD + 1) + HD * (kBK + 1) + kBK * HD + kBQ * (kBK + 1);
+constexpr int f32_smem_bytes() {
+  return 4 * (kBQ * (HD + 1) + HD * (kBK + 1) + kBK * HD + kBQ * (kBK + 1));
 }
 
-template <typename T, int HD>
+template <int HD>
 __global__ void __launch_bounds__(kThreads)
-flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ o, int sq, int skv,
+flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                 const float* __restrict__ v, float* __restrict__ o, int sq, int skv,
                  int group, long long qsb, long long qss, long long qsh,
                  long long ksb, long long kss, long long ksh, long long vsb,
                  long long vss, long long vsh, long long osb, long long oss,
@@ -91,14 +123,14 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int ty = tid >> 4;  // rows ty*4 .. ty*4+3 of the tile
   const int tx = tid & 15;  // columns tx + 16*j
 
-  const T* qb = q + b * qsb + h * qsh;
-  const T* kb = k + b * ksb + kh * ksh;
-  const T* vb = v + b * vsb + kh * vsh;
+  const float* qb = q + b * qsb + h * qsh;
+  const float* kb = k + b * ksb + kh * ksh;
+  const float* vb = v + b * vsb + kh * vsh;
 
   for (int i = tid; i < kBQ * HD; i += kThreads) {
     const int r = i / HD, d = i - r * HD;
     const int qpos = q0 + r;
-    sq_t[r * QS + d] = qpos < sq ? to_f32(qb[qpos * qss + d]) : 0.f;
+    sq_t[r * QS + d] = qpos < sq ? qb[qpos * qss + d] : 0.f;
   }
 
   float m[4], l[4], acc[4][CPT];
@@ -127,8 +159,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const int r = i / HD, d = i - r * HD;
       const int kpos = k0 + r;
       const bool in = kpos < skv;
-      sk_t[d * KS + r] = in ? to_f32(kb[kpos * kss + d]) : 0.f;
-      sv_t[r * HD + d] = in ? to_f32(vb[kpos * vss + d]) : 0.f;
+      sk_t[d * KS + r] = in ? kb[kpos * kss + d] : 0.f;
+      sv_t[r * HD + d] = in ? vb[kpos * vss + d] : 0.f;
     }
     __syncthreads();
 
@@ -207,54 +239,553 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int qpos = q0 + ty * 4 + i;
     if (qpos >= sq) continue;
     const float den = fmaxf(l[i], 1e-30f);
-    T* orow = o + b * osb + qpos * oss + h * osh;
+    float* orow = o + b * osb + qpos * oss + h * osh;
 #pragma unroll
-    for (int c = 0; c < CPT; ++c) from_f32(orow + tx + 16 * c, acc[i][c] / den);
+    for (int c = 0; c < CPT; ++c) orow[tx + 16 * c] = acc[i][c] / den;
   }
 }
 
-template <typename T, int HD>
-int launch(const void* q, const void* k, const void* v, void* o, int b_rows,
-           int sq, int skv, int heads, int group, const long long* st, float scale,
-           int causal, int window, cudaStream_t stream) {
-  const size_t smem = sizeof(float) * smem_floats<HD>();
-  cudaError_t err = cudaFuncSetAttribute(flash_fwd_kernel<T, HD>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)smem);
+template <int HD>
+int launch_f32(const void* q, const void* k, const void* v, void* o, int b_rows, int sq,
+               int skv, int heads, int group, const long long* st, float scale, int causal,
+               int window, cudaStream_t stream) {
+  constexpr int smem = f32_smem_bytes<HD>();
+  cudaError_t err = cudaFuncSetAttribute(flash_fwd_kernel<HD>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((unsigned)((sq + kBQ - 1) / kBQ), (unsigned)heads, (unsigned)b_rows);
-  flash_fwd_kernel<T, HD><<<grid, kThreads, smem, stream>>>(
-      (const T*)q, (const T*)k, (const T*)v, (T*)o, sq, skv, group, st[0], st[1],
-      st[2], st[3], st[4], st[5], st[6], st[7], st[8], st[9], st[10], st[11], scale,
+  flash_fwd_kernel<HD><<<grid, kThreads, smem, stream>>>(
+      (const float*)q, (const float*)k, (const float*)v, (float*)o, sq, skv, group, st[0],
+      st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8], st[9], st[10], st[11], scale,
       causal, window);
   return (int)cudaGetLastError();
 }
 
-template <typename T>
-int dispatch_hd(int hd, const void* q, const void* k, const void* v, void* o,
-                int b_rows, int sq, int skv, int heads, int group, const long long* st,
-                float scale, int causal, int window, cudaStream_t stream) {
-  switch (hd) {
-    case 32:
-      return launch<T, 32>(q, k, v, o, b_rows, sq, skv, heads, group, st, scale, causal,
-                           window, stream);
-    case 64:
-      return launch<T, 64>(q, k, v, o, b_rows, sq, skv, heads, group, st, scale, causal,
-                           window, stream);
-    case 128:
-      return launch<T, 128>(q, k, v, o, b_rows, sq, skv, heads, group, st, scale, causal,
-                            window, stream);
-    default:
-      return (int)cudaErrorInvalidValue;
+// ------------------------------------------------------------ bf16 kernel
+constexpr int kWBQ = 128;        // query rows per block: two consumer warpgroups of 64
+constexpr int kWBK = 128;        // keys per K/V tile
+constexpr int kConsumers = 256;  // two warpgroups
+constexpr int kWThreads = kConsumers + 128;  // and the producer's warpgroup
+// registers a thread after setmaxnreg: the consumers take what the
+// producer's warpgroup gives back (256 x 240 + 128 x 24 = 384 x 168)
+constexpr int kConsumerRegs = 240;
+constexpr int kProducerRegs = 24;
+constexpr int kPanel = 64;       // bf16 columns in one 128-byte swizzled row
+constexpr int kRowBytes = 128;
+
+template <int HD>
+struct WgmmaShape {
+  static constexpr int NP = (HD + kPanel - 1) / kPanel;  // panels of a row
+  static constexpr int KSTEPS = HD / 16;                 // k16 steps of Q K^T
+  static constexpr int Q_PANEL = kWBQ * kRowBytes;
+  static constexpr int KV_PANEL = kWBK * kRowBytes;
+  static constexpr int Q_BYTES = NP * Q_PANEL;
+  static constexpr int KV_BYTES = NP * KV_PANEL;  // one K (or V) tile
+  static constexpr int STAGES = 2;  // K/V ring depth
+  // byte offsets from the first 1,024-byte boundary of shared memory: Q, the
+  // STAGES K tiles, the STAGES V tiles, then the mbarriers (q, full[STAGES],
+  // empty[STAGES])
+  static constexpr int K_OFF = Q_BYTES;
+  static constexpr int V_OFF = K_OFF + STAGES * KV_BYTES;
+  static constexpr int BAR_OFF = V_OFF + STAGES * KV_BYTES;
+  static constexpr int BAR_BYTES = 8 * (1 + 2 * STAGES);
+  // 1 KB of slack to align the swizzled tiles to 1,024 bytes
+  static constexpr int SMEM = 1024 + BAR_OFF + BAR_BYTES;
+};
+
+// where WgmmaShape<HD>'s tiles and barriers lie in the block's shared memory
+template <int HD>
+struct WgmmaSmem {
+  uint32_t q, k, v, bar_q, bar_full, bar_empty;
+  __device__ __forceinline__ explicit WgmmaSmem(const void* raw);
+};
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+template <int HD>
+__device__ __forceinline__ WgmmaSmem<HD>::WgmmaSmem(const void* raw) {
+  using W = WgmmaShape<HD>;
+  q = (smem_addr(raw) + 1023u) & ~1023u;
+  k = q + W::K_OFF;
+  v = q + W::V_OFF;
+  bar_q = q + W::BAR_OFF;
+  bar_full = bar_q + 8;
+  bar_empty = bar_full + 8 * W::STAGES;
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(bar),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar) : "memory");
+}
+
+// returns once the phase of parity ``parity`` has completed
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// one box of a 4-d tensor map into shared memory, completing on ``bar``
+__device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                            int c0, int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5, %6}], [%2];" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
+}
+
+// keeps the compiler from moving reads or writes of accumulator and A
+// fragment registers across the asynchronous wgmma's issue and wait (or
+// reusing an A fragment's registers before the wait)
+template <int N>
+__device__ __forceinline__ void fence_regs(float* r) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+template <int N>
+__device__ __forceinline__ void fence_regs(uint32_t* r) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
+}
+
+// A shared-memory matrix descriptor for a 128-byte-swizzled tile whose
+// 1,024-byte swizzle atoms start 1,024-byte aligned (base offset 0). K-major
+// operands: rows of 128 bytes, 8-row groups ``sbo`` = 1,024 bytes apart, the
+// leading offset unused (1); a k16 step inside a row adds 32 bytes to the
+// start. MN-major operands (V): 8 key rows a group, ``sbo`` = 1,024 bytes,
+// ``lbo`` = the stride between 64-column panels.
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
+         ((uint64_t)((sbo >> 4) & 0x3FFF) << 32) | (1ull << 62);
+}
+
+// D (64 x 128, f32) (+)= A (64 x 16, shared, K-major) . B (16 x 128, shared,
+// K-major); ``accumulate`` 0 overwrites D
+__device__ __forceinline__ void wgmma_ss_n128(float* d, uint64_t da, uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, "
+      "%18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, "
+      "%34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "
+      "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
+        "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),
+        "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
+        "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]),
+        "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]),
+        "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]),
+        "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]),
+        "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// D (64 x 64, f32) += A (64 x 16, bf16 in registers) . B (16 x 64, shared,
+// MN-major: the transpose bit set)
+__device__ __forceinline__ void wgmma_rs_n64(float* d, const uint32_t* a, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, "
+      "%18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
+        "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),
+        "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
+        "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// D (64 x 128, f32) += A (64 x 16, bf16 in registers) . B (16 x 128, shared,
+// MN-major: the transpose bit set; two 64-column atoms ``lbo`` bytes apart)
+__device__ __forceinline__ void wgmma_rs_n128(float* d, const uint32_t* a, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, "
+      "%18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, "
+      "%34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "
+      "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
+        "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),
+        "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
+        "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]),
+        "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]),
+        "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]),
+        "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]),
+        "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// D (64 x N) += A . B with N = 64 or 128 (the head dim's panels)
+template <int N>
+__device__ __forceinline__ void wgmma_rs(float* d, const uint32_t* a, uint64_t db) {
+  if constexpr (N == 64) {
+    wgmma_rs_n64(d, a, db);
+  } else {
+    static_assert(N == 128, "PV products are 64 or 128 columns wide");
+    wgmma_rs_n128(d, a, db);
   }
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// S (64 x 128 keys, f32 accumulator) = Q (64 rows at ``qa``) . K^T (the
+// tile at ``kb``), over hd in k16 steps: step kk reads panel kk / 4 at byte
+// 32 * (kk % 4) of each swizzled row
+template <int HD>
+__device__ __forceinline__ void qk_tile(float* s, uint32_t qa, uint32_t kb) {
+  using W = WgmmaShape<HD>;
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < W::KSTEPS; ++kk) {
+    const uint32_t off = (kk % 4) * 32;
+    wgmma_ss_n128(s, sw128_desc(qa + (kk / 4) * W::Q_PANEL + off, 16, 1024),
+                  sw128_desc(kb + (kk / 4) * W::KV_PANEL + off, 16, 1024), kk > 0);
+  }
+  wgmma_commit();
+  wgmma_wait_all();
+  fence_regs<64>(s);
+}
+
+// O (64 x 64 NP, f32) += P (64 x 128 keys, f32 in ``s``, rounded to bf16
+// here) . V (the MN-major tile at ``vb``, its panels KV_PANEL bytes apart):
+// the k16 step t reads key rows 16t .. 16t+15. The accumulator's fragment
+// for keys 16t .. 16t+15 is the A fragment of that step: registers {8t,
+// 8t+1}, {8t+2, 8t+3}, {8t+4, 8t+5}, {8t+6, 8t+7} hold (row r, keys c, c+1),
+// (r+8, c, c+1), (r, c+8, c+9), (r+8, c+8, c+9) in both layouts, with r =
+// lane / 4 and c = 2 * (lane % 4). Every fragment is written before the
+// fence and kept until the wait, as wgmma requires.
+template <int HD>
+__device__ __forceinline__ void pv_tile(float* acc, const float* s, uint32_t vb) {
+  using W = WgmmaShape<HD>;
+  uint32_t a[kWBK / 16][4];
+#pragma unroll
+  for (int t = 0; t < kWBK / 16; ++t)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) a[t][i] = pack_bf16(s[8 * t + 2 * i], s[8 * t + 2 * i + 1]);
+  fence_regs<kWBK / 4>(&a[0][0]);
+  fence_regs<W::NP * 32>(acc);
+  wgmma_fence();
+#pragma unroll
+  for (int t = 0; t < kWBK / 16; ++t)
+    wgmma_rs<W::NP * kPanel>(acc, a[t],
+                             sw128_desc(vb + t * 16 * kRowBytes, W::KV_PANEL, 1024));
+  wgmma_commit();
+  wgmma_wait_all();
+  fence_regs<kWBK / 4>(&a[0][0]);
+  fence_regs<W::NP * 32>(acc);
+}
+
+template <int HD>
+__global__ void __launch_bounds__(kWThreads, 1)
+flash_fwd_kernel_wgmma(const __grid_constant__ CUtensorMap tq,
+                       const __grid_constant__ CUtensorMap tk,
+                       const __grid_constant__ CUtensorMap tv, __nv_bfloat16* __restrict__ o,
+                       int sq, int skv, int group, long long osb, long long oss,
+                       long long osh, float scale_log2, int causal, int window) {
+  using W = WgmmaShape<HD>;
+  extern __shared__ uint8_t smem_raw[];
+  const WgmmaSmem<HD> sm(smem_raw);
+  const uint32_t s_q = sm.q, s_k = sm.k, s_v = sm.v;
+  const uint32_t bar_q = sm.bar_q, bar_full = sm.bar_full, bar_empty = sm.bar_empty;
+
+  const int h = blockIdx.x, b = blockIdx.y, kh = h / group;
+  const int q0 = ((int)gridDim.z - 1 - (int)blockIdx.z) * kWBQ;  // longest band first
+  // the band of KV tiles some query of this block can see
+  const int q_last = min(q0 + kWBQ, sq) - 1;
+  int kt_hi = (skv - 1) / kWBK;
+  if (causal) kt_hi = min(kt_hi, q_last / kWBK);
+  int kt_lo = 0;
+  if (window > 0) {
+    const int lo = q0 - window + 1;  // the lowest key any row can see
+    kt_lo = lo > 0 ? lo / kWBK : 0;
+  }
+  const int n_kt = kt_hi - kt_lo + 1;
+
+  const int tid = threadIdx.x;
+  if (tid == 0) {
+    mbar_init(bar_q, 1);
+    for (int s = 0; s < W::STAGES; ++s) {
+      mbar_init(bar_full + 8 * s, 1);
+      mbar_init(bar_empty + 8 * s, kConsumers);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  if (tid >= kConsumers) {  // the producer: one lane of its first warp issues every copy
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;" ::"n"(kProducerRegs));
+    if (tid == kConsumers) {
+      mbar_expect_tx(bar_q, W::Q_BYTES);
+      for (int p = 0; p < W::NP; ++p)
+        tma_load_4d(s_q + p * W::Q_PANEL, &tq, bar_q, p * kPanel, h, q0, b);
+      for (int i = 0; i < n_kt; ++i) {
+        const int s = i % W::STAGES;
+        mbar_wait(bar_empty + 8 * s, ((i / W::STAGES) & 1) ^ 1);
+        mbar_expect_tx(bar_full + 8 * s, 2 * W::KV_BYTES);
+        const int k0 = (kt_lo + i) * kWBK;
+        for (int p = 0; p < W::NP; ++p) {
+          tma_load_4d(s_k + s * W::KV_BYTES + p * W::KV_PANEL, &tk, bar_full + 8 * s,
+                      p * kPanel, kh, k0, b);
+          tma_load_4d(s_v + s * W::KV_BYTES + p * W::KV_PANEL, &tv, bar_full + 8 * s,
+                      p * kPanel, kh, k0, b);
+        }
+      }
+    }
+    return;
+  }
+
+  // a consumer warpgroup: 64 query rows; this thread holds rows r0 and r0 + 8
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;" ::"n"(kConsumerRegs));
+  const int wg = tid / 128;
+  const int warp = (tid % 128) / 32, lane = tid % 32;
+  const int r0 = q0 + 64 * wg + 16 * warp + lane / 4;
+  const int c0 = 2 * (lane % 4);
+  const int wg_lo = q0 + 64 * wg, wg_hi = wg_lo + 63;  // the warpgroup's rows
+
+  float acc[W::NP * 32];  // column 8j + c0 + (i & 1) of rows r0, r0 + 8 in acc[4j + i]
+#pragma unroll
+  for (int i = 0; i < W::NP * 32; ++i) acc[i] = 0.f;
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+  const uint32_t qa = s_q + wg * 64 * kRowBytes;
+
+  mbar_wait(bar_q, 0);
+  for (int i = 0; i < n_kt; ++i) {
+    const int s = i % W::STAGES;
+    const int k0 = (kt_lo + i) * kWBK;
+    mbar_wait(bar_full + 8 * s, (i / W::STAGES) & 1);
+    float sc[64];
+    qk_tile<HD>(sc, qa, s_k + s * W::KV_BYTES);
+
+    // the mask, on tiles that straddle the diagonal, the window's edge or Skv
+    const bool edge = (causal && k0 + kWBK - 1 > wg_lo) ||
+                      (window > 0 && k0 <= wg_hi - window) || k0 + kWBK > skv;
+    float mt[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int j = 0; j < 16; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float x = sc[4 * j + e] * scale_log2;
+        if (edge) {
+          const int kpos = k0 + 8 * j + c0 + (e & 1);
+          const int qpos = r0 + 8 * (e >> 1);
+          if (kpos >= skv) {
+            x = -INFINITY;  // not a key: p = 0
+          } else if ((causal && kpos > qpos) || (window > 0 && kpos <= qpos - window)) {
+            x = kNegInf;
+          }
+        }
+        sc[4 * j + e] = x;
+        mt[e >> 1] = fmaxf(mt[e >> 1], x);
+      }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mt[r] = fmaxf(mt[r], __shfl_xor_sync(0xffffffffu, mt[r], 1));
+      mt[r] = fmaxf(mt[r], __shfl_xor_sync(0xffffffffu, mt[r], 2));
+      const float m_new = fmaxf(m[r], mt[r]);
+      const float alpha = exp2f(m[r] - m_new);
+      m[r] = m_new;
+      l[r] *= alpha;
+#pragma unroll
+      for (int j = 0; j < W::NP * 8; ++j) {
+        acc[4 * j + 2 * r] *= alpha;
+        acc[4 * j + 2 * r + 1] *= alpha;
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < 16; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float p = exp2f(sc[4 * j + e] - m[e >> 1]);
+        l[e >> 1] += p;
+        sc[4 * j + e] = p;
+      }
+    pv_tile<HD>(acc, sc, s_v + s * W::KV_BYTES);
+    mbar_arrive(bar_empty + 8 * s);  // this thread is done with the stage
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    l[r] = fmaxf(l[r], 1e-30f);
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int qpos = r0 + 8 * r;
+    if (qpos >= sq) continue;
+    __nv_bfloat16* orow = o + b * osb + qpos * oss + h * osh;
+#pragma unroll
+    for (int j = 0; j < W::NP * 8; ++j) {
+      const int col = 8 * j + c0;
+      if (col < HD)
+        *reinterpret_cast<__nv_bfloat162*>(orow + col) = __floats2bfloat162_rn(
+            acc[4 * j + 2 * r] / l[r], acc[4 * j + 2 * r + 1] / l[r]);
+    }
+  }
+}
+
+// One S tile and one PV step, the kernel's own building blocks, for the
+// tests: q (64, 64), k and v (128, 64) contiguous bf16 -> s (64, 128) =
+// q k^T and o (64, 64) = bf16(s) v, both f32 and contiguous. Shared memory
+// is laid out as flash_fwd_kernel_wgmma<64>'s (WgmmaSmem): q fills the first
+// consumer warpgroup's 64 rows of Q, k and v stage 0 of the ring.
+__global__ void __launch_bounds__(128)
+flash_wgmma_probe_kernel(const __grid_constant__ CUtensorMap tq,
+                         const __grid_constant__ CUtensorMap tk,
+                         const __grid_constant__ CUtensorMap tv, float* s_out, float* o_out) {
+  using W = WgmmaShape<64>;
+  extern __shared__ uint8_t smem_raw[];
+  const WgmmaSmem<64> sm(smem_raw);
+  const uint32_t s_q = sm.q, s_k = sm.k, s_v = sm.v, bar = sm.bar_q;
+  const int tid = threadIdx.x;
+  if (tid == 0) {
+    mbar_init(bar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+  if (tid == 0) {
+    mbar_expect_tx(bar, 64 * kRowBytes + 2 * W::KV_BYTES);
+    tma_load_4d(s_q, &tq, bar, 0, 0, 0, 0);
+    tma_load_4d(s_k, &tk, bar, 0, 0, 0, 0);
+    tma_load_4d(s_v, &tv, bar, 0, 0, 0, 0);
+  }
+  mbar_wait(bar, 0);
+  float sc[64], acc[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) acc[i] = 0.f;
+  qk_tile<64>(sc, s_q, s_k);
+  const int warp = tid / 32, lane = tid % 32;
+  const int r = 16 * warp + lane / 4, c = 2 * (lane % 4);
+#pragma unroll
+  for (int j = 0; j < 16; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      s_out[(r + 8 * (e >> 1)) * 128 + 8 * j + c + (e & 1)] = sc[4 * j + e];
+  pv_tile<64>(acc, sc, s_v);
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      o_out[(r + 8 * (e >> 1)) * 64 + 8 * j + c + (e & 1)] = acc[4 * j + e];
+}
+
+// ---------------------------------------------------------- tensor maps
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// the driver's cuTensorMapEncodeTiled, through the runtime (no -lcuda)
+EncodeTiled encode_fn() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult res;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &res);
+#else
+    const cudaError_t err =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &res);
+#endif
+    if (err == cudaSuccess && res == cudaDriverEntryPointSuccess) fn = (EncodeTiled)p;
+  }
+  return fn;
+}
+
+// A bf16 (B, S, heads, hd) view as a 4-d map over (hd, heads, S, B), strides
+// in elements; boxes of 64 columns x ``rows`` positions of one head, 128-byte
+// swizzle, zeros past every edge (hd 32's upper columns, S's tail).
+int encode(CUtensorMap* map, const void* ptr, int hd, int heads, int seq, int b_rows,
+           long long s_b, long long s_s, long long s_h, int rows) {
+  const EncodeTiled fn = encode_fn();
+  if (fn == nullptr) return (int)cudaErrorNotSupported;
+  const cuuint64_t dims[4] = {(cuuint64_t)hd, (cuuint64_t)heads, (cuuint64_t)seq,
+                              (cuuint64_t)b_rows};
+  const cuuint64_t strides[3] = {(cuuint64_t)s_h * 2, (cuuint64_t)s_s * 2,
+                                 (cuuint64_t)s_b * 2};
+  const cuuint32_t box[4] = {(cuuint32_t)kPanel, 1, (cuuint32_t)rows, 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims,
+                        strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                        CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
+template <int HD>
+int launch_bf16(const void* q, const void* k, const void* v, void* o, int b_rows, int sq,
+                int skv, int heads, int kv_heads, const long long* st, float scale,
+                int causal, int window, cudaStream_t stream) {
+  using W = WgmmaShape<HD>;
+  const long long n_qt = (sq + kWBQ - 1) / kWBQ;
+  if (n_qt > 65535) return (int)cudaErrorInvalidValue;
+  CUtensorMap tq, tk, tv;
+  int err = encode(&tq, q, HD, heads, sq, b_rows, st[0], st[1], st[2], kWBQ);
+  if (!err) err = encode(&tk, k, HD, kv_heads, skv, b_rows, st[3], st[4], st[5], kWBK);
+  if (!err) err = encode(&tv, v, HD, kv_heads, skv, b_rows, st[6], st[7], st[8], kWBK);
+  if (err) return err;
+  cudaError_t cerr = cudaFuncSetAttribute(flash_fwd_kernel_wgmma<HD>,
+                                          cudaFuncAttributeMaxDynamicSharedMemorySize, W::SMEM);
+  if (cerr != cudaSuccess) return (int)cerr;
+  const dim3 grid((unsigned)heads, (unsigned)b_rows, (unsigned)n_qt);
+  flash_fwd_kernel_wgmma<HD><<<grid, kWThreads, W::SMEM, stream>>>(
+      tq, tk, tv, (__nv_bfloat16*)o, sq, skv, heads / kv_heads, st[9], st[10], st[11],
+      scale * 1.4426950408889634f, causal, window);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // q (B, Sq, H, hd), k and v (B, Skv, K, hd), o (B, Sq, H, hd), all of one
 // dtype (0: f32, 1: bf16), innermost stride 1; strides in elements for the
-// (batch, sequence, head) axes of q, k, v and o. window <= 0 means none.
-// Returns cudaGetLastError() after the launch.
+// (batch, sequence, head) axes of q, k, v and o (bf16: multiples of 8, with
+// 16-byte aligned bases, for TMA). window <= 0 means none. Returns
+// cudaGetLastError() after the launch.
 extern "C" int g4r_flash_attn_fwd(const void* q, const void* k, const void* v, void* o,
                                   int dtype, int b_rows, int sq, int skv, int heads,
                                   int kv_heads, int hd, long long qsb, long long qss,
@@ -268,11 +799,74 @@ extern "C" int g4r_flash_attn_fwd(const void* q, const void* k, const void* v, v
   const long long st[12] = {qsb, qss, qsh, ksb, kss, ksh, vsb, vss, vsh, osb, oss, osh};
   const int group = heads / kv_heads;
   cudaStream_t s = (cudaStream_t)stream;
-  if (dtype == 0)
-    return dispatch_hd<float>(hd, q, k, v, o, b_rows, sq, skv, heads, group, st, scale,
-                              causal, window, s);
-  if (dtype == 1)
-    return dispatch_hd<__nv_bfloat16>(hd, q, k, v, o, b_rows, sq, skv, heads, group, st,
+  if (dtype == 0) {
+    switch (hd) {
+      case 32: return launch_f32<32>(q, k, v, o, b_rows, sq, skv, heads, group, st, scale,
+                                     causal, window, s);
+      case 64: return launch_f32<64>(q, k, v, o, b_rows, sq, skv, heads, group, st, scale,
+                                     causal, window, s);
+      case 128: return launch_f32<128>(q, k, v, o, b_rows, sq, skv, heads, group, st, scale,
+                                       causal, window, s);
+    }
+  } else if (dtype == 1) {
+    switch (hd) {
+      case 32: return launch_bf16<32>(q, k, v, o, b_rows, sq, skv, heads, kv_heads, st,
                                       scale, causal, window, s);
+      case 64: return launch_bf16<64>(q, k, v, o, b_rows, sq, skv, heads, kv_heads, st,
+                                      scale, causal, window, s);
+      case 128: return launch_bf16<128>(q, k, v, o, b_rows, sq, skv, heads, kv_heads, st,
+                                        scale, causal, window, s);
+    }
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+// The building blocks of the bf16 kernel on one tile (flash_wgmma_probe_kernel).
+extern "C" int g4r_flash_wgmma_probe(const void* q, const void* k, const void* v, float* s_out,
+                                     float* o_out, void* stream) {
+  CUtensorMap tq, tk, tv;
+  int err = encode(&tq, q, 64, 1, 64, 1, 64 * 64, 64, 64, 64);
+  if (!err) err = encode(&tk, k, 64, 1, 128, 1, 128 * 64, 64, 64, kWBK);
+  if (!err) err = encode(&tv, v, 64, 1, 128, 1, 128 * 64, 64, 64, kWBK);
+  if (err) return err;
+  constexpr int smem = WgmmaShape<64>::SMEM;
+  cudaError_t cerr = cudaFuncSetAttribute(flash_wgmma_probe_kernel,
+                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (cerr != cudaSuccess) return (int)cerr;
+  flash_wgmma_probe_kernel<<<1, 128, smem, (cudaStream_t)stream>>>(tq, tk, tv, s_out, o_out);
+  return (int)cudaGetLastError();
+}
+
+namespace {
+
+int fill_attrs(const void* fn, int smem, int* out) {
+  cudaFuncAttributes a;
+  const cudaError_t err = cudaFuncGetAttributes(&a, fn);
+  if (err != cudaSuccess) return (int)err;
+  out[0] = a.numRegs;
+  out[1] = (int)a.localSizeBytes;
+  out[2] = smem;
+  return 0;
+}
+
+// the instantiation for (dtype, hd) with the shared memory its launcher asks for
+template <int HD>
+int attrs_of(int dtype, int* out) {
+  if (dtype == 0) return fill_attrs((const void*)flash_fwd_kernel<HD>, f32_smem_bytes<HD>(), out);
+  if (dtype == 1)
+    return fill_attrs((const void*)flash_fwd_kernel_wgmma<HD>, WgmmaShape<HD>::SMEM, out);
+  return (int)cudaErrorInvalidValue;
+}
+
+}  // namespace
+
+// Registers, local memory (spills and stack) and dynamic shared memory of
+// the flash kernel for (dtype, hd): out[0..2]. Returns a cudaError_t.
+extern "C" int g4r_flash_attn_attrs(int dtype, int hd, int* out) {
+  switch (hd) {
+    case 32: return attrs_of<32>(dtype, out);
+    case 64: return attrs_of<64>(dtype, out);
+    case 128: return attrs_of<128>(dtype, out);
+  }
   return (int)cudaErrorInvalidValue;
 }

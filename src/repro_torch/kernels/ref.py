@@ -264,8 +264,9 @@ def attention_ref(
     head h // G (G = H / K); query i sits at position i + ``q_offset``;
     masked logits are ``NEG_INF``; the softmax runs in f32 and its weights
     are cast to the input dtype before the PV product. The flash kernel
-    (``csrc/flash_attn.cu``) keeps them in f32, so in bf16 the two differ
-    by the weights' rounding.
+    (``csrc/flash_attn.cu``) rounds them at nearly the same place in bf16:
+    its unnormalised weights go to bf16 before the PV product, and it
+    divides by the f32 row sum last (in f32 it keeps them in f32).
     """
     B, Sq, H, hd = q.shape
     Kh = k.shape[2]

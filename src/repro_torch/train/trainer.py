@@ -32,9 +32,11 @@ The port of ``repro.train.trainer``, for both sampling backends:
   tables exceed ``fused_budget_mb`` (estimated, then measured) falls back
   to the host pipeline with a logged warning.
 - ``prefetch_batches=None`` lets a short calibration (host batch cost, step
-  time, queue handoff) choose serial or prefetch, and
-  ``sampling_backend="auto"`` adds the fused step's time to choose the
-  backend, as ``repro`` does.
+  time, and the measured wall of a few pipelined host steps) choose serial
+  or prefetch, and ``sampling_backend="auto"`` adds the fused step's time
+  to choose the backend, as ``repro`` does. The pipelined wall is measured,
+  not estimated from its parts: the prefetch thread and the step's dispatch
+  share the GIL, so pipelined steps can take longer than either alone.
 
 Not ported (each raises ``NotImplementedError`` naming its ROADMAP item):
 the mp graph service (``engine_backend="mp"``, Queue 1 item 5) and the
@@ -295,29 +297,6 @@ def _staged_batches(it: Iterator, device: torch.device,
     yield pending
 
 
-def measure_handoff_overhead(items: int = 512, depth: int = 2) -> float:
-    """Per-item cost (seconds) of the prefetch queue handoff: a producer
-    thread pushes ``items`` tokens through a bounded queue while the caller
-    drains it."""
-    q: "queue.Queue" = queue.Queue(maxsize=max(1, depth))
-    token = object()
-
-    def produce() -> None:
-        for _ in range(items):
-            q.put(token)
-
-    t = threading.Thread(target=produce, name="repro-torch-handoff-probe", daemon=True)
-    t0 = time.perf_counter()
-    t.start()
-    for _ in range(items):
-        q.get()
-    wall = time.perf_counter() - t0
-    t.join(timeout=5.0)
-    if t.is_alive():
-        log.warning("handoff probe thread still running after its last item")
-    return wall / items
-
-
 def _median(xs: List[float]) -> float:
     s = sorted(xs)
     mid = len(s) // 2
@@ -522,9 +501,11 @@ class Graph4RecTrainer:
 
     # ------------------------------------------------------------- planning
     def _calibrate(self, params: Params) -> Dict:
-        """Per-batch host cost, step time and queue handoff, measured on a
-        separate same-seed pipeline and on throwaway parameter copies, so a
-        calibrated run trains exactly as an explicitly configured one."""
+        """Per-batch host cost, the step's time alone and the wall of a few
+        pipelined host steps (and, for "auto" sampling, the fused step's),
+        measured on separate same-seed pipelines and generators and on
+        throwaway parameter copies, so a calibrated run trains exactly as an
+        explicitly configured one."""
         cfg = self.cfg
         n = max(2, cfg.calibrate_batches)
         pipeline = make_train_sampler(self.engine, self.pipe_cfg, backend="host", seed=cfg.seed)
@@ -567,8 +548,12 @@ class Graph4RecTrainer:
             step_fn(p, st, dev)
             self._barrier()
             step_times.append(time.perf_counter() - t0)
-        meas: Dict = {"host_batch_s": host_s, "step_s": _median(step_times[1:]),
-                      "handoff_s": measure_handoff_overhead()}
+        meas: Dict = {"host_batch_s": host_s, "step_s": _median(step_times[1:])}
+        depth = 2 if cfg.prefetch_batches is None else cfg.prefetch_batches
+        if depth > 0:
+            # a round's worth of steps where the spikes showed one
+            steps = min(16, max(n, spikes[-1] - spikes[0] if len(spikes) >= 2 else n))
+            meas["pipelined_step_s"] = self._pipelined_step_s(params, depth, steps)
         if cfg.sampling_backend == "auto":
             ok, why = self._build_fused()
             if ok:
@@ -587,6 +572,35 @@ class Graph4RecTrainer:
             else:
                 meas["fused_ineligible"] = why
         return meas
+
+    def _pipelined_step_s(self, params: Params, depth: int, steps: int) -> float:
+        """Mean wall of ``steps`` host steps run as ``train`` runs them (the
+        prefetch thread ``depth`` deep, the stager, the step, no sync between
+        steps) after one that fills the pipe, on a same-seed pipeline and a
+        throwaway parameter copy. The producer has batches to make until the
+        last timed step, as in a long run, where a queue it had filled ahead
+        would otherwise let the last steps run without it."""
+        pipeline = make_train_sampler(self.engine, self.pipe_cfg, backend="host",
+                                      seed=self.cfg.seed)
+        ahead = depth + 2  # the queue, the batch being put and the stager's
+        prefetcher = _Prefetcher(self._host_batches(pipeline, steps + 1 + ahead), depth)
+        p = {k: v.clone() for k, v in params.items()}
+        st = self._init_opt_state(p)
+        step_fn = self._step_fn()
+        t0 = 0.0
+        try:
+            for i, (dev, _) in enumerate(_staged_batches(prefetcher, self.device)):
+                p, st, _ = step_fn(p, st, dev)
+                if i == 0:
+                    self._barrier()
+                    t0 = time.perf_counter()
+                elif i == steps:
+                    break
+            self._barrier()
+            wall = time.perf_counter() - t0
+        finally:
+            prefetcher.close()
+        return wall / steps
 
     def _resolve_plan(self, params: Params) -> Dict:
         """The run's plan: sampling backend and prefetch depth. Explicit
@@ -618,12 +632,12 @@ class Graph4RecTrainer:
         plan["calibrated"] = True
         plan["measurements"] = {k: round(v, 6) if isinstance(v, float) else v
                                 for k, v in meas.items()}
-        host_s, step_s, handoff_s = meas["host_batch_s"], meas["step_s"], meas["handoff_s"]
-        # prefetch pays only on a clear (>10%) predicted win: the pipelined
-        # step is bounded by the slower side plus the handoff
+        host_s, step_s = meas["host_batch_s"], meas["step_s"]
         serial_est = host_s + step_s
-        prefetch_est = max(host_s, step_s) + handoff_s
-        host_est = min(serial_est, prefetch_est)
+        pipelined_s = meas.get("pipelined_step_s", float("inf"))  # measured, not estimated
+        # the host run the plan would make: serial, pipelined or the better one
+        host_est = (min(serial_est, pipelined_s) if auto_prefetch
+                    else pipelined_s if cfg.prefetch_batches > 0 else serial_est)
         sampling = "host" if auto_sampling else cfg.sampling_backend
         if auto_sampling and meas.get("fused_step_s", float("inf")) < host_est:
             sampling = "fused"
@@ -634,21 +648,22 @@ class Graph4RecTrainer:
             plan["prefetch"] = 0
             plan["reason"] = (
                 f"fused step {meas.get('fused_step_s', 0.0) * 1e3:.2f}ms < host pipeline "
-                f"est {host_est * 1e3:.2f}ms" if auto_sampling else "explicit fused sampling")
+                f"{host_est * 1e3:.2f}ms" if auto_sampling else "explicit fused sampling")
         elif not auto_prefetch:
             plan["prefetch"] = cfg.prefetch_batches
             plan["reason"] = "explicit prefetch_batches"
-        elif serial_est > 1.1 * prefetch_est:
+        elif serial_est > 1.1 * pipelined_s:
+            # prefetch pays only on a clear (>10%) measured win
             plan["prefetch"] = 2
             plan["reason"] = (
-                f"prefetch: serial est {serial_est * 1e3:.2f}ms > 1.1x pipelined est "
-                f"{prefetch_est * 1e3:.2f}ms (host {host_s * 1e3:.2f}ms, step "
-                f"{step_s * 1e3:.2f}ms, handoff {handoff_s * 1e6:.0f}us)")
+                f"prefetch: serial est {serial_est * 1e3:.2f}ms > 1.1x pipelined "
+                f"{pipelined_s * 1e3:.2f}ms measured (host {host_s * 1e3:.2f}ms, step "
+                f"{step_s * 1e3:.2f}ms)")
         else:
             plan["prefetch"] = 0
             plan["reason"] = (
                 f"serial: pipelining would save <10% (serial est {serial_est * 1e3:.2f}ms "
-                f"vs pipelined est {prefetch_est * 1e3:.2f}ms)")
+                f"vs pipelined {pipelined_s * 1e3:.2f}ms measured)")
         log.info("backend plan: %s", plan["reason"])
         plan["fused_measured_bytes"] = self._fused_measured_bytes
         self._plan = plan

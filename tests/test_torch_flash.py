@@ -8,18 +8,31 @@ inputs at atol 2e-5: its oracle ``kernels.ref.attention_ref``, the Pallas
 kernel (``kernels.ops.flash_attention``, interpret mode; it asserts
 ``Sq % block_q == 0``, so S 200 skips it), the chunked XLA scan (block 64;
 S 200 skips it too) and the naive ``gqa_attention`` with
-``gqa_scores_mask``. In bf16 the port (weights cast to bf16 before PV, as
-``repro``'s oracle) against the Pallas kernel (weights kept f32) at atol
-3e-2, ``tests/test_kernels.py``'s bound. The backward raises.
+``gqa_scores_mask``. In bf16 the port (normalised weights cast to bf16
+before PV, as ``repro``'s oracle) against the Pallas kernel (weights kept
+f32) at atol 3e-2, ``tests/test_kernels.py``'s bound; and a plain-torch
+emulation of the bf16 kernel's arithmetic (128 x 128 tiles of the block's
+band in order, log2-domain online softmax, the unnormalised p rounded to
+bf16 before PV, l from the f32 p) against the Pallas kernel and the plain
+version at the same 3e-2. The backward raises; the wrapper's checks
+(TMA's 16-byte strides and base addresses for bf16 among them) raise
+before any launch.
 
-On the card (``cuda`` marker, skipped here): the kernel against its plain
-version on the same grid (f32 at rtol 1e-5 / atol 2e-5: the same function
-summed in another order) and at bf16 full-width shapes with tails (atol
-3e-2: the plain version rounds the weights to bf16, the kernel does not).
+On the card (``cuda`` marker, skipped here): one tile of the bf16 kernel's
+building blocks (TMA loads, the Q K^T wgmma, the PV wgmma fed P from
+registers) against ``torch.matmul``; the kernel against its plain version
+on the same grid (f32 at rtol 1e-5 / atol 2e-5: the same function summed
+in another order), at bf16 full-width shapes with tails, at hd 32, 64 and
+128, on a packed strided view and on tiles whose real keys are all masked
+(atol 3e-2: the two round the weights to bf16 at nearly the same place, the
+plain version after normalising, the kernel before), and against the
+emulation; a bf16 view TMA cannot take raises.
 
     python -m pytest -q -m cuda tests/test_torch_flash.py   # on the card
 """
+import importlib.util
 import itertools
+import pathlib
 
 import jax.numpy as jnp
 import numpy as np
@@ -106,8 +119,10 @@ def test_plain_query_offset_matches_repro(q_offset):
         np.testing.assert_allclose(mine.numpy(), np.asarray(want), atol=ATOL)
 
 
-@pytest.mark.parametrize("S,K,G,hd,window", [(128, 2, 1, 64, None), (256, 2, 3, 128, 64),
-                                             (384, 1, 7, 32, 16)])
+BF16_CASES = [(128, 2, 1, 64, None), (256, 2, 3, 128, 64), (384, 1, 7, 32, 16)]
+
+
+@pytest.mark.parametrize("S,K,G,hd,window", BF16_CASES)
 def test_bf16_matches_repro_flash(S, K, G, hd, window):
     q, k, v = _qkv(11, 1, S, K, G, hd)
     bf = [jnp.asarray(a).astype(jnp.bfloat16) for a in (q, k, v)]
@@ -118,6 +133,124 @@ def test_bf16_matches_repro_flash(S, K, G, hd, window):
     assert mine.dtype == torch.bfloat16
     np.testing.assert_allclose(mine.float().numpy(), np.asarray(want, np.float32),
                                atol=BF16_ATOL)
+
+
+def kernel_emulation(q, k, v, causal=True, window=None, block=128, fault=None):
+    """The bf16 kernel's arithmetic (``csrc/flash_attn.cu``,
+    ``flash_fwd_kernel_wgmma``) in plain torch on (B, S, H, hd) bf16: per
+    block of ``block`` query rows, the ``block``-key tiles of the block's
+    band in order; S in f32 from the bf16 products; logits times scale *
+    log2 e, band-masked ones -1e30, keys past Skv -inf; m from -1e30, alpha =
+    exp2(m_prev - m_new), p = exp2(x - m_new); l gathers the f32 p, the PV
+    product the p rounded to bf16; out = acc / max(l, 1e-30) in bf16.
+
+    ``fault`` breaks it where a window cuts the block's band (its lowest
+    visible key is past 0), as a kernel's bug could: ``"drop_edge_tile"``
+    skips the band's first tile (kt_lo one too high), ``"unmasked_edge_tile"``
+    leaves the window's mask off that tile."""
+    B, Sq, H, hd = q.shape
+    Skv, K = k.shape[1], k.shape[2]
+    qf = q.float().transpose(1, 2)  # (B, H, Sq, hd)
+    kf = k.float().transpose(1, 2).repeat_interleave(H // K, dim=1)
+    vf = v.float().transpose(1, 2).repeat_interleave(H // K, dim=1)
+    c = (1.0 / np.sqrt(hd)) * np.log2(np.e)
+    out = torch.empty_like(qf)
+    for q0 in range(0, Sq, block):
+        rows = torch.arange(q0, min(q0 + block, Sq))
+        kt_hi = (Skv - 1) // block
+        if causal:
+            kt_hi = min(kt_hi, int(rows[-1]) // block)
+        lo = q0 - window + 1 if window is not None else 0
+        kt_lo = lo // block if lo > 0 else 0
+        edge = kt_lo if lo > 0 else None  # the tile the window's edge crosses
+        if fault == "drop_edge_tile" and edge is not None:
+            kt_lo += 1
+        m = torch.full((B, H, len(rows), 1), -1e30)
+        l = torch.zeros((B, H, len(rows), 1))
+        acc = torch.zeros((B, H, len(rows), hd))
+        for kt in range(kt_lo, kt_hi + 1):
+            keys = torch.arange(kt * block, (kt + 1) * block)
+            real = keys < Skv
+            kk = keys.clamp(max=Skv - 1)
+            x = (qf[:, :, rows] @ kf[:, :, kk].transpose(-1, -2)) * np.float32(c)
+            ok = torch.ones((len(rows), block), dtype=torch.bool)
+            if causal:
+                ok &= keys[None, :] <= rows[:, None]
+            if window is not None and not (fault == "unmasked_edge_tile" and kt == edge):
+                ok &= keys[None, :] > rows[:, None] - window
+            x = x.masked_fill(~ok, -1e30).masked_fill(~real, float("-inf"))
+            m_new = torch.maximum(m, x.amax(-1, keepdim=True))
+            alpha = torch.exp2(m - m_new)
+            p = torch.exp2(x - m_new)
+            l = l * alpha + p.sum(-1, keepdim=True)
+            vt = vf[:, :, kk] * real[:, None].float()
+            acc = acc * alpha + p.to(torch.bfloat16).float() @ vt
+            m = m_new
+        out[:, :, rows] = acc / l.clamp(min=1e-30)
+    return out.transpose(1, 2).to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("S,K,G,hd,window", BF16_CASES + [(256, 1, 3, 64, 10)])
+def test_kernel_arithmetic_matches_repro_flash_bf16(S, K, G, hd, window):
+    """The numerics the card runs, pinned on the CPU: the emulation against
+    ``repro``'s Pallas kernel (interpret mode, bf16) and the plain version."""
+    q, k, v = _qkv(13, 2, S, K, G, hd)
+    bf = [jnp.asarray(a).astype(jnp.bfloat16) for a in (q, k, v)]
+    tq, tk, tv = (_t(np.asarray(a, np.float32), torch.bfloat16) for a in bf)
+    mine = kernel_emulation(tq, tk, tv, True, window)
+    assert mine.dtype == torch.bfloat16 and torch.isfinite(mine.float()).all()
+    want = jax_ops.flash_attention(*bf, causal=True, window=window)
+    np.testing.assert_allclose(mine.float().numpy(), np.asarray(want, np.float32),
+                               atol=BF16_ATOL)
+    plain = ref.attention_ref(tq, tk, tv, True, window)
+    np.testing.assert_allclose(mine.float().numpy(), plain.float().numpy(), atol=BF16_ATOL)
+
+
+@pytest.mark.parametrize("S,window,causal", [(200, 1, True), (300, 10, True), (200, 5, False)])
+def test_kernel_arithmetic_on_masked_tiles_and_tails_bf16(S, window, causal):
+    """Tails (S not a multiple of the tile) and rows whose first tile of the
+    block's band holds no visible key: the emulation against the plain
+    version (the Pallas kernel asserts S % 128 == 0)."""
+    q, k, v = (_t(a, torch.bfloat16) for a in _qkv(17, 1, S, 2, 3, 64))
+    mine = kernel_emulation(q, k, v, causal, window)
+    plain = ref.attention_ref(q, k, v, causal, window)
+    np.testing.assert_allclose(mine.float().numpy(), plain.float().numpy(), atol=BF16_ATOL)
+
+
+@pytest.fixture(scope="module")
+def chip_smoke():
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", pathlib.Path(__file__).resolve().parents[1] / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.fixture(scope="module")
+def window_edge_case():
+    """starcoder2's hd 128 and 4,096 window on one head: rows 4,096 on see a
+    full window, 32 tiles and a bit of a 33rd."""
+    q, k, v = (_t(a, torch.bfloat16) for a in _qkv(19, 1, 4352, 1, 1, 128))
+    return q, k, v, ref.attention_ref(q, k, v, True, 4096)
+
+
+@pytest.mark.parametrize("fault", [None, "drop_edge_tile", "unmasked_edge_tile"])
+def test_row_scaled_bound_catches_window_edge_faults(chip_smoke, window_edge_case, fault):
+    """``chip_smoke.py`` holds the bf16 kernel to its plain version by an
+    absolute bound and by a bound scaled to each output row. The emulation
+    passes both; with its window-edge tile dropped or unmasked (~3 % of a
+    deep row's weight, outputs of spread ~0.026) it fails the row-scaled
+    one by a factor above 4 (while its largest error, under 0.03, would
+    pass the absolute one)."""
+    q, k, v, plain = window_edge_case
+    mine = kernel_emulation(q, k, v, True, 4096, fault=fault)
+    err = (mine.float() - plain.float()).abs().max().item()
+    row_rel = chip_smoke._row_rel(mine, plain)
+    if fault is None:
+        assert err <= chip_smoke.FLASH_BF16_ATOL
+        assert row_rel <= chip_smoke.FLASH_BF16_ROW_REL
+    else:
+        assert row_rel > 4 * chip_smoke.FLASH_BF16_ROW_REL
 
 
 def test_backward_raises():
@@ -142,6 +275,20 @@ def test_kernel_wrapper_checks_before_launching():
         flash_attention_cuda(q, k, v, window=0)
     with pytest.raises(ValueError, match="device"):
         ops.flash_attention(q.to("meta"), k.to("meta"), v.to("meta"))
+    # bf16 goes through TMA: every stride and the base address in 16 bytes,
+    # checked before the device (and before any launch)
+    qb, kb, vb = q.bfloat16(), k.bfloat16(), v.bfloat16()
+    with pytest.raises(ValueError, match="CUDA"):
+        flash_attention_cuda(qb, kb, vb)
+    wide = torch.zeros(1, 32, 3, 36, dtype=torch.bfloat16)[..., :32]  # head stride 72 bytes
+    with pytest.raises(ValueError, match="TMA"):
+        flash_attention_cuda(wide, kb, vb)
+    flat = torch.zeros(32 * 32 + 1, dtype=torch.bfloat16)
+    shifted = flat[1:].view(1, 32, 1, 32)  # base address 2 bytes past the allocation
+    with pytest.raises(ValueError, match="TMA"):
+        flash_attention_cuda(qb, shifted, vb)
+    with pytest.raises(ValueError, match="TMA"):
+        flash_attention_cuda(qb, kb, shifted)
 
 
 # ------------------------------------------------------------------- card
@@ -193,6 +340,67 @@ class TestOnCard:
         assert not q.is_contiguous()
         torch.testing.assert_close(flash_attention_cuda(q, k, v, True, 32),
                                    ref.attention_ref(q, k, v, True, 32), rtol=1e-5, atol=ATOL)
+
+    def test_wgmma_tile_matches_matmul(self, cuda):
+        """One tile of the bf16 kernel's building blocks: q k^T through the
+        K-major wgmma and bf16(s) v through the MN-major one with P from
+        registers, each against torch.matmul in f32 (bf16 products are
+        exact in f32: only the summation order differs, of 64 terms up to
+        about 16 for s and of 128 terms up to about 60 for o)."""
+        gen = torch.Generator(device=cuda).manual_seed(0)
+        q, k, v = (torch.randn(n, 64, device=cuda, generator=gen).bfloat16()
+                   for n in (64, 128, 128))
+        s, o = fa_mod.wgmma_probe(q, k, v)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(s, q.float() @ k.float().T, rtol=1e-5, atol=1e-5)
+        torch.testing.assert_close(o, s.bfloat16().float() @ v.float(), rtol=1e-5, atol=1e-4)
+
+    @pytest.mark.parametrize("hd", HEAD_DIMS)
+    @pytest.mark.parametrize("causal,window", [(True, None), (True, 100), (False, None)])
+    def test_kernel_matches_plain_bf16_head_dims(self, cuda, hd, causal, window):
+        q, k, v = _on(cuda, _qkv(hd, 2, 333, 2, 3, hd), torch.bfloat16)
+        n = fa_mod.launches
+        got = flash_attention_cuda(q, k, v, causal, window)
+        torch.cuda.synchronize()
+        assert fa_mod.launches == n + 1
+        torch.testing.assert_close(got.float(), ref.attention_ref(q, k, v, causal, window).float(),
+                                   rtol=0, atol=BF16_ATOL)
+
+    def test_kernel_reads_strided_views_bf16(self, cuda):
+        """q, k, v sliced out of one packed bf16 (B, S, H + 2K, hd) tensor."""
+        B, S, K, G, hd = 2, 200, 2, 3, 64
+        qkv = torch.randn(B, S, K * G + 2 * K, hd, device=cuda).bfloat16()
+        q, k, v = qkv[:, :, :K * G], qkv[:, :, K * G:K * G + K], qkv[:, :, K * G + K:]
+        assert not q.is_contiguous()
+        torch.testing.assert_close(flash_attention_cuda(q, k, v, True, 32).float(),
+                                   ref.attention_ref(q, k, v, True, 32).float(),
+                                   rtol=0, atol=BF16_ATOL)
+
+    @pytest.mark.parametrize("S,window,causal", [(200, 1, True), (300, 10, True),
+                                                 (200, 5, False)])
+    def test_kernel_bf16_masked_tiles_and_tails(self, cuda, S, window, causal):
+        q, k, v = _on(cuda, _qkv(S, 1, S, 2, 3, 64), torch.bfloat16)
+        got = flash_attention_cuda(q, k, v, causal, window)
+        torch.testing.assert_close(got.float(), ref.attention_ref(q, k, v, causal, window).float(),
+                                   rtol=0, atol=BF16_ATOL)
+
+    @pytest.mark.parametrize("S,K,G,hd,window", [(300, 2, 3, 64, None), (256, 1, 7, 128, 100),
+                                                 (130, 2, 1, 32, None)])
+    def test_kernel_matches_its_emulation_bf16(self, cuda, S, K, G, hd, window):
+        """The card against the CPU emulation of its arithmetic: the same
+        roundings, other summation orders and exp2 implementations."""
+        q, k, v = (_t(a, torch.bfloat16) for a in _qkv(S + 1, 2, S, K, G, hd))
+        got = flash_attention_cuda(q.to(cuda), k.to(cuda), v.to(cuda), True, window).cpu()
+        torch.testing.assert_close(got.float(), kernel_emulation(q, k, v, True, window).float(),
+                                   rtol=0, atol=1e-2)
+
+    def test_kernel_raises_on_a_view_tma_cannot_take(self, cuda):
+        q, k, v = _on(cuda, _qkv(5, 1, 64, 1, 3, 32), torch.bfloat16)
+        wide = torch.zeros(1, 64, 3, 36, dtype=torch.bfloat16, device=cuda)[..., :32]
+        n = fa_mod.launches
+        with pytest.raises(ValueError, match="TMA"):
+            flash_attention_cuda(wide, k, v)
+        assert fa_mod.launches == n
 
     def test_ops_routes_cuda_to_the_kernel(self, cuda):
         q, k, v = _on(cuda, _qkv(2, 1, 64, 1, 3, 32))

@@ -13,8 +13,10 @@ distribution, per-center ego children, PAD propagation, and the trainer's
 fused, fallback and auto plans. The ``window_pairs`` kernel itself runs on
 the card only (``cuda`` marker).
 """
+import ctypes
 import dataclasses
 import logging
+import time
 
 import jax
 import jax.numpy as jnp
@@ -456,8 +458,9 @@ def _port_trainer(ds, backend, steps, **kw):
     _, tmc = _cfgs(ds.graph)
     _, tpc = _pipes()
     tpc = dataclasses.replace(tpc, batch_pairs=128)
+    kw = {"prefetch_batches": 0, **kw}
     cfg = TTrainerConfig(num_steps=steps, log_every=0, eval_at_end=False, sparse_lr=1.0,
-                         seed=0, sampling_backend=backend, prefetch_batches=0, **kw)
+                         seed=0, sampling_backend=backend, **kw)
     return TTrainer(ds, ds.graph, tmc, tpc, cfg, device="cpu")
 
 
@@ -505,6 +508,63 @@ def test_auto_plan_measures_the_fused_step(both):
     # the same seed trains identically when auto picks fused
     if res.plan["sampling"] == "fused":
         assert res.losses == _port_trainer(both[1], "fused", 4).train().losses
+
+
+_LIBC = ctypes.PyDLL(None)  # calls through PyDLL keep the GIL (CDLL's let go of it)
+
+
+def _hold_gil(seconds: float) -> None:
+    """Sleep ``seconds`` of wall time without letting go of the GIL: no
+    other thread of the process runs Python meanwhile."""
+    _LIBC.usleep(int(seconds * 1e6))
+
+
+def _paced_plan(ds, producer_wait) -> dict:
+    """The plan of an "auto" trainer whose costs are all set by sleeps: each
+    host batch (one real batch, repeated) ``producer_wait``s 50 ms in the
+    prefetch thread, each host step holds the GIL for 50 ms, each fused
+    step for 70 ms (the steps compute nothing, so the machine's load shifts
+    no comparison). Pipelined host steps then take about 50 ms if the
+    producer's wait lets go of the GIL, 100 ms if it holds it."""
+    tr = _port_trainer(ds, "auto", 64, calibrate_min_steps=2, auto_backend=True,
+                       prefetch_batches=None)
+    pipe = make_train_sampler(tr.engine, tr.pipe_cfg, backend="host", seed=0)
+    item = next(tr._host_batches(pipe, 1))
+
+    def batches(pipeline, num):
+        for _ in range(num):
+            producer_wait(0.05)
+            yield item
+
+    def step(p, st, batch, cost=0.05):
+        _hold_gil(cost)
+        return p, st, torch.zeros(())
+
+    tr._host_batches, tr._step_fn = batches, lambda: step
+    tr._fused_step = lambda p, st, draws: step(p, st, draws, cost=0.07)
+    plan = tr._resolve_plan(tr.init_params())
+    assert plan["calibrated"]
+    return plan
+
+
+def test_auto_plan_picks_fused_when_the_gil_slows_pipelined_steps(both):
+    """C5: the host batch (50 ms) and the host step (50 ms) are each faster
+    than the fused step (70 ms) alone, but both hold the GIL, so pipelined
+    host steps take about 100 ms. The plan measures that and says fused."""
+    plan = _paced_plan(both[1], _hold_gil)
+    m = plan["measurements"]
+    assert max(m["host_batch_s"], m["step_s"]) < m["fused_step_s"] < m["pipelined_step_s"]
+    assert plan["sampling"] == "fused" and plan["prefetch"] == 0, plan
+
+
+def test_auto_plan_keeps_the_host_when_pipelined_steps_win(both):
+    """The converse: the producer's 50 ms wait lets go of the GIL, so
+    pipelined host steps overlap it with the step (about 50 ms) and beat the
+    fused step (70 ms); serial steps (100 ms) would not."""
+    plan = _paced_plan(both[1], time.sleep)
+    m = plan["measurements"]
+    assert m["pipelined_step_s"] < m["fused_step_s"] < m["host_batch_s"] + m["step_s"]
+    assert plan["sampling"] == "host" and plan["prefetch"] == 2, plan
 
 
 def test_unknown_sampling_backend_raises(both):

@@ -257,8 +257,9 @@ def _pair_bf16(arch: str, seed: int):
 def test_bf16_model_matches_repro(arch):
     """The reduced archs in bf16, as the full configs serve: forward,
     prefill and 32 decode steps against repro's bf16 (its flash path for
-    the full sequence, whose p stays f32 as the port's does) to
-    ``BF16_REL``; repro's own flash and naive bf16 paths differ by up to
+    the full sequence, whose p stays f32, where the port's plain version
+    rounds the normalised weights to bf16 and its card kernel the
+    unnormalised ones) to ``BF16_REL``; repro's own flash and naive bf16 paths differ by up to
     1.8e-2 on these inputs. The port's prefill and decode agree to repro's
     2e-2 bound (tests/test_models.py), as repro's flash path does here."""
     jspec, jparams, spec, model = _pair_bf16(arch, ARCHS[arch])
