@@ -15,12 +15,17 @@ nothing of JAX or of the JAX package ``repro``. Phases, each failing loudly:
    ``HGMMA`` (the tensor cores' wgmma; ``cuobjdump -sass`` on the built
    library), and each instantiation's registers, local memory (spills) and
    dynamic shared memory are printed, a bf16 one with local memory failing;
+   the same for each ``topk`` instantiation (with resident blocks an SM and
+   resident 8-block clusters) and the ``inbatch_loss`` kernel at d 64, 256
+   and 768 (with resident blocks an SM): any local memory fails, and so do
+   fewer than two resident blocks an SM at the main path's k 100 and d 64;
 3. the serving path, through ``examples/recall_torch.py``'s ``run``: the UB
    dataset (8,000 users, 20,000 items), LightGCN at dim 64 with two
    relations, fanouts (4, 3) and side info in bag mode, random weights from a
    seed; every node embedded on the card, then U2I/ICF/UCF recall with the
    device top-k. Kernel launch counts are zeroed just before and read just
-   after, and the inputs of every kernel call are recorded. Device recall is
+   after (``topk``: one launch a call), and the inputs of every kernel call
+   are recorded. Device recall is
    then held against the numpy brute-force oracle (1e-3 on every metric) and
    a small graph's embeddings against the CPU path;
 3b. IVF serving, through the same ``run`` with ``--method ivf`` (nlist 64,
@@ -34,7 +39,8 @@ nothing of JAX or of the JAX package ``repro``. Phases, each failing loudly:
 3c. the 1M-item arm of ``benchmarks/bench_recall.py`` (its clustered
    corpus, d 32, nlist 2048, nprobe 12, k 100, 16 exclusions, 512 queries):
    build seconds, lpad, spilled items, Recall@100 against the exact
-   ``topk`` kernel, IVF and exact queries/s back to back, the time split;
+   ``topk`` kernel (its call recorded), IVF and exact queries/s back to
+   back, the time split;
 4. the training path, through ``examples/train_torch.py``'s ``run``: the same
    model on UB for 200 sparse steps (``sparse_min_rows=0``: the PS-style
    gather -> step -> scatter update) of 512 pairs, in-batch softmax loss,
@@ -79,12 +85,20 @@ nothing of JAX or of the JAX package ``repro``. Phases, each failing loudly:
    the three IVF runs, rows exactly; ``flash_attention``: the LM
    prefill's recorded call, bf16 to atol 3e-2 and to 2^-4 of each output
    row's largest value, with the output's max and median |value| printed
-   beside the errors), then (``seg_aggr``,
-   ``topk``, ``window_pairs``, ``flash_attention``) at synthetic shapes
-   (flash: f32 to rtol 1e-5 / atol 2e-5, causal and not, a tail tile,
-   qwen2's G 7, starcoder2's bf16 (1, 8,192, 36, 4, 128) with its 4,096
-   window); one JSON line per shape with the kernel's device time, the
-   plain version's, one library call's (for ``ivf_list_topk`` none, the
+   beside the errors; ``topk``: every call of the serving path and the 1M
+   arm, each shape's launch plan (query tile, splits = cluster size,
+   blocks), and the U2I call with fewer exclusions and a smaller k, to
+   show where its time goes; ``inbatch_loss``: every kept call, bitwise on
+   a re-run), then (``seg_aggr``,
+   ``topk``, ``inbatch_loss``, ``window_pairs``, ``flash_attention``) at
+   synthetic shapes (``topk``: 1,024 queries against 20,000 and 1M items,
+   k 1 and k 256, an exclusion row past the shared cap, integer-valued
+   ties exactly, a bitwise re-run; ``inbatch_loss``: P 2,048 and 8,192 at
+   d 64, 8,192 at d 256, each beside the library call; flash: f32 to rtol
+   1e-5 / atol 2e-5, causal and not, a tail tile, qwen2's G 7,
+   starcoder2's bf16 (1, 8,192, 36, 4, 128) with its 4,096 window); one
+   JSON line per shape with the kernel's device time, the plain version's,
+   one library call's (for ``ivf_list_topk`` none, the
    plain version with ``torch.topk`` as a yardstick; for
    ``flash_attention`` ``scaled_dot_product_attention``), each with its
    source (``measure``), and the card's bound for the inputs' type (flash:
@@ -339,20 +353,21 @@ def _check_topk(torch, s, i, s0, i0, what: str) -> float:
     return err
 
 
-def _topk_record(torch, ref, streaming_topk_cuda, q, it, k, ex, source: str) -> dict:
+def _topk_record(torch, ref, topk_mod, q, it, k, ex, source: str) -> dict:
     (Q, d), I, E = q.shape, it.shape[0], 0 if ex is None else ex.shape[1]
-    s, i = streaming_topk_cuda(q, it, k, ex)
+    s, i = topk_mod.streaming_topk_cuda(q, it, k, ex)
     s0, i0 = ref.chunked_topk_ref(q, it, k, ex)
     torch.cuda.synchronize()
     err = _check_topk(torch, s, i, s0, i0, f"{source} Q={Q} I={I} k={k} E={E}")
     big = I > 100000
-    kern = measure(lambda: streaming_topk_cuda(q, it, k, ex), 5 if big else 50)
+    kern = measure(lambda: topk_mod.streaming_topk_cuda(q, it, k, ex), 5 if big else 50)
     plain = measure(lambda: ref.chunked_topk_ref(q, it, k, ex), 2 if big else 10, warmup=1)
     # the yardstick: one dense product + topk, without the exclusion
     lib = measure(lambda: torch.topk(q @ it.T, k), 5 if big else 50)
     rec = {
         "phase": "kernel", "name": "topk", "source": source,
         "shape": {"Q": Q, "I": I, "d": d, "k": k, "E": E},
+        "plan": topk_mod.launch_plan(Q, I, k, q.device),
         "max_abs_err": err, "ids_mismatched": int((i != i0).sum().item()),
         **times(kernel=kern, plain=plain, library=lib),
     }
@@ -362,46 +377,66 @@ def _topk_record(torch, ref, streaming_topk_cuda, q, it, k, ex, source: str) -> 
     return rec
 
 
-def topk_phase(torch, ref, streaming_topk_cuda, calls: list) -> dict:
-    """Every main-path call against the plain version; each of its shapes
-    (U2I, ICF, UCF, in call order) timed on its recorded inputs; then
-    larger synthetic problems and an int-valued tie case."""
-    worst, mismatched = 0.0, 0
-    for (q, it, k), kw in calls:
-        ex = kw.get("exclude")
-        s, i = streaming_topk_cuda(q, it, k, ex)
-        s0, i0 = ref.chunked_topk_ref(q, it, k, ex)
-        torch.cuda.synchronize()
-        worst = max(worst, _check_topk(torch, s, i, s0, i0, f"main-path call Q={q.shape[0]} "
-                                                           f"I={it.shape[0]} k={k}"))
-        mismatched += int((i != i0).sum().item())
-    emit({"phase": "kernel", "name": "topk", "source": "main path, every call",
-          "calls": len(calls), "max_abs_err": worst, "ids_mismatched": mismatched})
-    # the first call of each search is a full query chunk
-    recs = [_topk_record(torch, ref, streaming_topk_cuda, q, it, k, kw.get("exclude"),
-                         "main path")
-            for (q, it, k), kw in first_of_each_shape(
-                calls, lambda c: (c[0][1].shape[0], c[0][2]))]
+def topk_phase(torch, ref, topk_mod, paths: dict) -> dict:
+    """Every call of each main path (``paths``: name -> calls) against the
+    plain version; each of its shapes (U2I, ICF, UCF, the 1M arm's exact
+    search) timed on its recorded inputs with its launch plan; the U2I call
+    again with fewer exclusions and a smaller k (where its time goes); then
+    synthetic problems: larger ones, k 1 and k 256, an exclusion row past
+    the shared cap, integer-valued ties exactly, and a bitwise re-run."""
+    cuda_topk = topk_mod.streaming_topk_cuda
+    worst, recs = 0.0, []
+    for path, calls in paths.items():
+        path_worst, mismatched = 0.0, 0
+        for (q, it, k), kw in calls:
+            ex = kw.get("exclude")
+            s, i = cuda_topk(q, it, k, ex)
+            s0, i0 = ref.chunked_topk_ref(q, it, k, ex)
+            torch.cuda.synchronize()
+            path_worst = max(path_worst, _check_topk(
+                torch, s, i, s0, i0, f"{path} call Q={q.shape[0]} I={it.shape[0]} k={k}"))
+            mismatched += int((i != i0).sum().item())
+        emit({"phase": "kernel", "name": "topk", "source": f"{path}, every call",
+              "calls": len(calls), "max_abs_err": path_worst, "ids_mismatched": mismatched})
+        worst = max(worst, path_worst)
+        # the first call of each search is a full query chunk
+        recs += [_topk_record(torch, ref, topk_mod, q, it, k, kw.get("exclude"), path)
+                 for (q, it, k), kw in first_of_each_shape(
+                     calls, lambda c: (c[0][1].shape[0], c[0][2]))]
     main = recs[0]  # U2I: the main path's first and largest search
 
+    (q, it, k), kw = paths["serving"][0]
+    ex = kw.get("exclude")
+    for kk, ee in ((k, None), (20, ex), (20, None), (1, None)):
+        m = measure(lambda: cuda_topk(q, it, kk, ee), 50)
+        emit({"phase": "kernel", "name": "topk", "case": "U2I call, fewer exclusions or k",
+              "k": kk, "E": 0 if ee is None else ee.shape[1], **times(kernel=m)})
+    s1, i1 = cuda_topk(q, it, k, ex)
+    s2, i2 = cuda_topk(q, it, k, ex)
+    if not (torch.equal(s1, s2) and torch.equal(i1, i2)):
+        fail("topk: two runs of the U2I call differ")
+    emit({"phase": "kernel", "name": "topk", "case": "U2I call run twice", "bitwise": True})
+
     gen = torch.Generator(device="cuda").manual_seed(1)
-    Q, d, k, E = 1024, 64, 100, 32
-    for I in (20000, 1_000_000):
+    for Q, I, d, k, E in ((1024, 20000, 64, 100, 32), (1024, 1_000_000, 64, 100, 32),
+                          (512, 20000, 64, 1, 19), (512, 20000, 64, topk_mod.MAX_K, 19),
+                          (512, 20000, 64, 100, 3 * topk_mod.EXCLUDE_CAP // 2)):
         q = torch.randn(Q, d, device="cuda", generator=gen)
         it = torch.randn(I, d, device="cuda", generator=gen)
         ex = torch.randint(-1, I, (Q, E), device="cuda", generator=gen, dtype=torch.int32)
-        worst = max(worst, _topk_record(torch, ref, streaming_topk_cuda, q, it, k, ex,
+        worst = max(worst, _topk_record(torch, ref, topk_mod, q, it, k, ex,
                                         "synthetic")["max_abs_err"])
     # int-valued embeddings: exact f32 scores, real ties -> ids must be equal
     q = torch.randint(-3, 4, (128, 16), device="cuda", generator=gen).float()
     it = torch.randint(-3, 4, (65536, 16), device="cuda", generator=gen).float()
-    ex = torch.randint(-1, 65536, (128, 6), device="cuda", generator=gen, dtype=torch.int32)
-    s, i = streaming_topk_cuda(q, it, 100, ex)
-    s0, i0 = ref.chunked_topk_ref(q, it, 100, ex)
-    if not (torch.equal(i, i0) and torch.equal(s, s0)):
-        fail("topk: int-valued tie case is not exact (lower id must win)")
-    emit({"phase": "kernel", "name": "topk", "case": "int-valued ties, Q=128 I=65536",
-          "exact": True})
+    for E in (6, 2 * topk_mod.EXCLUDE_CAP):  # staged rows, then rows read from memory
+        ex = torch.randint(-1, 65536, (128, E), device="cuda", generator=gen, dtype=torch.int32)
+        s, i = cuda_topk(q, it, 100, ex)
+        s0, i0 = ref.chunked_topk_ref(q, it, 100, ex)
+        if not (torch.equal(i, i0) and torch.equal(s, s0)):
+            fail(f"topk: int-valued tie case (E {E}) is not exact (lower id must win)")
+        emit({"phase": "kernel", "name": "topk", "case": f"int-valued ties, Q=128 I=65536 E={E}",
+              "exact": True})
     return dict(main, max_abs_err=worst)
 
 
@@ -442,6 +477,8 @@ def main_path(torch, np, modules) -> dict:
     for name, n in launches.items():
         if n == 0:
             fail(f"the main path launched no {name} kernel")
+    if launches["topk"] != len(calls["topk"]):
+        fail(f"topk: {launches['topk']} launches for {len(calls['topk'])} calls, not one a call")
     ue, ie = emb[: ds.num_users], emb[ds.num_users : ds.num_users + ds.num_items]
     train = recall_torch.train_pairs(ds)
 
@@ -663,7 +700,11 @@ def million_arm(torch, np, modules, I: int = 1_000_000, Q: int = 512) -> dict:
         launches = modules["ivf_list_topk"].launches
     if launches == 0:
         fail("the 1M-item arm launched no ivf_list_topk kernel")
-    _, exact_ids = chunked_topk(q, it, K, exclude=ex, device="cuda")
+    topk_calls = []
+    with recording(ops, "streaming_topk", topk_calls):
+        modules["topk"].launches = 0
+        _, exact_ids = chunked_topk(q, it, K, exclude=ex, device="cuda")
+        topk_launches = modules["topk"].launches
     recall = float(np.mean([len(set(a.tolist()) & set(b.tolist())) / K
                             for a, b in zip(exact_ids, ivf_ids)]))
     rates = _interleaved(torch, {
@@ -678,7 +719,7 @@ def million_arm(torch, np, modules, I: int = 1_000_000, Q: int = 512) -> dict:
            "queries_per_s": {n: Q / t for n, t in rates["s"].items()},
            "exact_over_ivf_time": 1.0 / rates["ratio"], "search_split": split}
     emit(out)
-    return dict(out, calls=calls)
+    return dict(out, calls=calls, topk_calls=topk_calls, topk_launches=topk_launches)
 
 
 def _composed_topk(torch, ref, q, codes, scales, starts, lens, lpad: int, S: int,
@@ -1184,12 +1225,41 @@ def seg_aggr_bwd_phase(torch, ref, seg_aggr_bwd_cuda, kept: list) -> dict:
     return dict(max(recs, key=lambda r: r["shape"][0] * r["shape"][1]), max_abs_err=worst)
 
 
-def inbatch_phase(torch, ref, inbatch_loss_rows_cuda, kept: list) -> dict:
+def _inbatch_record(torch, ref, inbatch_mod, s, d, t, source: str) -> dict:
     import torch.nn.functional as F
 
+    fn = inbatch_mod.inbatch_loss_rows_cuda
+    P, dim = s.shape
+    got, want = fn(s, d, t), ref.inbatch_loss_rows_ref(s, d, t)
+    torch.cuda.synchronize()
+    err = (got - want).abs().max().item()
+    if err > RTOL * max(1.0, want.abs().max().item()):
+        fail(f"inbatch_loss {(P, dim)} ({source}) disagrees with its plain version by {err}")
+    if not torch.equal(got, fn(s, d, t)):
+        fail(f"inbatch_loss {(P, dim)} ({source}): two runs differ")
+    labels = torch.arange(P, device=s.device)
+    iters = 200 if P <= 2048 else 20
+    kern = measure(lambda: fn(s, d, t), iters)
+    plain = measure(lambda: ref.inbatch_loss_rows_ref(s, d, t), iters)
+    lib = measure(lambda: F.cross_entropy(s @ d.T / t, labels, reduction="none"), iters)
+    splits, split_cols = inbatch_mod.plan_columns(P)
+    rec = {"phase": "kernel", "name": "inbatch_loss", "source": source, "shape": [P, dim],
+           "plan": {"row_tile": inbatch_mod.ROW_TILE, "splits": splits, "cluster": splits,
+                    "split_cols": split_cols, "blocks": -(-P // inbatch_mod.ROW_TILE) * splits},
+           "max_abs_err": err, "bitwise_rerun": True,
+           **times(kernel=kern, plain=plain, library=lib)}
+    rec["bound_ms"], rec["bound_by"] = bound_ms(2 * P * dim * 4 + P * 4, 2.0 * P * P * dim)
+    emit(rec)
+    return rec
+
+
+def inbatch_phase(torch, ref, inbatch_mod, kept: list) -> dict:
+    """Every kept training call against the plain version (1e-5); the first
+    timed, bitwise on a re-run; then synthetic P 2,048 and 8,192 at d 64 and
+    8,192 at d 256 (``repro``'s Pallas docstring's size)."""
     worst = 0.0
     for s, d, t in kept:
-        got, want = inbatch_loss_rows_cuda(s, d, t), ref.inbatch_loss_rows_ref(s, d, t)
+        got, want = inbatch_mod.inbatch_loss_rows_cuda(s, d, t), ref.inbatch_loss_rows_ref(s, d, t)
         torch.cuda.synchronize()
         err = (got - want).abs().max().item()
         if err > RTOL * max(1.0, want.abs().max().item()):
@@ -1197,17 +1267,14 @@ def inbatch_phase(torch, ref, inbatch_loss_rows_cuda, kept: list) -> dict:
                  f"version by {err}")
         worst = max(worst, err)
     s, d, t = kept[0]
-    P, dim = s.shape
-    labels = torch.arange(P, device=s.device)
-    kern = measure(lambda: inbatch_loss_rows_cuda(s, d, t), 200)
-    plain = measure(lambda: ref.inbatch_loss_rows_ref(s, d, t), 200)
-    lib = measure(lambda: F.cross_entropy(s @ d.T / t, labels, reduction="none"), 200)
-    rec = {"phase": "kernel", "name": "inbatch_loss", "source": "training path",
-           "shape": [P, dim], "calls": len(kept), "max_abs_err": worst,
-           **times(kernel=kern, plain=plain, library=lib)}
-    rec["bound_ms"], rec["bound_by"] = bound_ms(2 * P * dim * 4 + P * 4, 2.0 * P * P * dim)
-    emit(rec)
-    return rec
+    rec = _inbatch_record(torch, ref, inbatch_mod, s, d, t, "training path")
+    rec["calls"] = len(kept)
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    for P, dim in ((2048, 64), (8192, 64), (8192, 256)):
+        s = 0.5 * torch.randn(P, dim, device="cuda", generator=gen)
+        d = 0.5 * torch.randn(P, dim, device="cuda", generator=gen)
+        _inbatch_record(torch, ref, inbatch_mod, s, d, t, "synthetic")
+    return dict(rec, max_abs_err=max(worst, rec["max_abs_err"]))
 
 
 def row_adagrad_phase(torch, ref, row_adagrad_scatter_cuda, kept: list) -> dict:
@@ -1570,6 +1637,29 @@ def flash_build_phase(torch, build, fa_mod, lib) -> None:
     emit(out)
 
 
+def kernel_build_phase(topk_mod, inbatch_mod) -> dict:
+    """Registers, local memory bytes (spills and stack), dynamic shared
+    memory and residency of each ``topk`` instantiation (one per list
+    length; resident blocks an SM and resident 8-block clusters) and of the
+    ``inbatch_loss`` kernel at d 64, 256 and 768. Any local memory fails, and
+    so do fewer than two resident blocks an SM at the main path's sizes."""
+    out = {"phase": "kernel build",
+           "topk": {f"k <= {k}": topk_mod.kernel_attrs(k, topk_mod.MAX_CLUSTER)
+                    for k in (32, 64, 128, 256)},
+           "inbatch_loss": {f"d {d}": inbatch_mod.kernel_attrs(d) for d in (64, 256, 768)}}
+    emit(out)
+    for kernel in ("topk", "inbatch_loss"):
+        for inst, attrs in out[kernel].items():
+            if attrs["local_bytes"]:
+                fail(f"{kernel} ({inst}) uses {attrs['local_bytes']} bytes of local memory "
+                     "(spills)")
+    for kernel, inst in (("topk", "k <= 128"), ("inbatch_loss", "d 64")):
+        if out[kernel][inst]["blocks_per_sm"] < 2:
+            fail(f"{kernel} ({inst}): {out[kernel][inst]['blocks_per_sm']} resident block an "
+                 "SM, not two")
+    return out
+
+
 def _band_pairs(np, Sq: int, Skv: int, causal: bool, window) -> int:
     """(query, key) pairs inside the causal / window band."""
     i = np.arange(Sq, dtype=np.int64)
@@ -1708,6 +1798,7 @@ def main() -> None:
     emit({"phase": "build", "library": os.path.relpath(lib, ROOT),
           "seconds": time.perf_counter() - t0})
     flash_build_phase(torch, build, fa_mod, lib)
+    kernel_build_phase(topk_mod, inbatch_mod)
 
     modules = {"seg_aggr": seg_mod, "topk": topk_mod, "inbatch_loss": inbatch_mod,
                "row_adagrad": adagrad_mod, "window_pairs": wp_mod, "ivf_list_topk": ivf_mod}
@@ -1725,10 +1816,10 @@ def main() -> None:
     seg = seg_aggr_phase(torch, ref, seg_mod.seg_aggr_cuda,
                          {"serving": mp["calls"]["seg_aggr"], "training": tr["kept"]["seg_aggr"],
                           "fused training": fu["kept"]["seg_aggr"]})
-    topk = topk_phase(torch, ref, topk_mod.streaming_topk_cuda, mp["calls"]["topk"])
+    topk = topk_phase(torch, ref, topk_mod,
+                      {"serving": mp["calls"]["topk"], "1M arm": m1["topk_calls"]})
     seg_bwd = seg_aggr_bwd_phase(torch, ref, seg_mod.seg_aggr_bwd_cuda, tr["kept"]["seg_aggr_bwd"])
-    inbatch = inbatch_phase(torch, ref, inbatch_mod.inbatch_loss_rows_cuda,
-                            tr["kept"]["inbatch_loss"])
+    inbatch = inbatch_phase(torch, ref, inbatch_mod, tr["kept"]["inbatch_loss"])
     adagrad = row_adagrad_phase(torch, ref, adagrad_mod.row_adagrad_scatter_cuda,
                                 tr["kept"]["row_adagrad"])
     wp = window_pairs_phase(torch, ref, wp_mod.window_pair_ids_cuda, fu["window_pairs_calls"])
@@ -1790,7 +1881,8 @@ def main() -> None:
               {"serving": mp["launches"]["seg_aggr"], "training": tl["seg_aggr"],
                "fused training": fl["seg_aggr"]}),
         entry("topk", topk, "src/repro_torch/kernels/csrc/topk.cu",
-              "src/repro/kernels/topk.py:77", {"serving": mp["launches"]["topk"]}),
+              "src/repro/kernels/topk.py:77",
+              {"serving": mp["launches"]["topk"], "1M arm": m1["topk_launches"]}),
         entry("seg_aggr_bwd", seg_bwd, "src/repro_torch/kernels/csrc/seg_aggr.cu",
               "src/repro/kernels/seg_aggr.py:45",
               {"training": tl["seg_aggr_bwd"], "fused training": fl["seg_aggr_bwd"]}),

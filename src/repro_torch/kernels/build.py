@@ -41,9 +41,11 @@ _F = ctypes.c_float
 _SIGNATURES = {
     "g4r_seg_aggr_f32": (_P, _P, _P, _LL, _I, _I, _LL, _LL, _I, _P),
     "g4r_seg_aggr_bwd_f32": (_P, _P, _P, _LL, _I, _I, _LL, _I, _P),
-    "g4r_inbatch_rows_f32": (_P, _P, _P, _I, _I, _F, _P),
+    "g4r_inbatch_rows_f32": (_P, _P, _P, _I, _I, _I, _I, _F, _P),
+    "g4r_inbatch_attrs": (_I, _P),
     "g4r_row_adagrad_f32": (_P, _P, _P, _P, _LL, _LL, _I, _F, _F, _P),
-    "g4r_topk_f32": (_P, _P, _P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    "g4r_topk_f32": (_P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    "g4r_topk_attrs": (_I, _I, _P),
     "g4r_window_pairs_i32": (_P, _P, _P, _P, _LL, _I, _I, _P),
     "g4r_ivf_list_topk_i8": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _LL, _P),
     "g4r_flash_attn_fwd": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, *(_LL,) * 12, _F, _I,

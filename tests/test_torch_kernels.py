@@ -19,7 +19,8 @@ import torch
 
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels.seg_aggr import seg_aggr_cuda
-from repro_torch.kernels.topk import CHUNK, MAX_K, MAX_SPLITS, plan_splits, streaming_topk_cuda
+from repro_torch.kernels.topk import (CHUNK, EXCLUDE_CAP, MAX_CLUSTER, MAX_K, TILE_Q, plan_splits,
+                                      streaming_topk_cuda, streaming_topk_planned)
 from repro_torch.retrieval import chunked_topk
 
 pytestmark = pytest.mark.quick
@@ -169,13 +170,50 @@ class TestTopkRef:
             np.testing.assert_allclose(s1, s0, rtol=RTOL, atol=ATOL)
 
 
+def _resident(sms, per_sm):
+    """Clusters of 1..8 blocks an idealised card holds at once, two short of
+    the slots, as clusters lose some to the GPCs' edges."""
+    return [max(1, sms * per_sm // s - 2) for s in range(1, MAX_CLUSTER + 1)]
+
+
 class TestTopkWrapper:
     @pytest.mark.parametrize("Q,I,sms", [(1024, 20000, 132), (1024, 10**6, 132),
                                          (7, 300, 132), (100000, 5000, 132), (64, 65536, 8)])
-    def test_split_plan_covers_items(self, Q, I, sms):
-        splits, split_len = plan_splits(Q, I, sms)
-        assert 1 <= splits <= MAX_SPLITS and split_len % CHUNK == 0
-        assert (splits - 1) * split_len < I <= splits * split_len
+    def test_split_plan_covers_items_in_one_cluster(self, Q, I, sms):
+        """Whole chunks, no empty split, every item, one cluster (<= 8) per
+        query tile, for any number of resident blocks an SM."""
+        for per_sm in (1, 2, 3, 4, 8):
+            splits, split_len = plan_splits(Q, I, sms, _resident(sms, per_sm))
+            assert 1 <= splits <= MAX_CLUSTER and split_len % CHUNK == 0
+            assert (splits - 1) * split_len < I <= splits * split_len
+
+    @pytest.mark.parametrize("Q,I", [(512, 20000), (512, 8000), (512, 10**6), (1024, 20000)],
+                             ids=["u2i-icf", "ucf", "1m-arm", "synthetic"])
+    @pytest.mark.parametrize("per_sm", [2, 3, 4])
+    def test_split_plan_fills_the_card(self, Q, I, per_sm):
+        """The main-path shapes give every one of the H100's 132 SMs two
+        blocks or more, in clusters of at most 8."""
+        resident = _resident(132, per_sm)
+        splits, _ = plan_splits(Q, I, 132, resident)
+        assert splits <= MAX_CLUSTER
+        assert -(-Q // TILE_Q) * splits >= 2 * 132
+
+    def test_split_plan_keeps_one_wave(self):
+        """Eight splits of 64 query tiles need 64 resident 8-block clusters;
+        an H100 at four blocks an SM holds 62 (cudaOccupancyMaxActiveClusters),
+        so the U2I call takes seven splits, all in one wave."""
+        resident = [132, 132, 132, 132, 104, 88, 74, 62]
+        assert plan_splits(512, 20000, 132, resident) == (7, 2944)
+
+    def test_planned_launch_checks_its_plan(self):
+        """A plan that does not cover the items in whole chunks, or takes
+        more than a cluster, raises before the device is looked at."""
+        q, it, _ = _topk_data(I=300)
+        for splits, split_len in ((0, 384), (MAX_CLUSTER + 1, 128), (2, 100), (2, 128)):
+            with pytest.raises(ValueError, match="plan"):
+                streaming_topk_planned(_t(q), _t(it), 5, None, splits, split_len)
+        with pytest.raises(ValueError, match="CUDA"):  # a good plan reaches the device check
+            streaming_topk_planned(_t(q), _t(it), 5, None, 3, 128)
 
     def test_k_above_kernel_limit_raises_value_error(self):
         q, it, _ = _topk_data(I=MAX_K + 10)
@@ -235,6 +273,11 @@ class TestOnCard:
     @pytest.mark.parametrize("Q,I,d,k,E", [
         (29, 501, 16, 25, 6), (1024, 20000, 64, 100, 12), (33, 70000, 20, 21, 3),
         (64, 300, 16, MAX_K, 6), (5, 40, 8, 40, 4), (300, 9000, 64, 1, 1),
+        (13, 5000, 64, 100, 19),  # Q not a multiple of the query tile
+        (16, 100, 64, 50, 3),  # I smaller than one chunk
+        (512, 20000, 64, MAX_K, 19), (512, 20000, 64, 1, 19),  # k 256 and k 1, U2I's size
+        (40, 3000, 37, 10, 4), (24, 2000, 70, 30, 5), (9, 700, 6, 7, 2),  # 4-byte copies, d tails
+        (64, 4000, 32, 40, EXCLUDE_CAP + 1), (37, 9000, 64, 100, 150),  # rows past the shared cap
     ])
     def test_topk_matches_plain(self, cuda, Q, I, d, k, E):
         q, it, ex = (_t(a).to(cuda) for a in _topk_data(7, Q, I, d, E))
@@ -257,3 +300,65 @@ class TestOnCard:
         s0, i0 = ref.chunked_topk_ref(q, it, 5, ex)
         assert torch.equal(i, i0) and (i[:, 2:] == -1).all()
         assert torch.isneginf(s[:, 2:]).all()
+
+    @pytest.mark.parametrize("k", [20, 100])
+    def test_topk_on_unit_vectors(self, cuda, k):
+        """Unit-norm embeddings, as recall normalises them: scores in [-1, 1]."""
+        q, it, ex = _topk_data(16, 512, 20000, 64, 19)
+        q = q / np.linalg.norm(q, axis=1, keepdims=True)
+        it = it / np.linalg.norm(it, axis=1, keepdims=True)
+        q, it, ex = (_t(a).to(cuda) for a in (q, it, ex))
+        s, i = streaming_topk_cuda(q, it, k, ex)
+        s0, i0 = ref.chunked_topk_ref(q, it, k, ex)
+        _ids_match_up_to_near_ties(s0, i0, s, i)
+
+    def test_topk_reads_misaligned_rows(self, cuda):
+        """A contiguous view whose rows do not start on 16 bytes takes the
+        4-byte copies."""
+        q, it, ex = _topk_data(11, 20, 3000, 8, 4)
+        base = torch.zeros(it.size + 1, dtype=torch.float32, device=cuda)
+        items = base[1:].view(it.shape)
+        items.copy_(_t(it))
+        q, ex = _t(q).to(cuda), _t(ex).to(cuda)
+        s, i = streaming_topk_cuda(q, items, 30, ex)
+        s0, i0 = ref.chunked_topk_ref(q, items, 30, ex)
+        _ids_match_up_to_near_ties(s0, i0, s, i)
+
+    @pytest.mark.parametrize("E", [3, EXCLUDE_CAP, EXCLUDE_CAP + 1, 200])
+    def test_topk_exclusions_beyond_the_shared_cap_agree(self, cuda, E):
+        """Rows read from device memory give what staged rows give: every
+        excluded id is absent, and the result equals the plain version's on
+        integer-valued data (exact scores and ties)."""
+        q, it, ex = (_t(a).to(cuda) for a in _topk_data(12, 50, 6000, 16, E, int_valued=True))
+        s, i = streaming_topk_cuda(q, it, 100, ex)
+        s0, i0 = ref.chunked_topk_ref(q, it, 100, ex)
+        assert torch.equal(i, i0) and torch.equal(s, s0)
+        hit = (i[:, :, None] == ex[:, None, :]) & (ex[:, None, :] >= 0)
+        assert not hit.any()
+
+    @pytest.mark.parametrize("splits,split_len,I", [
+        (8, 128, 300),  # 3 splits with items, 5 with filler lists
+        (3, 128, 384),  # a cluster of 3
+        (8, 128, 1024),  # every split shorter than k: each list ends in fillers
+        (1, 20096, 20000),  # one block per query tile, no cluster merge
+    ])
+    def test_topk_planned_splits_match_plain(self, cuda, splits, split_len, I):
+        q, it, ex = (_t(a).to(cuda) for a in _topk_data(13, 21, I, 64, 9))
+        k = min(200, I)
+        s, i = streaming_topk_planned(q, it, k, ex, splits, split_len)
+        s0, i0 = ref.chunked_topk_ref(q, it, k, ex)
+        _ids_match_up_to_near_ties(s0, i0, s, i)
+        assert torch.equal(i < 0, i0 < 0)
+
+    def test_topk_bitwise_rerun(self, cuda):
+        q, it, ex = (_t(a).to(cuda) for a in _topk_data(14, 512, 20000, 64, 19))
+        s1, i1 = streaming_topk_cuda(q, it, 100, ex)
+        s2, i2 = streaming_topk_cuda(q, it, 100, ex)
+        assert torch.equal(s1, s2) and torch.equal(i1, i2)
+
+    def test_topk_launches_once_per_call(self, cuda):
+        from repro_torch.kernels import topk as topk_mod
+        q, it, ex = (_t(a).to(cuda) for a in _topk_data(15, 512, 20000, 64, 19))
+        before = topk_mod.launches
+        streaming_topk_cuda(q, it, 100, ex)
+        assert topk_mod.launches == before + 1

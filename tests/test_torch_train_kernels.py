@@ -23,7 +23,8 @@ import torch
 
 from repro_torch.core import gnn
 from repro_torch.kernels import ops, ref
-from repro_torch.kernels.inbatch_loss import inbatch_loss_rows_cuda
+from repro_torch.kernels.inbatch_loss import (COL_TILE, MAX_CLUSTER, ROW_TILE,
+                                              inbatch_loss_rows_cuda, plan_columns)
 from repro_torch.kernels.row_adagrad import row_adagrad_scatter_cuda
 from repro_torch.kernels.seg_aggr import seg_aggr_bwd_cuda
 
@@ -168,6 +169,16 @@ class TestInbatchLoss:
         with pytest.raises(ValueError, match="CUDA"):
             inbatch_loss_rows_cuda(_t(s), _t(d))
 
+    @pytest.mark.parametrize("P", [1, 40, 64, 65, 100, 512, 513, 1000, 2048, 8192, 100000])
+    def test_column_plan_covers_columns_in_one_cluster(self, P):
+        """Whole column tiles, no empty split, every column, at most 8 splits
+        (one cluster a row tile); 128 blocks at the training path's P."""
+        splits, split_cols = plan_columns(P)
+        assert 1 <= splits <= MAX_CLUSTER and split_cols % COL_TILE == 0
+        assert (splits - 1) * split_cols < P <= splits * split_cols
+        if P == 512:
+            assert -(-P // ROW_TILE) * splits >= 128
+
 
 # ------------------------------------------------------------- row adagrad
 class TestRowAdagrad:
@@ -254,6 +265,33 @@ class TestOnCard:
         torch.cuda.synchronize()
         torch.testing.assert_close(got, ref.inbatch_loss_rows_ref(s, t, 0.7),
                                    rtol=RTOL, atol=1e-5)
+
+    @pytest.mark.parametrize("P,d", [
+        (40, 1), (100, 63),  # P below one cluster's columns: 1 and 2 splits
+        (1000, 64), (777, 256),  # P not a multiple of the tiles
+        (300, 768), (2048, 64), (8192, 64), (8192, 256),
+    ])
+    def test_inbatch_rows_match_plain_in_clusters(self, cuda, P, d):
+        s, t = (_t(a).to(cuda) for a in _pair_data(P + d, P, d))
+        got = inbatch_loss_rows_cuda(s, t, 0.7)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got, ref.inbatch_loss_rows_ref(s, t, 0.7),
+                                   rtol=RTOL, atol=1e-5)
+
+    def test_inbatch_rows_read_misaligned_rows(self, cuda):
+        """Rows that do not start on 16 bytes take the 4-byte copies."""
+        s, t = (_t(a) for a in _pair_data(3, 300, 64))
+        base = torch.zeros(2, s.numel() + 1, device=cuda)
+        src, dst = base[0, 1:].view(s.shape), base[1, 1:].view(t.shape)
+        src.copy_(s)
+        dst.copy_(t)
+        torch.testing.assert_close(inbatch_loss_rows_cuda(src, dst, 0.7),
+                                   ref.inbatch_loss_rows_ref(src, dst, 0.7), rtol=RTOL, atol=1e-5)
+
+    @pytest.mark.parametrize("P,d", [(512, 64), (8192, 64)])
+    def test_inbatch_rows_bitwise_rerun(self, cuda, P, d):
+        s, t = (_t(a).to(cuda) for a in _pair_data(P, P, d))
+        assert torch.equal(inbatch_loss_rows_cuda(s, t, 0.7), inbatch_loss_rows_cuda(s, t, 0.7))
 
     @pytest.mark.parametrize("n_pad,with_row0", [(12, True), (0, True), (5, False)])
     def test_row_adagrad_matches_plain(self, cuda, n_pad, with_row0):
