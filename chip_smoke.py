@@ -16,8 +16,11 @@ nothing of JAX or of the JAX package ``repro``. Phases, each failing loudly:
    library), and each instantiation's registers, local memory (spills) and
    dynamic shared memory are printed, a bf16 one with local memory failing;
    the same for each ``topk`` instantiation (with resident blocks an SM and
-   resident 8-block clusters) and the ``inbatch_loss`` kernel at d 64, 256
-   and 768 (with resident blocks an SM): any local memory fails, and so do
+   resident 8-block clusters), the ``inbatch_loss`` kernel at d 64, 256
+   and 768 (with resident blocks an SM), both ``seg_aggr`` forward loads
+   (with the grid cap) and the ``ivf_list_topk`` shared path at the
+   recorded calls' sizes in every cluster size that fits (with resident
+   blocks an SM and resident clusters): any local memory fails, and so do
    fewer than two resident blocks an SM at the main path's k 100 and d 64;
 3. the serving path, through ``examples/recall_torch.py``'s ``run``: the UB
    dataset (8,000 users, 20,000 items), LightGCN at dim 64 with two
@@ -80,9 +83,11 @@ nothing of JAX or of the JAX package ``repro``. Phases, each failing loudly:
    the reduced model in f32, card vs CPU under deterministic algorithms,
    forward and 16 decode steps to rtol/atol 1e-4;
 7. kernel phases: each kernel against its plain PyTorch version on the card,
-   on the recorded inputs of the main paths (``seg_aggr``: of all three;
-   ``window_pairs``: every call, exactly; ``ivf_list_topk``: every call of
-   the three IVF runs, rows exactly; ``flash_attention``: the LM
+   on the recorded inputs of the main paths (``seg_aggr``: of all three,
+   bitwise; ``window_pairs``: every call, exactly; ``ivf_list_topk``: every
+   call of the three IVF runs, rows exactly, with the launch plan each took,
+   and a synthetic call past a cluster's shared memory on the kernel's
+   global path; ``flash_attention``: the LM
    prefill's recorded call, bf16 to atol 3e-2 and to 2^-4 of each output
    row's largest value, with the output's max and median |value| printed
    beside the errors; ``topk``: every call of the serving path and the 1M
@@ -286,8 +291,10 @@ def _seg_record(torch, ref, seg_aggr_cuda, x, mask, mode, source: str, iters: in
     got = seg_aggr_cuda(x, mask, mode)
     want = ref.seg_aggr_ref(x, mask, mode)
     torch.cuda.synchronize()
-    if not torch.allclose(got, want, rtol=RTOL, atol=ATOL):
-        fail(f"seg_aggr {mode} {(n, f, d)} ({source}) disagrees with its plain version")
+    # PyTorch's sum over F adds in the kernel's order at F <= 4 with D > 1,
+    # every shape here, so the two are bitwise equal
+    if not torch.equal(got, want):
+        fail(f"seg_aggr {mode} {(n, f, d)} ({source}) is not bitwise its plain version")
     mf = mask.float()
     # one einsum against precomputed per-neighbour weights (sum and mean);
     # max has no single library call
@@ -308,17 +315,17 @@ def _seg_record(torch, ref, seg_aggr_cuda, x, mask, mode, source: str, iters: in
 
 def seg_aggr_phase(torch, ref, seg_aggr_cuda, paths: dict) -> dict:
     """Every recorded call of each main path (``paths``: name -> calls)
-    against the plain version; each of its shapes timed on its recorded
-    inputs; then every mode at synthetic shapes."""
+    against the plain version, bitwise; each of its shapes timed on its
+    recorded inputs; then every mode at synthetic shapes."""
     worst, recs = 0.0, []
     for path, calls in paths.items():
         path_worst = 0.0
         for (x, mask, mode), _ in calls:
             got, want = seg_aggr_cuda(x, mask, mode), ref.seg_aggr_ref(x, mask, mode)
             torch.cuda.synchronize()
-            if not torch.allclose(got, want, rtol=RTOL, atol=ATOL):
-                fail(f"seg_aggr {mode} {tuple(x.shape)}: a {path} call disagrees "
-                     "with its plain version")
+            if not torch.equal(got, want):
+                fail(f"seg_aggr {mode} {tuple(x.shape)}: a {path} call is not bitwise "
+                     "its plain version")
             path_worst = max(path_worst, (got - want).abs().max().item())
         emit({"phase": "kernel", "name": "seg_aggr", "source": f"{path} path, recorded calls",
               "calls": len(calls), "max_abs_err": path_worst})
@@ -751,9 +758,18 @@ def _ivf_args(torch, call):
             lens.to(torch.int32).contiguous(), kw["lpad"], kw["shortlist"])
 
 
-def _ivf_record(torch, ref, ivf_list_topk_cuda, call, source: str) -> dict:
+def _ivf_plan(ivf_mod, q, codes, starts, lpad: int, S: int) -> dict:
+    """The launch the wrapper makes for a call (``kernels/ivf.py:launch_plan``)."""
+    plan = ivf_mod.launch_plan(q, codes, starts.shape[1], lpad, S)
+    return {k: plan[k] for k in ("regime", "cluster", "load", "probes_per_block", "blocks",
+                                 "shared_bytes", "blocks_per_sm", "resident_clusters", "waves")
+            if k in plan}
+
+
+def _ivf_record(torch, ref, ivf_mod, call, source: str) -> dict:
     q, codes, scales, starts, lens, lpad, S = _ivf_args(torch, call)
     (Q, d), P = q.shape, starts.shape[1]
+    ivf_list_topk_cuda = ivf_mod.ivf_list_topk_cuda
     big = Q * P * lpad > 50_000_000
     pb = _plain_batch(q, starts, lpad)
     kern = measure(lambda: ivf_list_topk_cuda(q, codes, scales, starts, lens, lpad, S),
@@ -773,7 +789,9 @@ def _ivf_record(torch, ref, ivf_list_topk_cuda, call, source: str) -> dict:
     rec = {"phase": "kernel", "name": "ivf_list_topk", "source": source,
            "shape": {"Q": Q, "d": d, "P": P, "lpad": lpad, "S": S, "rows_scored": scored,
                      "distinct_rows": distinct},
-           "plain_batch": pb,
+           "plain_batch": pb, "plan": _ivf_plan(ivf_mod, q, codes, starts, lpad, S),
+           "forced_plans_ms": _ivf_forced_plans(torch, ref, ivf_mod, q, codes, scales, starts,
+                                                lens, lpad, S, pb, 5 if big else 20),
            # no single PyTorch call computes the masked CSR gather-score-select
            **times(kernel=kern, plain=plain, library=None, composed_topk=comp)}
     # each input read once (the codes and scale of every row some list
@@ -788,16 +806,59 @@ def _ivf_record(torch, ref, ivf_list_topk_cuda, call, source: str) -> dict:
     return rec
 
 
-def ivf_phase(torch, ref, ivf_list_topk_cuda, paths: dict) -> dict:
+def _ivf_forced_plans(torch, ref, ivf_mod, q, codes, scales, starts, lens, lpad: int, S: int,
+                      pb: int, iters: int) -> dict:
+    """Device ms of every plan the kernel takes at this call's sizes (each
+    cluster size whose blocks fit, and the global path as "0") through
+    ``ivf_list_topk_planned``: the times the wrapper's plan is chosen among.
+    Each plan's rows must equal the plain version's and its scores agree
+    within ``IVF_RTOL`` / ``IVF_ATOL``."""
+    P, d = starts.shape[1], q.shape[1]
+    s0, r0 = ref.ivf_list_topk_ref(q, codes, scales, starts, lens, lpad=lpad, shortlist=S,
+                                   batch_size=pb)
+    fits = [c for c in range(1, min(ivf_mod.MAX_CLUSTER, P) + 1)
+            if ivf_mod.shared_bytes(-(-P // c), lpad, d, c, S) <= ivf_mod.SHARED_CAP]
+    out = {}
+    for c in [0] + fits:
+        def run(c=c):
+            return ivf_mod.ivf_list_topk_planned(q, codes, scales, starts, lens, lpad, S, c)
+        s, r = run()
+        torch.cuda.synchronize()
+        if not torch.equal(r, r0) or not torch.allclose(s, s0, rtol=IVF_RTOL, atol=IVF_ATOL):
+            fail(f"ivf_list_topk Q={q.shape[0]} S={S} forced to cluster {c} disagrees with "
+                 "its plain version")
+        out[str(c)] = measure(run, iters)["device_ms"]
+    return out
+
+
+def _ivf_global_call(torch):
+    """A synthetic call past a cluster's shared memory (P 64, lpad 4,000,
+    d 64): the kernel's global path, with its (2, Q, S) workspace."""
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    Q, P, d, lpad, rows = 16, 64, 64, 4000, 200_000
+    codes = torch.randint(-127, 128, (rows + lpad, d), dtype=torch.int8, device="cuda",
+                          generator=gen)
+    scales = torch.rand(rows + lpad, 1, device="cuda", generator=gen) + 0.5
+    q = torch.randn(Q, d, device="cuda", generator=gen)
+    starts = torch.randint(0, rows, (Q, P), dtype=torch.int32, device="cuda", generator=gen)
+    lens = torch.randint(0, lpad + 1, (Q, P), dtype=torch.int32, device="cuda", generator=gen)
+    return (q, codes, scales, starts, lens), {"lpad": lpad, "shortlist": 5000}
+
+
+def ivf_phase(torch, ref, ivf_mod, paths: dict) -> dict:
     """Every recorded call of each IVF path against the plain version (rows
-    exactly, scores to rtol 2e-5 / atol 1e-4); the UB calls, the first
-    exhaustive call and the 1M call timed on their recorded inputs."""
+    exactly, scores to rtol 2e-5 / atol 1e-4), with the plan each took; the
+    UB calls, the first exhaustive call and the 1M call timed on their
+    recorded inputs, in the wrapper's plan and in every plan that fits;
+    then a synthetic call on the global path, held and timed the same
+    way."""
     worst, recs = 0.0, {}
+    paths = dict(paths, synthetic=[_ivf_global_call(torch)])
     for path, calls in paths.items():
-        path_worst = 0.0
+        path_worst, plans = 0.0, collections.Counter()
         for c in calls:
             q, codes, scales, starts, lens, lpad, S = _ivf_args(torch, c)
-            s, r = ivf_list_topk_cuda(q, codes, scales, starts, lens, lpad, S)
+            s, r = ivf_mod.ivf_list_topk_cuda(q, codes, scales, starts, lens, lpad, S)
             s0, r0 = ref.ivf_list_topk_ref(q, codes, scales, starts, lens, lpad=lpad,
                                            shortlist=S, batch_size=_plain_batch(q, starts, lpad))
             torch.cuda.synchronize()
@@ -810,12 +871,17 @@ def ivf_phase(torch, ref, ivf_list_topk_cuda, paths: dict) -> dict:
             fin = torch.isfinite(s0)
             path_worst = max(path_worst, (s[fin] - s0[fin]).abs().max().item()
                              if fin.any() else 0.0)
+            plans[json.dumps(_ivf_plan(ivf_mod, q, codes, starts, lpad, S))] += 1
         emit({"phase": "kernel", "name": "ivf_list_topk", "source": f"{path}, every call",
               "calls": len(calls), "max_abs_err": path_worst,
-              "max_shortlist": max(c[1]["shortlist"] for c in calls)})
+              "max_shortlist": max(c[1]["shortlist"] for c in calls),
+              "plans": [dict(json.loads(p), calls=n) for p, n in plans.items()]})
         worst = max(worst, path_worst)
         timed = calls if path == "ivf serving" else calls[:1]
-        recs[path] = [_ivf_record(torch, ref, ivf_list_topk_cuda, c, path) for c in timed]
+        recs[path] = [_ivf_record(torch, ref, ivf_mod, c, path) for c in timed]
+    if recs["synthetic"][0]["plan"]["regime"] != "global":
+        fail(f"the synthetic ivf_list_topk call took {recs['synthetic'][0]['plan']}, "
+             "not the global path")
     return dict(recs["1M arm"][0], max_abs_err=worst)
 
 
@@ -1637,18 +1703,41 @@ def flash_build_phase(torch, build, fa_mod, lib) -> None:
     emit(out)
 
 
-def kernel_build_phase(topk_mod, inbatch_mod) -> dict:
-    """Registers, local memory bytes (spills and stack), dynamic shared
-    memory and residency of each ``topk`` instantiation (one per list
-    length; resident blocks an SM and resident 8-block clusters) and of the
-    ``inbatch_loss`` kernel at d 64, 256 and 768. Any local memory fails, and
-    so do fewer than two resident blocks an SM at the main path's sizes."""
+# the recorded ivf_list_topk calls' sizes (P, lpad, d, S) whose shared-path
+# instantiations the build line reports, with the clusters a plan may take
+IVF_BUILD_SHAPES = {"ub items": (8, 519, 64, 419), "ub users": (8, 227, 64, 129),
+                    "ub exhaustive": (64, 519, 64, 33216), "1M arm": (12, 611, 32, 416)}
+
+
+def kernel_build_phase(topk_mod, inbatch_mod, seg_mod, ivf_mod) -> dict:
+    """Registers, local memory bytes (spills and stack), shared memory and
+    residency of each ``topk`` instantiation (one per list length; resident
+    blocks an SM and resident 8-block clusters), of the ``inbatch_loss``
+    kernel at d 64, 256 and 768, of both ``seg_aggr`` forward loads (with
+    the grid cap), and of the ``ivf_list_topk`` shared path at the recorded
+    calls' sizes in every cluster size its blocks fit (resident blocks an
+    SM and resident clusters) and of its global path. Any local memory
+    fails, and so do fewer than two resident blocks an SM at the main
+    path's sizes of ``topk`` and ``inbatch_loss``."""
+    ivf = {}
+    for name, (P, lpad, d, S) in IVF_BUILD_SHAPES.items():
+        for c in range(1, ivf_mod.MAX_CLUSTER + 1):
+            ppb = -(-P // c)
+            if ivf_mod.shared_bytes(ppb, lpad, d, c, S) <= ivf_mod.SHARED_CAP:
+                ivf[f"{name} cluster {c}"] = ivf_mod.kernel_attrs(ivf_mod.load_mode(d, True), c,
+                                                                  ppb, lpad, d, S)
+    for load, d in (("bytes", 128), ("bytes", 20)):
+        ivf[f"{load} d {d} cluster 2"] = ivf_mod.kernel_attrs(load, 2, 4, 519, d, 419)
+    ivf["global path"] = ivf_mod.kernel_attrs("prefetch4", 0, 1, 1, 64, 1)
     out = {"phase": "kernel build",
            "topk": {f"k <= {k}": topk_mod.kernel_attrs(k, topk_mod.MAX_CLUSTER)
                     for k in (32, 64, 128, 256)},
-           "inbatch_loss": {f"d {d}": inbatch_mod.kernel_attrs(d) for d in (64, 256, 768)}}
+           "inbatch_loss": {f"d {d}": inbatch_mod.kernel_attrs(d) for d in (64, 256, 768)},
+           "seg_aggr": {"16-byte": seg_mod.kernel_attrs(True),
+                        "4-byte": seg_mod.kernel_attrs(False)},
+           "ivf_list_topk": ivf}
     emit(out)
-    for kernel in ("topk", "inbatch_loss"):
+    for kernel in ("topk", "inbatch_loss", "seg_aggr", "ivf_list_topk"):
         for inst, attrs in out[kernel].items():
             if attrs["local_bytes"]:
                 fail(f"{kernel} ({inst}) uses {attrs['local_bytes']} bytes of local memory "
@@ -1798,7 +1887,7 @@ def main() -> None:
     emit({"phase": "build", "library": os.path.relpath(lib, ROOT),
           "seconds": time.perf_counter() - t0})
     flash_build_phase(torch, build, fa_mod, lib)
-    kernel_build_phase(topk_mod, inbatch_mod)
+    kernel_build_phase(topk_mod, inbatch_mod, seg_mod, ivf_mod)
 
     modules = {"seg_aggr": seg_mod, "topk": topk_mod, "inbatch_loss": inbatch_mod,
                "row_adagrad": adagrad_mod, "window_pairs": wp_mod, "ivf_list_topk": ivf_mod}
@@ -1823,7 +1912,7 @@ def main() -> None:
     adagrad = row_adagrad_phase(torch, ref, adagrad_mod.row_adagrad_scatter_cuda,
                                 tr["kept"]["row_adagrad"])
     wp = window_pairs_phase(torch, ref, wp_mod.window_pair_ids_cuda, fu["window_pairs_calls"])
-    ivf = ivf_phase(torch, ref, ivf_mod.ivf_list_topk_cuda,
+    ivf = ivf_phase(torch, ref, ivf_mod,
                     {"ivf serving": iv["calls"]["ivf serving"],
                      "ivf exhaustive": iv["calls"]["ivf exhaustive"], "1M arm": m1["calls"]})
     flash = flash_phase(torch, np, ref, fa_mod.flash_attention_cuda, lm["calls"])

@@ -10,16 +10,30 @@
 // What bounds it on this card: bytes. It does F adds per output and reads
 // each input once, so at the serving path's largest call (N = 8192, F = 3,
 // D = 64: 6.3 MB in, 2.1 MB out) the floor is about 2.5 us at 3.35 TB/s,
-// below the cost of a launch. The design therefore aims only at moving the
-// bytes once, coalesced:
-//   - a block owns ROWS rows; threadIdx.x walks D (contiguous, so a warp
-//     reads 128 contiguous bytes of one neighbour row), threadIdx.y is the
-//     row, and each thread loops over F for its (row, d) outputs;
-//   - the block stages its rows' mask bytes in shared memory once, so the
-//     mask row is read from device memory once per row, not once per d;
+// and the training paths' calls (N 342 to 4096) are launch-sized: there
+// the time is the chain of dependent steps from launch to the last store.
+// The forward's design keeps that chain one load round long:
+//   - a lane owns 4 consecutive columns of one row and reads them as one
+//     16-byte load per neighbour (16 lanes cover a 64-float row, so a warp
+//     reads two rows' 256 contiguous bytes a neighbour); every neighbour's
+//     load of a group of up to kGroup issues before any sum;
+//   - each lane reads its row's mask bytes itself, beside the x loads: no
+//     shared-memory staging and no block barrier stand before them;
+//   - the sum adds x * mask over F in order, j = 0 .. F-1, from 0 (mean
+//     divides by max(count, 1) last; max starts at -1e30). The plain
+//     version's (x * mask).sum(dim=1) (kernels/ref.py:seg_aggr_ref) adds in
+//     the same order on the card for F <= 4 with D > 1, every main-path
+//     call's shape, and there the two are bitwise equal; for F > 4 PyTorch
+//     keeps four partial sums, and at D = 1 it reduces across threads, so
+//     there they differ by rounding;
+//   - the grid is the card's resident blocks at most (one wave at the
+//     largest main-path call), and a block strides over the rows past it;
 //   - x and the mask take a row stride, so the strided per-relation view
 //     child[:, :, r] of the ego layout (core/hetero.py) is read in place,
-//     with no copy; F and D must be dense (strides D and 1).
+//     with no copy; F and D must be dense (strides D and 1). Where D % 4 != 0,
+//     or x's base or row stride is not 16-byte aligned, the same kernel
+//     reads 4-byte elements, 32 lanes to a row (a second path, chosen by
+//     shape).
 // The TPU version padded N and D up to its (8, 256) tiles; here the ragged
 // edge is masked by bounds checks and nothing is padded.
 
@@ -28,59 +42,131 @@
 
 namespace {
 
-constexpr int kRows = 8;      // rows per block (blockDim.y)
-constexpr int kThreadsD = 32; // threads along D (blockDim.x)
+constexpr int kRows = 8;      // backward: rows per block (blockDim.y)
+constexpr int kThreadsD = 32; // backward: threads along D (blockDim.x)
+constexpr int kThreads = 256; // forward: threads a block
+constexpr int kGroup = 4;     // forward: neighbour loads in flight a lane
 constexpr float kNegInf = -1e30f;
 
-__global__ void seg_aggr_kernel(const float* __restrict__ x,
-                                const uint8_t* __restrict__ mask,
-                                float* __restrict__ out, long long n, int f,
-                                int d, long long x_row_stride,
-                                long long m_row_stride, int mode) {
-  extern __shared__ uint8_t s_mask[];  // (kRows, f)
-  const long long row0 = (long long)blockIdx.x * kRows;
-  const int tid = threadIdx.y * kThreadsD + threadIdx.x;
-  for (int i = tid; i < kRows * f; i += kRows * kThreadsD) {
-    const long long r = row0 + i / f;
-    s_mask[i] = (r < n) ? mask[r * m_row_stride + (i % f)] : 0;
+template <int V> struct Vec;
+template <> struct Vec<4> {
+  typedef float4 T;
+  static __device__ __forceinline__ T load(const float* p) {
+    return __ldg(reinterpret_cast<const float4*>(p));
   }
-  __syncthreads();
-  const long long row = row0 + threadIdx.y;
-  if (row >= n) return;
-  const uint8_t* m = s_mask + threadIdx.y * f;
-  const float* xr = x + row * x_row_stride;
-  float* o = out + row * (long long)d;
-  if (mode == 2) {  // max
-    bool any = false;
-    for (int j = 0; j < f; ++j) any |= (m[j] != 0);
-    for (int c = threadIdx.x; c < d; c += kThreadsD) {
-      float acc = kNegInf;
-      for (int j = 0; j < f; ++j) {
-        const float v = m[j] ? xr[(long long)j * d + c] : kNegInf;
-        acc = fmaxf(acc, v);
+  static __device__ __forceinline__ void store(float* p, T v) {
+    *reinterpret_cast<float4*>(p) = v;
+  }
+  static __device__ __forceinline__ T fill(float a) { return make_float4(a, a, a, a); }
+  template <class Op>
+  static __device__ __forceinline__ T map(T a, T b, Op op) {
+    return make_float4(op(a.x, b.x), op(a.y, b.y), op(a.z, b.z), op(a.w, b.w));
+  }
+};
+template <> struct Vec<1> {
+  typedef float T;
+  static __device__ __forceinline__ T load(const float* p) { return __ldg(p); }
+  static __device__ __forceinline__ void store(float* p, T v) { *p = v; }
+  static __device__ __forceinline__ T fill(float a) { return a; }
+  template <class Op>
+  static __device__ __forceinline__ T map(T a, T b, Op op) { return op(a, b); }
+};
+
+// V floats a lane loads at once: 4 (16-byte loads, 16 lanes a row) or 1
+// (4-byte loads, 32 lanes a row).
+template <int V>
+__global__ void __launch_bounds__(kThreads)
+seg_aggr_kernel(const float* __restrict__ x, const uint8_t* __restrict__ mask,
+                float* __restrict__ out, long long n, int f, int d,
+                long long x_row_stride, long long m_row_stride, int mode) {
+  typedef Vec<V> W;
+  typedef typename W::T T;
+  constexpr int kLanes = V == 4 ? 16 : 32;  // lanes a row
+  constexpr int kRowsPass = kThreads / kLanes;
+  const int lane = threadIdx.x % kLanes;
+  const int dv = d / V;  // vectors a row
+  for (long long row = (long long)blockIdx.x * kRowsPass + threadIdx.x / kLanes; row < n;
+       row += (long long)gridDim.x * kRowsPass) {
+    const uint8_t* mr = mask + row * m_row_stride;
+    const float* xr = x + row * x_row_stride;
+    float* o = out + row * (long long)d;
+    for (int c = lane; c < dv; c += kLanes) {
+      T acc = W::fill(mode == 2 ? kNegInf : 0.0f);
+      float count = 0.0f;
+      for (int j0 = 0; j0 < f; j0 += kGroup) {
+        T v[kGroup];
+        bool m[kGroup];
+#pragma unroll
+        for (int j = 0; j < kGroup; ++j) {
+          if (j0 + j < f) {
+            v[j] = W::load(xr + (long long)(j0 + j) * d + (long long)c * V);
+            m[j] = mr[j0 + j] != 0;
+          }
+        }
+#pragma unroll
+        for (int j = 0; j < kGroup; ++j) {
+          if (j0 + j < f) {
+            const float w = m[j] ? 1.0f : 0.0f;
+            count += w;
+            if (mode == 2) {  // masked entries are -1e30
+              acc = W::map(acc, v[j], [&](float a, float b) { return fmaxf(a, m[j] ? b : kNegInf); });
+            } else {  // x * mask, as the plain version computes it (0 * x for PAD slots)
+              acc = W::map(acc, v[j], [&](float a, float b) { return __fadd_rn(a, __fmul_rn(b, w)); });
+            }
+          }
+        }
       }
-      o[c] = any ? acc : 0.0f;
+      T res = acc;
+      if (mode == 1) {
+        const float cnt = fmaxf(count, 1.0f);
+        res = W::map(acc, acc, [&](float a, float) { return __fdiv_rn(a, cnt); });
+      } else if (mode == 2 && count == 0.0f) {
+        res = W::fill(0.0f);
+      }
+      W::store(o + (long long)c * V, res);
     }
-    return;
   }
-  float count = 0.0f;
-  for (int j = 0; j < f; ++j) count += m[j] ? 1.0f : 0.0f;
-  for (int c = threadIdx.x; c < d; c += kThreadsD) {
-    float acc = 0.0f;
-    for (int j = 0; j < f; ++j) {
-      // x * mask, as the plain version computes it (0 * x for PAD slots)
-      acc += xr[(long long)j * d + c] * (m[j] ? 1.0f : 0.0f);
-    }
-    o[c] = (mode == 1) ? acc / fmaxf(count, 1.0f) : acc;
+}
+
+// Resident blocks an SM of the forward instantiation, per device (the grid
+// is at most that many a card).
+template <int V>
+int fwd_blocks_per_sm() {
+  static int cache[64] = {0};
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= 64) return 0;
+  if (cache[dev] == 0) {
+    int per_sm = 0, sms = 0;
+    if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, seg_aggr_kernel<V>, kThreads, 0) !=
+            cudaSuccess ||
+        cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
+      return 0;
+    cache[dev] = per_sm * sms;
   }
+  return cache[dev];
+}
+
+template <int V>
+int launch_fwd(const float* x, const uint8_t* mask, float* out, long long n, int f, int d,
+               long long xs, long long ms, int mode, cudaStream_t st) {
+  const int resident = fwd_blocks_per_sm<V>();
+  if (resident <= 0) {
+    const cudaError_t err = cudaGetLastError();
+    return (int)(err != cudaSuccess ? err : cudaErrorUnknown);
+  }
+  constexpr int kRowsPass = kThreads / (V == 4 ? 16 : 32);
+  const long long need = (n + kRowsPass - 1) / kRowsPass;
+  const unsigned grid = (unsigned)(need < resident ? need : resident);
+  seg_aggr_kernel<V><<<grid, kThreads, 0, st>>>(x, mask, out, n, f, d, xs, ms, mode);
+  return (int)cudaGetLastError();
 }
 
 // Backward of sum and mean: dx[n, f, :] = mask[n, f] * g[n, :] (sum) or
 // (g[n, :] / max(count_n, 1)) * mask[n, f] (mean), in the order JAX's
 // autodiff of the plain version multiplies, into a dense (N, F, D) block.
-// Bytes again: it reads g once and writes F times as much. Same layout as
-// the forward: a block owns kRows rows, threadIdx.x walks D, each thread
-// loops over F, and the mask rows are staged in shared memory once.
+// Bytes again: it reads g once and writes F times as much. A block owns
+// kRows rows, threadIdx.x walks D, each thread loops over F, and the mask
+// rows are staged in shared memory once.
 __global__ void seg_aggr_bwd_kernel(const float* __restrict__ g,
                                     const uint8_t* __restrict__ mask,
                                     float* __restrict__ dx, long long n, int f,
@@ -111,19 +197,41 @@ __global__ void seg_aggr_bwd_kernel(const float* __restrict__ g,
 
 }  // namespace
 
-// mode: 0 = sum, 1 = mean, 2 = max. Returns cudaGetLastError() after the
-// launch; the caller raises on anything but 0.
+// mode: 0 = sum, 1 = mean, 2 = max. Takes the 16-byte path where D % 4 == 0
+// and x's base and row stride are 16-byte aligned, else the 4-byte one.
+// Returns cudaGetLastError() after the launch; the caller raises on
+// anything but 0.
 extern "C" int g4r_seg_aggr_f32(const float* x, const uint8_t* mask,
                                 float* out, long long n, int f, int d,
                                 long long x_row_stride, long long m_row_stride,
                                 int mode, void* stream) {
-  if (n <= 0) return (int)cudaGetLastError();
-  const dim3 block(kThreadsD, kRows);
-  const long long blocks = (n + kRows - 1) / kRows;
-  const size_t smem = (size_t)kRows * (size_t)f;
-  seg_aggr_kernel<<<(unsigned)blocks, block, smem, (cudaStream_t)stream>>>(
-      x, mask, out, n, f, d, x_row_stride, m_row_stride, mode);
-  return (int)cudaGetLastError();
+  if (mode < 0 || mode > 2 || f < 0 || d < 0) return (int)cudaErrorInvalidValue;
+  if (n <= 0 || d == 0) return (int)cudaGetLastError();
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (d % 4 == 0 && x_row_stride % 4 == 0 && (reinterpret_cast<uintptr_t>(x) & 15) == 0)
+    return launch_fwd<4>(x, mask, out, n, f, d, x_row_stride, m_row_stride, mode, st);
+  return launch_fwd<1>(x, mask, out, n, f, d, x_row_stride, m_row_stride, mode, st);
+}
+
+// The forward instantiation `vec` (1: 16-byte loads, 0: 4-byte loads):
+// out[0..4] = registers a thread, local memory bytes (spills and stack),
+// static shared memory bytes, resident blocks an SM, and the grid cap (the
+// card's resident blocks).
+extern "C" int g4r_seg_aggr_attrs(int vec, int* out) {
+  cudaFuncAttributes a;
+  const void* fn = vec ? (const void*)seg_aggr_kernel<4> : (const void*)seg_aggr_kernel<1>;
+  cudaError_t err = cudaFuncGetAttributes(&a, fn);
+  if (err != cudaSuccess) return (int)err;
+  int per_sm = 0;
+  err = vec ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, seg_aggr_kernel<4>, kThreads, 0)
+            : cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, seg_aggr_kernel<1>, kThreads, 0);
+  if (err != cudaSuccess) return (int)err;
+  out[0] = a.numRegs;
+  out[1] = (int)a.localSizeBytes;
+  out[2] = (int)a.sharedSizeBytes;
+  out[3] = per_sm;
+  out[4] = vec ? fwd_blocks_per_sm<4>() : fwd_blocks_per_sm<1>();
+  return 0;
 }
 
 // Backward of mode 0 (sum) or 1 (mean); max has no backward kernel. g is

@@ -8,11 +8,16 @@ The Hopper counterpart of ``repro/kernels/seg_aggr.py:seg_aggr_pallas``:
 (N, F, D) input gradient. The source file carries the design note.
 
 Inputs are read in place with a row stride, so the strided per-relation
-view of the ego layout needs no copy; the F and D axes must be dense. A
-layout the kernel does not take raises; it is never copied or sent to the
-plain version behind the caller's back.
+view of the ego layout needs no copy; the F and D axes must be dense. The
+forward reads 16 bytes a lane where D % 4 == 0 and x's base and row stride
+are 16-byte aligned, else 4 bytes (the kernel picks by shape). A layout the
+kernel does not take raises; it is never copied or sent to the plain
+version behind the caller's back.
 """
 from __future__ import annotations
+
+import ctypes
+import functools
 
 import torch
 
@@ -24,6 +29,17 @@ MODES = {"sum": 0, "mean": 1, "max": 2}
 # the forward kernel, and the backward kernel.
 launches = 0
 bwd_launches = 0
+
+
+@functools.lru_cache(maxsize=None)
+def kernel_attrs(vec: bool) -> dict:
+    """The forward instantiation (``vec``: 16-byte loads, else 4-byte):
+    registers a thread, local memory bytes (spills and stack), static shared
+    bytes, resident blocks an SM, and its grid cap on the current card."""
+    out = (ctypes.c_int * 5)()
+    build.check(build.library().g4r_seg_aggr_attrs(int(vec), out), "seg_aggr attributes")
+    return {"registers": out[0], "local_bytes": out[1], "shared_bytes": out[2],
+            "blocks_per_sm": out[3], "grid_cap": out[4]}
 
 
 def seg_aggr_cuda(x: torch.Tensor, mask: torch.Tensor, mode: str = "mean") -> torch.Tensor:

@@ -17,8 +17,14 @@ packages:
 - ``evaluate_recall(method="ivf")`` metrics equal to ``repro``'s on TOY,
   and through the trainer and ``examples/recall_torch.py``.
 
+- ``kernels.ivf.plan_launch``: every probe of every query in exactly one
+  block, clusters of at most 8 that the card holds, and the regime that
+  PERF.md names at each recorded main-path shape, under a model of the
+  H100's residency.
+
 ``TestOnCard`` runs only where there is a CUDA card (the kernel against
-its plain version on the hazard cases, card search vs CPU search, a
+its plain version on the hazard cases, both sides of one block's shared
+memory, every forced plan, bitwise re-runs, card search vs CPU search, a
 dispatch that does not sync):
     python -m pytest -q -m cuda tests/test_torch_ivf.py
 """
@@ -34,7 +40,8 @@ import torch
 from repro_torch import convert
 from repro_torch.core.recall import STRATEGIES, evaluate_recall
 from repro_torch.kernels import ops, ref
-from repro_torch.kernels.ivf import CHUNK, ivf_list_topk_cuda
+from repro_torch.kernels import ivf as kivf
+from repro_torch.kernels.ivf import ivf_list_topk_cuda, ivf_list_topk_planned
 from repro_torch.retrieval import IVFConfig, IVFIndex, brute_force_topk
 from repro_torch.retrieval import ivf as tivf
 
@@ -420,6 +427,101 @@ def test_trainer_eval_method_ivf():
         train_torch.run(args, device="cpu", eval_method="exact")
 
 
+# ----------------------------------------------------------------- the plan
+H100_SMS, H100_SMEM_PER_SM, H100_THREADS_PER_SM = 132, 233_472, 2048
+
+
+def h100_residency(P, lpad, d, S):
+    """A model of the card's residency for ``plan_launch``: blocks an SM
+    from threads (256 a block) and shared memory (1 KB reserved a block),
+    clusters as if any SMs could host a cluster's blocks."""
+    def residency(c):
+        smem = kivf.shared_bytes(-(-P // c), lpad, d, c, S)
+        per_sm = min(H100_THREADS_PER_SM // 256, H100_SMEM_PER_SM // (smem + 1024))
+        return per_sm, H100_SMS * per_sm // c
+    return residency
+
+
+def plan_wave(residency, c):
+    """Blocks of clusters of c one wave of the card holds."""
+    per_sm, clusters = residency(c)
+    return min(H100_SMS * per_sm, clusters * c)
+
+
+def _plan(Q, P, lpad, d, S):
+    return kivf.plan_launch(Q, P, lpad, d, S, H100_SMS, h100_residency(P, lpad, d, S))
+
+
+# the main paths' recorded calls (Q, P, lpad, d, S) and the regime each takes
+RECORDED_PLANS = {
+    "ub items S 419": ((8000, 8, 519, 64, 419), ("shared", 1)),
+    "ub items Q 14,998 S 129": ((14998, 8, 519, 64, 129), ("shared", 1)),
+    "ub users S 129": ((8000, 8, 227, 64, 129), ("shared", 1)),
+    "ub exhaustive S 33,216": ((112, 64, 519, 64, 33216), ("shared", 2)),
+    "1M arm S 416": ((512, 12, 611, 32, 416), ("shared", 1)),
+}
+
+
+class TestPlan:
+    @pytest.mark.parametrize("name", sorted(RECORDED_PLANS))
+    def test_recorded_shapes_take_the_named_regime(self, name):
+        (Q, P, lpad, d, S), (regime, cluster) = RECORDED_PLANS[name]
+        plan = _plan(Q, P, lpad, d, S)
+        assert (plan["regime"], plan["cluster"]) == (regime, cluster)
+        assert plan["shared_bytes"] <= kivf.SHARED_CAP
+
+    @pytest.mark.parametrize("Q,P,lpad,d,S", [
+        (1, 1, 5, 16, 3), (7, 3, 24, 16, 16), (112, 64, 519, 64, 33216), (9, 9, 40, 32, 100),
+        (20, 64, 100, 64, 500), (5000, 5, 37, 20, 40), (3, 2, 14000, 32, 10),
+        (64, 12, 611, 32, 416), (2, 64, 4000, 64, 5000), (1, 1, 30000, 32, 7),
+    ])
+    def test_every_probe_in_one_block_and_clusters_fit(self, Q, P, lpad, d, S):
+        plan = _plan(Q, P, lpad, d, S)
+        c = plan["cluster"]
+        if plan["regime"] == "global":  # even 8 blocks cannot hold a query's keys
+            assert c == 0
+            top = min(kivf.MAX_CLUSTER, P)
+            assert all(kivf.shared_bytes(-(-P // c), lpad, d, c, S) > kivf.SHARED_CAP
+                       for c in range(1, top + 1))
+            return
+        assert 1 <= c <= min(kivf.MAX_CLUSTER, P)
+        ppb = plan["probes_per_block"]
+        owned = [list(kivf.block_probes(P, c, r)) for r in range(c)]
+        assert sorted(p for o in owned for p in o) == list(range(P))  # each probe once
+        assert max(len(o) for o in owned) == ppb  # the block's keys fit its shared memory
+        per_sm, clusters = h100_residency(P, lpad, d, S)(c)
+        assert per_sm >= 1 and 1 <= plan["resident_clusters"] == clusters
+        assert plan["shared_bytes"] == kivf.shared_bytes(ppb, lpad, d, c, S) <= kivf.SHARED_CAP
+        assert plan["blocks"] == Q * c
+
+    @pytest.mark.parametrize("Q,P,lpad,d,S", [
+        (112, 64, 519, 64, 33216), (512, 12, 611, 32, 416), (20, 64, 100, 64, 500),
+        (4, 64, 1250, 64, 80000), (1, 1, 5, 16, 3), (300, 8, 519, 64, 419),
+        (8000, 8, 227, 64, 129),
+    ])
+    def test_cluster_raised_only_to_fill_one_wave(self, Q, P, lpad, d, S):
+        # the smallest cluster that fits, or a larger one only where every
+        # smaller one that fits leaves the card's first wave short
+        plan = _plan(Q, P, lpad, d, S)
+        res = h100_residency(P, lpad, d, S)
+        fits = [c for c in range(1, min(kivf.MAX_CLUSTER, P) + 1)
+                if kivf.shared_bytes(-(-P // c), lpad, d, c, S) <= kivf.SHARED_CAP]
+        c = plan["cluster"]
+        assert c == next(f for f in fits if Q * f >= plan_wave(res, f) or f == fits[-1])
+        assert all(Q * f < plan_wave(res, f) for f in fits if f < c)
+        assert plan["wave"] == plan_wave(res, c)
+
+    def test_capacity_boundary(self):
+        # the largest lpad one block holds for P probes, and one more row
+        d, P = 32, 2
+        lpad = max(n for n in range(1, 20000) if kivf.shared_bytes(P, n, d) <= kivf.SHARED_CAP)
+        assert kivf.shared_bytes(1, lpad + 1, d, 2, 10) <= kivf.SHARED_CAP  # 2 blocks hold it
+        # with queries enough to fill the card, one block a query where it fits
+        assert _plan(100_000, P, lpad, d, 10)["cluster"] == 1
+        assert _plan(100_000, P, lpad + 1, d, 10)["cluster"] == 2
+        assert _plan(1, 1, 2 * lpad + 8, d, 10)["regime"] == "global"
+
+
 # ---------------------------------------------------------------- the card
 @pytest.fixture
 def cuda():
@@ -429,46 +531,154 @@ def cuda():
     return torch.device("cuda")
 
 
+def _boundary_lpad(P, d):
+    """The largest lpad whose P probes one shared-path block holds."""
+    return max(n for n in range(1, 40000) if kivf.shared_bytes(P, n, d) <= kivf.SHARED_CAP)
+
+
 HAZARDS = [  # (seed, Q, P, d, lpad, rows, shortlist, kind): what each one tests
     (20, 64, 8, 32, 611, 20000, 416, "random"),  # the 1M arm's widths
-    (21, 4, 64, 64, 1250, 20000, 64 * 1250, "random"),  # S = P * lpad, above shared memory
-    (22, 1, 5, 20, 37, 300, 40, "random"),  # Q = 1, lpad % 32 != 0, d % 16 != 0
+    (21, 4, 64, 64, 1250, 20000, 64 * 1250, "random"),  # S = P * lpad, 8-block clusters
+    (22, 1, 5, 20, 37, 300, 40, "random"),  # Q = 1, lpad % 32 != 0, d % 16 != 0: byte loads
     (23, 8, 6, 32, 50, 400, 300, "empty"),  # lists of length 0
     (24, 5, 3, 16, 40, 300, 120, "filler"),  # S above the candidates
     (25, 6, 4, 16, 30, 200, 90, "ties"),  # all-equal scores: flat order
     (26, 6, 4, 16, 30, 200, 90, "zeros"),  # +0.0 and -0.0
     (27, 9, 5, 6, 13, 80, 50, "int"),  # exact scores, real ties
-    (28, 3, 3, 32, 3 * CHUNK + 5, 7000, 500, "random"),  # lpad above one sorted chunk
+    # candidates just below and just above one block's shared memory
+    (28, 3, 2, 32, _boundary_lpad(2, 32), 30000, 500, "full"),
+    (29, 3, 2, 32, _boundary_lpad(2, 32) + 1, 30000, 500, "full"),
+    (30, 20, 64, 64, 100, 9000, 500, "random"),  # Q below the SM count, P 64: clusters
+    (31, 9, 16, 64, 60, 2000, 16 * 60, "random"),  # S = P * lpad, more slots than candidates
+    (32, 3, 64, 64, 4000, 20000, 5000, "full"),  # past a cluster's capacity: the global path
+    (33, 7, 6, 32, 80, 500, 200, "overlap"),  # every probe at one start: rows repeat
+    (34, 7, 6, 32, 80, 500, 200, "oob"),  # rows outside [0, rows): dropped
+    (35, 5, 8, 16, 64, 400, 150, "fewvals"),  # keys tied at the selected threshold
+    (36, 40, 12, 128, 70, 3000, 300, "random"),  # d 128, past the prefetch widths: byte loads
 ]
+
+
+def _hazard(case, cuda):
+    """The device inputs of a hazard case."""
+    seed, Q, P, d, lpad, rows, S, kind = case
+    base = "random" if kind in ("empty", "filler", "full", "overlap", "oob") else kind
+    q, codes, scales, starts, lens = _lists(seed, Q, P, d, lpad, rows,
+                                            "int" if kind == "fewvals" else base)
+    rng = np.random.default_rng(seed + 1000)
+    if kind == "empty":
+        lens[:, ::2] = 0
+        lens[0] = 0  # a query with nothing to score
+    if kind == "filler":
+        lens[:] = 7
+    if kind == "full":  # every list at lpad: the most keys a query can have
+        lens[:] = lpad
+        starts = rng.integers(0, rows - lpad, size=(Q, P)).astype(np.int32)
+    if kind == "overlap":
+        starts[:] = starts[:, :1]
+    if kind == "oob":  # some lists start before row 0 or run past the last row
+        starts[:, 0] = -rng.integers(1, lpad, size=Q)
+        starts[:, 1] = codes.shape[0] - rng.integers(1, lpad, size=Q)
+        lens[:, :2] = lpad
+    if kind == "fewvals":  # scores in {-2 .. 2}: wide ties at every threshold
+        codes = rng.integers(-1, 2, size=codes.shape).astype(np.int8)
+        q = np.ones_like(q)
+        scales[:] = 1.0
+        codes[:, 2:] = 0
+    return [_t(a).to(cuda) for a in (q, codes, scales, starts, lens)], lpad, S, kind
+
+
+def _plain_dropping(q, codes, scales, starts, lens, lpad, S):
+    """The plain version on a table padded with zero rows on both sides, with
+    every candidate whose row lies outside the real table dropped, as the
+    kernel drops it."""
+    n = codes.shape[0]
+    pad = lpad + int(max(0, -int(starts.min().item())))
+    z = torch.zeros((pad, codes.shape[1]), dtype=codes.dtype, device=codes.device)
+    zs = torch.zeros((pad, 1), dtype=scales.dtype, device=scales.device)
+    s, r = ref.ivf_list_scores(q, torch.cat([z, codes, z]), torch.cat([zs, scales, zs]),
+                               starts + pad, lens, lpad)
+    real = r - pad
+    drop = (r < 0) | (real < 0) | (real >= n)
+    s = torch.where(drop, torch.full_like(s, float("-inf")), s)
+    r = torch.where(drop, torch.full_like(real, -1), real)
+    pos = ref.desc_order(s, S)
+    return torch.gather(s, 1, pos), torch.gather(r, 1, pos).to(torch.int32)
+
+
+def _check(s, r, s0, r0, kind):
+    assert torch.equal(r, r0)
+    if kind in ("ties", "zeros", "int", "fewvals"):
+        assert torch.equal(s.view(torch.int32), s0.view(torch.int32))
+    else:
+        torch.testing.assert_close(s, s0, rtol=RTOL, atol=ATOL)
 
 
 @pytest.mark.cuda
 class TestOnCard:
     @pytest.mark.parametrize("case", HAZARDS, ids=lambda c: f"{c[-1]}-Q{c[1]}-P{c[2]}-lpad{c[4]}")
     def test_kernel_matches_plain(self, cuda, case):
-        seed, Q, P, d, lpad, rows, S, kind = case
-        base = "random" if kind in ("empty", "filler") else kind
-        q, codes, scales, starts, lens = _lists(seed, Q, P, d, lpad, rows, base)
-        if kind == "empty":
-            lens[:, ::2] = 0
-            lens[0] = 0  # a query with nothing to score
-        if kind == "filler":
-            lens[:] = 7
-        if kind.startswith("random") and lpad > CHUNK:
-            lens[:, 0] = lpad  # a full list: every sub-chunk of it
-        args = [_t(a).to(cuda) for a in (q, codes, scales, starts, lens)]
+        args, lpad, S, kind = _hazard(case, cuda)
         s, r = ivf_list_topk_cuda(*args, lpad, S)
         torch.cuda.synchronize()
-        s0, r0 = ref.ivf_list_topk_ref(*args, lpad=lpad, shortlist=S)
-        assert torch.equal(r, r0)
-        if kind in ("ties", "zeros", "int"):
-            assert torch.equal(s.view(torch.int32), s0.view(torch.int32))
+        if kind == "oob":
+            s0, r0 = _plain_dropping(*args, lpad, S)
         else:
-            torch.testing.assert_close(s, s0, rtol=RTOL, atol=ATOL)
+            s0, r0 = ref.ivf_list_topk_ref(*args, lpad=lpad, shortlist=S)
+        _check(s, r, s0, r0, kind)
         if kind == "empty":
             assert (r[0] == -1).all() and torch.isneginf(s[0]).all()
         if kind == "filler":
             assert (r[:, 3 * 7:] == -1).all()
+        s2, r2 = ivf_list_topk_cuda(*args, lpad, S)  # re-runs are bitwise equal
+        assert torch.equal(s2.view(torch.int32), s.view(torch.int32)) and torch.equal(r2, r)
+
+    def test_plans_of_the_hazards(self, cuda):
+        # the regimes the capacity cases and the cluster cases exist for
+        regimes = {}
+        for case in HAZARDS:
+            args, lpad, S, _ = _hazard(case, cuda)
+            plan = kivf.launch_plan(args[0], args[1], args[3].shape[1], lpad, S)
+            regimes[case[0]] = (plan["regime"], plan["cluster"], plan["load"])
+        assert regimes[29][:2] == ("shared", 2)
+        assert regimes[30][0] == "shared" and regimes[30][1] > 1
+        assert regimes[32][:2] == ("global", 0)
+        assert regimes[22][2] == "bytes" and regimes[36][2] == "bytes"
+        assert regimes[20][2] == "prefetch2" and regimes[30][2] == "prefetch4"
+
+    @pytest.mark.parametrize("seed", [40, 41])
+    def test_every_forced_plan_matches_plain(self, cuda, seed):
+        case = (seed, 11, 8, 32 if seed == 40 else 20, 90, 3000, 300, "random")
+        args, lpad, S, kind = _hazard(case, cuda)
+        s0, r0 = ref.ivf_list_topk_ref(*args, lpad=lpad, shortlist=S)
+        for cluster in range(0, 9):  # 0: the global path
+            s, r = ivf_list_topk_planned(*args, lpad, S, cluster)
+            torch.cuda.synchronize()
+            _check(s, r, s0, r0, kind)
+        with pytest.raises(ValueError, match="plan"):
+            ivf_list_topk_planned(*args, lpad, S, 9)
+
+    def test_both_sides_of_one_blocks_capacity(self, cuda):
+        # just below: one block a query holds every key; just above: it cannot
+        below, above = (_hazard(c, cuda) for c in HAZARDS[8:10])
+        args, lpad, S, kind = below
+        s, r = ivf_list_topk_planned(*args, lpad, S, 1)
+        _check(s, r, *ref.ivf_list_topk_ref(*args, lpad=lpad, shortlist=S), kind)
+        args, lpad, S, _ = above
+        with pytest.raises(ValueError, match="plan"):
+            ivf_list_topk_planned(*args, lpad, S, 1)
+
+    def test_one_launch_a_call(self, cuda):
+        args, lpad, S, _ = _hazard(HAZARDS[1], cuda)
+        kivf.launches = 0
+        ivf_list_topk_cuda(*args, lpad, S)
+        assert kivf.launches == 1
+
+    def test_attrs_match_the_layout(self, cuda):
+        for load, d in (("prefetch4", 64), ("prefetch2", 32), ("bytes", 128), ("bytes", 20)):
+            for c, S in ((1, 400), (2, 400), (2, 5000)):
+                a = kivf.kernel_attrs(load, c, 4, 519, d, S)
+                assert a["shared_bytes"] == kivf.shared_bytes(4, 519, d, c, S)
+                assert a["local_bytes"] == 0 and a["blocks_per_sm"] >= 1 and a["clusters"] >= 1
 
     @pytest.mark.parametrize("nprobe", [3, 9])
     def test_search_on_card_equals_cpu(self, cuda, nprobe):

@@ -246,24 +246,82 @@ def _ids_match_up_to_near_ties(s_ref, i_ref, s_got, i_got, tol=1e-5):
         assert near.sum() > 1, (r, c, s_ref[r, c])
 
 
+def _seg_in_order(x, mask, mode):
+    """The forward with its sum over F added in order, j = 0 .. F-1, from 0,
+    as the kernel adds it (``max`` as the plain version)."""
+    if mode == "max":
+        return ref.seg_aggr_ref(x, mask, mode)
+    m = mask[..., None].to(x.dtype)
+    xm = x * m
+    s = xm.new_zeros((xm.shape[0], xm.shape[2]))
+    for j in range(xm.shape[1]):
+        s = s + xm[:, j]
+    return s if mode == "sum" else s / torch.clamp(m.sum(dim=1), min=1.0)
+
+
+def _check_seg(got, x, mask, mode):
+    """The kernel's forward: bitwise the in-order sum; bitwise its plain
+    version where PyTorch's sum over F adds in that order on the card (F <=
+    4 with D > 1, every main-path shape), else within RTOL / ATOL of it
+    (PyTorch keeps four partial sums past F 4 and reduces across threads at
+    D 1)."""
+    want = ref.seg_aggr_ref(x, mask, mode)
+    assert torch.equal(got, _seg_in_order(x, mask, mode))
+    if mode == "max" or (x.shape[1] <= 4 and x.shape[2] > 1):
+        assert torch.equal(got, want)
+    else:
+        torch.testing.assert_close(got, want, rtol=RTOL, atol=ATOL)
+
+
 @pytest.mark.cuda
 class TestOnCard:
     @pytest.mark.parametrize("mode", MODES)
-    @pytest.mark.parametrize("shape", [(8192, 3, 64), (1024, 4, 64), (37, 6, 130), (1, 1, 5)])
+    @pytest.mark.parametrize("shape", [(8192, 3, 64), (1024, 4, 64), (37, 6, 130), (1, 1, 5),
+                                       (200_003, 3, 64)])  # rows past one wave of the grid
     def test_seg_aggr_matches_plain(self, cuda, mode, shape):
         x, mask = _seg_data(5, *shape)
         x, mask = _t(x).to(cuda), _t(mask).to(cuda)
         got = seg_aggr_cuda(x, mask, mode)
         torch.cuda.synchronize()
-        torch.testing.assert_close(got, ref.seg_aggr_ref(x, mask, mode), rtol=RTOL, atol=ATOL)
+        _check_seg(got, x, mask, mode)
+
+    @pytest.mark.parametrize("F", range(1, 9))
+    @pytest.mark.parametrize("D", [1, 3, 64, 130])
+    def test_seg_aggr_bitwise_over_widths(self, cuda, F, D):
+        # N 37 is no multiple of a block's rows; every fifth row all-masked
+        x, mask = (_t(a).to(cuda) for a in _seg_data(F * 1000 + D, 37, F, D))
+        for mode in MODES:
+            _check_seg(seg_aggr_cuda(x, mask, mode), x, mask, mode)
+
+    def test_seg_aggr_max_all_masked_rows_are_zero(self, cuda):
+        x = torch.randn(64, 4, 64, device=cuda) - 5.0
+        mask = torch.rand(64, 4, device=cuda) < 0.5
+        mask[::3] = False
+        got = seg_aggr_cuda(x, mask, "max")
+        assert torch.equal(got, ref.seg_aggr_ref(x, mask, "max"))
+        assert not got[::3].any()
 
     def test_seg_aggr_reads_strided_view(self, cuda):
         full = torch.randn(64, 8, 2, 3, 16, device=cuda)
         m = torch.rand(64, 8, 2, 3, device=cuda) < 0.6
         x, mk = full[:, :, 1].reshape(512, 3, 16), m[:, :, 1].reshape(512, 3)
+        assert not x.is_contiguous()
         for mode in MODES:
-            torch.testing.assert_close(seg_aggr_cuda(x, mk, mode),
-                                       ref.seg_aggr_ref(x, mk, mode), rtol=RTOL, atol=ATOL)
+            _check_seg(seg_aggr_cuda(x, mk, mode), x, mk, mode)
+
+    @pytest.mark.parametrize("where", ["base", "stride"])
+    def test_seg_aggr_misaligned_rows_take_4_byte_loads(self, cuda, where):
+        # a base 4 bytes past 16-byte alignment, or a row stride of 4k + 1
+        # floats: the 4-byte path, bitwise as the 16-byte one
+        if where == "base":
+            buf = torch.randn(300 * 3 * 64 + 1, device=cuda)
+            x = buf[1:].view(300, 3, 64)
+        else:
+            x = torch.randn(300, 3 * 64 + 1, device=cuda)[:, : 3 * 64].view(300, 3, 64)
+        assert x.data_ptr() % 16 or x.stride(0) % 4
+        mask = torch.rand(300, 3, device=cuda) < 0.6
+        for mode in MODES:
+            _check_seg(seg_aggr_cuda(x, mask, mode), x, mask, mode)
 
     def test_seg_aggr_refuses_non_dense_inner_axes(self, cuda):
         x = torch.randn(4, 8, 3, device=cuda).transpose(1, 2)
