@@ -17,8 +17,9 @@ nothing of JAX or of the JAX package ``repro``. Phases, each failing loudly:
    dynamic shared memory are printed, a bf16 one with local memory failing;
    the same for each ``topk`` instantiation (with resident blocks an SM and
    resident 8-block clusters), the ``inbatch_loss`` kernel at d 64, 256
-   and 768 (with resident blocks an SM), both ``seg_aggr`` forward loads
-   (with the grid cap) and the ``ivf_list_topk`` shared path at the
+   and 768 (with resident blocks an SM), the ``seg_aggr`` forward's and
+   backward's and ``row_adagrad``'s 16- and 4-byte instantiations (with the
+   grid cap) and the ``ivf_list_topk`` shared path at the
    recorded calls' sizes in every cluster size that fits (with resident
    blocks an SM and resident clusters): any local memory fails, and so do
    fewer than two resident blocks an SM at the main path's k 100 and d 64;
@@ -82,9 +83,16 @@ nothing of JAX or of the JAX package ``repro``. Phases, each failing loudly:
    and the tokens the requests hold (prompts and outputs) per second;
    the reduced model in f32, card vs CPU under deterministic algorithms,
    forward and 16 decode steps to rtol/atol 1e-4;
-7. kernel phases: each kernel against its plain PyTorch version on the card,
-   on the recorded inputs of the main paths (``seg_aggr``: of all three,
-   bitwise; ``window_pairs``: every call, exactly; ``ivf_list_topk``: every
+7. the launch floor: the time ``measure`` reports for an empty kernel of
+   the same library, one block and one wave of blocks, on a line of its own;
+   then kernel phases: each kernel against its plain PyTorch version on the
+   card, on the recorded inputs of the main paths (``seg_aggr``: of all
+   three, bitwise; ``seg_aggr_bwd``: every kept call of both training paths,
+   bitwise, with each shape's zero-gradient and mask-count shares;
+   ``row_adagrad``: every kept
+   call to 1e-5, untouched rows and a re-run bitwise, each (table, bucket)
+   shape timed with its real ids; ``window_pairs``: every call, exactly;
+   ``ivf_list_topk``: every
    call of the three IVF runs, rows exactly, with the launch plan each took,
    and a synthetic call past a cluster's shared memory on the kernel's
    global path; ``flash_attention``: the LM
@@ -1264,31 +1272,46 @@ def conformance_phase(torch, np) -> dict:
 
 
 # ------------------------------------------------------ training kernels
-def seg_aggr_bwd_phase(torch, ref, seg_aggr_bwd_cuda, kept: list) -> dict:
-    worst, recs = 0.0, []
-    for g, mask, mode in kept:
-        got, want = seg_aggr_bwd_cuda(g, mask, mode), ref.seg_aggr_bwd_ref(g, mask, mode)
-        torch.cuda.synchronize()
-        if not torch.allclose(got, want, rtol=RTOL, atol=ATOL):
-            fail(f"seg_aggr_bwd {mode} {tuple(mask.shape)}: a training call disagrees with "
-                 "its plain version")
-        worst = max(worst, (got - want).abs().max().item())
-    for g, mask, mode in first_of_each_shape(kept, lambda c: (tuple(c[1].shape), c[2])):
-        (n, f), d = mask.shape, g.shape[1]
-        mf = mask.float()
-        w = mf / mf.sum(1, keepdim=True).clamp(min=1.0) if mode == "mean" else mf
-        kern = measure(lambda: seg_aggr_bwd_cuda(g, mask, mode), 200)
-        plain = measure(lambda: ref.seg_aggr_bwd_ref(g, mask, mode), 200)
-        # one broadcast product against precomputed per-neighbour weights
-        lib = measure(lambda: g[:, None, :] * w[..., None], 200)
-        rec = {"phase": "kernel", "name": "seg_aggr_bwd", "source": "training path",
-               "mode": mode, "shape": [n, f, d], **times(kernel=kern, plain=plain, library=lib)}
-        rec["bound_ms"], rec["bound_by"] = bound_ms(n * d * 4 + n * f + n * f * d * 4, n * f * d)
-        emit(rec)
-        recs.append(rec)
-    emit({"phase": "kernel", "name": "seg_aggr_bwd", "source": "training path, kept calls",
-          "calls": len(kept), "max_abs_err": worst})
-    return dict(max(recs, key=lambda r: r["shape"][0] * r["shape"][1]), max_abs_err=worst)
+def seg_aggr_bwd_phase(torch, ref, seg_mod, paths: dict) -> dict:
+    """Every kept call of each training path (``paths``: name -> kept calls)
+    against the plain version, bitwise; each recorded shape timed on its
+    kept inputs beside the plain version, the library call and the bound,
+    with the shares of its rows whose gradient is all zero and whose mask
+    counts k = 0 .. F neighbours (zero rows and power-of-two counts skip
+    the kernel's division)."""
+    fn = seg_mod.seg_aggr_bwd_cuda
+    calls, recs = 0, []
+    for path, kept in paths.items():
+        for g, mask, mode in kept:
+            got, want = fn(g, mask, mode), ref.seg_aggr_bwd_ref(g, mask, mode)
+            torch.cuda.synchronize()
+            if not torch.equal(got, want):
+                fail(f"seg_aggr_bwd {mode} {tuple(mask.shape)}: a {path} call is not bitwise "
+                     "its plain version")
+        calls += len(kept)
+        emit({"phase": "kernel", "name": "seg_aggr_bwd", "source": f"{path} path, kept calls",
+              "calls": len(kept), "max_abs_err": 0.0})
+        for g, mask, mode in first_of_each_shape(kept, lambda c: (tuple(c[1].shape), c[2])):
+            (n, f), d = mask.shape, g.shape[1]
+            mf = mask.float()
+            w = mf / mf.sum(1, keepdim=True).clamp(min=1.0) if mode == "mean" else mf
+            kern = measure(lambda: fn(g, mask, mode), 200)
+            plain = measure(lambda: ref.seg_aggr_bwd_ref(g, mask, mode), 200)
+            # one broadcast product against precomputed per-neighbour weights
+            lib = measure(lambda: g[:, None, :] * w[..., None], 200)
+            rec = {"phase": "kernel", "name": "seg_aggr_bwd", "source": f"{path} path",
+                   "mode": mode, "shape": [n, f, d], "max_abs_err": 0.0,
+                   "mask_row_stride": mask.stride(0),
+                   "g_zero_row_share": (g == 0).all(1).float().mean().item(),
+                   "count_shares": torch.bincount(mask.sum(1), minlength=f + 1).div(n).tolist(),
+                   **times(kernel=kern, plain=plain, library=lib)}
+            rec["bound_ms"], rec["bound_by"] = bound_ms(n * d * 4 + n * f + n * f * d * 4,
+                                                        n * f * d)
+            emit(rec)
+            recs.append(rec)
+    emit({"phase": "kernel", "name": "seg_aggr_bwd", "source": "training paths, kept calls",
+          "calls": calls, "max_abs_err": 0.0, "bitwise": True})
+    return max(recs, key=lambda r: r["shape"][0] * r["shape"][1])
 
 
 def _inbatch_record(torch, ref, inbatch_mod, s, d, t, source: str) -> dict:
@@ -1345,7 +1368,9 @@ def inbatch_phase(torch, ref, inbatch_mod, kept: list) -> dict:
 
 def row_adagrad_phase(torch, ref, row_adagrad_scatter_cuda, kept: list) -> dict:
     """Each kept call: the main path's own result vs the plain version on the
-    cloned inputs, untouched rows exactly unchanged, and the kernel re-run."""
+    cloned inputs, untouched rows exactly unchanged, and the kernel re-run
+    bitwise equal to the main path's result; then each recorded (table,
+    bucket) shape timed, with its real ids."""
     worst, recs = 0.0, []
     for c in kept:
         t0, a0, ids, g = c["t0"], c["a0"], c["ids"], c["g"]
@@ -1366,7 +1391,10 @@ def row_adagrad_phase(torch, ref, row_adagrad_scatter_cuda, kept: list) -> dict:
                     and torch.equal(a[~touched], a0[~touched])):
                 fail(f"row_adagrad {tuple(t0.shape)} ({what}) changed rows no id names")
             worst = max(worst, err)
-    for c in first_of_each_shape(kept, lambda c: tuple(c["t0"].shape)):
+        if not (torch.equal(tk, c["t1"]) and torch.equal(ak, c["a1"])):
+            fail(f"row_adagrad {tuple(t0.shape)}: the re-run is not bitwise the main path's "
+                 "result")
+    for c in first_of_each_shape(kept, lambda c: (tuple(c["t0"].shape), c["ids"].shape[0])):
         t0, a0, ids, g, lr, eps = c["t0"], c["a0"], c["ids"], c["g"], c["lr"], c["eps"]
         keep = torch.nonzero(ids >= 0).squeeze(1)
         rows, g_real = ids[keep], g[keep]
@@ -1394,7 +1422,8 @@ def row_adagrad_phase(torch, ref, row_adagrad_scatter_cuda, kept: list) -> dict:
         recs.append(rec)
     emit({"phase": "kernel", "name": "row_adagrad", "source": "training path, kept calls",
           "calls": len(kept), "max_abs_err": worst})
-    return dict(max(recs, key=lambda r: r["shape"]["N"]), max_abs_err=worst)
+    return dict(max(recs, key=lambda r: (r["shape"]["N"], r["shape"]["bucket"])),
+                max_abs_err=worst)
 
 
 def _wp_record(torch, ref, window_pair_ids_cuda, paths, pos, source: str, iters: int) -> dict:
@@ -1709,12 +1738,31 @@ IVF_BUILD_SHAPES = {"ub items": (8, 519, 64, 419), "ub users": (8, 227, 64, 129)
                     "ub exhaustive": (64, 519, 64, 33216), "1M arm": (12, 611, 32, 416)}
 
 
-def kernel_build_phase(topk_mod, inbatch_mod, seg_mod, ivf_mod) -> dict:
+def launch_floor_phase(torch, build) -> dict:
+    """The time ``measure`` reports for an empty kernel of the same library
+    (``g4r_empty``, one launch a call; in no kernel count): one block of 32
+    threads, and one wave of 256-thread blocks (the card's SMs x 8). The
+    kernels' times and bounds are read against it."""
+    lib = build.library()
+    stream = torch.cuda.current_stream().cuda_stream
+    waves = torch.cuda.get_device_properties(0).multi_processor_count * 8
+    out = {"phase": "launch floor"}
+    for name, blocks, threads in (("one_block", 1, 32), ("one_wave", waves, 256)):
+        build.check(lib.g4r_empty(blocks, threads, stream), "empty kernel")
+        m = measure(lambda: lib.g4r_empty(blocks, threads, stream), 200)
+        out[name] = {"blocks": blocks, "threads": threads, "ms": m["device_ms"],
+                     "call_ms": m["call_ms"], "ms_from": m["ms_from"]}
+    emit(out)
+    return out
+
+
+def kernel_build_phase(topk_mod, inbatch_mod, seg_mod, ivf_mod, adagrad_mod) -> dict:
     """Registers, local memory bytes (spills and stack), shared memory and
     residency of each ``topk`` instantiation (one per list length; resident
     blocks an SM and resident 8-block clusters), of the ``inbatch_loss``
-    kernel at d 64, 256 and 768, of both ``seg_aggr`` forward loads (with
-    the grid cap), and of the ``ivf_list_topk`` shared path at the recorded
+    kernel at d 64, 256 and 768, of both ``seg_aggr`` forward and backward
+    accesses and both ``row_adagrad`` ones (16- and 4-byte, with the grid
+    cap), and of the ``ivf_list_topk`` shared path at the recorded
     calls' sizes in every cluster size its blocks fit (resident blocks an
     SM and resident clusters) and of its global path. Any local memory
     fails, and so do fewer than two resident blocks an SM at the main
@@ -1735,9 +1783,14 @@ def kernel_build_phase(topk_mod, inbatch_mod, seg_mod, ivf_mod) -> dict:
            "inbatch_loss": {f"d {d}": inbatch_mod.kernel_attrs(d) for d in (64, 256, 768)},
            "seg_aggr": {"16-byte": seg_mod.kernel_attrs(True),
                         "4-byte": seg_mod.kernel_attrs(False)},
+           "seg_aggr_bwd": {"16-byte": seg_mod.kernel_attrs(True, backward=True),
+                            "4-byte": seg_mod.kernel_attrs(False, backward=True)},
+           "row_adagrad": {"16-byte": adagrad_mod.kernel_attrs(True),
+                           "4-byte": adagrad_mod.kernel_attrs(False)},
            "ivf_list_topk": ivf}
     emit(out)
-    for kernel in ("topk", "inbatch_loss", "seg_aggr", "ivf_list_topk"):
+    for kernel in ("topk", "inbatch_loss", "seg_aggr", "seg_aggr_bwd", "row_adagrad",
+                   "ivf_list_topk"):
         for inst, attrs in out[kernel].items():
             if attrs["local_bytes"]:
                 fail(f"{kernel} ({inst}) uses {attrs['local_bytes']} bytes of local memory "
@@ -1887,7 +1940,7 @@ def main() -> None:
     emit({"phase": "build", "library": os.path.relpath(lib, ROOT),
           "seconds": time.perf_counter() - t0})
     flash_build_phase(torch, build, fa_mod, lib)
-    kernel_build_phase(topk_mod, inbatch_mod, seg_mod, ivf_mod)
+    kernel_build_phase(topk_mod, inbatch_mod, seg_mod, ivf_mod, adagrad_mod)
 
     modules = {"seg_aggr": seg_mod, "topk": topk_mod, "inbatch_loss": inbatch_mod,
                "row_adagrad": adagrad_mod, "window_pairs": wp_mod, "ivf_list_topk": ivf_mod}
@@ -1902,12 +1955,15 @@ def main() -> None:
     torch.cuda.empty_cache()  # the IVF phases' blocks: leave the card's memory free
     emit({"phase": "clocks", "before_kernel_phases": sm_clocks(),
           "reserved_gib": torch.cuda.memory_reserved() / 2**30})
+    floor = launch_floor_phase(torch, build)
     seg = seg_aggr_phase(torch, ref, seg_mod.seg_aggr_cuda,
                          {"serving": mp["calls"]["seg_aggr"], "training": tr["kept"]["seg_aggr"],
                           "fused training": fu["kept"]["seg_aggr"]})
     topk = topk_phase(torch, ref, topk_mod,
                       {"serving": mp["calls"]["topk"], "1M arm": m1["topk_calls"]})
-    seg_bwd = seg_aggr_bwd_phase(torch, ref, seg_mod.seg_aggr_bwd_cuda, tr["kept"]["seg_aggr_bwd"])
+    seg_bwd = seg_aggr_bwd_phase(torch, ref, seg_mod,
+                                 {"training": tr["kept"]["seg_aggr_bwd"],
+                                  "fused training": fu["kept"]["seg_aggr_bwd"]})
     inbatch = inbatch_phase(torch, ref, inbatch_mod, tr["kept"]["inbatch_loss"])
     adagrad = row_adagrad_phase(torch, ref, adagrad_mod.row_adagrad_scatter_cuda,
                                 tr["kept"]["row_adagrad"])
@@ -1950,6 +2006,7 @@ def main() -> None:
                                         "recall_at_100", "queries_per_s",
                                         "exact_over_ivf_time", "search_split",
                                         "launches")},
+          "launch_floor_ms": {k: floor[k]["ms"] for k in ("one_block", "one_wave")},
           "conformance": {u: {k: conf[u][k] for k in ("loss_max_abs_diff",
                                                       "param_max_abs_diff")}
                           for u in ("sparse", "dense", "fused")},

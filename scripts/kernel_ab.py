@@ -1,0 +1,155 @@
+#!/usr/bin/env python3
+"""The port's ``seg_aggr`` backward and ``row_adagrad`` kernels against
+another checkout's, on one CUDA card.
+
+    python3 scripts/kernel_ab.py --other DIR [--rounds 2]
+
+DIR is a checkout of another commit (for example the parent, unpacked with
+``git archive`` into a directory that ``.gitignore`` lists); its kernels
+are built from its own sources into its own ``build/``. At the training
+paths' recorded shapes (the calls ``chip_smoke.py`` keeps: backward
+[4096, 3, 64] and [512, 4, 64] on the host path, [2736, 3, 64] and
+[342, 4, 64] on the fused one, each mask a relation's row-strided view;
+``row_adagrad`` on a (28,000, 64) table at buckets 2,048 and 4,096 and a
+(64, 64) one), on inputs made from a seed (the backward's g and mask
+with the recorded calls' shares of all-zero rows and of rows with every
+neighbour valid), it times in turns, other then
+this tree, this tree, other (``--rounds`` times): each kernel through the
+same C entry point; then this tree's backward in mode ``sum`` and on its
+4-byte path; the plain version; the library call;
+an empty kernel of one block and of one wave of 256-thread blocks; and
+PyTorch's add on one element. Every time is ``chip_smoke.measure``'s
+device time. Both trees' outputs are held to the plain version (the
+backward bitwise, ``row_adagrad`` to 1e-5). One JSON line a shape on
+standard output.
+"""
+from __future__ import annotations
+
+import argparse
+import importlib.util
+import json
+import os
+import sys
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+# (N, F, D), and the shares of all-zero rows of g and of rows whose F mask
+# bytes are all set that the recorded calls carry (the others have none set)
+BWD_SHAPES = [(4096, 3, 64, 0.5, 0.25), (512, 4, 64, 0.0, 0.5), (2736, 3, 64, 0.74, 0.15),
+              (342, 4, 64, 0.47, 0.3)]
+ADAGRAD_SHAPES = [(28000, 64, 2048, 2006), (28000, 64, 4096, 3327), (64, 64, 64, 64)]
+
+
+def _load_module(name: str, path: str):
+    spec = importlib.util.spec_from_file_location(name, path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--other", required=True, help="a checkout of the commit to compare with")
+    ap.add_argument("--rounds", type=int, default=2)
+    args = ap.parse_args()
+
+    import torch
+
+    if not torch.cuda.is_available():
+        sys.exit("kernel_ab: needs a CUDA card")
+    sys.path[:0] = [os.path.join(ROOT, "src"), ROOT]
+    import chip_smoke
+    from repro_torch.kernels import build, ref, seg_aggr
+
+    other = _load_module("other_build", os.path.join(
+        os.path.abspath(args.other), "src", "repro_torch", "kernels", "build.py")).library()
+    lib = build.library()
+    stream = torch.cuda.current_stream().cuda_stream
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    measure = chip_smoke.measure
+
+    def emit(rec):
+        print(json.dumps(rec), flush=True)
+
+    def ms(fn, iters=200):
+        return measure(fn, iters)["device_ms"]
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    one = torch.zeros(1, device="cuda")
+    emit({"what": "floors", "card": torch.cuda.get_device_name(0),
+          "empty_one_block_ms": ms(lambda: lib.g4r_empty(1, 32, stream)),
+          "empty_one_wave_ms": ms(lambda: lib.g4r_empty(sms * 8, 256, stream)),
+          "torch_add_one_element_ms": ms(lambda: one.add_(1.0))})
+
+    for n, f, d, zero_rows, valid_rows in BWD_SHAPES:
+        g = torch.randn(n, d, device="cuda", generator=gen)
+        g[torch.rand(n, device="cuda", generator=gen) < zero_rows] = 0.0
+        full = (torch.rand(n, 2, 1, device="cuda", generator=gen) < valid_rows).expand(n, 2, f)
+        mask = full.contiguous()[:, 1]
+        want = {m: ref.seg_aggr_bwd_ref(g, mask, m) for m in ("mean", "sum")}
+        mf = mask.float()
+        w = mf / mf.sum(1, keepdim=True).clamp(min=1.0)  # chip_smoke.py's library yardstick
+
+        def entry(which, mode="mean", gg=g):
+            dx = torch.empty(n, f, d, device="cuda")
+            err = which.g4r_seg_aggr_bwd_f32(gg.data_ptr(), mask.data_ptr(), dx.data_ptr(), n, f,
+                                             d, mask.stride(0), seg_aggr.MODES[mode], stream)
+            build.check(err, "seg_aggr backward")
+            return dx
+
+        for which in (other, lib):
+            if not torch.equal(entry(which), want["mean"]):
+                sys.exit(f"kernel_ab: a backward at {(n, f, d)} is not bitwise its plain version")
+        turns = {"other": [], "this": []}
+        for _ in range(args.rounds):
+            for who in ("other", "this", "this", "other"):
+                turns[who].append(ms(lambda: entry(other if who == "other" else lib)))
+        base = torch.zeros(g.numel() + 1, device="cuda")
+        g4 = base[1:].view(n, d)  # one float past 16 bytes: the 4-byte path
+        g4.copy_(g)
+        rec = {"what": "seg_aggr_bwd", "shape": [n, f, d], "mask_row_stride": mask.stride(0),
+               "zero_rows": zero_rows, "valid_rows": valid_rows,
+               "ms_other": turns["other"], "ms_this": turns["this"],
+               "this_sum_ms": ms(lambda: entry(lib, "sum")),
+               "this_4byte_ms": ms(lambda: entry(lib, "mean", g4)),
+               "plain_ms": ms(lambda: ref.seg_aggr_bwd_ref(g, mask, "mean")),
+               "library_ms": ms(lambda: g[:, None, :] * w[..., None])}
+        if not (torch.equal(entry(lib, "sum"), want["sum"])
+                and torch.equal(entry(lib, "mean", g4), want["mean"])):
+            sys.exit(f"kernel_ab: sum or the 4-byte path at {(n, f, d)} is not bitwise")
+        emit(rec)
+
+    for n, d, bucket, real in ADAGRAD_SHAPES:
+        table = torch.randn(n, d, device="cuda", generator=gen)
+        accum = 0.1 + torch.rand(n, 1, device="cuda", generator=gen)
+        rows = torch.randperm(n, device="cuda", generator=gen)[:real].sort().values
+        ids = torch.cat([torch.full((bucket - real,), -1, device="cuda", dtype=torch.long), rows])
+        grads = torch.randn(bucket, d, device="cuda", generator=gen)
+        grads[: bucket - real] = 0.0
+
+        def step(which, t, a):
+            err = which.g4r_row_adagrad_f32(t.data_ptr(), a.data_ptr(), ids.data_ptr(),
+                                            grads.data_ptr(), n, bucket, d, 0.05, 1e-8, stream)
+            build.check(err, "row_adagrad")
+
+        tp, ap = table.clone(), accum.clone()
+        ref.row_adagrad_scatter_ref(tp, ap, ids, grads, 0.05, 1e-8)
+        for which in (other, lib):
+            t, a = table.clone(), accum.clone()
+            step(which, t, a)
+            if not (torch.allclose(t, tp, rtol=1e-5, atol=1e-6)
+                    and torch.allclose(a, ap, rtol=1e-5, atol=1e-6)):
+                sys.exit(f"kernel_ab: row_adagrad at {(n, d, bucket)} disagrees with its plain "
+                         "version")
+        t, a = table.clone(), accum.clone()
+        turns = {"other": [], "this": []}
+        for _ in range(args.rounds):
+            for who in ("other", "this", "this", "other"):
+                turns[who].append(ms(lambda: step(other if who == "other" else lib, t, a)))
+        emit({"what": "row_adagrad", "shape": {"N": n, "D": d, "bucket": bucket, "real_ids": real},
+              "ms_other": turns["other"], "ms_this": turns["this"],
+              "plain_ms": ms(lambda: ref.row_adagrad_scatter_ref(t, a, ids, grads, 0.05, 1e-8),
+                             50)})
+
+
+if __name__ == "__main__":
+    main()

@@ -42,9 +42,11 @@ _SIGNATURES = {
     "g4r_seg_aggr_f32": (_P, _P, _P, _LL, _I, _I, _LL, _LL, _I, _P),
     "g4r_seg_aggr_bwd_f32": (_P, _P, _P, _LL, _I, _I, _LL, _I, _P),
     "g4r_seg_aggr_attrs": (_I, _P),
+    "g4r_seg_aggr_bwd_attrs": (_I, _P),
     "g4r_inbatch_rows_f32": (_P, _P, _P, _I, _I, _I, _I, _F, _P),
     "g4r_inbatch_attrs": (_I, _P),
     "g4r_row_adagrad_f32": (_P, _P, _P, _P, _LL, _LL, _I, _F, _F, _P),
+    "g4r_row_adagrad_attrs": (_I, _P),
     "g4r_topk_f32": (_P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     "g4r_topk_attrs": (_I, _I, _P),
     "g4r_window_pairs_i32": (_P, _P, _P, _P, _LL, _I, _I, _P),
@@ -54,6 +56,7 @@ _SIGNATURES = {
                            _I, _P),
     "g4r_flash_wgmma_probe": (_P, _P, _P, _P, _P, _P),
     "g4r_flash_attn_attrs": (_I, _I, _P),
+    "g4r_empty": (_I, _I, _P),  # an empty kernel: the launch floor (chip_smoke.py)
 }
 
 

@@ -42,10 +42,9 @@
 
 namespace {
 
-constexpr int kRows = 8;      // backward: rows per block (blockDim.y)
-constexpr int kThreadsD = 32; // backward: threads along D (blockDim.x)
-constexpr int kThreads = 256; // forward: threads a block
+constexpr int kThreads = 256; // threads a block
 constexpr int kGroup = 4;     // forward: neighbour loads in flight a lane
+constexpr int kMaskRegs = 4;  // backward: a row's mask bytes held in registers (F <= 4 on the paths)
 constexpr float kNegInf = -1e30f;
 
 template <int V> struct Vec;
@@ -161,38 +160,147 @@ int launch_fwd(const float* x, const uint8_t* mask, float* out, long long n, int
   return (int)cudaGetLastError();
 }
 
-// Backward of sum and mean: dx[n, f, :] = mask[n, f] * g[n, :] (sum) or
-// (g[n, :] / max(count_n, 1)) * mask[n, f] (mean), in the order JAX's
-// autodiff of the plain version multiplies, into a dense (N, F, D) block.
-// Bytes again: it reads g once and writes F times as much. A block owns
-// kRows rows, threadIdx.x walks D, each thread loops over F, and the mask
-// rows are staged in shared memory once.
-__global__ void seg_aggr_bwd_kernel(const float* __restrict__ g,
-                                    const uint8_t* __restrict__ mask,
-                                    float* __restrict__ dx, long long n, int f,
-                                    int d, long long m_row_stride, int mode) {
-  extern __shared__ uint8_t s_mask[];  // (kRows, f)
-  const long long row0 = (long long)blockIdx.x * kRows;
-  const int tid = threadIdx.y * kThreadsD + threadIdx.x;
-  for (int i = tid; i < kRows * f; i += kRows * kThreadsD) {
-    const long long r = row0 + i / f;
-    s_mask[i] = (r < n) ? mask[r * m_row_stride + (i % f)] : 0;
-  }
-  __syncthreads();
-  const long long row = row0 + threadIdx.y;
-  if (row >= n) return;
-  const uint8_t* m = s_mask + threadIdx.y * f;
-  float count = 0.0f;
-  for (int j = 0; j < f; ++j) count += m[j] ? 1.0f : 0.0f;
-  const float c = fmaxf(count, 1.0f);
-  const float* gr = g + row * (long long)d;
-  float* o = dx + row * (long long)f * d;
-  for (int c_ = threadIdx.x; c_ < d; c_ += kThreadsD) {
-    const float gv = (mode == 1) ? gr[c_] / c : gr[c_];
-    for (int j = 0; j < f; ++j) {
-      o[(long long)j * d + c_] = gv * (m[j] ? 1.0f : 0.0f);
+// a / b rounded as __fdiv_rn, for a finite b > 0. A zero a is returned as
+// it is (a / b is that same signed zero) and never reaches the division:
+// the division's check sends a zero dividend down its slow-path call, and
+// half the rows of the training paths' output gradients are zero.
+__device__ __forceinline__ float div_nonzero(float a, float b) {
+  const float q = __fdiv_rn(a != 0.0f ? a : 1.0f, b);
+  return a != 0.0f ? q : a;
+}
+
+// Backward of sum and mean: dx[n, f, :] = g[n, :] * m[n, f] (sum) or
+// (g[n, :] / max(count_n, 1)) * m[n, f] (mean), m = mask as 0 or 1, into a
+// dense (N, F, D) block. Every call on the training paths is launch-sized
+// (0.2 to 4 MB), so the time is the chain of dependent steps from launch to
+// the last store, and the design keeps it one load round long:
+//   - as in the forward, a lane owns 4 consecutive columns of one row
+//     (V = 4: a 16-byte load of g and 16-byte stores, 16 lanes a 64-float
+//     row; V = 1, the 4-byte path, 32 lanes a row) and stores its vector
+//     for the F neighbours in series; row and lane come from the thread
+//     index by shifts, so no integer division stands before the loads. (A
+//     lane a (row, neighbour) pair, one store each, the library's shape of
+//     work, was slower at every recorded shape: PERF.md section 6.)
+//   - each lane reads the mask bytes it needs itself, in the same round as
+//     its first g vector (up to kMaskRegs of them, held as bits of one
+//     register, which keeps the IEEE division's slow-path call from
+//     spilling): no shared-memory staging and no block barrier;
+//   - the same two roundings as the plain version (kernels/ref.py:
+//     seg_aggr_bwd_ref) in the same order, __fdiv_rn then __fmul_rn, with
+//     no contraction: it is bitwise equal to it, and a multiply, not a
+//     select, carries inf and NaN in g through as the plain version does.
+//     The training paths' rows count all or none of their F neighbours, so
+//     at F 4 every count is 1 or 4, a power of two, whose quotient is taken
+//     as a product by the exact reciprocal, and zero rows of g skip the
+//     division (div_nonzero): the same results without the division's
+//     latency on the path;
+//   - blocks of 64 to 256 threads, the largest that still cover every SM
+//     (see launch_bwd), and the grid the card's resident blocks at most,
+//     striding past them.
+template <int V>
+__global__ void __launch_bounds__(kThreads)
+seg_aggr_bwd_kernel(const float* __restrict__ g, const uint8_t* __restrict__ mask,
+                    float* __restrict__ dx, long long n, int f, int d,
+                    long long m_row_stride, int mode) {
+  typedef Vec<V> W;
+  typedef typename W::T T;
+  constexpr int kLanes = V == 4 ? 16 : 32;  // lanes a row
+  const int rows_block = blockDim.x / kLanes;
+  const int lane = threadIdx.x % kLanes;
+  const int dv = d / V;  // vectors a row
+  for (long long row = (long long)blockIdx.x * rows_block + threadIdx.x / kLanes; row < n;
+       row += (long long)gridDim.x * rows_block) {
+    const uint8_t* mr = mask + row * m_row_stride;
+    const float* gr = g + row * d;
+    T gv = W::fill(0.0f);
+    if (lane < dv) gv = W::load(gr + (long long)lane * V);  // issued beside the mask loads
+    unsigned bits = 0;  // bit k: mask byte k is set
+#pragma unroll
+    for (int k = 0; k < kMaskRegs; ++k)
+      if (k < f && mr[k] != 0) bits |= 1u << k;
+    float cnt = 1.0f, rcp = 1.0f;
+    bool pow2 = true;
+    if (mode == 1) {
+      float count = (float)__popc(bits);
+      for (int k = kMaskRegs; k < f; ++k) count += mr[k] ? 1.0f : 0.0f;
+      cnt = fmaxf(count, 1.0f);
+      // a count that is a power of two divides as a product by its exact
+      // reciprocal (the same correctly rounded quotient; negated exponent)
+      pow2 = (__float_as_uint(cnt) & 0x007fffffu) == 0u;
+      rcp = __uint_as_float(0x7f000000u - __float_as_uint(cnt));
+    }
+    for (int c = lane; c < dv; c += kLanes) {
+      if (c != lane) gv = W::load(gr + (long long)c * V);
+      T q = gv;
+      if (mode == 1) {
+        if (pow2)
+          q = W::map(gv, gv, [&](float a, float) { return __fmul_rn(a, rcp); });
+        else
+          q = W::map(gv, gv, [&](float a, float) { return div_nonzero(a, cnt); });
+      }
+      float* o = dx + row * f * (long long)d + (long long)c * V;
+#pragma unroll
+      for (int k = 0; k < kMaskRegs; ++k) {
+        if (k < f) {
+          const float w = (bits >> k) & 1u ? 1.0f : 0.0f;
+          W::store(o + (long long)k * d, W::map(q, q, [&](float a, float) { return __fmul_rn(a, w); }));
+        }
+      }
+      for (int k = kMaskRegs; k < f; ++k) {
+        const float w = mr[k] ? 1.0f : 0.0f;
+        W::store(o + (long long)k * d, W::map(q, q, [&](float a, float) { return __fmul_rn(a, w); }));
+      }
     }
   }
+}
+
+// Resident blocks of `threads` threads of the backward instantiation, per
+// device and block size (64, 128 or 256), and the card's SMs.
+template <int V>
+int bwd_resident(int threads, int* sms_out) {
+  static int cache[64][3] = {{0}};
+  static int sms_cache[64] = {0};
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= 64) return 0;
+  const int slot = threads == 64 ? 0 : threads == 128 ? 1 : 2;
+  if (cache[dev][slot] == 0) {
+    int per_sm = 0, sms = 0;
+    if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, seg_aggr_bwd_kernel<V>, threads,
+                                                      0) != cudaSuccess ||
+        cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
+      return 0;
+    cache[dev][slot] = per_sm * sms;
+    sms_cache[dev] = sms;
+  }
+  if (sms_out) *sms_out = sms_cache[dev];
+  return cache[dev][slot];
+}
+
+// Block size: the largest of 256, 128 and 64 threads whose blocks still
+// cover every SM, so a launch-sized call spreads its stores over the card
+// (a 256-thread block a 16-row slice would leave 110 of 132 SMs idle at
+// the fused path's 342 rows); then at most one wave of resident blocks.
+template <int V>
+int launch_bwd(const float* g, const uint8_t* mask, float* dx, long long n, int f, int d,
+               long long ms, int mode, cudaStream_t st) {
+  constexpr int kLanes = V == 4 ? 16 : 32;
+  int sms = 0;
+  if (bwd_resident<V>(kThreads, &sms) <= 0) {
+    const cudaError_t err = cudaGetLastError();
+    return (int)(err != cudaSuccess ? err : cudaErrorUnknown);
+  }
+  int threads = kThreads;
+  while (threads > 64 && n * kLanes <= (long long)(threads / 2) * sms) threads /= 2;
+  const int resident = bwd_resident<V>(threads, nullptr);
+  if (resident <= 0) {
+    const cudaError_t err = cudaGetLastError();
+    return (int)(err != cudaSuccess ? err : cudaErrorUnknown);
+  }
+  const long long per_block = threads / kLanes;
+  const long long need = (n + per_block - 1) / per_block;
+  const unsigned grid = (unsigned)(need < resident ? need : resident);
+  seg_aggr_bwd_kernel<V><<<grid, threads, 0, st>>>(g, mask, dx, n, f, d, ms, mode);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -236,18 +344,39 @@ extern "C" int g4r_seg_aggr_attrs(int vec, int* out) {
 
 // Backward of mode 0 (sum) or 1 (mean); max has no backward kernel. g is
 // (N, D) contiguous, dx (N, F, D) contiguous; the mask takes a row stride.
-extern "C" int g4r_seg_aggr_bwd_f32(const float* g, const uint8_t* mask,
-                                    float* dx, long long n, int f, int d,
-                                    long long m_row_stride, int mode,
-                                    void* stream) {
-  if (mode != 0 && mode != 1) return (int)cudaErrorInvalidValue;
-  if (n <= 0) return (int)cudaGetLastError();
-  const dim3 block(kThreadsD, kRows);
-  const long long blocks = (n + kRows - 1) / kRows;
-  const size_t smem = (size_t)kRows * (size_t)f;
-  seg_aggr_bwd_kernel<<<(unsigned)blocks, block, smem, (cudaStream_t)stream>>>(
-      g, mask, dx, n, f, d, m_row_stride, mode);
-  return (int)cudaGetLastError();
+// Takes the 16-byte path where D % 4 == 0 and g's base is 16-byte aligned
+// (dx is allocated by the wrapper), else the 4-byte one.
+extern "C" int g4r_seg_aggr_bwd_f32(const float* g, const uint8_t* mask, float* dx,
+                                    long long n, int f, int d, long long m_row_stride,
+                                    int mode, void* stream) {
+  if ((mode != 0 && mode != 1) || f < 0 || d < 0) return (int)cudaErrorInvalidValue;
+  if (n <= 0 || f == 0 || d == 0) return (int)cudaGetLastError();
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (d % 4 == 0 && (reinterpret_cast<uintptr_t>(g) & 15) == 0)
+    return launch_bwd<4>(g, mask, dx, n, f, d, m_row_stride, mode, st);
+  return launch_bwd<1>(g, mask, dx, n, f, d, m_row_stride, mode, st);
+}
+
+// The backward instantiation `vec` (1: 16-byte, 0: 4-byte), as
+// g4r_seg_aggr_attrs reports the forward's (residency at 256-thread
+// blocks).
+extern "C" int g4r_seg_aggr_bwd_attrs(int vec, int* out) {
+  cudaFuncAttributes a;
+  const void* fn = vec ? (const void*)seg_aggr_bwd_kernel<4> : (const void*)seg_aggr_bwd_kernel<1>;
+  cudaError_t err = cudaFuncGetAttributes(&a, fn);
+  if (err != cudaSuccess) return (int)err;
+  int per_sm = 0;
+  err = vec ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, seg_aggr_bwd_kernel<4>,
+                                                            kThreads, 0)
+            : cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, seg_aggr_bwd_kernel<1>,
+                                                            kThreads, 0);
+  if (err != cudaSuccess) return (int)err;
+  out[0] = a.numRegs;
+  out[1] = (int)a.localSizeBytes;
+  out[2] = (int)a.sharedSizeBytes;
+  out[3] = per_sm;
+  out[4] = vec ? bwd_resident<4>(kThreads, nullptr) : bwd_resident<1>(kThreads, nullptr);
+  return 0;
 }
 
 // Text of a cudaError_t, for the Python wrappers' exceptions.

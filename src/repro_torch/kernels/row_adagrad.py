@@ -5,9 +5,14 @@ The Hopper counterpart of ``repro/kernels/row_adagrad.py:row_adagrad_scatter_pal
 for each non-PAD id of the bucket, ``accum[id] += mean(g**2)`` and
 ``table[id] -= lr * g / (sqrt(accum[id]) + eps)``. ``table`` (N, D) and
 ``accum`` (N, 1) are updated in place; rows no id names are untouched. PAD
-slots are skipped, never clamped to row 0 (the source file says why).
+slots are skipped, never clamped to row 0 (the source file says why). The
+kernel moves 16 bytes a lane where D % 4 == 0 and the table's and
+gradients' bases are 16-byte aligned, else 4 bytes.
 """
 from __future__ import annotations
+
+import ctypes
+import functools
 
 import torch
 
@@ -15,6 +20,17 @@ from repro_torch.kernels import build
 
 # Kernel launches since the last reset (chip_smoke.py reads and resets it).
 launches = 0
+
+
+@functools.lru_cache(maxsize=None)
+def kernel_attrs(vec: bool) -> dict:
+    """The instantiation (``vec``: 16-byte accesses, else 4-byte): registers
+    a thread, local memory bytes (spills and stack), static shared bytes,
+    resident blocks an SM, and its grid cap on the current card."""
+    out = (ctypes.c_int * 5)()
+    build.check(build.library().g4r_row_adagrad_attrs(int(vec), out), "row_adagrad attributes")
+    return {"registers": out[0], "local_bytes": out[1], "shared_bytes": out[2],
+            "blocks_per_sm": out[3], "grid_cap": out[4]}
 
 
 def row_adagrad_scatter_cuda(table: torch.Tensor, accum: torch.Tensor, ids: torch.Tensor,

@@ -13,6 +13,9 @@ forward reads 16 bytes a lane where D % 4 == 0 and x's base and row stride
 are 16-byte aligned, else 4 bytes (the kernel picks by shape). A layout the
 kernel does not take raises; it is never copied or sent to the plain
 version behind the caller's back.
+
+The backward reads g 16 bytes a lane where D % 4 == 0 and g's base is
+16-byte aligned, else 4 bytes.
 """
 from __future__ import annotations
 
@@ -32,12 +35,15 @@ bwd_launches = 0
 
 
 @functools.lru_cache(maxsize=None)
-def kernel_attrs(vec: bool) -> dict:
-    """The forward instantiation (``vec``: 16-byte loads, else 4-byte):
-    registers a thread, local memory bytes (spills and stack), static shared
-    bytes, resident blocks an SM, and its grid cap on the current card."""
+def kernel_attrs(vec: bool, backward: bool = False) -> dict:
+    """The forward (or ``backward``) instantiation (``vec``: 16-byte
+    accesses, else 4-byte): registers a thread, local memory bytes (spills
+    and stack), static shared bytes, resident blocks an SM, and its grid cap
+    on the current card."""
     out = (ctypes.c_int * 5)()
-    build.check(build.library().g4r_seg_aggr_attrs(int(vec), out), "seg_aggr attributes")
+    entry = build.library().g4r_seg_aggr_bwd_attrs if backward else \
+        build.library().g4r_seg_aggr_attrs
+    build.check(entry(int(vec), out), "seg_aggr attributes")
     return {"registers": out[0], "local_bytes": out[1], "shared_bytes": out[2],
             "blocks_per_sm": out[3], "grid_cap": out[4]}
 

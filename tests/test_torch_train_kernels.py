@@ -22,7 +22,7 @@ import pytest
 import torch
 
 from repro_torch.core import gnn
-from repro_torch.kernels import ops, ref
+from repro_torch.kernels import ops, ref, row_adagrad, seg_aggr
 from repro_torch.kernels.inbatch_loss import (COL_TILE, MAX_CLUSTER, ROW_TILE,
                                               inbatch_loss_rows_cuda, plan_columns)
 from repro_torch.kernels.row_adagrad import row_adagrad_scatter_cuda
@@ -31,6 +31,9 @@ from repro_torch.kernels.seg_aggr import seg_aggr_bwd_cuda
 pytestmark = pytest.mark.quick
 
 RTOL, ATOL = 1e-5, 1e-6
+# the training paths' recorded seg_aggr backward calls (N, F, D): host
+# training's two hops, then the fused path's
+RECORDED_BWD_SHAPES = [(4096, 3, 64), (512, 4, 64), (2736, 3, 64), (342, 4, 64)]
 
 
 def _t(a):
@@ -45,6 +48,22 @@ def _nbr_data(seed, B=5, W=4, F=3, d=8):
     mask[-1, :, 0] = True
     cot = rng.normal(size=(B, W, d)).astype(np.float32)
     return h, mask, cot
+
+
+def _bwd_data(N, F, D, seed=None):
+    """(N, F, D) inputs, an (N, F) mask with all-masked and all-valid rows,
+    and an (N, D) output gradient with zero rows and negative zeros, as the
+    training paths' gradients carry (the kernel's mean skips the division
+    for zeros)."""
+    rng = np.random.default_rng(N * 31 + F * 7 + D if seed is None else seed)
+    x = rng.normal(size=(N, F, D)).astype(np.float32)
+    mask = rng.random((N, F)) < 0.6
+    mask[::7] = False
+    mask[3::11] = True
+    cot = rng.normal(size=(N, D)).astype(np.float32)
+    cot[1::5] = 0.0
+    cot[2::13, : (D + 1) // 2] = -0.0
+    return x, mask, cot
 
 
 def _pair_data(seed, P, d=16, scale=0.5):
@@ -127,6 +146,46 @@ class TestSegAggrBackward:
         (ref.seg_aggr_ref(x2, mk, mode) * g).sum().backward()
         torch.testing.assert_close(x.grad, x2.grad, rtol=RTOL, atol=ATOL)
 
+    @pytest.mark.parametrize("mode", ["mean", "sum"])
+    @pytest.mark.parametrize("N,F,D", RECORDED_BWD_SHAPES)
+    def test_plain_and_cpu_route_match_jax_grad_at_recorded_shapes(self, jx, mode, N, F, D):
+        """The training paths' recorded backward shapes: the plain version
+        and the ``_SegAggr`` CPU route against ``jax.grad`` of ``repro``'s
+        masked aggregation."""
+        x, mask, cot = _bwd_data(N, F, D)
+        want = self._jax_grad(jx, mode, x, mask, cot)
+        g, mk = _t(cot), _t(mask)
+        np.testing.assert_allclose(ref.seg_aggr_bwd_ref(g, mk, mode).numpy(), want,
+                                   rtol=RTOL, atol=ATOL)
+        tx = _t(x).requires_grad_(True)
+        (ops.seg_aggr(tx, mk, mode) * g).sum().backward()
+        np.testing.assert_allclose(tx.grad.numpy(), want, rtol=RTOL, atol=ATOL)
+
+    @pytest.mark.parametrize("mode", ["mean", "sum"])
+    def test_strided_relation_mask_at_a_recorded_shape(self, jx, mode):
+        """[2736, 3, 64] read as relation 1 of a (N, R 2, F, D) ego block:
+        the mask is a row-strided view, and the gradient lands in the base."""
+        rng = np.random.default_rng(5)
+        full = rng.normal(size=(2736, 2, 3, 64)).astype(np.float32)
+        m = rng.random((2736, 2, 3)) < 0.6
+        m[::9, 1] = False
+        cot = rng.normal(size=(2736, 64)).astype(np.float32)
+        base, mk = _t(full).requires_grad_(True), _t(m)
+        assert mk[:, 1].stride() == (6, 1)
+        (ops.seg_aggr(base[:, 1], mk[:, 1], mode) * _t(cot)).sum().backward()
+        jfn = jx.gnn.masked_mean if mode == "mean" else jx.gnn.masked_sum
+        want = np.asarray(jx.jax.grad(lambda b: (jfn(b[:, 1], jx.jnp.asarray(m)[:, 1])
+                                                 * cot).sum())(jx.jnp.asarray(full)))
+        np.testing.assert_allclose(base.grad.numpy(), want, rtol=RTOL, atol=ATOL)
+        np.testing.assert_allclose(ref.seg_aggr_bwd_ref(_t(cot), mk[:, 1], mode).numpy(),
+                                   want[:, 1], rtol=RTOL, atol=ATOL)
+
+    @staticmethod
+    def _jax_grad(jx, mode, x, mask, cot):
+        jfn = jx.gnn.masked_mean if mode == "mean" else jx.gnn.masked_sum
+        return np.asarray(jx.jax.grad(
+            lambda v: (jfn(v, jx.jnp.asarray(mask)) * cot).sum())(jx.jnp.asarray(x)))
+
     def test_max_backward_raises(self):
         h, mask, _ = _nbr_data(3)
         x = _t(h.reshape(-1, 3, 8)).requires_grad_(True)
@@ -192,6 +251,26 @@ class TestRowAdagrad:
         args = [jx.jnp.asarray(v) for v in (table, accum, ids, grads)]
         for jt, ja in (jx.ref.row_adagrad_scatter_ref(*args, lr=0.5, eps=1e-8),
                        jx.ops.rowwise_adagrad_scatter(*args, lr=0.5, eps=1e-8)):
+            np.testing.assert_allclose(t.numpy(), np.asarray(jt), rtol=RTOL, atol=ATOL)
+            np.testing.assert_allclose(a.numpy(), np.asarray(ja), rtol=RTOL, atol=ATOL)
+        untouched = np.setdiff1d(np.arange(len(table)), ids[ids >= 0])
+        np.testing.assert_array_equal(t.numpy()[untouched], table[untouched])
+        np.testing.assert_array_equal(a.numpy()[untouched], accum[untouched])
+        assert with_row0 == (not np.array_equal(t.numpy()[0], table[0]))
+
+    @pytest.mark.parametrize("with_row0", [True, False], ids=["row0-real", "row0-absent"])
+    def test_recorded_shape_matches_repro_oracle_and_pallas(self, jx, with_row0):
+        """The host path's recorded call: N 28,000, D 64, bucket 2,048 with
+        leading PADs, against ``repro``'s oracle and its Pallas kernel
+        (interpret mode)."""
+        table, accum, ids, grads = _adagrad_data(
+            11 + with_row0, N=28000, D=64, n_real=2000, n_pad=48, with_row0=with_row0)
+        assert len(ids) == 2048 and (ids[:48] == -1).all()
+        t, a = _t(table.copy()), _t(accum.copy())
+        ref.row_adagrad_scatter_ref(t, a, _t(ids), _t(grads), lr=0.05, eps=1e-8)
+        args = [jx.jnp.asarray(v) for v in (table, accum, ids, grads)]
+        for jt, ja in (jx.ref.row_adagrad_scatter_ref(*args, lr=0.05, eps=1e-8),
+                       jx.ops.rowwise_adagrad_scatter(*args, lr=0.05, eps=1e-8)):
             np.testing.assert_allclose(t.numpy(), np.asarray(jt), rtol=RTOL, atol=ATOL)
             np.testing.assert_allclose(a.numpy(), np.asarray(ja), rtol=RTOL, atol=ATOL)
         untouched = np.setdiff1d(np.arange(len(table)), ids[ids >= 0])
@@ -307,3 +386,141 @@ class TestOnCard:
         touched[ids[ids >= 0]] = True
         assert torch.equal(t1[~touched], table[~touched])
         assert torch.equal(a1[~touched], accum[~touched])
+
+    # ---- the seg_aggr backward, bitwise against its plain version
+    @pytest.mark.parametrize("mode", ["mean", "sum"])
+    @pytest.mark.parametrize("N,F,D", RECORDED_BWD_SHAPES)
+    def test_seg_aggr_bwd_bitwise_at_recorded_shapes(self, cuda, mode, N, F, D):
+        _, mask, cot = _bwd_data(N, F, D)
+        g, mk = _t(cot).to(cuda), _t(mask).to(cuda)
+        want = ref.seg_aggr_bwd_ref(g, mk, mode)
+        assert torch.equal(seg_aggr_bwd_cuda(g, mk, mode), want)
+
+    @pytest.mark.parametrize("mode", ["mean", "sum"])
+    @pytest.mark.parametrize("F", [1, 2, 3, 4, 5, 6, 7, 8, 11])
+    @pytest.mark.parametrize("D", [1, 3, 64, 130])
+    def test_seg_aggr_bwd_bitwise_over_f_and_d(self, cuda, mode, F, D):
+        """F past the 4 mask bytes a thread keeps in registers; D 1, 3 and
+        130 take the 4-byte path, 64 the 16-byte one."""
+        _, mask, cot = _bwd_data(77, F, D)
+        g, mk = _t(cot).to(cuda), _t(mask).to(cuda)
+        want = ref.seg_aggr_bwd_ref(g, mk, mode)
+        assert torch.equal(seg_aggr_bwd_cuda(g, mk, mode), want)
+
+    @pytest.mark.parametrize("mode", ["mean", "sum"])
+    def test_seg_aggr_bwd_bitwise_past_one_wave(self, cuda, mode):
+        """200,003 rows: more rows than one wave of blocks takes, so every
+        lane strides."""
+        _, mask, cot = _bwd_data(200_003, 3, 64, seed=3)
+        g, mk = _t(cot).to(cuda), _t(mask).to(cuda)
+        attrs = seg_aggr.kernel_attrs(True, backward=True)
+        assert 200_003 * 16 > attrs["grid_cap"] * 256
+        want = ref.seg_aggr_bwd_ref(g, mk, mode)
+        assert torch.equal(seg_aggr_bwd_cuda(g, mk, mode), want)
+
+    @pytest.mark.parametrize("mode", ["mean", "sum"])
+    def test_seg_aggr_bwd_misaligned_g_and_strided_mask(self, cuda, mode):
+        """g one float past a 16-byte boundary takes the 4-byte path; the mask
+        is relation 1 of an (N, 2, F) block, row stride 2F."""
+        _, mask, cot = _bwd_data(4096, 3, 64, seed=4)
+        base = torch.zeros(cot.size + 1, device=cuda)
+        g = base[1:].view(cot.shape)
+        g.copy_(_t(cot))
+        assert g.data_ptr() % 16 != 0 and g.is_contiguous()
+        full = torch.zeros(4096, 2, 3, dtype=torch.bool, device=cuda)
+        full[:, 1] = _t(mask).to(cuda)
+        mk = full[:, 1]
+        assert mk.stride() == (6, 1)
+        want = ref.seg_aggr_bwd_ref(g, mk, mode)
+        assert torch.equal(seg_aggr_bwd_cuda(g, mk, mode), want)
+
+    @pytest.mark.parametrize("mode", ["mean", "sum"])
+    def test_seg_aggr_bwd_all_masked_rows_and_inf_nan(self, cuda, mode):
+        """All-masked rows give zeros (-0 where g < 0, as 0 * g does, and NaN
+        where g is inf); inf and NaN in g go through the multiply as in the
+        plain version: the bits are compared, NaNs included."""
+        _, mask, cot = _bwd_data(512, 4, 64, seed=6)
+        mask[:40] = False
+        cot[5, 3], cot[6, 7], cot[50, 0], cot[51, 9], cot[52, 2] = (
+            np.inf, -np.inf, np.nan, np.inf, -np.nan)
+        mask[50:53] = True
+        mask[51, 1] = False
+        g, mk = _t(cot).to(cuda), _t(mask).to(cuda)
+        want = ref.seg_aggr_bwd_ref(g, mk, mode)
+        assert want[5].isnan().any() and want[50:53].isnan().any()
+        assert torch.cat([want[:5], want[7:40]]).eq(0).all()
+        got = seg_aggr_bwd_cuda(g, mk, mode)
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+    def test_seg_aggr_bwd_build_attrs(self, cuda):
+        sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+        for vec in (True, False):
+            a = seg_aggr.kernel_attrs(vec, backward=True)
+            assert a["local_bytes"] == 0 and a["shared_bytes"] == 0
+            assert a["blocks_per_sm"] >= 1 and a["grid_cap"] == a["blocks_per_sm"] * sms
+
+    # ---- row_adagrad
+    @staticmethod
+    def _adagrad_check(cuda, table, accum, ids, grads, lr=0.5):
+        table, accum, ids, grads = (_t(a).to(cuda) for a in (table, accum, ids, grads))
+        t1, a1, t2, a2, t3, a3 = (x.clone() for x in (table, accum) * 3)
+        row_adagrad_scatter_cuda(t1, a1, ids, grads, lr=lr)
+        row_adagrad_scatter_cuda(t3, a3, ids, grads, lr=lr)
+        ref.row_adagrad_scatter_ref(t2, a2, ids, grads, lr=lr)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(t1, t2, rtol=RTOL, atol=ATOL)
+        torch.testing.assert_close(a1, a2, rtol=RTOL, atol=ATOL)
+        assert torch.equal(t1, t3) and torch.equal(a1, a3)  # a re-run, bitwise
+        touched = torch.zeros(len(table), dtype=torch.bool, device=cuda)
+        live = ids[(ids >= 0) & (ids < len(table))]
+        touched[live] = True
+        assert torch.equal(t1[~touched], table[~touched])
+        assert torch.equal(a1[~touched], accum[~touched])
+        return t1, a1
+
+    @pytest.mark.parametrize("D", [1, 3, 64, 130, 256])
+    @pytest.mark.parametrize("bucket", [2048, 40_000])
+    def test_row_adagrad_over_d_and_buckets(self, cuda, D, bucket):
+        """D 1, 3 and 130 take the 4-byte path (130 past the registers'
+        two vectors a lane), 64 and 256 the 16-byte one; a bucket of 40,000
+        slots is more than one wave of blocks takes."""
+        if bucket > 2048:
+            per_pass = row_adagrad.kernel_attrs(D % 4 == 0)["grid_cap"] * 256 // (
+                16 if D % 4 == 0 else 32)
+            assert bucket > per_pass
+        n_pad = bucket // 40
+        self._adagrad_check(cuda, *_adagrad_data(D + bucket, N=bucket + 500, D=D,
+                                                 n_real=bucket - n_pad, n_pad=n_pad))
+
+    def test_row_adagrad_all_pad_bucket(self, cuda):
+        table, accum, ids, grads = _adagrad_data(8, N=300, D=64, n_real=1, n_pad=63)
+        ids[:] = -1
+        t1, a1 = self._adagrad_check(cuda, table, accum, ids, grads)
+        assert torch.equal(t1.cpu(), _t(table)) and torch.equal(a1.cpu(), _t(accum))
+
+    @pytest.mark.parametrize("D", [64, 3])
+    def test_row_adagrad_drops_ids_at_and_past_n(self, cuda, D):
+        table, accum, ids, grads = _adagrad_data(9, N=1000, D=D, n_real=500, n_pad=20)
+        ids[-3:] = [1000, 1001, 5000]  # at and past N: dropped, as the scatter drops them
+        self._adagrad_check(cuda, table, accum, ids, grads)
+
+    def test_row_adagrad_misaligned_table_takes_4_byte_path(self, cuda):
+        table, accum, ids, grads = (_t(a) for a in _adagrad_data(10, N=3000, D=64,
+                                                                 n_real=1500, n_pad=12))
+        base = torch.zeros(table.numel() + 1, device=cuda)
+        t1 = base[1:].view(table.shape)
+        t1.copy_(table)
+        assert t1.data_ptr() % 16 != 0
+        a1, t2, a2 = (x.to(cuda).clone() for x in (accum, table, accum))
+        ids_c, grads_c = ids.to(cuda), grads.to(cuda)
+        row_adagrad_scatter_cuda(t1, a1, ids_c, grads_c, lr=0.5)
+        ref.row_adagrad_scatter_ref(t2, a2, ids_c, grads_c, lr=0.5)
+        torch.testing.assert_close(t1, t2, rtol=RTOL, atol=ATOL)
+        torch.testing.assert_close(a1, a2, rtol=RTOL, atol=ATOL)
+
+    def test_row_adagrad_build_attrs(self, cuda):
+        sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+        for vec in (True, False):
+            a = row_adagrad.kernel_attrs(vec)
+            assert a["local_bytes"] == 0 and a["shared_bytes"] == 0
+            assert a["blocks_per_sm"] >= 1 and a["grid_cap"] == a["blocks_per_sm"] * sms
