@@ -68,6 +68,32 @@ nothing of JAX or of the JAX package ``repro``. Phases, each failing loudly:
    twice on the card: losses and tables agree, the two card runs exactly;
    the fused step likewise, card vs CPU fed the same CPU-drawn draws, and
    two same-seed fused card runs;
+6a. the observability layer (``repro_torch.obs``, ``train.attribution``):
+   ``observed_training``, the training phase's flags and 200 sparse steps
+   with attribution, telemetry and health on, run in turns with the same
+   run untraced (plain, observed, observed, plain): pairs/s of each (the
+   instrument's cost, reported, not gated), the per-step split (``sample``,
+   ``assemble``, ``batch_wait``, ``h2d``, ``dispatch``, ``loss_fetch``,
+   each beside its thread's CPU time; the step's span on the device
+   timeline from CUDA events; the wall), span and dropped-span counts, the
+   memory peaks by phase, 200 health beats and no fault, the trace under
+   ``build/chip_smoke/``, launches as the training phase's;
+   then the h2d phase's work alone (pinning, issuing the copies) and a
+   serial control run (prefetch 0: no producer thread to share the
+   interpreter lock with);
+   ``observed_fused``, the same for the fused path, 200 dense steps,
+   ``window_pairs`` once a step; ``observed_conformance``, TOY 12 steps
+   under deterministic algorithms on the card, losses and parameters with
+   the three hooks on bitwise equal to a run with them off (sparse and
+   dense with prefetch 2, fused); ``warm_start``, the training phase's
+   ``emb/*`` tables through ``save_table`` and ``load_table`` (bitwise),
+   then 60 UB steps cold and warm from the same seed, loss means and
+   trained U2I of both (reported, not gated); ``sweep``,
+   ``examples/eval_torch.py``'s ``run`` on UB for LightGCN and
+   metapath2vec (trained, exported, loaded back), ``--method device`` and
+   ``ivf``, U2I: each report equal to ``evaluate_recall`` on the same
+   embeddings, ``topk`` / ``ivf_list_topk`` launches counted, the
+   markdown through ``recall_report``;
 6b. the LM substrate's serving side, smollm-135m at full width (30 layers,
    d_model 576, 9 heads over 3 KV heads, bf16; random weights from the
    port's init, seed 0): the prefill through ``examples/serve_lm_torch.py``'s
@@ -1103,7 +1129,7 @@ def training_path(torch, np, modules, serving_u2i: float) -> dict:
         os.path.relpath(res["saved"], ROOT), **recall, "u2i_random_weights": serving_u2i,
     }
     emit(out)
-    return dict(out, kept=rec.kept)
+    return dict(out, kept=rec.kept, params=r.params)
 
 
 def fused_training_path(torch, np, modules, serving_u2i: float) -> dict:
@@ -1267,6 +1293,325 @@ def conformance_phase(torch, np) -> dict:
         out["fused"] = fused_conformance(torch, np)
     finally:
         torch.use_deterministic_algorithms(False)
+    emit(out)
+    return out
+
+
+# ------------------------------------------------------------ observability
+def _launch_counts(modules) -> dict:
+    return {"seg_aggr": modules["seg_aggr"].launches,
+            "seg_aggr_bwd": modules["seg_aggr"].bwd_launches,
+            **{n: modules[n].launches for n in ("inbatch_loss", "row_adagrad", "window_pairs",
+                                                 "topk", "ivf_list_topk")}}
+
+
+def _observed_hooks(tobs, name: str) -> dict:
+    """attribution, telemetry and health on; flight records under build/."""
+    return {"attribution": True, "telemetry": tobs.Telemetry(),
+            "health": tobs.HealthConfig(stall_timeout_s=300.0, flightrec_dir=os.path.join(
+                ROOT, "build", "chip_smoke", f"flightrec_{name}"))}
+
+
+def _per_step_split(a: dict, steps: int) -> dict:
+    """The attribution summary as ms a step: each phase's wall and its
+    thread's CPU time, the device span from CUDA events, the wall, and the
+    consumer side's share of the wall."""
+    ph = a["phases"]
+    split = {p: ph[p]["total_s"] / steps * 1e3 for p in ph}
+    cpu = {p: s / steps * 1e3 for p, s in a["thread_cpu_s"].items()}
+    consumer = sum(split.get(p, 0.0) for p in ("batch_wait", "h2d", "dispatch", "loss_fetch"))
+    span = a["device_span"]
+    return {"phase_ms_per_step": split, "phase_thread_cpu_ms_per_step": cpu,
+            "phase_wait_ms_per_step": {p: split[p] - cpu.get(p, 0.0) for p in split},
+            "phase_counts": {p: ph[p]["count"] for p in ph},
+            "device_span_ms": span["span_ms"], "device_gap_to_next_step_ms":
+            span.get("gap_to_next_step_ms"), "device_span_count": span["count"],
+            "wall_ms_per_step": a["wall_s"] / steps * 1e3,
+            "consumer_ms_per_step": consumer,
+            "consumer_share_of_wall": consumer / (a["wall_s"] / steps * 1e3)}
+
+
+def _observed_run(torch, np, modules, train_torch, args, name: str, steps: int,
+                  **overrides) -> dict:
+    """The untraced run and the run with all three hooks on, in turns
+    (plain, observed, observed, plain): pairs/s of each, and the second
+    observed run's split, trace, spans, memory peaks and health."""
+    import json as json_mod
+
+    from repro_torch import obs as tobs
+
+    trace = os.path.join(ROOT, "build", "chip_smoke", f"{name}.trace.json")
+    rates, observed = {"plain": [], "observed": []}, None
+    for kind in ("plain", "observed", "observed", "plain"):
+        hooks = _observed_hooks(tobs, name) if kind == "observed" else {}
+        _zero(modules)
+        res = train_torch.run(args, eval_at_end=False, **overrides, **hooks)
+        torch.cuda.synchronize()
+        r = res["result"]
+        if len(r.losses) != steps or not np.isfinite(r.losses).all():
+            fail(f"{name} ({kind}): {len(r.losses)} losses, finite "
+                 f"{np.isfinite(r.losses).all()}")
+        rates[kind].append(r.pairs_seen / r.wall_time_s)
+        if kind == "observed":
+            observed = (res, _launch_counts(modules))
+    res, launches = observed
+    r, trainer = res["result"], res["trainer"]
+    tel, mon = trainer.cfg.telemetry, trainer._health_monitor
+    a = r.attribution
+    if a is None or a["phases"]["dispatch"]["count"] != steps or "device_span" not in a:
+        fail(f"{name}: attribution missing its dispatch phases or device span: {a}")
+    if a["device_span"]["count"] != steps:
+        fail(f"{name}: {a['device_span']['count']} device spans for {steps} steps")
+    if mon is None or mon.fault is not None or mon._last_step != steps - 1:
+        fail(f"{name}: health monitor saw {None if mon is None else mon._last_step + 1} beats, "
+             f"fault {None if mon is None else mon.fault}")
+    counters = tel.metrics.summary()["counters"]
+    if counters.get("health.stalls") or counters.get("health.loss_anomalies"):
+        fail(f"{name}: health counters {counters}")
+    tel.write_trace(trace)
+    with open(trace) as f:
+        events = json_mod.load(f)["traceEvents"]
+    if not any(e.get("name") == "dispatch" for e in events):
+        fail(f"{name}: the trace holds no dispatch span")
+    mem = trainer._memory.summary()
+    return {"steps": steps, "plan": r.plan["reason"], "pairs_per_s_plain": rates["plain"],
+            "pairs_per_s_observed": rates["observed"],
+            "observed_over_plain": (sum(rates["observed"]) / sum(rates["plain"])),
+            **_per_step_split(a, steps), "attribution": a,
+            "spans": tel.tracer.span_count(), "dropped_spans": tel.tracer.dropped_count(),
+            "marks": [m[0] for m in tel.tracer.marks()], "counters": counters,
+            "gauges": tel.metrics.summary()["gauges"],
+            "memory_phase_peak_bytes": mem["phase_peak_bytes"],
+            "max_memory_allocated": next(iter(mem["device_stats"].values()))[
+                "max_memory_allocated"],
+            "health_beats": mon._last_step + 1,
+            "trace": os.path.relpath(trace, ROOT), "trace_events": len(events),
+            "launches": launches, "trainer": trainer}
+
+
+def _h2d_anatomy(torch, np, trainer, batches: int = 24) -> dict:
+    """What the stager's ``h2d`` phase does, alone on one thread: fresh
+    host batches of the run's pipeline (another seed) through
+    ``model.pin`` and ``model.to_device``, each timed by the host clock,
+    then a sync; the arrays and bytes a batch holds."""
+    from repro_torch.core import model as model_lib
+    from repro_torch.sampling.pipeline import make_train_sampler
+
+    pipe = make_train_sampler(trainer.engine, trainer.pipe_cfg, backend="host", seed=1)
+    items = list(trainer._host_batches(pipe, batches))
+    sizes: list = []
+    model_lib._map_tree(lambda a: sizes.append(a.nbytes) if isinstance(a, np.ndarray)
+                        else None, items[0][0])
+    pin_ms, copy_ms, done_ms = [], [], []
+    for host, _ in items:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pinned = model_lib.pin(host)
+        t1 = time.perf_counter()
+        model_lib.to_device(pinned, trainer.device)
+        t2 = time.perf_counter()
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        pin_ms.append((t1 - t0) * 1e3)
+        copy_ms.append((t2 - t1) * 1e3)
+        done_ms.append((t3 - t2) * 1e3)
+    med = statistics.median
+    return {"batches": batches, "arrays_per_batch": len(sizes), "bytes_per_batch": sum(sizes),
+            "pin_ms_median": med(pin_ms[1:]), "to_device_issue_ms_median": med(copy_ms[1:]),
+            "sync_after_ms_median": med(done_ms[1:]),
+            "what": "one thread, no producer running: the h2d phase's work without the "
+                    "interpreter lock's contention"}
+
+
+def observed_training(torch, np, modules, tr: dict) -> dict:
+    """The host training path with attribution, telemetry and health on:
+    the training phase's flags, 200 sparse steps; the per-step split, the
+    instrument's cost in pairs/s, spans, memory peaks, 200 beats."""
+    import train_torch
+
+    args = train_torch.parser().parse_args(
+        ["--dataset", "ub", "--model", "lightgcn", "--dim", "64", "--side-info",
+         "--batch-pairs", "512", "--steps", "200", "--seed", "0", "--prefetch-batches", "2"])
+    out = _observed_run(torch, np, modules, train_torch, args, "observed_training", 200,
+                        sparse_min_rows=0)
+    for n in ("seg_aggr", "seg_aggr_bwd", "inbatch_loss", "row_adagrad"):
+        if out["launches"][n] != tr["launches"][n]:
+            fail(f"observed training launched {n} {out['launches'][n]} times; the training "
+                 f"phase {tr['launches'][n]}")
+    a = out["attribution"]["phases"]
+    producer_ms = (a["sample"]["total_s"] + a["assemble"]["total_s"]) / 200 * 1e3
+    anatomy = _h2d_anatomy(torch, np, out["trainer"])
+    # the control: the same steps serially, no producer thread to share the
+    # interpreter lock with (sampling and assembly inline, inside batch_wait)
+    sargs = train_torch.parser().parse_args(
+        ["--dataset", "ub", "--model", "lightgcn", "--dim", "64", "--side-info",
+         "--batch-pairs", "512", "--steps", "200", "--seed", "0", "--prefetch-batches", "0",
+         "--attribution"])
+    sr = train_torch.run(sargs, sparse_min_rows=0, eval_at_end=False)["result"]
+    torch.cuda.synchronize()
+    serial = {k: v for k, v in _per_step_split(sr.attribution, 200).items() if k in (
+        "phase_ms_per_step", "phase_thread_cpu_ms_per_step", "phase_wait_ms_per_step",
+        "device_span_ms", "wall_ms_per_step")}
+    serial["pairs_per_s"] = sr.pairs_seen / sr.wall_time_s
+    out = {"phase": "observed_training", "dataset": "ub", "update": "sparse",
+           "training_phase_pairs_per_s": tr["pairs_per_s"], "h2d_alone": anatomy,
+           "serial_control": serial,
+           "producer_ms_per_step": producer_ms,
+           "producer_share_of_wall": producer_ms / out["wall_ms_per_step"], **out}
+    emit({k: v for k, v in out.items() if k not in ("attribution", "trainer")})
+    return out
+
+
+def observed_fused(torch, np, modules, fu: dict) -> dict:
+    """The fused training path with the three hooks on, 200 dense steps;
+    ``window_pairs`` launches once a step, as in the fused phase."""
+    import train_torch
+
+    args = train_torch.parser().parse_args(
+        ["--dataset", "ub", "--model", "lightgcn", "--dim", "64", "--side-info",
+         "--batch-pairs", "512", "--seed", "0", "--steps", "200",
+         "--sampling-backend", "fused", "--prefetch-batches", "0"])
+    out = _observed_run(torch, np, modules, train_torch, args, "observed_fused", 200)
+    if out["launches"]["window_pairs"] != 200:
+        fail(f"observed fused training launched window_pairs {out['launches']['window_pairs']} "
+             "times; want one a step, 200")
+    for n in ("seg_aggr", "seg_aggr_bwd", "inbatch_loss", "window_pairs"):
+        if out["launches"][n] != fu["launches"][n]:
+            fail(f"observed fused training launched {n} {out['launches'][n]} times; the fused "
+                 f"phase {fu['launches'][n]}")
+    out = {"phase": "observed_fused", "dataset": "ub", "update": "dense", "sampling": "fused",
+           "fused_phase_pairs_per_s": fu["pairs_per_s"], **out}
+    emit({k: v for k, v in out.items() if k not in ("attribution", "trainer")})
+    return out
+
+
+def observed_conformance(torch, np) -> dict:
+    """TOY, 12 steps on the card under deterministic algorithms: losses and
+    parameters with all three hooks on equal those with them off, bitwise,
+    for the sparse, dense and fused steps."""
+    import train_torch
+    from repro_torch import obs as tobs
+
+    base = ["--dataset", "toy", "--model", "lightgcn", "--dim", "64", "--side-info",
+            "--batch-pairs", "256", "--steps", "12", "--seed", "3"]
+    cases = {"sparse": (["--prefetch-batches", "2"], {"sparse_min_rows": 0}),
+             "dense": (["--prefetch-batches", "2"], {"sparse_min_rows": 1 << 30}),
+             "fused": (["--sampling-backend", "fused", "--prefetch-batches", "0"], {})}
+    out = {"phase": "observed_conformance", "dataset": "toy", "steps": 12}
+    torch.use_deterministic_algorithms(True)
+    try:
+        for name, (flags, kw) in cases.items():
+            args = train_torch.parser().parse_args(base + flags)
+            off, on = (train_torch.run(args, device="cuda", eval_at_end=False, **kw, **hooks)
+                       for hooks in ({}, _observed_hooks(tobs, f"conformance_{name}")))
+            r_off, r_on = off["result"], on["result"]
+            if name == "fused" and r_on.plan["sampling"] != "fused":
+                fail(f"observed conformance planned {r_on.plan['sampling']!r} for fused")
+            same = r_on.losses == r_off.losses and all(
+                torch.equal(v, r_off.params[k]) for k, v in r_on.params.items())
+            if not same or len(r_on.losses) != 12:
+                fail(f"observed conformance ({name}): hooks on vs off differ: "
+                     f"{r_on.losses} vs {r_off.losses}")
+            out[name] = {"bitwise": True, "spans": on["telemetry"].tracer.span_count(),
+                         "dispatch_count": r_on.attribution["phases"]["dispatch"]["count"]}
+    finally:
+        torch.use_deterministic_algorithms(False)
+    emit(out)
+    return out
+
+
+def warm_start_phase(torch, np, tr: dict, serving_u2i: float) -> dict:
+    """The training phase's tables through ``save_table`` / ``load_table``
+    (bitwise), then a short UB run warm from them and one cold from the same
+    seed: loss means and trained U2I of both, reported, not gated."""
+    import train_torch
+    from repro_torch.embedding import load_table, save_table
+
+    npz = os.path.join(ROOT, "build", "chip_smoke", "ub_lightgcn64_tables.npz")
+    tables = {k: v for k, v in tr["params"].items() if k.startswith("emb/")}
+    save_table(npz, tables)
+    back = load_table(npz)
+    if back.keys() != tables.keys() or any(
+            back[k].tobytes() != v.detach().cpu().numpy().tobytes() for k, v in tables.items()):
+        fail("warm start: load_table did not give the saved tables back bitwise")
+    out = {"phase": "warm_start", "dataset": "ub", "tables": {k: list(v.shape)
+                                                                for k, v in back.items()},
+           "round_trip_bitwise": True, "u2i_random_weights": serving_u2i}
+    for kind, extra in (("cold", []), ("warm", ["--warm-start", npz])):
+        args = train_torch.parser().parse_args(
+            ["--dataset", "ub", "--model", "lightgcn", "--dim", "64", "--side-info",
+             "--batch-pairs", "512", "--steps", "60", "--seed", "5",
+             "--prefetch-batches", "2", *extra])
+        res = train_torch.run(args, sparse_min_rows=0, eval_at_end=False)
+        losses = np.asarray(res["result"].losses)
+        if len(losses) != 60 or not np.isfinite(losses).all():
+            fail(f"warm start ({kind}): {len(losses)} losses, finite {np.isfinite(losses).all()}")
+        out[kind] = {"loss_first20_mean": float(losses[:20].mean()),
+                     "loss_last20_mean": float(losses[-20:].mean()),
+                     "pairs_per_s": res["result"].pairs_seen / res["result"].wall_time_s,
+                     **_trained_u2i(res)}
+    emit(out)
+    return out
+
+
+def sweep_phase(torch, np, modules) -> dict:
+    """``eval_torch.run`` on UB for LightGCN and metapath2vec: train and
+    export the embeddings, then evaluate them loaded back with ``--method
+    device`` and ``ivf``; each report's metrics equal ``evaluate_recall`` on
+    the same embeddings; ``topk`` and ``ivf_list_topk`` launches counted;
+    the markdown through ``recall_report``."""
+    import eval_torch
+    import recall_torch
+    from repro_torch.core.recall import evaluate_recall
+    from repro_torch.graph import SPECS, generate
+    from repro_torch.infer import load_embeddings
+    from repro_torch.launch.recall_report import render_recall_report
+    from repro_torch.retrieval import IVFConfig
+
+    base = os.path.join(ROOT, "build", "chip_smoke", "sweep")
+    common = ["--datasets", "ub", "--strategies", "u2i", "--dim", "64", "--seed", "0"]
+    t0 = time.perf_counter()
+    first = eval_torch.run(eval_torch.parser().parse_args(
+        common + ["--models", "lightgcn,metapath2vec", "--steps", "100", "--method", "device",
+                  "--export-embeddings", base]))
+    train_export_s = time.perf_counter() - t0
+    ds = generate(SPECS["ub"], seed=0)
+    train = recall_torch.train_pairs(ds)
+    results, runs = [], []
+    for model in ("lightgcn", "metapath2vec"):
+        path = f"{base}.ub.{model}.npz"
+        emb = load_embeddings(path)
+        ue, ie = emb[: ds.num_users], emb[ds.num_users : ds.num_users + ds.num_items]
+        for method in ("device", "ivf"):
+            trace = os.path.join(ROOT, "build", "chip_smoke", f"sweep_{model}_{method}.json")
+            args = eval_torch.parser().parse_args(common + [
+                "--models", model, "--method", method, "--load-embeddings", path,
+                "--trace", trace])
+            _zero(modules)
+            res = eval_torch.run(args)
+            torch.cuda.synchronize()
+            launches = {n: modules[n].launches for n in ("topk", "ivf_list_topk")}
+            kernel = "topk" if method == "device" else "ivf_list_topk"
+            if launches[kernel] == 0:
+                fail(f"sweep {model} {method}: no {kernel} launch")
+            (rec,) = res["payload"]["results"]
+            want = evaluate_recall(ue, ie, train, ds.test_pairs, strategies=("u2i",),
+                                   method=method, device="cuda",
+                                   ivf=IVFConfig(nlist=64, nprobe=8, seed=0))
+            if rec["metrics"] != want:
+                fail(f"sweep {model} {method}: report {rec['metrics']} != evaluate_recall {want}")
+            hist = res["telemetry"].metrics.summary()["histograms"]["retrieval.search_ns"]
+            results.append(rec)
+            runs.append({"model": model, "method": method, "metrics": rec["metrics"],
+                         "eval_s": rec["eval_s"], "launches": launches,
+                         "searches": hist["count"], "search_p50_ms": hist["p50"] / 1e6})
+    md = os.path.join(ROOT, "build", "chip_smoke", "sweep.md")
+    with open(md, "w") as f:
+        f.write(render_recall_report(results) + "\n")
+    out = {"phase": "sweep", "dataset": "ub", "train_export_s": train_export_s,
+           "exported": [os.path.relpath(p, ROOT) for p in first["exported"]],
+           "trained_u2i": {r["model"]: r["metrics"]["u2i"] for r in first["payload"]["results"]},
+           "runs": runs, "markdown": os.path.relpath(md, ROOT)}
     emit(out)
     return out
 
@@ -1950,6 +2295,11 @@ def main() -> None:
     tr = training_path(torch, np, modules, mp["recall"]["u2i"])
     fu = fused_training_path(torch, np, modules, mp["recall"]["u2i"])
     conf = conformance_phase(torch, np)
+    ot = observed_training(torch, np, modules, tr)
+    of = observed_fused(torch, np, modules, fu)
+    oc = observed_conformance(torch, np)
+    ws = warm_start_phase(torch, np, tr, mp["recall"]["u2i"])
+    sw = sweep_phase(torch, np, modules)
     lm = lm_path(torch, np, fa_mod)
     gc.collect()
     torch.cuda.empty_cache()  # the IVF phases' blocks: leave the card's memory free
@@ -2007,6 +2357,20 @@ def main() -> None:
                                         "exact_over_ivf_time", "search_split",
                                         "launches")},
           "launch_floor_ms": {k: floor[k]["ms"] for k in ("one_block", "one_wave")},
+          "observed_training": {k: ot[k] for k in (
+              "phase_ms_per_step", "phase_thread_cpu_ms_per_step", "device_span_ms",
+              "wall_ms_per_step", "consumer_share_of_wall", "producer_share_of_wall",
+              "pairs_per_s_plain", "pairs_per_s_observed", "observed_over_plain", "spans",
+              "dropped_spans", "h2d_alone", "serial_control")},
+          "observed_fused": {k: of[k] for k in (
+              "phase_ms_per_step", "phase_thread_cpu_ms_per_step", "device_span_ms",
+              "wall_ms_per_step", "pairs_per_s_plain", "pairs_per_s_observed",
+              "observed_over_plain")},
+          "observed_conformance": {u: oc[u]["bitwise"] for u in ("sparse", "dense", "fused")},
+          "warm_start": {k: {m: ws[k][m] for m in ("loss_first20_mean", "loss_last20_mean",
+                                                   "u2i_trained")} for k in ("cold", "warm")},
+          "sweep": [{k: r[k] for k in ("model", "method", "launches")} | {
+              "u2i": r["metrics"]["u2i"]} for r in sw["runs"]],
           "conformance": {u: {k: conf[u][k] for k in ("loss_max_abs_diff",
                                                       "param_max_abs_diff")}
                           for u in ("sparse", "dense", "fused")},

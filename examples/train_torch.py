@@ -12,8 +12,13 @@ backward with the ``seg_aggr`` kernels, the in-batch softmax loss on the
 kernel on the sparse path) and Adam on the GNN weights, then recall of the
 trained embeddings. ``--save`` writes ``repro``'s flat ``.npz`` layout, which
 ``repro.train.checkpoint.load_flat`` and ``examples/recall_torch.py
---params`` both read. A machine without CUDA raises; ``run(args,
-device="cpu")`` runs the plain PyTorch path.
+--params`` both read. ``--warm-start`` inherits pre-trained tables from a
+``save_table`` npz (paper §3.6); ``--export-embeddings`` writes every node's
+trained embedding as ``repro``'s sharded npz. ``--attribution`` prints the
+per-step phase split, ``--trace`` writes a Perfetto-loadable trace and the
+telemetry summary, ``--health`` arms the stall and loss watchdog. A machine
+without CUDA raises; ``--device cpu`` (or ``run(args, device="cpu")``) runs
+the plain PyTorch path.
 """
 from __future__ import annotations
 
@@ -22,10 +27,16 @@ import dataclasses
 import json
 import time
 
+import numpy as np
+
 from recall_torch import GNN_MODELS, RELS, WALK_MODELS, model_config
 from repro_torch import convert
+from repro_torch.core.model import Graph4RecModel
 from repro_torch.device import DeviceLike
+from repro_torch.embedding import load_table, warm_start
 from repro_torch.graph import SPECS, DistributedGraphEngine, generate
+from repro_torch.infer import embed_all_nodes, export_embeddings
+from repro_torch.obs import HealthConfig, Telemetry
 from repro_torch.sampling import EgoConfig, PairConfig, PipelineConfig
 from repro_torch.train import Graph4RecTrainer, TrainerConfig
 from repro_torch.walk import WalkConfig
@@ -52,6 +63,24 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--prefetch-batches", type=int, default=None,
                     help="prefetch queue depth; 0 = serial loop; unset = let the "
                          "calibrated backend plan decide")
+    ap.add_argument("--attribution", action="store_true",
+                    help="record per-step phase timings (sample/assemble/batch_wait/h2d/"
+                         "dispatch/loss_fetch, and each step's span on the device "
+                         "timeline) and print the breakdown after training")
+    ap.add_argument("--trace", default=None, metavar="OUT.JSON",
+                    help="enable the telemetry layer (repro_torch.obs) and write a "
+                         "Perfetto-loadable Chrome trace here after training; also "
+                         "prints the metrics/span text summary")
+    ap.add_argument("--health", action="store_true",
+                    help="enable the run-health guardrails (repro_torch.obs.health): a "
+                         "watchdog thread that flight-records and fails the run on "
+                         "stalls and NaN/diverging losses (dumps under flightrec/)")
+    ap.add_argument("--stall-timeout", type=float, default=120.0,
+                    help="--health: no completed step for this many seconds -> "
+                         "flight-record dump + RunStalledError (size it above the "
+                         "first step's kernel build)")
+    ap.add_argument("--warm-start", default=None, metavar="NPZ",
+                    help="npz of pre-trained tables (save_table)")
     ap.add_argument("--save", default=None, metavar="CKPT.npz")
     ap.add_argument("--eval-recall", default="device",
                     choices=["device", "ivf", "bruteforce"],
@@ -61,6 +90,10 @@ def parser() -> argparse.ArgumentParser:
                          "'bruteforce' = the O(U*I) numpy oracle")
     ap.add_argument("--eval-max-users", type=int, default=0,
                     help="cap evaluated users (0 = all)")
+    ap.add_argument("--export-embeddings", default=None, metavar="PATH",
+                    help="after training, embed every node and save the (num_nodes, "
+                         "dim) matrix as a sharded npz (repro's layout)")
+    ap.add_argument("--device", default=None, help="cuda (default) or cpu")
     ap.add_argument("--seed", type=int, default=0)
     return ap
 
@@ -88,27 +121,64 @@ def configs(ds, args: argparse.Namespace):
 
 
 def run(args: argparse.Namespace, device: DeviceLike = None, **trainer_overrides) -> dict:
-    """Train, evaluate and (``--save``) checkpoint; returns the results.
+    """Train, evaluate, and (``--save``, ``--export-embeddings``, ``--trace``)
+    write the checkpoint, the embeddings and the trace; returns the results,
+    the attribution summary and the trace path among them.
     ``trainer_overrides`` replace fields of the ``TrainerConfig`` the flags
-    build (``sparse_min_rows=0`` forces the sparse step)."""
+    build (``sparse_min_rows=0`` forces the sparse step). ``device`` (or
+    ``--device``) None is CUDA."""
+    device = device if device is not None else args.device
     ds = generate(SPECS[args.dataset], seed=args.seed)
     engine = DistributedGraphEngine(ds.graph, num_partitions=args.partitions)
     model_cfg, pipe_cfg = configs(ds, args)
     tcfg = TrainerConfig(num_steps=args.steps, sparse_lr=1.0, log_every=50, seed=args.seed,
                          prefetch_batches=args.prefetch_batches,
                          sampling_backend=args.sampling_backend,
-                         eval_method=args.eval_recall, eval_max_users=args.eval_max_users)
-    trainer = Graph4RecTrainer(ds, engine, model_cfg, pipe_cfg,
-                               dataclasses.replace(tcfg, **trainer_overrides), device=device)
+                         eval_method=args.eval_recall, eval_max_users=args.eval_max_users,
+                         attribution=args.attribution,
+                         telemetry=Telemetry() if args.trace else None,
+                         health=(HealthConfig(stall_timeout_s=args.stall_timeout)
+                                 if args.health else None))
+    tcfg = dataclasses.replace(tcfg, **trainer_overrides)
+    trainer = Graph4RecTrainer(ds, engine, model_cfg, pipe_cfg, tcfg, device=device)
+    params = trainer.init_params()
+    if args.warm_start:
+        pre = load_table(args.warm_start)
+        params = warm_start(params, {k if k.startswith("emb/") else f"emb/{k}": v
+                                     for k, v in pre.items()})
     t0 = time.perf_counter()
-    result = trainer.train()
+    result = trainer.train(params)
     train_s = time.perf_counter() - t0
-    saved = None
+    saved = exported = trace = None
     if args.save:
         saved = convert.save(args.save, {k: v.detach().cpu().numpy()
                                          for k, v in result.params.items()})
+    if args.export_embeddings:
+        emb = embed_all_nodes(Graph4RecModel(model_cfg, result.params), engine, ds.graph,
+                              seed=args.seed, device=trainer.device)
+        exported = export_embeddings(
+            args.export_embeddings, emb, num_shards=4,
+            meta={"dataset": np.bytes_(args.dataset), "model": np.bytes_(args.model)})
+    if args.trace and tcfg.telemetry is not None:
+        trace = tcfg.telemetry.write_trace(args.trace)
     return {"dataset": ds, "config": model_cfg, "trainer": trainer, "result": result,
-            "train_s": train_s, "saved": saved}
+            "train_s": train_s, "saved": saved, "exported": exported,
+            "attribution": result.attribution, "telemetry": tcfg.telemetry, "trace": trace}
+
+
+def print_attribution(a: dict) -> None:
+    """The per-step breakdown, as ``train_recsys.py --attribution`` prints it,
+    plus the port's device span and each phase's thread CPU time."""
+    print(f"attribution ({a['steps']} steps, {a['wall_us_per_step']:.0f}us/step, device "
+          f"residual {a['device_residual_s'] / a['wall_s']:.0%}):")
+    for phase, entry in a["phases"].items():
+        print(f"  {phase:<11} {entry['per_call_us']:>10.1f}us/call x{entry['count']:<6} "
+              f"frac_of_wall={entry.get('frac_of_wall', 0.0):.3f} "
+              f"thread_cpu={a['thread_cpu_s'].get(phase, 0.0):.4f}s")
+    if "device_span" in a:
+        span = a["device_span"]["span_ms"]
+        print(f"  device span {span['mean_ms']:.3f}ms/step (median {span['median_ms']:.3f}; "
+              "the step's span on the device timeline, not busy time)")
 
 
 def main() -> None:
@@ -119,10 +189,19 @@ def main() -> None:
     print(f"{len(r.losses)} steps, {r.pairs_seen} pairs in {r.wall_time_s:.2f}s "
           f"({r.pairs_seen / r.wall_time_s:.0f} pairs/s); loss {r.losses[0]:.4f} -> "
           f"{r.losses[-1]:.4f}")
+    if args.warm_start:
+        print(f"warm-started from {args.warm_start}")
+    if res["attribution"]:
+        print_attribution(res["attribution"])
     if r.eval_history:
         print("recall:", json.dumps({k: round(v, 4) for k, v in r.eval_history[-1].items()}))
+    if res["telemetry"] is not None:
+        print(res["telemetry"].text_summary())
+        print("trace ->", res["trace"], "(open in https://ui.perfetto.dev)")
     if res["saved"]:
         print("saved", res["saved"])
+    if res["exported"]:
+        print(f"exported full-graph embeddings -> {res['exported']}")
 
 
 if __name__ == "__main__":

@@ -21,9 +21,16 @@ users. Every similarity search goes through one top-k primitive:
 All paths share one tie-break rule (equal scores -> lower id wins), so the
 device path, and IVF at full probing, recommend the oracle's ids. The vote aggregation after the
 searches is the same numpy code for every method.
+
+With ``telemetry`` (an ``obs.Telemetry``) every search is a
+``retrieval.<corpus>`` span and a ``retrieval.search_ns`` histogram
+observation, and IVF adds its ``ivf.spill_events``, ``ivf.cells_probed`` and
+``ivf.candidates_scored`` counters, as ``repro``'s wrappers do; the searchers
+themselves are untouched.
 """
 from __future__ import annotations
 
+import time
 from typing import Callable, Dict, Optional, Sequence
 
 import numpy as np
@@ -77,12 +84,14 @@ def ranked_metrics(rec: np.ndarray, truths: Sequence[set], top_k: int) -> Dict[s
 
 
 def _make_searchers(method: str, ue: np.ndarray, ie: np.ndarray, query_chunk: int,
-                    device: DeviceLike, ivf: Optional[IVFConfig]) -> Dict[str, Callable]:
-    """One top-k callable per corpus ("item", "user")."""
+                    device: DeviceLike, ivf: Optional[IVFConfig],
+                    telemetry=None) -> Dict[str, Callable]:
+    """One top-k callable per corpus ("item", "user"), each wrapped in a
+    span and a latency observation when ``telemetry`` is wired."""
     if method == "bruteforce":
-        return {"item": lambda q, k, ex=None: brute_force_topk(q, ie, k, exclude=ex),
-                "user": lambda q, k, ex=None: brute_force_topk(q, ue, k, exclude=ex)}
-    if method == "device":
+        searchers = {"item": lambda q, k, ex=None: brute_force_topk(q, ie, k, exclude=ex),
+                     "user": lambda q, k, ex=None: brute_force_topk(q, ue, k, exclude=ex)}
+    elif method == "device":
         dev = resolve_device(device)
 
         def make(corpus):
@@ -91,14 +100,50 @@ def _make_searchers(method: str, ue: np.ndarray, ie: np.ndarray, query_chunk: in
                                     device=dev)
             return search
 
-        return {"item": make(ie), "user": make(ue)}
-    if method == "ivf":
+        searchers = {"item": make(ie), "user": make(ue)}
+    elif method == "ivf":
         cfg = ivf or IVFConfig()
         idx = {"item": IVFIndex.build(ie, cfg, device=device),
                "user": IVFIndex.build(ue, cfg, device=device)}
-        return {name: (lambda ix: lambda q, k, ex=None: ix.search(q, k, exclude=ex))(ix)
-                for name, ix in idx.items()}
-    raise ValueError(f"unknown recall method {method!r}")
+        if telemetry is not None:
+            # why IVF recall and latency are what they are: cells probed,
+            # candidates actually scored, items spilled off their best cell
+            m = telemetry.metrics
+            m.counter("ivf.spill_events").inc(sum(ix.spilled_items for ix in idx.values()))
+            c_cells = m.counter("ivf.cells_probed")
+            c_cand = m.counter("ivf.candidates_scored")
+
+            def make_counted(ix):
+                def search(q, k, ex=None):
+                    res = ix.search(q, k, exclude=ex)
+                    c_cells.inc(ix.last_cells_probed)
+                    c_cand.inc(ix.last_candidates_scored)
+                    return res
+                return search
+
+            searchers = {name: make_counted(ix) for name, ix in idx.items()}
+        else:
+            searchers = {name: (lambda ix: lambda q, k, ex=None: ix.search(q, k, exclude=ex))(ix)
+                         for name, ix in idx.items()}
+    else:
+        raise ValueError(f"unknown recall method {method!r}")
+    if telemetry is not None:
+        tracer = telemetry.tracer
+        hist = telemetry.metrics.histogram("retrieval.search_ns")
+
+        def wrap(corpus_name, inner):
+            def traced(q, k, ex=None):
+                t0 = time.perf_counter_ns()
+                res = inner(q, k, ex)
+                dur = time.perf_counter_ns() - t0
+                tracer.add_span(f"retrieval.{corpus_name}", "retrieval", t0, dur,
+                                {"method": method, "queries": len(q)})
+                hist.observe(dur)
+                return res
+            return traced
+
+        searchers = {name: wrap(name, s) for name, s in searchers.items()}
+    return searchers
 
 
 def evaluate_recall(
@@ -115,6 +160,7 @@ def evaluate_recall(
     user_chunk: int = 512,
     device: DeviceLike = None,
     ivf: Optional[IVFConfig] = None,  # method="ivf"; None -> IVFConfig()
+    telemetry=None,  # an obs.Telemetry: traces every retrieval search
 ) -> Dict[str, float]:
     """Recall/HitRate/NDCG @ top_k per strategy over the held-out pairs.
 
@@ -148,7 +194,7 @@ def evaluate_recall(
         rng = np.random.default_rng(seed)
         users = list(rng.choice(np.array(users), size=max_users, replace=False))
 
-    search = _make_searchers(method, ue, ie, user_chunk, device, ivf)
+    search = _make_searchers(method, ue, ie, user_chunk, device, ivf, telemetry)
     uarr = np.array(users, dtype=np.int64)
     truths = [held[u] for u in users]
     seen_pad = pad_id_rows([hist[u] for u in users])  # (B, E)

@@ -13,7 +13,9 @@ PyTorch, so ``lookup`` clamps and masks, as ``repro`` does.
 The numpy helpers ``slot_count_matrix``, ``pad_slot_values``,
 ``unique_pad_ids`` and ``remap_ids`` are copies. ``gather_rows`` and
 ``scatter_rows`` are the device half of the sparse step's
-gather→step→scatter contract.
+gather→step→scatter contract. ``save_table``, ``load_table`` and
+``warm_start`` carry pre-trained tables between runs (paper §3.6) in
+``repro``'s npz layout.
 """
 from __future__ import annotations
 
@@ -234,4 +236,32 @@ def pad_slot_values(
         return out
     row_of, col = ragged_row_offsets(lens)
     out[valid[row_of], col] = slot_values[starts[row_of] + col]
+    return out
+
+
+# -------------------------------------------------------------- warm start
+def save_table(path: str, params: Mapping[str, object]) -> None:
+    """Write tables (tensors on any device, or numpy arrays) to one npz,
+    the layout ``repro.embedding.save_table`` writes and reads."""
+    np.savez(path, **{k: v.detach().cpu().numpy() if isinstance(v, torch.Tensor)
+                      else np.asarray(v) for k, v in params.items()})
+
+
+def load_table(path: str) -> Dict[str, np.ndarray]:
+    with np.load(path) as z:
+        return {k: z[k] for k in z.files}
+
+
+def warm_start(params: Mapping[str, torch.Tensor],
+               pretrained: Mapping[str, np.ndarray]) -> Dict[str, torch.Tensor]:
+    """Inherit pre-trained sparse tables (paper §3.6 warm start).
+
+    A table in ``pretrained`` whose key and shape match replaces the fresh
+    one, as a copy in the fresh table's dtype and on its device; everything
+    else (the dense GNN weights, tables of another shape) is untouched.
+    """
+    out = dict(params)
+    for k, v in pretrained.items():
+        if k in out and tuple(out[k].shape) == tuple(v.shape):
+            out[k] = torch.tensor(np.asarray(v), dtype=out[k].dtype, device=out[k].device)
     return out

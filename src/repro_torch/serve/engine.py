@@ -15,12 +15,16 @@ sampling draws with ``torch.multinomial`` from a generator seeded with
 reproduce ``jax.random.categorical``'s draws, so sampled outputs differ from
 ``repro``'s bit for bit while following the same distribution.
 
-``telemetry`` other than ``None`` raises: the port's spans and metrics come
-with ROADMAP Queue 1 item 6.
+Telemetry (optional, ``telemetry=None`` disables it at one ``is None`` test
+a site), as ``repro``'s server: each fixed-size batch is a ``serve.batch``
+span, ``serve.queue_depth`` gauges the requests still waiting when a batch
+launches, ``serve.request_ns`` observes each request's batch wall time and
+``serve.requests`` counts them.
 """
 from __future__ import annotations
 
 import dataclasses
+import time
 from typing import List, Optional, Sequence
 
 import numpy as np
@@ -28,6 +32,7 @@ import torch
 
 from repro_torch.configs.base import ArchSpec
 from repro_torch.models import transformer as T
+from repro_torch.obs.trace import span_scope
 
 
 @dataclasses.dataclass
@@ -45,9 +50,6 @@ class BatchedServer:
         if spec.kind != "lm":
             raise NotImplementedError(f"serving {spec.kind!r} archs is not ported yet "
                                       "(ROADMAP Queue 1 items 8d, 8e)")
-        if telemetry is not None:
-            raise NotImplementedError("serving telemetry is not ported yet (ROADMAP Queue 1 "
-                                      "item 6): pass telemetry=None")
         self.spec = spec
         self.lm = spec.lm
         self.params = params
@@ -57,6 +59,14 @@ class BatchedServer:
             self.cache_len = min(cfg.cache_len, self.lm.sliding_window)
         else:
             self.cache_len = cfg.cache_len
+        self._tracer = telemetry.tracer if telemetry is not None else None
+        if telemetry is not None:
+            m = telemetry.metrics
+            self._m_queue = m.gauge("serve.queue_depth")
+            self._m_request_ns = m.histogram("serve.request_ns")
+            self._m_requests = m.counter("serve.requests")
+        else:
+            self._m_queue = self._m_request_ns = self._m_requests = None
 
     def _step(self, cache, tok: np.ndarray):
         t = torch.from_numpy(np.ascontiguousarray(tok, np.int64)).to(self.device)
@@ -107,5 +117,21 @@ class BatchedServer:
         out: List[List[int]] = []
         B = self.cfg.batch_size
         for lo in range(0, len(prompts), B):
-            out.extend(self._run_batch(prompts[lo:lo + B]))
+            chunk = prompts[lo:lo + B]
+            if self._m_queue is not None:
+                # requests still waiting behind this batch: the high-water
+                # mark is the burst depth the server absorbed
+                self._m_queue.set(len(prompts) - lo)
+            t0 = time.perf_counter_ns()
+            with span_scope(self._tracer, "serve.batch", cat="serve",
+                            requests=len(chunk), queued=len(prompts) - lo):
+                out.extend(self._run_batch(chunk))
+            if self._m_request_ns is not None:
+                # a caller's latency is its batch's wall time
+                dur = time.perf_counter_ns() - t0
+                for _ in chunk:
+                    self._m_request_ns.observe(dur)
+                self._m_requests.inc(len(chunk))
+            if self._m_queue is not None:
+                self._m_queue.set(len(prompts) - lo - len(chunk))
         return out

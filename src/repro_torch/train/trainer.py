@@ -38,9 +38,23 @@ The port of ``repro.train.trainer``, for both sampling backends:
   not estimated from its parts: the prefetch thread and the step's dispatch
   share the GIL, so pipelined steps can take longer than either alone.
 
-Not ported (each raises ``NotImplementedError`` naming its ROADMAP item):
-the mp graph service (``engine_backend="mp"``, Queue 1 item 5) and the
-observability hooks (``telemetry``, ``health``, ``attribution``, item 6). ``use_kernel_aggr``,
+- **Observability**, as ``repro``'s trainer wires it, each hook off by
+  default at one ``is None`` test a call site: ``attribution=True`` threads
+  a ``train.attribution.PhaseTimer`` through the loop (``sample`` and
+  ``assemble`` in the producer, ``batch_wait`` and ``h2d`` in the stager,
+  ``dispatch`` around the step with a CUDA event pair for its span on the
+  device timeline, ``loss_fetch`` around the loss readback) into
+  ``TrainResult.attribution``; ``telemetry`` (an ``obs.Telemetry``) makes
+  every phase a span and adds the prefetch and stager gauges, the
+  wedged-producer and fused-fallback counters and marks, and per-phase
+  device-memory peaks (``trainer._memory``); ``health`` (an
+  ``obs.HealthConfig``) runs a ``HealthMonitor`` (``trainer._health_monitor``)
+  that beats per step, watches the drained losses and flight-records a
+  stall. None of them syncs or touches the training stream: a run with all
+  three on has the same losses, bitwise.
+
+Not ported: the mp graph service (``engine_backend="mp"`` raises
+``NotImplementedError`` naming ROADMAP Queue 1 item 5). ``use_kernel_aggr``,
 ``use_kernel_rowopt`` and ``fused_use_kernel_pairs`` are kept for config
 parity and select nothing: on the card the kernels always run.
 """
@@ -65,9 +79,13 @@ from repro_torch.embedding import optimizer as emb_opt
 from repro_torch.embedding import table as emb
 from repro_torch.graph.generator import RecsysDataset
 from repro_torch.infer import embed_all_nodes
+from repro_torch.obs.health import HealthMonitor
+from repro_torch.obs.memory import MemoryAccountant
+from repro_torch.obs.trace import span_scope
 from repro_torch.sampling.fused import FusedConfig, FusedDraws, fused_eligibility
 from repro_torch.sampling.pipeline import PipelineConfig, SamplePipeline, make_train_sampler
 from repro_torch.train import optimizer as opt_lib
+from repro_torch.train.attribution import PhaseTimer, device_span_scope, median, phase_scope
 
 log = logging.getLogger("repro_torch.train")
 
@@ -115,9 +133,9 @@ class TrainerConfig:
     fused_use_kernel_pairs: bool = True  # kept for config parity; unused
     # every step dispatch under torch.cuda.set_sync_debug_mode("error")
     sanitize_transfers: bool = True
-    attribution: bool = False
-    telemetry: Optional[object] = None
-    health: Optional[object] = None
+    attribution: bool = False  # PhaseTimer summary into TrainResult.attribution
+    telemetry: Optional[object] = None  # an obs.Telemetry: spans, metrics, memory
+    health: Optional[object] = None  # an obs.HealthConfig: stall and loss watchdog
 
 
 @dataclasses.dataclass
@@ -128,7 +146,7 @@ class TrainResult:
     wall_time_s: float
     pairs_seen: int
     plan: Optional[Dict] = None
-    attribution: Optional[Dict] = None  # not ported; always None
+    attribution: Optional[Dict] = None  # PhaseTimer summary when cfg.attribution
 
 
 def _not_ported(cfg: TrainerConfig) -> None:
@@ -140,13 +158,6 @@ def _not_ported(cfg: TrainerConfig) -> None:
         raise ValueError(f"unknown engine_backend {cfg.engine_backend!r}")
     if cfg.sampling_backend not in ("host", "fused", "auto"):
         raise ValueError(f"unknown sampling_backend {cfg.sampling_backend!r}")
-    for name in ("telemetry", "health"):
-        if getattr(cfg, name) is not None:
-            raise NotImplementedError(
-                f"TrainerConfig.{name} is not ported yet: ROADMAP Queue 1, item 6")
-    if cfg.attribution:
-        raise NotImplementedError(
-            "TrainerConfig.attribution is not ported yet: ROADMAP Queue 1, item 6")
     if cfg.eval_method not in ("device", "ivf", "bruteforce"):
         raise ValueError(f"unknown eval_method {cfg.eval_method!r}")
 
@@ -193,12 +204,23 @@ _DONE = object()
 class _Prefetcher:
     """Bounded background-thread prefetch between the host pipeline and the
     step loop. Producer exceptions re-raise in the consumer, and a producer
-    that dies without its sentinel surfaces as an error, not a hang."""
+    that dies without its sentinel surfaces as an error, not a hang.
 
-    def __init__(self, it: Iterator, depth: int):
+    Optional telemetry: ``queue_gauge`` tracks the queue's fill level, a
+    wedged producer becomes the ``prefetch.wedged_producer`` counter and a
+    trace mark, and ``health_check`` (``HealthMonitor.check``) lets a
+    consumer polling an empty queue raise a watchdog's fault."""
+
+    def __init__(self, it: Iterator, depth: int, queue_gauge=None, telemetry=None,
+                 health_check=None):
         self._q: "queue.Queue" = queue.Queue(maxsize=max(1, int(depth)))
         self._err: Optional[BaseException] = None
         self._stop = threading.Event()
+        self._gauge = queue_gauge
+        self._c_wedged = (telemetry.metrics.counter("prefetch.wedged_producer")
+                          if telemetry is not None else None)
+        self._tracer = telemetry.tracer if telemetry is not None else None
+        self._health_check = health_check
         self._thread = threading.Thread(
             target=self._fill, args=(it,), name="repro-torch-prefetch", daemon=True
         )
@@ -210,6 +232,8 @@ class _Prefetcher:
                 while not self._stop.is_set():
                     try:
                         self._q.put(item, timeout=0.1)
+                        if self._gauge is not None:
+                            self._gauge.set(self._q.qsize())
                         break
                     except queue.Full:
                         continue
@@ -233,6 +257,8 @@ class _Prefetcher:
             try:
                 item = self._q.get(timeout=0.5)
             except queue.Empty:
+                if self._health_check is not None:
+                    self._health_check()
                 if self._thread.is_alive():
                     continue
                 try:  # it may have delivered between the timeout and the check
@@ -248,6 +274,7 @@ class _Prefetcher:
                     log.warning("prefetch producer still running after its "
                                 "end-of-stream sentinel; it is a daemon and will "
                                 "exit with the process")
+                    self._mark_wedged("after-sentinel")
                 if self._err is not None:
                     raise self._err
                 raise StopIteration
@@ -265,6 +292,13 @@ class _Prefetcher:
         if self._thread.is_alive():
             log.warning("prefetch producer still running after close(); it will "
                         "exit after its current sampling round")
+            self._mark_wedged("close")
+
+    def _mark_wedged(self, where: str) -> None:
+        if self._c_wedged is not None:
+            self._c_wedged.inc()
+        if self._tracer is not None:
+            self._tracer.mark("prefetch.wedged_producer", where=where)
 
 
 def _stage(item: Tuple[Dict, int], device: torch.device):
@@ -275,32 +309,48 @@ def _stage(item: Tuple[Dict, int], device: torch.device):
     return model_lib.to_device(host, device), npairs
 
 
-def _staged_batches(it: Iterator, device: torch.device,
-                    double_buffer: bool = True) -> Iterator:
+def _staged_batches(it: Iterator, device: torch.device, timer: Optional[PhaseTimer] = None,
+                    double_buffer: bool = True, staged_gauge=None) -> Iterator:
     """Consumer-side H2D stager. With ``double_buffer`` (any prefetching
     run) batch k+1's copy is issued before batch k is yielded, so the next
     device batch is resident when its step is dispatched; two device
-    batches rotate. The serial path stages one batch at a time."""
+    batches rotate. The serial path stages one batch at a time.
+
+    Phases: ``batch_wait`` is the time blocked on the upstream iterator
+    (queue starvation when prefetching, inline sampling and assembly when
+    serial), ``h2d`` the staging copy itself."""
     it = iter(it)
     if not double_buffer:
-        for item in it:
-            yield _stage(item, device)
-        return
-    item = next(it, _DONE)
+        while True:
+            with phase_scope(timer, "batch_wait"):
+                item = next(it, _DONE)
+            if item is _DONE:
+                return
+            with phase_scope(timer, "h2d"):
+                staged = _stage(item, device)
+            if staged_gauge is not None:
+                staged_gauge.set(1)
+            yield staged
+    with phase_scope(timer, "batch_wait"):
+        item = next(it, _DONE)
     if item is _DONE:
         return
-    pending = _stage(item, device)
-    for item in it:
-        staged = _stage(item, device)
+    with phase_scope(timer, "h2d"):
+        pending = _stage(item, device)
+    while True:
+        with phase_scope(timer, "batch_wait"):
+            item = next(it, _DONE)
+        if item is _DONE:
+            if staged_gauge is not None:
+                staged_gauge.set(1)
+            yield pending
+            return
+        with phase_scope(timer, "h2d"):
+            staged = _stage(item, device)
+        if staged_gauge is not None:
+            staged_gauge.set(2)  # two device batches resident (double buffer)
         yield pending
         pending = staged
-    yield pending
-
-
-def _median(xs: List[float]) -> float:
-    s = sorted(xs)
-    mid = len(s) // 2
-    return s[mid] if len(s) % 2 else 0.5 * (s[mid - 1] + s[mid])
 
 
 def _round_spikes(durs: List[float]) -> List[int]:
@@ -308,7 +358,7 @@ def _round_spikes(durs: List[float]) -> List[int]:
     per-batch host costs; carry batches cost microseconds."""
     if len(durs) < 2:
         return []
-    thr = 4.0 * _median(durs)
+    thr = 4.0 * median(durs)
     return [i for i, d in enumerate(durs) if d > thr]
 
 
@@ -356,6 +406,10 @@ class Graph4RecTrainer:
             if model_lib.bag_slot_specs(model_cfg) and not self._sparse_on else None
         )
         self._plan: Optional[Dict] = None
+        # per-train() observability state, kept for tests and post-mortems
+        # (trainer._health_monitor.fault, trainer._memory.peaks)
+        self._health_monitor: Optional[HealthMonitor] = None
+        self._memory: Optional[MemoryAccountant] = None
         # the fused sampler: built now for "fused" (or the host fallback
         # with a warning), lazily by the calibration for "auto"
         self._fused_sampler = None
@@ -367,8 +421,15 @@ class Graph4RecTrainer:
             else:
                 log.warning("sampling_backend='fused' ineligible: %s; falling back "
                             "to the host pipeline", why)
+                self._count_fused_fallback(why)
         self._train_pairs = np.concatenate(
             [np.stack([u, i], 1) for (u, i) in dataset.train_edges.values()], axis=0)
+
+    def _count_fused_fallback(self, why: str) -> None:
+        tel = self.cfg.telemetry
+        if tel is not None:
+            tel.metrics.counter("trainer.fused_fallback").inc()
+            tel.tracer.mark("trainer.fused_fallback", reason=why)
 
     def _build_fused(self) -> Tuple[bool, str]:
         """Build the fused sampler if the graph passes the memory gate, on
@@ -475,16 +536,18 @@ class Graph4RecTrainer:
     def _step_fn(self):
         return self._sparse_step if self._sparse_on else self._dense_step
 
-    def _host_batches(self, pipeline: SamplePipeline, num: int) -> Iterator[Tuple[Dict, int]]:
+    def _host_batches(self, pipeline: SamplePipeline, num: int,
+                      timer: Optional[PhaseTimer] = None) -> Iterator[Tuple[Dict, int]]:
         """Host pipeline -> (host numpy batch, pairs); runs in the prefetch
         thread when there is one. No H2D copy here: the stager makes it."""
         for batch in pipeline.batches(num):
-            if self._sparse_on:
-                host = model_lib.sparse_host_batch(self.dataset.graph, batch, self.model_cfg,
-                                                   buckets=self._buckets)
-            else:
-                host = model_lib.host_batch(self.dataset.graph, batch, self.model_cfg,
-                                            slot_counts=self._slot_counts)
+            with phase_scope(timer, "assemble"):
+                if self._sparse_on:
+                    host = model_lib.sparse_host_batch(self.dataset.graph, batch,
+                                                       self.model_cfg, buckets=self._buckets)
+                else:
+                    host = model_lib.host_batch(self.dataset.graph, batch, self.model_cfg,
+                                                slot_counts=self._slot_counts)
             yield host, len(batch.src_ids)
 
     def _fused_batch_iter(self) -> Iterator[Tuple[FusedDraws, int]]:
@@ -548,7 +611,7 @@ class Graph4RecTrainer:
             step_fn(p, st, dev)
             self._barrier()
             step_times.append(time.perf_counter() - t0)
-        meas: Dict = {"host_batch_s": host_s, "step_s": _median(step_times[1:])}
+        meas: Dict = {"host_batch_s": host_s, "step_s": median(step_times[1:])}
         depth = 2 if cfg.prefetch_batches is None else cfg.prefetch_batches
         if depth > 0:
             # a round's worth of steps where the spikes showed one
@@ -568,9 +631,10 @@ class Graph4RecTrainer:
                     self._fused_step(p, st, self._fused_sampler.draw(gen))
                     self._barrier()
                     fused_times.append(time.perf_counter() - t0)
-                meas["fused_step_s"] = _median(fused_times[1:])
+                meas["fused_step_s"] = median(fused_times[1:])
             else:
                 meas["fused_ineligible"] = why
+                self._count_fused_fallback(why)
         return meas
 
     def _pipelined_step_s(self, params: Params, depth: int, steps: int) -> float:
@@ -676,10 +740,13 @@ class Graph4RecTrainer:
         ``IVFConfig()`` (as ``repro``'s trainer), or the numpy brute force;
         every held-out user by default."""
         ds = self.dataset
+        tel = self.cfg.telemetry
         model = model_lib.Graph4RecModel(self.model_cfg, params)
-        all_emb = embed_all_nodes(model, self.engine, ds.graph,
-                                  batch_size=self.cfg.eval_batch_size,
-                                  seed=self.cfg.seed + 7, device=self.device)
+        with span_scope(tel.tracer if tel is not None else None, "infer.embed_all_nodes",
+                        cat="eval"):
+            all_emb = embed_all_nodes(model, self.engine, ds.graph,
+                                      batch_size=self.cfg.eval_batch_size,
+                                      seed=self.cfg.seed + 7, device=self.device)
         user_emb = all_emb[: ds.num_users]
         item_emb = all_emb[ds.num_users : ds.num_users + ds.num_items]
         eval_pairs = ds.val_pairs if split == "val" else ds.test_pairs
@@ -687,7 +754,7 @@ class Graph4RecTrainer:
             user_emb, item_emb, self._train_pairs, eval_pairs,
             top_k=self.cfg.eval_top_k, top_n=self.cfg.eval_top_n,
             max_users=self.cfg.eval_max_users, method=self.cfg.eval_method,
-            device=self.device,
+            device=self.device, telemetry=tel,
         )
 
     # ----------------------------------------------------------------- train
@@ -695,6 +762,20 @@ class Graph4RecTrainer:
         cfg = self.cfg
         params = self._device_params(params)
         plan = self._resolve_plan(params)
+        tel = cfg.telemetry
+        tracer = tel.tracer if tel is not None else None
+        # the monitor watches beats and pulses from its own thread and sees
+        # only losses already read back, so it never changes the run
+        monitor = (HealthMonitor(cfg.health, telemetry=tel, client=None)
+                   if cfg.health is not None else None)
+        self._health_monitor = monitor
+        mem = MemoryAccountant(tel.metrics, self.device) if tel is not None else None
+        self._memory = mem
+        # tracing and health ride the timer (spans, pulses); the summary in
+        # TrainResult.attribution stays gated on cfg.attribution alone
+        timer = (PhaseTimer(tracer=tracer, pulse=monitor.pulse if monitor is not None else None,
+                            device=self.device)
+                 if (cfg.attribution or tracer is not None or monitor is not None) else None)
         use_fused = plan["sampling"] == "fused"
         if use_fused:
             opt_state = self.opt.init(params)
@@ -709,46 +790,84 @@ class Graph4RecTrainer:
         drain_tail = max(1, depth + 1)
         evals: List[Dict[str, float]] = []
         pairs_seen = 0
+        steps_done = 0
         prefetcher: Optional[_Prefetcher] = None
         if use_fused:
             batch_iter: Iterator = self._fused_batch_iter()
         else:
             pipeline = make_train_sampler(self.engine, self.pipe_cfg, backend="host",
-                                          seed=cfg.seed)
-            host_iter: Iterator = self._host_batches(pipeline, cfg.num_steps)
-            prefetcher = _Prefetcher(host_iter, depth) if depth > 0 else None
-            batch_iter = _staged_batches(prefetcher if prefetcher is not None else host_iter,
-                                         self.device, double_buffer=depth > 0)
+                                          seed=cfg.seed, timer=timer)
+            host_iter: Iterator = self._host_batches(pipeline, cfg.num_steps, timer)
+            if depth > 0:
+                prefetcher = _Prefetcher(
+                    host_iter, depth,
+                    queue_gauge=(tel.metrics.gauge("prefetch.queue_depth")
+                                 if tel is not None else None),
+                    telemetry=tel,
+                    health_check=monitor.check if monitor is not None else None)
+                host_iter = prefetcher
+            batch_iter = _staged_batches(
+                host_iter, self.device, timer, double_buffer=depth > 0,
+                staged_gauge=(tel.metrics.gauge("stager.device_batches")
+                              if tel is not None else None))
+        if mem is not None:
+            # everything long-lived is resident: parameters, optimizer state
+            # and, for a fused run, the device sampling tables
+            mem.sample("fused" if use_fused else "tables")
         t0 = time.perf_counter()
+        if monitor is not None:
+            monitor.start()
         try:
             for step, (dev, npairs) in enumerate(batch_iter):
-                with _sync_guard(self.device, cfg.sanitize_transfers):
+                with phase_scope(timer, "dispatch"), device_span_scope(timer), \
+                        _sync_guard(self.device, cfg.sanitize_transfers):
                     params, opt_state, loss = step_fn(params, opt_state, dev)
                 loss_hist.append(loss)
                 pairs_seen += npairs
+                steps_done += 1
+                if monitor is not None:
+                    monitor.beat(step)
                 if cfg.sync_every_step:
-                    self._barrier()
+                    with phase_scope(timer, "loss_fetch"):
+                        self._barrier()
                 if cfg.loss_fetch_every and len(loss_hist) >= cfg.loss_fetch_every + drain_tail:
                     done, loss_hist = loss_hist[:-drain_tail], loss_hist[-drain_tail:]
-                    # resolve the previous window (long complete by now) and
-                    # start this one's copy without waiting on it
-                    if pending:
-                        losses.extend(pending.pop(0).resolve())
-                    pending.append(_LossWindow(done))
+                    with phase_scope(timer, "loss_fetch"):
+                        # resolve the previous window (long complete by now)
+                        # and start this one's copy without waiting on it
+                        if pending:
+                            drained = pending.pop(0).resolve()
+                            losses.extend(drained)
+                            if monitor is not None:
+                                monitor.observe_losses(drained)
+                        pending.append(_LossWindow(done))
                 if cfg.log_every and (step + 1) % cfg.log_every == 0:
                     log.info("step %d loss %.4f", step + 1, float(loss))
                 if cfg.eval_every and (step + 1) % cfg.eval_every == 0:
                     evals.append(self.evaluate(params))
         finally:
+            if monitor is not None:
+                monitor.stop()
             if prefetcher is not None:
                 prefetcher.close()
         self._barrier()
         wall = time.perf_counter() - t0
+        observed = len(losses)  # mid-run windows already went past the monitor
         for window in pending:
             losses.extend(window.resolve())
         if loss_hist:
             losses.extend(_LossWindow(loss_hist).resolve())
+        if monitor is not None:
+            # the tail never went through a mid-run window: a run that
+            # diverged in its last steps still fails loudly
+            monitor.observe_losses(losses[observed:])
+        if mem is not None:
+            mem.sample("steady")
         if cfg.eval_at_end:
             evals.append(self.evaluate(params))
+            if mem is not None:
+                mem.sample("eval")
         return TrainResult(params=params, losses=losses, eval_history=evals,
-                           wall_time_s=wall, pairs_seen=pairs_seen, plan=dict(plan))
+                           wall_time_s=wall, pairs_seen=pairs_seen, plan=dict(plan),
+                           attribution=(timer.summary(wall, steps_done)
+                                        if timer is not None and cfg.attribution else None))

@@ -1,8 +1,9 @@
 """The port stands alone: no JAX, no ``repro``, and no silent CPU fallback.
 
 - No module under ``src/repro_torch/``, nor ``chip_smoke.py``,
-  ``examples/recall_torch.py``, ``examples/train_torch.py`` or
-  ``examples/serve_lm_torch.py``, imports ``jax`` or ``repro[.*]``.
+  ``examples/recall_torch.py``, ``examples/train_torch.py``,
+  ``examples/serve_lm_torch.py``, ``examples/eval_torch.py`` or
+  ``examples/warm_start_torch.py``, imports ``jax`` or ``repro[.*]``.
 - Importing the port's entry modules in a fresh interpreter loads neither.
 - ``device=None`` means CUDA: without a card the entry points raise before
   any work, and ``chip_smoke.py`` exits non-zero at its device check.
@@ -25,6 +26,7 @@ REPO = pathlib.Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((REPO / "src" / "repro_torch").rglob("*.py")) + [
     REPO / "chip_smoke.py", REPO / "examples" / "recall_torch.py",
     REPO / "examples" / "train_torch.py", REPO / "examples" / "serve_lm_torch.py",
+    REPO / "examples" / "eval_torch.py", REPO / "examples" / "warm_start_torch.py",
 ]
 
 
@@ -58,6 +60,42 @@ def test_entry_modules_load_no_jax():
     res = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True,
                          text=True, timeout=120)
     assert res.returncode == 0, res.stderr
+
+
+def test_obs_and_sweep_modules_load_no_jax():
+    """The observability layer, attribution, the recall report and the sweep
+    and warm-start examples stand alone too."""
+    code = (
+        "import sys\n"
+        "import repro_torch.obs, repro_torch.obs.health, repro_torch.obs.memory\n"
+        "import repro_torch.train.attribution, repro_torch.launch.recall_report\n"
+        "import eval_torch, warm_start_torch\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
+        "assert not bad, bad\n"
+    )
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(REPO / "src"), str(REPO / "examples")]))
+    res = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True,
+                         text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+
+
+def test_sweep_and_warm_start_default_to_cuda():
+    """``examples/eval_torch.py`` and ``examples/warm_start_torch.py`` take
+    device=None as CUDA, and so does the memory accountant."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: device=None runs there")
+    sys.path.insert(0, str(REPO / "examples"))
+    import eval_torch
+    import warm_start_torch
+    from repro_torch.obs import MemoryAccountant
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        eval_torch.run(eval_torch.parser().parse_args([]))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        warm_start_torch.run(warm_start_torch.parser().parse_args([]))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        MemoryAccountant()
 
 
 def test_ivf_module_loads_no_jax():

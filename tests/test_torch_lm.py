@@ -89,8 +89,9 @@ def test_unported_archs_raise():
         spec.make_train_step(None)
     with pytest.raises(NotImplementedError, match="item 8d"):
         dataclasses.replace(spec, kind="vlm").make_prefill()
-    with pytest.raises(NotImplementedError, match="item 6"):
-        BatchedServer(spec, _pair("smollm-135m", 1)[3], ServeConfig(), telemetry=object())
+    with pytest.raises(NotImplementedError, match="items 8d, 8e"):  # telemetry is ported
+        BatchedServer(dataclasses.replace(spec, kind="whisper"), _pair("smollm-135m", 1)[3],
+                      ServeConfig())
 
 
 # --------------------------------------------------------- norms and RoPE

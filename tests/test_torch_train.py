@@ -35,6 +35,7 @@ from repro_torch.embedding import optimizer as temb_opt
 from repro_torch.graph import TOY as TTOY
 from repro_torch.graph import DistributedGraphEngine as TEngine
 from repro_torch.graph import generate as tgenerate
+from repro_torch.obs import HealthConfig, Telemetry
 from repro_torch.sampling import SamplePipeline as TPipeline
 from repro_torch.train import Graph4RecTrainer as TTrainer
 from repro_torch.train import TrainerConfig as TTrainerConfig
@@ -290,9 +291,13 @@ def test_checkpoint_loads_in_repro(both, tmp_path):
 
 
 @pytest.mark.parametrize("override,match", [
-    (dict(engine_backend="mp"), "item 5"), (dict(telemetry=object()), "item 6"),
-    (dict(health=object()), "item 6"), (dict(attribution=True), "item 6"),
+    (dict(engine_backend="mp"), "item 5"),
+    (dict(engine_backend="mp", telemetry=Telemetry()), "item 5"),
+    (dict(engine_backend="mp", health=HealthConfig()), "item 5"),
+    (dict(engine_backend="mp", attribution=True), "item 5"),
 ])
 def test_unported_options_raise(both, override, match):
+    """The mp graph service is the one trainer option still unported, with
+    or without the observability hooks (ported: tests/test_torch_obs.py)."""
     with pytest.raises(NotImplementedError, match=match):
         _trainer("port", both[1], True, **override)
