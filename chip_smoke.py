@@ -81,6 +81,19 @@ nothing of JAX or of the JAX package ``repro``. Phases, each failing loudly:
    then the h2d phase's work alone (pinning, issuing the copies) and a
    serial control run (prefetch 0: no producer thread to share the
    interpreter lock with);
+   ``mp_training``, the same host path (attribution on) on three graph
+   engines in turns (inproc, mp at the default local threshold 8,192, mp
+   at 0 so every sampling round crosses to a worker process; then the
+   reverse order), two workers, ``os.cpu_count()`` beside them: pairs/s,
+   the per-step split with thread CPU, the device span, local against
+   worker rounds, pickled replies, slab high-water, the workers' start
+   time, resident sets and torch imports, ``/dev/shm``'s free bytes; the
+   six runs' 200 losses bitwise equal, launches equal to the in-process
+   run's and the training phase's; then 60 mp steps with health and
+   telemetry on (every worker answering its heartbeats, worker serve spans
+   in the trace under ``build/chip_smoke/``) and ``train_torch.py
+   --engine-backend mp`` on TOY as a subprocess (the script imports torch,
+   its workers must not: their start and resident sets);
    ``observed_fused``, the same for the fused path, 200 dense steps,
    ``window_pairs`` once a step; ``observed_conformance``, TOY 12 steps
    under deterministic algorithms on the card, losses and parameters with
@@ -1462,6 +1475,161 @@ def observed_training(torch, np, modules, tr: dict) -> dict:
     return out
 
 
+# ------------------------------------------------------------- graph service
+MP_CASES = {  # name -> (engine backend, local threshold): the three engines
+    "inproc": ("inproc", 8192),
+    "mp_8192": ("mp", 8192),  # the default: rounds of <= 8,192 nodes stay in-process
+    "mp_0": ("mp", 0),  # every round crosses to a worker process
+}
+MP_WORKERS = 2  # train_recsys.py's and train_torch.py's --engine-workers default
+
+
+def _mp_args(train_torch, backend: str, threshold: int, steps: int, *extra: str):
+    return train_torch.parser().parse_args(
+        ["--dataset", "ub", "--model", "lightgcn", "--dim", "64", "--side-info",
+         "--batch-pairs", "512", "--steps", str(steps), "--seed", "0", "--prefetch-batches",
+         "2", "--engine-backend", backend, "--engine-workers", str(MP_WORKERS),
+         "--engine-local-threshold", str(threshold), *extra])
+
+
+def _engine_summary(eng: dict) -> dict:
+    """Local against worker rounds, pickled replies, slab high-water, the
+    workers' start, resident sets and torch imports, /dev/shm's free bytes."""
+    if "workers" not in eng:
+        return {"neighbor_requests": eng["neighbor_requests"]}
+    agg, per = eng["workers"], eng["per_worker"]
+    return {"neighbor_requests": eng["neighbor_requests"], "rounds": agg["batches"],
+            "rounds_local": agg["local_batches"],
+            "rounds_worker": agg["batches"] - agg["local_batches"],
+            "neighbor_requests_local": agg["local_neighbor_requests"],
+            "serve_busy_s": agg["busy_s"],  # the workers' rounds and the local ones
+            "pickle_replies": sum(w["pickle_replies"] for w in per),
+            "shm_replies": sum(w["shm_replies"] for w in per),
+            "slab_high_water": eng["slab_high_water"], "workers_start_s": eng["start_s"],
+            "worker_rss_kb": [w["rss_kb"] for w in per],
+            "workers_import_torch": [w["imports_torch"] for w in per],
+            "shm_free_bytes_during": eng["shm_free_bytes"]}
+
+
+def _cli_workers() -> dict:
+    """``examples/train_torch.py --engine-backend mp`` as a user runs it (TOY,
+    20 steps): the script imports torch at module level and its workers,
+    which do not re-run it, must not; their start time, resident sets and
+    torch imports from its output."""
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [os.path.join(ROOT, "src"), os.path.join(ROOT, "examples")]))
+    t0 = time.perf_counter()
+    res = subprocess.run(
+        [sys.executable, os.path.join(ROOT, "examples", "train_torch.py"), "--dataset", "toy",
+         "--steps", "20", "--engine-backend", "mp", "--engine-workers", str(MP_WORKERS),
+         "--engine-local-threshold", "0"],
+        env=env, cwd=ROOT, capture_output=True, text=True, timeout=300)
+    if res.returncode != 0:
+        fail(f"train_torch.py --engine-backend mp exited {res.returncode}: {res.stderr[-3000:]}")
+    start = re.search(r"started in ([0-9.]+)s", res.stdout)
+    rss = re.findall(r"RSS (\d+) KiB, imports torch: (True|False)", res.stdout)
+    if start is None or len(rss) != MP_WORKERS or any(t != "False" for _, t in rss):
+        fail(f"train_torch.py --engine-backend mp: no worker lines, or a worker imported "
+             f"torch: {res.stdout[-2000:]}")
+    return {"workers_start_s": float(start.group(1)), "worker_rss_kb": [int(r) for r, _ in rss],
+            "workers_import_torch": [t == "True" for _, t in rss],
+            "process_s": time.perf_counter() - t0}
+
+
+def mp_training(torch, np, modules, tr: dict) -> dict:
+    """The host training path on the in-process engine and on the graph
+    service, in one process, in turns (inproc, mp 8192, mp 0, mp 0, mp 8192,
+    inproc): UB, 200 sparse steps of 512 pairs, prefetch 2, two workers,
+    attribution on. Losses bitwise equal across all six, launches equal the
+    in-process run's, every round of ``mp_0`` served by a worker and no
+    worker importing torch; then a short mp run with health and telemetry on
+    (every worker answering its heartbeats, worker serve spans in the
+    trace) and ``train_torch.py``'s own workers (numpy-only too)."""
+    import json as json_mod
+
+    import train_torch
+    from repro_torch import obs as tobs
+    from repro_torch.graph.service.shm import shm_free_bytes
+
+    t_phase = time.perf_counter()
+    shm_before = shm_free_bytes()
+    runs: dict = {name: [] for name in MP_CASES}
+    losses0 = launches0 = None
+    for name in ("inproc", "mp_8192", "mp_0", "mp_0", "mp_8192", "inproc"):
+        backend, threshold = MP_CASES[name]
+        _zero(modules)
+        res = train_torch.run(_mp_args(train_torch, backend, threshold, 200, "--attribution"),
+                              sparse_min_rows=0, eval_at_end=False)
+        torch.cuda.synchronize()
+        r, launches = res["result"], _launch_counts(modules)
+        if losses0 is None:
+            losses0, launches0 = r.losses, launches
+        if len(r.losses) != 200 or r.losses != losses0:
+            diff = [i for i, (a, b) in enumerate(zip(r.losses, losses0)) if a != b]
+            fail(f"mp_training ({name}): {len(r.losses)} losses, differing from the in-process "
+                 f"run's at steps {diff[:10]}")
+        for n in ("seg_aggr", "seg_aggr_bwd", "inbatch_loss", "row_adagrad"):
+            if launches[n] != launches0[n] or launches[n] != tr["launches"][n]:
+                fail(f"mp_training ({name}) launched {n} {launches[n]} times; the in-process "
+                     f"run {launches0[n]}, the training phase {tr['launches'][n]}")
+        eng = _engine_summary(res["engine"])
+        if backend == "mp":
+            if any(eng["workers_import_torch"]):
+                fail(f"mp_training ({name}): a graph worker imported torch: {eng}")
+            if threshold == 0 and (eng["rounds_local"] or not eng["rounds_worker"]):
+                fail(f"mp_training ({name}): rounds not all served by workers: {eng}")
+        runs[name].append({"pairs_per_s": r.pairs_seen / r.wall_time_s,
+                           "train_s": r.wall_time_s, "plan": r.plan["reason"],
+                           **_per_step_split(r.attribution, 200), "engine": eng,
+                           "launches": launches})
+    out = {"phase": "mp_training", "dataset": "ub", "update": "sparse", "steps": 200,
+           "engine_workers": MP_WORKERS, "cpu_count": os.cpu_count(),
+           "shm_free_bytes_before": shm_before, "losses_bitwise_equal": True,
+           "training_phase_pairs_per_s": tr["pairs_per_s"],
+           "pairs_per_s": {n: [x["pairs_per_s"] for x in v] for n, v in runs.items()}}
+    for name, v in runs.items():
+        keep = ("phase_ms_per_step", "phase_thread_cpu_ms_per_step", "phase_wait_ms_per_step",
+                "device_span_ms", "wall_ms_per_step", "consumer_share_of_wall")
+        out[name] = {"split": [{k: x[k] for k in keep} for x in v],
+                     "engine": [x["engine"] for x in v], "launches": v[0]["launches"]}
+
+    # heartbeats and worker spans: 60 steps with health and telemetry on
+    trace = os.path.join(ROOT, "build", "chip_smoke", "mp_training.trace.json")
+    tel = tobs.Telemetry()
+    health = tobs.HealthConfig(stall_timeout_s=300.0, worker_heartbeat_s=0.25,
+                               flightrec_dir=os.path.join(ROOT, "build", "chip_smoke",
+                                                          "flightrec_mp_training"))
+    res = train_torch.run(_mp_args(train_torch, "mp", 0, 60), sparse_min_rows=0,
+                          eval_at_end=False, telemetry=tel, health=health)
+    trainer, mon = res["trainer"], res["trainer"]._health_monitor
+    pids = {p.pid for p in trainer.engine._procs}
+    if res["result"].losses != losses0[:60]:
+        fail("mp_training (observed): the traced mp run's losses differ from the in-process run's")
+    if mon.fault is not None or mon.degraded or set(mon._silent) != set(range(MP_WORKERS)) \
+            or any(mon._silent.values()):
+        fail(f"mp_training (observed): worker heartbeats {mon._silent}, degraded {mon.degraded}, "
+             f"fault {mon.fault}")
+    os.makedirs(os.path.dirname(trace), exist_ok=True)
+    tel.write_trace(trace)
+    with open(trace) as f:
+        events = json_mod.load(f)["traceEvents"]
+    serve = [e for e in events if e.get("name") in ("worker.sample", "worker.sampleq")]
+    if not serve or {e["pid"] for e in serve} != pids:
+        fail(f"mp_training (observed): {len(serve)} worker serve spans in the trace, from pids "
+             f"{sorted({e['pid'] for e in serve})}; the workers are {sorted(pids)}")
+    counters = tel.metrics.summary()["counters"]
+    out["observed"] = {"steps": 60, "heartbeat_s": 0.25, "workers_answering": sorted(mon._silent),
+                       "worker_serve_spans": len(serve), "trace": os.path.relpath(trace, ROOT),
+                       "client_rounds_worker": counters.get("client.rounds_worker", 0),
+                       "client_pickle_fallback": counters.get("client.pickle_fallback", 0),
+                       "client_round_latency_ns": tel.metrics.summary()["histograms"].get(
+                           "client.round_latency_ns")}
+    out["cli"] = _cli_workers()
+    out["phase_s"] = time.perf_counter() - t_phase
+    emit(out)
+    return out
+
+
 def observed_fused(torch, np, modules, fu: dict) -> dict:
     """The fused training path with the three hooks on, 200 dense steps;
     ``window_pairs`` launches once a step, as in the fused phase."""
@@ -2296,6 +2464,7 @@ def main() -> None:
     fu = fused_training_path(torch, np, modules, mp["recall"]["u2i"])
     conf = conformance_phase(torch, np)
     ot = observed_training(torch, np, modules, tr)
+    mpt = mp_training(torch, np, modules, tr)
     of = observed_fused(torch, np, modules, fu)
     oc = observed_conformance(torch, np)
     ws = warm_start_phase(torch, np, tr, mp["recall"]["u2i"])
@@ -2332,6 +2501,7 @@ def main() -> None:
                 "ms_from": {k: rec["ms_from"][k] for k in ("kernel", "plain", "library")}}
 
     tl, fl = tr["launches"], fu["launches"]
+    ml = mpt["mp_0"]["launches"]  # the run whose every sampling round crossed to a worker
     emit({"phase": "clocks", "after_kernel_phases": sm_clocks()})
     # the end-to-end numbers again, here, where the end of the output keeps them
     emit({"phase": "summary",
@@ -2362,6 +2532,14 @@ def main() -> None:
               "wall_ms_per_step", "consumer_share_of_wall", "producer_share_of_wall",
               "pairs_per_s_plain", "pairs_per_s_observed", "observed_over_plain", "spans",
               "dropped_spans", "h2d_alone", "serial_control")},
+          "mp_training": {k: mpt[k] for k in (
+              "cpu_count", "engine_workers", "pairs_per_s", "shm_free_bytes_before",
+              "losses_bitwise_equal", "cli", "phase_s")} | {
+              n: {"phase_ms_per_step": mpt[n]["split"][0]["phase_ms_per_step"],
+                  "phase_thread_cpu_ms_per_step":
+                  mpt[n]["split"][0]["phase_thread_cpu_ms_per_step"],
+                  "device_span_ms": mpt[n]["split"][0]["device_span_ms"],
+                  "engine": mpt[n]["engine"][0]} for n in MP_CASES},
           "observed_fused": {k: of[k] for k in (
               "phase_ms_per_step", "phase_thread_cpu_ms_per_step", "device_span_ms",
               "wall_ms_per_step", "pairs_per_s_plain", "pairs_per_s_observed",
@@ -2389,19 +2567,22 @@ def main() -> None:
         entry("seg_aggr", seg, "src/repro_torch/kernels/csrc/seg_aggr.cu",
               "src/repro/kernels/seg_aggr.py:45",
               {"serving": mp["launches"]["seg_aggr"], "training": tl["seg_aggr"],
-               "fused training": fl["seg_aggr"]}),
+               "mp training": ml["seg_aggr"], "fused training": fl["seg_aggr"]}),
         entry("topk", topk, "src/repro_torch/kernels/csrc/topk.cu",
               "src/repro/kernels/topk.py:77",
               {"serving": mp["launches"]["topk"], "1M arm": m1["topk_launches"]}),
         entry("seg_aggr_bwd", seg_bwd, "src/repro_torch/kernels/csrc/seg_aggr.cu",
               "src/repro/kernels/seg_aggr.py:45",
-              {"training": tl["seg_aggr_bwd"], "fused training": fl["seg_aggr_bwd"]}),
+              {"training": tl["seg_aggr_bwd"], "mp training": ml["seg_aggr_bwd"],
+               "fused training": fl["seg_aggr_bwd"]}),
         entry("inbatch_loss", inbatch, "src/repro_torch/kernels/csrc/inbatch_loss.cu",
               "src/repro/kernels/inbatch_loss.py:41",
-              {"training": tl["inbatch_loss"], "fused training": fl["inbatch_loss"]}),
+              {"training": tl["inbatch_loss"], "mp training": ml["inbatch_loss"],
+               "fused training": fl["inbatch_loss"]}),
         entry("row_adagrad", adagrad, "src/repro_torch/kernels/csrc/row_adagrad.cu",
               "src/repro/kernels/row_adagrad.py:41",
-              {"training": tl["row_adagrad"], "fused training": fl["row_adagrad"]}),
+              {"training": tl["row_adagrad"], "mp training": ml["row_adagrad"],
+               "fused training": fl["row_adagrad"]}),
         entry("window_pairs", wp, "src/repro_torch/kernels/csrc/window_pairs.cu",
               "src/repro/kernels/window_pairs.py:38", {"fused training": fl["window_pairs"]}),
         entry("ivf_list_topk", ivf, "src/repro_torch/kernels/csrc/ivf.cu",

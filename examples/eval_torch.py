@@ -18,8 +18,9 @@ inference stage in ``repro``'s sharded npz, so either package reads the
 other's. ``--trace`` writes one Perfetto-loadable trace of every scenario.
 
 It runs on the card; ``--device cpu`` (or ``run(args, device="cpu")``) runs
-the plain PyTorch path. ``--engine-backend mp`` raises: the mp graph service
-is ROADMAP Queue 1 item 5.
+the plain PyTorch path. ``--engine-backend mp`` samples from the
+shared-memory graph service (``--engine-workers`` processes), with the
+in-process engine's batches, bitwise.
 """
 from __future__ import annotations
 
@@ -50,7 +51,9 @@ def build_trainer(ds, model: str, steps: int, dim: int = 32, seed: int = 0,
                   **cfg_overrides) -> Graph4RecTrainer:
     """The scenario trainer ``eval_recsys.py`` builds: ``model`` (a zoo GNN or
     a walk model) at ``dim`` on two click relations, 256 pairs a batch.
-    ``cfg_overrides`` replace ``TrainerConfig`` fields."""
+    ``cfg_overrides`` replace ``TrainerConfig`` fields; under
+    ``engine_backend="mp"`` the trainer gets the bare graph and partitions it
+    into shared memory for its workers."""
     walk_based = model in WALK_MODELS
     mc = Graph4RecConfig(
         embedding=EmbeddingConfig(num_nodes=ds.graph.num_nodes, dim=dim),
@@ -65,10 +68,12 @@ def build_trainer(ds, model: str, steps: int, dim: int = 32, seed: int = 0,
         ego=None if walk_based else EgoConfig(relations=list(RELS), fanouts=[4, 3]),
         batch_pairs=256,
     )
-    cfg = TrainerConfig(num_steps=steps, log_every=0, sparse_lr=1.0, seed=seed,
-                        eval_at_end=False, telemetry=telemetry)
-    return Graph4RecTrainer(ds, DistributedGraphEngine(ds.graph, num_partitions=4), mc, pc,
-                            dataclasses.replace(cfg, **cfg_overrides), device=device)
+    cfg = dataclasses.replace(
+        TrainerConfig(num_steps=steps, log_every=0, sparse_lr=1.0, seed=seed,
+                      eval_at_end=False, telemetry=telemetry), **cfg_overrides)
+    engine = (ds.graph if cfg.engine_backend == "mp"
+              else DistributedGraphEngine(ds.graph, num_partitions=4))
+    return Graph4RecTrainer(ds, engine, mc, pc, cfg, device=device)
 
 
 def parser() -> argparse.ArgumentParser:
@@ -87,7 +92,10 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--ivf-nprobe", type=int, default=8)
     ap.add_argument("--split", default="test", choices=["val", "test"])
     ap.add_argument("--engine-backend", default="inproc", choices=["inproc", "mp"],
-                    help="'mp' (the shared-memory graph service) is not ported yet")
+                    help="'mp' serves partitions from shared-memory worker processes "
+                         "(repro_torch.graph.service) instead of in-process")
+    ap.add_argument("--engine-workers", type=int, default=2,
+                    help="worker processes for --engine-backend=mp")
     ap.add_argument("--export-embeddings", default=None, metavar="PATH",
                     help="save each scenario's (num_nodes, dim) matrix as sharded npz: "
                          "PATH.<dataset>.<model>.npz")
@@ -108,9 +116,6 @@ def run(args: argparse.Namespace, device: DeviceLike = None) -> dict:
     """The sweep; returns the report payload, the markdown table, the
     telemetry and the paths written. ``device`` (or ``--device``) None is
     CUDA."""
-    if args.engine_backend == "mp":
-        raise NotImplementedError("--engine-backend mp (the shared-memory graph service) "
-                                  "is not ported yet: ROADMAP Queue 1, item 5")
     dev = resolve_device(device if device is not None else args.device)
     strategies = tuple(args.strategies.split(","))
     ivf = IVFConfig(nlist=args.ivf_nlist, nprobe=args.ivf_nprobe, seed=args.seed)
@@ -128,14 +133,18 @@ def run(args: argparse.Namespace, device: DeviceLike = None) -> dict:
                 embed_s = time.perf_counter() - t0
             else:
                 trainer = build_trainer(ds, model, args.steps, args.dim, args.seed,
-                                        device=dev, telemetry=telemetry)
-                t0 = time.perf_counter()
-                res = trainer.train()
-                train_s = time.perf_counter() - t0
-                t0 = time.perf_counter()
-                emb = embed_all_nodes(Graph4RecModel(trainer.model_cfg, res.params),
-                                      trainer.engine, ds.graph, seed=args.seed, device=dev)
-                embed_s = time.perf_counter() - t0
+                                        device=dev, telemetry=telemetry,
+                                        engine_backend=args.engine_backend,
+                                        num_engine_workers=args.engine_workers)
+                with trainer:  # reaps the mp engine's workers
+                    t0 = time.perf_counter()
+                    res = trainer.train()
+                    train_s = time.perf_counter() - t0
+                    t0 = time.perf_counter()
+                    emb = embed_all_nodes(Graph4RecModel(trainer.model_cfg, res.params),
+                                          trainer.engine, ds.graph, seed=args.seed,
+                                          device=dev)
+                    embed_s = time.perf_counter() - t0
             if args.export_embeddings:
                 path = export_embeddings(f"{args.export_embeddings}.{ds_name}.{model}", emb,
                                          num_shards=4)

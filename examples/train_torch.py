@@ -16,7 +16,12 @@ trained embeddings. ``--save`` writes ``repro``'s flat ``.npz`` layout, which
 ``save_table`` npz (paper §3.6); ``--export-embeddings`` writes every node's
 trained embedding as ``repro``'s sharded npz. ``--attribution`` prints the
 per-step phase split, ``--trace`` writes a Perfetto-loadable trace and the
-telemetry summary, ``--health`` arms the stall and loss watchdog. A machine
+telemetry summary, ``--health`` arms the stall and loss watchdog.
+``--engine-backend mp`` samples from the shared-memory graph service
+(``repro_torch.graph.service``): CSR shards in ``/dev/shm`` served by
+``--engine-workers`` spawned processes, rounds of at most
+``--engine-local-threshold`` nodes answered in this process; the batches,
+and so the losses, are the in-process engine's, bitwise. A machine
 without CUDA raises; ``--device cpu`` (or ``run(args, device="cpu")``) runs
 the plain PyTorch path.
 """
@@ -34,7 +39,8 @@ from repro_torch import convert
 from repro_torch.core.model import Graph4RecModel
 from repro_torch.device import DeviceLike
 from repro_torch.embedding import load_table, warm_start
-from repro_torch.graph import SPECS, DistributedGraphEngine, generate
+from repro_torch.graph import SPECS, DistributedGraphEngine, GraphClient, generate
+from repro_torch.graph.service.shm import shm_free_bytes
 from repro_torch.infer import embed_all_nodes, export_embeddings
 from repro_torch.obs import HealthConfig, Telemetry
 from repro_torch.sampling import EgoConfig, PairConfig, PipelineConfig
@@ -55,6 +61,15 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--side-info", action="store_true")
     ap.add_argument("--partitions", type=int, default=4,
                     help="graph engine partitions (simulated servers)")
+    ap.add_argument("--engine-backend", default="inproc", choices=["inproc", "mp"],
+                    help="'mp' serves partitions from shared-memory worker processes "
+                         "(repro_torch.graph.service) instead of in-process")
+    ap.add_argument("--engine-workers", type=int, default=2,
+                    help="worker processes for --engine-backend=mp")
+    ap.add_argument("--engine-local-threshold", type=int, default=8192,
+                    help="mp backend: rounds with at most this many total nodes are "
+                         "served in-process over the client's own shard views (0 = every "
+                         "round goes to a worker)")
     ap.add_argument("--sampling-backend", default="host", choices=["host", "fused", "auto"],
                     help="'fused' samples walk->pair->ego on the device inside the "
                          "step when the graph fits the padded-adjacency budget "
@@ -129,9 +144,16 @@ def run(args: argparse.Namespace, device: DeviceLike = None, **trainer_overrides
     ``--device``) None is CUDA."""
     device = device if device is not None else args.device
     ds = generate(SPECS[args.dataset], seed=args.seed)
-    engine = DistributedGraphEngine(ds.graph, num_partitions=args.partitions)
+    # mp: the bare graph, which the client partitions straight into shared
+    # memory, with no in-process partition copies beside the workers' shards
+    engine = (ds.graph if args.engine_backend == "mp"
+              else DistributedGraphEngine(ds.graph, num_partitions=args.partitions))
     model_cfg, pipe_cfg = configs(ds, args)
     tcfg = TrainerConfig(num_steps=args.steps, sparse_lr=1.0, log_every=50, seed=args.seed,
+                         engine_backend=args.engine_backend,
+                         num_engine_workers=args.engine_workers,
+                         num_engine_partitions=args.partitions,
+                         engine_local_threshold=args.engine_local_threshold,
                          prefetch_batches=args.prefetch_batches,
                          sampling_backend=args.sampling_backend,
                          eval_method=args.eval_recall, eval_max_users=args.eval_max_users,
@@ -141,29 +163,52 @@ def run(args: argparse.Namespace, device: DeviceLike = None, **trainer_overrides
                                  if args.health else None))
     tcfg = dataclasses.replace(tcfg, **trainer_overrides)
     trainer = Graph4RecTrainer(ds, engine, model_cfg, pipe_cfg, tcfg, device=device)
-    params = trainer.init_params()
-    if args.warm_start:
-        pre = load_table(args.warm_start)
-        params = warm_start(params, {k if k.startswith("emb/") else f"emb/{k}": v
-                                     for k, v in pre.items()})
-    t0 = time.perf_counter()
-    result = trainer.train(params)
-    train_s = time.perf_counter() - t0
     saved = exported = trace = None
-    if args.save:
-        saved = convert.save(args.save, {k: v.detach().cpu().numpy()
-                                         for k, v in result.params.items()})
-    if args.export_embeddings:
-        emb = embed_all_nodes(Graph4RecModel(model_cfg, result.params), engine, ds.graph,
-                              seed=args.seed, device=trainer.device)
-        exported = export_embeddings(
-            args.export_embeddings, emb, num_shards=4,
-            meta={"dataset": np.bytes_(args.dataset), "model": np.bytes_(args.model)})
-    if args.trace and tcfg.telemetry is not None:
-        trace = tcfg.telemetry.write_trace(args.trace)
+    with trainer:  # reaps the mp engine's workers on exit and on error
+        params = trainer.init_params()
+        if args.warm_start:
+            pre = load_table(args.warm_start)
+            params = warm_start(params, {k if k.startswith("emb/") else f"emb/{k}": v
+                                         for k, v in pre.items()})
+        t0 = time.perf_counter()
+        result = trainer.train(params)
+        train_s = time.perf_counter() - t0
+        if args.save:
+            saved = convert.save(args.save, {k: v.detach().cpu().numpy()
+                                             for k, v in result.params.items()})
+        if args.export_embeddings:
+            emb = embed_all_nodes(Graph4RecModel(model_cfg, result.params), trainer.engine,
+                                  ds.graph, seed=args.seed, device=trainer.device)
+            exported = export_embeddings(
+                args.export_embeddings, emb, num_shards=4,
+                meta={"dataset": np.bytes_(args.dataset), "model": np.bytes_(args.model)})
+        engine_stats = engine_report(trainer.engine)
+        if args.trace and tcfg.telemetry is not None:
+            trace = tcfg.telemetry.write_trace(args.trace)
     return {"dataset": ds, "config": model_cfg, "trainer": trainer, "result": result,
             "train_s": train_s, "saved": saved, "exported": exported,
-            "attribution": result.attribution, "telemetry": tcfg.telemetry, "trace": trace}
+            "attribution": result.attribution, "telemetry": tcfg.telemetry, "trace": trace,
+            "engine": engine_stats}
+
+
+def engine_report(engine) -> dict:
+    """The engine's request counters (the client mirrors the in-process
+    engine's exactly) and, for the mp client, what its workers served, in
+    how many rounds and how many in this process, their start time (spawn
+    to the last ready), resident sets and whether they imported torch, the
+    most slab slots in flight at once and ``/dev/shm``'s free bytes."""
+    out = {"neighbor_requests": engine.stats.neighbor_requests,
+           "cross_partition_requests": engine.stats.cross_partition_requests}
+    if isinstance(engine, GraphClient):
+        out["per_worker"] = [{k: s[k] for k in ("worker_id", "pid", "neighbor_requests",
+                                                "batches", "busy_ns", "shm_replies",
+                                                "pickle_replies", "rss_kb", "imports_torch")}
+                             for s in engine.worker_stats()]
+        out["workers"] = engine.aggregate_stats()
+        out["start_s"] = engine.start_s
+        out["slab_high_water"] = engine.slab_high_water
+        out["shm_free_bytes"] = shm_free_bytes()  # with this run's segments mapped
+    return out
 
 
 def print_attribution(a: dict) -> None:
@@ -193,6 +238,19 @@ def main() -> None:
         print(f"warm-started from {args.warm_start}")
     if res["attribution"]:
         print_attribution(res["attribution"])
+    eng = res["engine"]
+    print(f"engine: {eng['neighbor_requests']} neighbor requests, "
+          f"{eng['cross_partition_requests']} cross-partition")
+    if "workers" in eng:
+        agg = eng["workers"]
+        print(f"workers: {agg['num_workers']} procs served {agg['neighbor_requests']} queries "
+              f"in {agg['batches']} request rounds ({agg['busy_s']:.2f}s busy, "
+              f"{agg['local_neighbor_requests']} answered in-process); started in "
+              f"{eng['start_s']:.2f}s")
+        for w in eng["per_worker"]:
+            print(f"  worker {w['worker_id']} (pid {w['pid']}): {w['batches']} rounds, "
+                  f"{w['shm_replies']} shm / {w['pickle_replies']} pickled replies, RSS "
+                  f"{w['rss_kb']} KiB, imports torch: {w['imports_torch']}")
     if r.eval_history:
         print("recall:", json.dumps({k: round(v, 4) for k, v in r.eval_history[-1].items()}))
     if res["telemetry"] is not None:

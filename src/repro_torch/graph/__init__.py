@@ -1,7 +1,8 @@
-"""The numpy graph layer of the port (copies of ``repro.graph``).
+"""The numpy graph layer of the port (copies of ``repro.graph``), the
+multi-process shared-memory engine (``graph.service``) included.
 
-The multi-process shared-memory engine (``repro.graph.service``) is not
-ported yet: the in-process ``DistributedGraphEngine`` draws the same stream.
+Nothing here imports torch: a spawned graph-service worker imports this
+package and must stay numpy-only.
 """
 from repro_torch.graph.hetero_graph import HeteroGraph, Relation, CSR, SlotFeature
 from repro_torch.graph.generator import (
@@ -11,3 +12,4 @@ from repro_torch.graph.generator import (
 from repro_torch.graph.engine import (
     DistributedGraphEngine, EngineStats, engine_sample_many,
 )
+from repro_torch.graph.service import EngineWorkerError, GraphClient

@@ -32,7 +32,7 @@ from __future__ import annotations
 
 import dataclasses
 import threading
-from typing import Dict, List, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -55,12 +55,26 @@ def sample_csr_rows(
     local_rows: np.ndarray,
     num_samples: int,
     pad_id: int,
+    degs_all: Optional[np.ndarray] = None,
+    out: Optional[np.ndarray] = None,
 ) -> np.ndarray:
     """Uniform with-replacement sampling from CSR rows — the one primitive
-    every partition server runs."""
+    every partition server (in-process or worker process) runs.
+
+    ``degs_all`` (precomputed full-shard degree array) and ``out`` (a
+    caller-provided output buffer, e.g. an int32 view into a shared-memory
+    reply slab) are worker-process fast paths; results are bitwise-equal to
+    the defaults because the random draws see the same numeric bounds.
+    """
     starts = indptr[local_rows]
-    degs = indptr[local_rows + 1] - starts
-    out = np.full((len(local_rows), num_samples), pad_id, dtype=np.int64)
+    if degs_all is not None:
+        degs = degs_all[local_rows]
+    else:
+        degs = indptr[local_rows + 1] - starts
+    if out is None:
+        out = np.full((len(local_rows), num_samples), pad_id, dtype=np.int64)
+    else:
+        out.fill(pad_id)
     has = degs > 0
     if has.any():
         offs = prng.integers(
@@ -108,6 +122,12 @@ class EngineStats:
             self.batches += 1
             self.neighbor_requests += requests
             self.cross_partition_requests += cross
+
+    def reset(self) -> None:
+        with self._lock:
+            self.neighbor_requests = 0
+            self.cross_partition_requests = 0
+            self.batches = 0
 
 
 def _gather_rows(
@@ -209,3 +229,9 @@ class DistributedGraphEngine:
             self.sample_neighbors(rng, nodes, rel, k, pad_id=pad)
             for nodes, rel, k, pad in queries
         ]
+
+    # walkers also need single-neighbor steps; reuse the batched path
+    def step(
+        self, rng: np.random.Generator, nodes: np.ndarray, relation: str, pad_id: int = -1
+    ) -> np.ndarray:
+        return self.sample_neighbors(rng, nodes, relation, 1, pad_id)[:, 0]

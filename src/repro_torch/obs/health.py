@@ -1,8 +1,8 @@
 """Run-health guardrails: flight recorder, stall watchdog, loss anomaly gate.
 
 A copy of ``repro.obs.health`` (stdlib only), so the port imports nothing
-of ``repro``. The port has no mp graph engine yet (ROADMAP Queue 1 item 5),
-so its trainer passes ``client=None``; the heartbeat branch stays for it.
+of ``repro``. The trainer passes its mp engine's ``GraphClient`` (None
+in-process), whose heartbeats the watchdog folds in.
 
 Traces answer *where the time went* after the fact; this module
 answers *is the run still healthy right now*, and leaves a usable

@@ -23,8 +23,8 @@ per-thread ring buffers. The design constraints mirror
   mid-interval (lint rule O001 enforces this across the instrumented
   modules).
 
-Cross-process spans (kept for the port's graph service, ROADMAP Queue 1
-item 5, which is not ported yet): graph-service workers record their serve loop into a
+Cross-process spans (the port's graph service, ``repro_torch.graph.service``):
+graph-service workers record their serve loop into a
 plain local ring (worker.py — no obs import, workers stay numpy-only) and
 ship the tuples back piggybacked on the ``stats`` control round. The client
 feeds them to :meth:`Tracer.ingest` with a clock offset estimated from the

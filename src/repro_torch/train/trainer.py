@@ -31,6 +31,14 @@ The port of ``repro.train.trainer``, for both sampling backends:
   prefetcher and no stager: there is no host batch. A graph whose padded
   tables exceed ``fused_budget_mb`` (estimated, then measured) falls back
   to the host pipeline with a logged warning.
+- **Graph engine** (``engine_backend``): ``"inproc"`` samples from the
+  engine object passed in; ``"mp"`` wraps its graph in a
+  ``graph.service.GraphClient`` (CSR shards in POSIX shared memory, served
+  by ``num_engine_workers`` spawned worker processes, rounds of at most
+  ``engine_local_threshold`` nodes answered in this process over the same
+  shards). Both give the same host batches, bitwise, so the same losses.
+  The trainer owns the client it builds: ``close()``, the context manager
+  and a ``train()`` that raises reap its workers.
 - ``prefetch_batches=None`` lets a short calibration (host batch cost, step
   time, and the measured wall of a few pipelined host steps) choose serial
   or prefetch, and ``sampling_backend="auto"`` adds the fused step's time
@@ -53,16 +61,16 @@ The port of ``repro.train.trainer``, for both sampling backends:
   stall. None of them syncs or touches the training stream: a run with all
   three on has the same losses, bitwise.
 
-Not ported: the mp graph service (``engine_backend="mp"`` raises
-``NotImplementedError`` naming ROADMAP Queue 1 item 5). ``use_kernel_aggr``,
-``use_kernel_rowopt`` and ``fused_use_kernel_pairs`` are kept for config
-parity and select nothing: on the card the kernels always run.
+``use_kernel_aggr``, ``use_kernel_rowopt`` and ``fused_use_kernel_pairs``
+are kept for config parity and select nothing: on the card the kernels
+always run.
 """
 from __future__ import annotations
 
 import contextlib
 import dataclasses
 import logging
+import os
 import queue
 import threading
 import time
@@ -78,6 +86,7 @@ from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.embedding import optimizer as emb_opt
 from repro_torch.embedding import table as emb
 from repro_torch.graph.generator import RecsysDataset
+from repro_torch.graph.service import GraphClient
 from repro_torch.infer import embed_all_nodes
 from repro_torch.obs.health import HealthMonitor
 from repro_torch.obs.memory import MemoryAccountant
@@ -122,9 +131,13 @@ class TrainerConfig:
     adagrad_init_accum: float = 0.1
     use_kernel_rowopt: bool = False  # kept for config parity; unused
     loss_fetch_every: int = 64
-    engine_backend: str = "inproc"  # inproc ("mp" is not ported)
+    engine_backend: str = "inproc"  # inproc | mp (graph.service.GraphClient)
+    # mp worker processes (clamped to the partition count); 0 = half the cores
     num_engine_workers: int = 0
+    # mp partitions when handed a bare HeteroGraph; a built engine's win
     num_engine_partitions: int = 4
+    # mp: rounds of at most this many nodes are served in this process over
+    # the client's own shard views (0 = every round goes to a worker)
     engine_local_threshold: int = 8192
     sampling_backend: str = "host"  # host | fused | auto (calibration decides)
     fused_max_degree: int = 32
@@ -149,12 +162,8 @@ class TrainResult:
     attribution: Optional[Dict] = None  # PhaseTimer summary when cfg.attribution
 
 
-def _not_ported(cfg: TrainerConfig) -> None:
-    if cfg.engine_backend == "mp":
-        raise NotImplementedError(
-            "engine_backend='mp' (the shared-memory graph service) is not ported "
-            "yet: ROADMAP Queue 1, item 5")
-    if cfg.engine_backend != "inproc":
+def _check_config(cfg: TrainerConfig) -> None:
+    if cfg.engine_backend not in ("inproc", "mp"):
         raise ValueError(f"unknown engine_backend {cfg.engine_backend!r}")
     if cfg.sampling_backend not in ("host", "fused", "auto"):
         raise ValueError(f"unknown sampling_backend {cfg.sampling_backend!r}")
@@ -372,10 +381,9 @@ class Graph4RecTrainer:
         cfg: TrainerConfig = TrainerConfig(),
         device: DeviceLike = None,
     ):
-        _not_ported(cfg)
+        _check_config(cfg)
         self.device = resolve_device(device)
         self.dataset = dataset
-        self.engine = engine
         self.model_cfg = model_cfg
         self.pipe_cfg = pipe_cfg
         self.cfg = cfg
@@ -424,6 +432,32 @@ class Graph4RecTrainer:
                 self._count_fused_fallback(why)
         self._train_pairs = np.concatenate(
             [np.stack([u, i], 1) for (u, i) in dataset.train_edges.values()], axis=0)
+        # last, so nothing after it can fail and strand the workers it starts
+        self._engine_workers = (cfg.num_engine_workers if cfg.num_engine_workers > 0
+                                else max(1, (os.cpu_count() or 2) // 2))
+        self._owned_client: Optional[GraphClient] = None
+        if cfg.engine_backend == "mp":
+            # a built engine lends its partitioning; a bare HeteroGraph is
+            # partitioned straight into shared memory, with no in-process copy
+            kw = ({} if hasattr(engine, "graph")
+                  else {"num_partitions": cfg.num_engine_partitions})
+            engine = self._owned_client = GraphClient(
+                engine, num_workers=self._engine_workers,
+                local_threshold=cfg.engine_local_threshold, telemetry=cfg.telemetry, **kw)
+        self.engine = engine
+
+    # ------------------------------------------------------------ lifecycle
+    def close(self) -> None:
+        """Reap the mp engine's worker processes. Idempotent; also runs on
+        context-manager exit and when ``train()`` raises."""
+        if self._owned_client is not None:
+            self._owned_client.shutdown()
+
+    def __enter__(self) -> "Graph4RecTrainer":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.close()
 
     def _count_fused_fallback(self, why: str) -> None:
         tel = self.cfg.telemetry
@@ -676,7 +710,10 @@ class Graph4RecTrainer:
         cfg = self.cfg
         auto_prefetch = cfg.prefetch_batches is None
         auto_sampling = cfg.sampling_backend == "auto"
-        plan: Dict = {"engine_backend": cfg.engine_backend, "calibrated": False}
+        plan: Dict = {"engine_backend": cfg.engine_backend,
+                      "engine_workers": (self._engine_workers if cfg.engine_backend == "mp"
+                                         else None),
+                      "calibrated": False}
         calibrate = (cfg.auto_backend and (auto_prefetch or auto_sampling)
                      and cfg.num_steps >= cfg.calibrate_min_steps)
         if not calibrate:
@@ -759,6 +796,15 @@ class Graph4RecTrainer:
 
     # ----------------------------------------------------------------- train
     def train(self, params: Optional[Mapping] = None) -> TrainResult:
+        try:
+            return self._train(params)
+        except BaseException:
+            # a failed run (a producer error, a dead engine worker, an
+            # interrupt, in calibration or in the loop) leaves no worker behind
+            self.close()
+            raise
+
+    def _train(self, params: Optional[Mapping]) -> TrainResult:
         cfg = self.cfg
         params = self._device_params(params)
         plan = self._resolve_plan(params)
@@ -766,7 +812,7 @@ class Graph4RecTrainer:
         tracer = tel.tracer if tel is not None else None
         # the monitor watches beats and pulses from its own thread and sees
         # only losses already read back, so it never changes the run
-        monitor = (HealthMonitor(cfg.health, telemetry=tel, client=None)
+        monitor = (HealthMonitor(cfg.health, telemetry=tel, client=self._owned_client)
                    if cfg.health is not None else None)
         self._health_monitor = monitor
         mem = MemoryAccountant(tel.metrics, self.device) if tel is not None else None
@@ -867,6 +913,10 @@ class Graph4RecTrainer:
             evals.append(self.evaluate(params))
             if mem is not None:
                 mem.sample("eval")
+        if tracer is not None and self._owned_client is not None:
+            # the workers' serve spans since the last stats round, into the
+            # trace before the caller exports it
+            self._owned_client.drain_worker_spans()
         return TrainResult(params=params, losses=losses, eval_history=evals,
                            wall_time_s=wall, pairs_seen=pairs_seen, plan=dict(plan),
                            attribution=(timer.summary(wall, steps_done)

@@ -11,7 +11,7 @@
 - Attribution: ``TrainResult.attribution`` has ``repro``'s keys and phase
   counts; a run with attribution, telemetry and health on has the same
   losses, bitwise, as one with them off (host sparse, host dense, fused;
-  deterministic algorithms); ``engine_backend="mp"`` still raises.
+  deterministic algorithms); the mp engine with all three hooks on.
 - Traced recall and serving: ``evaluate_recall(telemetry=)`` gives a span
   per corpus search, histogram counts equal to the searches and the
   untraced metrics; a traced ``BatchedServer`` gives the untraced outputs
@@ -286,10 +286,20 @@ def test_hooks_leave_losses_bitwise(both, case, deterministic, tmp_path):
         assert tel.metrics.summary()["gauges"]["prefetch.queue_depth"]["max"] >= 1
 
 
-def test_attribution_off_by_default_and_mp_still_raises(both):
+def test_attribution_off_by_default_and_mp_still_raises(both, tmp_path):
+    """Attribution is off by default; the mp engine (which no longer raises)
+    runs with all three hooks: the monitor holds the client, the host
+    phases are attributed and the workers' serve spans reach the tracer."""
     assert _trainer("port", both[1], True, steps=3).train().attribution is None
-    with pytest.raises(NotImplementedError, match="item 5"):
-        _trainer("port", both[1], True, engine_backend="mp", **_all_hooks("."))
+    hooks = _all_hooks(tmp_path)
+    tr = _trainer("port", both[1], True, steps=6, prefetch_batches=2, engine_backend="mp",
+                  engine_local_threshold=0, **hooks)
+    with tr:
+        a = tr.train().attribution
+        assert tr._health_monitor._client is tr.engine and tr._health_monitor.fault is None
+    assert a["phases"]["sample"]["count"] >= 1 and a["phases"]["dispatch"]["count"] == 6
+    workers = [name for name, _, spans, _ in hooks["telemetry"].tracer.foreign() if spans]
+    assert set(workers) == {"graph-worker-0", "graph-worker-1"}
 
 
 def test_fused_fallback_counter_and_mark(both):

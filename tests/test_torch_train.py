@@ -12,6 +12,7 @@
   identical, and a port checkpoint loads in ``repro``.
 """
 import dataclasses
+import os
 
 import jax
 import jax.numpy as jnp
@@ -290,14 +291,23 @@ def test_checkpoint_loads_in_repro(both, tmp_path):
     assert {k: v.shape for k, v in loaded.items()} == want
 
 
-@pytest.mark.parametrize("override,match", [
-    (dict(engine_backend="mp"), "item 5"),
-    (dict(engine_backend="mp", telemetry=Telemetry()), "item 5"),
-    (dict(engine_backend="mp", health=HealthConfig()), "item 5"),
-    (dict(engine_backend="mp", attribution=True), "item 5"),
-])
-def test_unported_options_raise(both, override, match):
-    """The mp graph service is the one trainer option still unported, with
-    or without the observability hooks (ported: tests/test_torch_obs.py)."""
-    with pytest.raises(NotImplementedError, match=match):
-        _trainer("port", both[1], True, **override)
+@pytest.mark.parametrize("override", [
+    dict(engine_backend="mp"),
+    dict(engine_backend="mp", telemetry=Telemetry()),
+    dict(engine_backend="mp", health=HealthConfig()),
+    dict(engine_backend="mp", attribution=True),
+], ids=["mp", "mp-telemetry", "mp-health", "mp-attribution"])
+def test_unported_options_raise(both, override):
+    """No trainer option is left unported: the mp graph service trains with
+    and without each observability hook, to the in-process run's losses
+    bitwise, and reaps its workers on exit; an unknown backend raises."""
+    base = _trainer("port", both[1], True, steps=3).train().losses
+    tr = _trainer("port", both[1], True, steps=3, engine_local_threshold=0, **override)
+    with tr:
+        assert tr.train().losses == base
+        assert tr.train().plan["engine_backend"] == "mp"
+        # half the cores, clamped to the two partitions
+        assert tr.engine.num_workers == min(2, max(1, (os.cpu_count() or 2) // 2))
+    assert not any(p.is_alive() for p in tr.engine._procs)
+    with pytest.raises(ValueError, match="engine_backend"):
+        _trainer("port", both[1], True, engine_backend="bogus")

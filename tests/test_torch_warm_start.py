@@ -211,9 +211,13 @@ def test_recall_report_equals_repro(exported):
 
 
 def test_sweep_mp_raises(examples):
+    """``--engine-backend mp`` (which no longer raises) gives the in-process
+    sweep's report: the same batches, so the same embeddings and metrics."""
     et = examples["eval_torch"]
-    with pytest.raises(NotImplementedError, match="item 5"):
-        et.run(et.parser().parse_args(["--engine-backend", "mp"]), device="cpu")
+    flags = ["--steps", "4", "--models", "lightgcn", "--strategies", "u2i"]
+    inproc, mp = (et.run(et.parser().parse_args(flags + ["--engine-backend", b]),
+                         device="cpu")["payload"]["results"] for b in ("inproc", "mp"))
+    assert [r["metrics"] for r in mp] == [r["metrics"] for r in inproc]
 
 
 def test_warm_start_example_runs(examples, tmp_path):
