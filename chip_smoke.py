@@ -122,6 +122,18 @@ nothing of JAX or of the JAX package ``repro``. Phases, each failing loudly:
    and the tokens the requests hold (prompts and outputs) per second;
    the reduced model in f32, card vs CPU under deterministic algorithms,
    forward and 16 decode steps to rtol/atol 1e-4;
+6c. LM training, smollm-135m at full width through
+   ``repro_torch.launch.train``'s ``run`` (B 4 x S 2,048, 20 steps, lr
+   3e-4, seed 0; the port's bf16 init, which Adam turns f32 at step 1 as
+   ``repro``'s does): ``flash_attention`` and ``flash_attention_bwd``
+   launches zeroed before and read after each step (30 forwards and 30
+   remat recomputes, 30 backward calls of three kernels each), every
+   parameter f32 after step 1, the loss falling; tokens/s and the step
+   wall, the bf16 first step apart; one more step profiled (the flash
+   forward's and backward's device time and share); the first backward
+   call of each (shape, dtype) recorded; then the reduced model in f32, 5
+   steps on the CPU and twice on the card under deterministic algorithms:
+   losses and parameters to 1e-4, the two card runs bitwise;
 7. the launch floor: the time ``measure`` reports for an empty kernel of
    the same library, one block and one wave of blocks, on a line of its own;
    then kernel phases: each kernel against its plain PyTorch version on the
@@ -141,14 +153,19 @@ nothing of JAX or of the JAX package ``repro``. Phases, each failing loudly:
    arm, each shape's launch plan (query tile, splits = cluster size,
    blocks), and the U2I call with fewer exclusions and a smaller k, to
    show where its time goes; ``inbatch_loss``: every kept call, bitwise on
-   a re-run), then (``seg_aggr``,
+   a re-run; ``flash_attention_bwd``: the first LM training call of each
+   dtype against ``attention_bwd_ref``, f32 to rtol 1e-4, bf16 to 2^-6 of
+   each row's largest value, a bitwise re-run, beside the backward of
+   ``scaled_dot_product_attention`` through autograd), then (``seg_aggr``,
    ``topk``, ``inbatch_loss``, ``window_pairs``, ``flash_attention``) at
    synthetic shapes (``topk``: 1,024 queries against 20,000 and 1M items,
    k 1 and k 256, an exclusion row past the shared cap, integer-valued
    ties exactly, a bitwise re-run; ``inbatch_loss``: P 2,048 and 8,192 at
    d 64, 8,192 at d 256, each beside the library call; flash: f32 to rtol
    1e-5 / atol 2e-5, causal and not, a tail tile, qwen2's G 7,
-   starcoder2's bf16 (1, 8,192, 36, 4, 128) with its 4,096 window); one
+   starcoder2's bf16 (1, 8,192, 36, 4, 128) with its 4,096 window; the
+   backward at the same shapes, from the forward kernel's output and LSE
+   and a random dO); one
    JSON line per shape with the kernel's device time, the plain version's,
    one library call's (for ``ivf_list_topk`` none, the
    plain version with ``torch.topk`` as a yardstick; for
@@ -2017,6 +2034,23 @@ FLASH_BF16_ATOL = 3e-2
 # bound sits between the two: 2.9x the larger reading, 1/5.6 of the smaller fault.
 FLASH_BF16_ROW_REL = 2.0 ** -4
 BF16_FLOP_PER_S = 989e12  # H100 SXM data sheet, dense bf16 tensor cores
+# the backward kernel against attention_bwd_ref on the same inputs, forward output and LSE:
+# both sum the same f32 products in other orders. f32: rtol 1e-4 with a floor of 1e-4 of the
+# tensor's largest |value| (a training call's dO is the loss's gradient, ~1/(B S), so an
+# absolute floor would not scale). bf16: both round the f32 sums once, and one rounding step
+# apart is at most 2^-7 of a value, so each row (hd columns) is held to 2^-6 of its largest
+# |value|; two summation orders of the plain version read at most 4.9e-3 on the CPU
+# (B 1, S 1,024, hd 128, window 256), and a tile dropped reads whole rows wrong. A row
+# whose exact gradient cancels to 0 (dq of a query that sees one key: dP - D = 0) holds
+# only f32 rounding residue, different in each order, so no row's scale is taken below
+# 2^-10 of the tensor's largest |value| (the residue is ~1e-7 of it; an H100 read a row
+# scale of 1.0 on such a row, hd 128, window 64, where the whole tensor read 3.3e-4)
+FLASH_BWD_RTOL = 1e-4
+# the training forward's LSE (m + log l, f32, values ~1e1) against attention_fwd_ref's
+# logsumexp: the same f32 logits, the row sum in another order
+FLASH_LSE_RTOL = FLASH_LSE_ATOL = 1e-5
+FLASH_BWD_BF16_ROW_REL = 2.0 ** -6
+FLASH_BWD_ROW_FLOOR = 2.0 ** -10
 FLASH_SYNTHETIC = (  # ((B, S, H, K, hd), dtype, causal, window)
     ((2, 256, 4, 2, 64), "float32", True, None),
     ((2, 256, 4, 2, 64), "float32", False, None),
@@ -2032,11 +2066,24 @@ def _rel(a, b) -> float:
     return ((a - b).abs().max() / b.abs().max()).item()
 
 
-def _row_rel(got, want) -> float:
+def _row_rel(got, want, floor: float = 0.0) -> float:
     """max over rows (every index but the last) of max |got - want| over the
-    row's hd columns / max |want| over them, in f32."""
+    row's hd columns / max |want| over them, in f32; with ``floor``, no
+    row's scale is taken below ``floor`` times the largest |want|."""
     g, w = got.float(), want.float()
-    return ((g - w).abs().amax(-1) / w.abs().amax(-1).clamp_min(1e-30)).max().item()
+    scale = w.abs().amax(-1).clamp_min(max(1e-30, floor * w.abs().max().item()))
+    return ((g - w).abs().amax(-1) / scale).max().item()
+
+
+def flash_bwd_ok(got, want) -> bool:
+    """The backward kernel's output ``got`` within its tolerance of the
+    plain version's ``want`` (FLASH_BWD_RTOL, FLASH_BWD_BF16_ROW_REL)."""
+    import torch
+
+    if got.dtype == torch.bfloat16:
+        return _row_rel(got, want, FLASH_BWD_ROW_FLOOR) <= FLASH_BWD_BF16_ROW_REL
+    return torch.allclose(got, want, rtol=FLASH_BWD_RTOL,
+                          atol=FLASH_BWD_RTOL * want.abs().max().item())
 
 
 def _flash_key(call):
@@ -2213,11 +2260,171 @@ def lm_path(torch, np, fa_mod) -> dict:
     return out
 
 
+# --------------------------------------------------------------- LM training
+LM_TRAIN_STEPS, LM_TRAIN_LR = 20, 3e-4
+LM_CONF_STEPS = 5  # the reduced model, card vs CPU and card twice
+LM_CONF_RTOL = LM_CONF_ATOL = 1e-4  # five f32 Adam steps, other summation orders
+
+
+def _keeping_first(module, name: str, key_of, kept: dict):
+    """Wrap ``module.name`` so that the arguments of its first call of each
+    ``key_of(args)`` land in ``kept``; returns the restoring function.
+    (``recording`` keeps every call: the training phase's 600 backward
+    calls would hold tens of GB of saved activations.)"""
+    real = getattr(module, name)
+
+    def spy(*args):
+        kept.setdefault(key_of(args), args)
+        return real(*args)
+
+    setattr(module, name, spy)
+    return lambda: setattr(module, name, real)
+
+
+def _lm_conformance(torch, np) -> dict:
+    """The reduced model in f32, ``LM_CONF_STEPS`` steps of ``launch/train.py``'s
+    ``run`` on the CPU and twice on the card from the same seeded weights,
+    under deterministic algorithms."""
+    from repro_torch.launch import train as lm_train
+
+    def args(device: str):
+        return lm_train.parser().parse_args(
+            ["--arch", LM_ARCH, "--reduced", "--steps", str(LM_CONF_STEPS), "--seed", "1",
+             "--device", device])
+
+    torch.use_deterministic_algorithms(True)
+    try:
+        cpu, card, again = (lm_train.run(args(d)) for d in ("cpu", "cuda", "cuda"))
+    finally:
+        torch.use_deterministic_algorithms(False)
+    if card["spec"].lm.dtype != "float32":
+        fail("lm training conformance: the reduced model is not f32")
+    loss_diff = float(np.max(np.abs(np.subtract(card["losses"], cpu["losses"]))))
+    if not np.allclose(card["losses"], cpu["losses"], rtol=LM_CONF_RTOL, atol=LM_CONF_ATOL):
+        fail(f"lm training conformance: card vs CPU losses differ by {loss_diff}")
+    want = cpu["model"].state_dict()
+    param_diff = 0.0
+    for name, t in card["model"].state_dict().items():
+        param_diff = max(param_diff, (t.cpu() - want[name]).abs().max().item())
+        if not torch.allclose(t.cpu(), want[name], rtol=LM_CONF_RTOL, atol=LM_CONF_ATOL):
+            fail(f"lm training conformance: {name} card vs CPU differs")
+    twin = again["model"].state_dict()
+    if card["losses"] != again["losses"] or any(
+            not torch.equal(t, twin[n]) for n, t in card["model"].state_dict().items()):
+        fail("lm training conformance: two same-seed card runs differ")
+    return {"arch": card["arch"], "steps": LM_CONF_STEPS, "dtype": "float32",
+            "loss_max_abs_diff": loss_diff, "param_max_abs_diff": param_diff,
+            "card_runs_identical": True, "losses_card": card["losses"],
+            "rtol": LM_CONF_RTOL, "atol": LM_CONF_ATOL}
+
+
+def lm_training(torch, np, fa_mod) -> dict:
+    """LM training on smollm-135m at full width through
+    ``repro_torch.launch.train``'s ``run`` (B 4 x S 2,048, the prefill's
+    shape; 20 steps, lr 3e-4, seed 0; bf16 weights from the port's init,
+    which Adam turns f32 at step 1 as ``repro``'s does): launches zeroed
+    before and read after each step (per step ``flash_attention`` n_layers
+    forwards, twice with remat, and n_layers backward calls of three
+    launches each), every
+    parameter f32 after step 1, the loss falling; tokens/s and the step wall
+    with the bf16 first step apart; one more step profiled for the flash
+    forward's and backward's device time; the first backward call of each
+    (shape, dtype) recorded. Then the reduced model's conformance."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as lm_train
+
+    args = lm_train.parser().parse_args(
+        ["--arch", LM_ARCH, "--batch", str(LM_BATCH), "--seq", str(LM_SEQ),
+         "--steps", str(LM_TRAIN_STEPS), "--lr", str(LM_TRAIN_LR), "--seed", "0"])
+    per_step, dtypes = [], []
+    seen = {"fwd": 0, "bwd": 0}
+
+    def after_step(step, model, loss):
+        per_step.append({"fwd": fa_mod.launches - seen["fwd"],
+                         "bwd": fa_mod.bwd_launches - seen["bwd"]})
+        seen.update(fwd=fa_mod.launches, bwd=fa_mod.bwd_launches)
+        dtypes.append(sorted({str(p.dtype).replace("torch.", "") for p in model.parameters()}))
+
+    kept: dict = {}
+    restore = _keeping_first(ops, "flash_attention_bwd", lambda a: (
+        tuple(a[0].shape), tuple(a[1].shape), str(a[0].dtype), a[6], a[7]), kept)
+    fa_mod.launches = fa_mod.bwd_launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        res = lm_train.run(args, after_step=after_step)
+    finally:
+        restore()
+    spec, model = res["spec"], res["model"]
+    cfg = spec.lm
+    want = {"fwd": cfg.n_layers * (2 if cfg.remat else 1),
+            "bwd": cfg.n_layers * len(fa_mod.BWD_KERNELS)}
+    if any(s != want for s in per_step):
+        fail(f"lm training: launches a step {per_step}, want {want} (n_layers "
+             f"{cfg.n_layers}, remat {cfg.remat})")
+    if cfg.dtype != "bfloat16" or dtypes[0] != ["float32"]:
+        fail(f"lm training: parameter dtypes after step 1 {dtypes[0]} (config {cfg.dtype}); "
+             "repro's Adam turns every bf16 parameter f32 at step 1")
+    losses = res["losses"]
+    if not (np.all(np.isfinite(losses)) and losses[-1] < losses[0]):
+        fail(f"lm training: the loss did not fall: {losses}")
+    tokens = LM_BATCH * LM_SEQ
+    f32_s = res["step_s"][1:]
+    out = {"phase": "lm training", "arch": spec.arch_id, "batch": LM_BATCH, "seq": LM_SEQ,
+           "steps": LM_TRAIN_STEPS, "lr": LM_TRAIN_LR, "config_dtype": cfg.dtype,
+           "remat": cfg.remat, "microbatches": spec.microbatches,
+           "params": sum(p.numel() for p in model.parameters()),
+           "dtypes_after_step": dtypes[:2], "losses": losses,
+           "launches": {"flash_attention": fa_mod.launches,
+                        "flash_attention_bwd": fa_mod.bwd_launches},
+           "launches_per_step": want, "bwd_calls_per_step": cfg.n_layers,
+           "step_s": res["step_s"],
+           "bf16_step_s": res["step_s"][0], "f32_step_s_median": statistics.median(f32_s),
+           "tokens_per_s": res["tokens_per_s"],
+           "f32_tokens_per_s": tokens * len(f32_s) / sum(f32_s),
+           "peak_allocated_gib": torch.cuda.max_memory_allocated() / 2**30}
+
+    # one more (f32) step profiled: the flash kernels' share of its device time
+    batch = lm_train.synth_batch(res["rng"], spec, LM_BATCH, LM_SEQ, "cuda")
+    state = res["opt_state"]
+    for _ in range(CUPTI_TRIES):  # until the profile keeps every flash record
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            model, state, loss = res["step_fn"](model, state, batch)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        dev = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+        fwd = [e for e in dev if "flash_fwd_kernel" in e.key]
+        bwd = [e for e in dev if "flash_bwd_" in e.key]
+        if (sum(e.count for e in fwd) == want["fwd"]
+                and sum(e.count for e in bwd) == want["bwd"]):
+            break
+    else:
+        fail(f"lm training: {CUPTI_TRIES} profiles of a step lost flash kernel records")
+    total_us = sum(e.self_device_time_total for e in dev)
+    out["profiled_step"] = {
+        "wall_ms": wall * 1e3, "device_ms": total_us / 1e3,
+        "flash_fwd_ms": sum(e.self_device_time_total for e in fwd) / 1e3,
+        "flash_bwd_ms": sum(e.self_device_time_total for e in bwd) / 1e3,
+        "flash_bwd_by_kernel_ms": {e.key: e.self_device_time_total / 1e3 for e in bwd},
+        "flash_share": sum(e.self_device_time_total for e in fwd + bwd) / total_us}
+    out["conformance"] = _lm_conformance(torch, np)
+    out["bwd_calls"] = [{"shape": list(k[0]), "kv_shape": list(k[1]), "dtype": k[2],
+                         "causal": k[3], "window": k[4]} for k in kept]
+    emit(out)
+    out["bwd_calls"] = list(kept.values())
+    del model, res, state
+    return out
+
+
 def flash_build_phase(torch, build, fa_mod, lib) -> None:
     """The flash kernel as built: each instantiation's registers, local
     memory bytes (spills and stack) and dynamic shared memory, and whether
     its SASS holds HGMMA (``cuobjdump -sass`` on the library). The bf16
-    instantiations must run on the tensor cores and must not spill."""
+    instantiations must run on the tensor cores and must not spill. The
+    backward's three kernels' registers, local and shared bytes beside."""
     cuobjdump = os.path.join(os.path.dirname(build.find_nvcc()), "cuobjdump")
     sass = subprocess.run([cuobjdump, "-sass", str(lib)], capture_output=True, text=True,
                           check=True, timeout=300).stdout
@@ -2242,6 +2449,10 @@ def flash_build_phase(torch, build, fa_mod, lib) -> None:
             if dtype == torch.bfloat16 and rec["local_bytes"]:
                 fail(f"flash build: the bf16 kernel at hd {hd} uses {rec['local_bytes']} bytes "
                      "of local memory (spills)")
+    # the backward's three kernels (CUDA cores, both dtypes), reported
+    out["backward"] = {f"{str(dtype).replace('torch.', '')} hd {hd}":
+                       fa_mod.bwd_kernel_attrs(dtype, hd)
+                       for dtype in (torch.bfloat16, torch.float32) for hd in fa_mod.HEAD_DIMS}
     emit(out)
 
 
@@ -2332,26 +2543,58 @@ def _flash_plain(torch, ref, q, k, v, causal, window, block: int = 1024):
                       for i in range(0, q.shape[1], block)], dim=1)
 
 
-def _flash_record(torch, np, ref, fa_cuda, q, k, v, causal, window, source: str) -> dict:
-    import torch.nn.functional as F
+def _flash_fwd_plain(torch, ref, q, k, v, causal, window, block: int = 1024):
+    """``attention_fwd_ref`` (output and LSE), in query blocks of ``block``
+    where Sq is larger."""
+    if q.shape[1] <= block:
+        return ref.attention_fwd_ref(q, k, v, causal, window)
+    parts = [ref.attention_fwd_ref(q[:, i:i + block], k, v, causal, window, i)
+             for i in range(0, q.shape[1], block)]
+    return torch.cat([o for o, _ in parts], dim=1), torch.cat([m for _, m in parts], dim=2)
 
-    B, Sq, H, hd = q.shape
-    Skv, K = k.shape[1], k.shape[2]
-    got = fa_cuda(q, k, v, causal, window)
-    want = _flash_plain(torch, ref, q, k, v, causal, window)
-    torch.cuda.synchronize()
+
+def _check_flash_fwd(torch, got, want, what: str) -> dict:
+    """The forward kernel's output against its plain version's: f32 to
+    FLASH_RTOL / FLASH_ATOL, bf16 to FLASH_BF16_ATOL and FLASH_BF16_ROW_REL;
+    fails on a disagreement, else returns the errors and |want|'s scale."""
     err = (got.float() - want.float()).abs().max().item()
     row_rel = _row_rel(got, want)
     want_abs = want.float().abs()
     scale = {"want_abs_max": want_abs.max().item(), "want_abs_median": want_abs.median().item()}
     del want_abs
-    bf16 = q.dtype == torch.bfloat16
-    ok = (err <= FLASH_BF16_ATOL and row_rel <= FLASH_BF16_ROW_REL if bf16
+    ok = (err <= FLASH_BF16_ATOL and row_rel <= FLASH_BF16_ROW_REL
+          if got.dtype == torch.bfloat16
           else torch.allclose(got, want, rtol=FLASH_RTOL, atol=FLASH_ATOL))
     if not ok:
-        fail(f"flash_attention {tuple(q.shape)} K={K} {q.dtype} causal={causal} "
-             f"window={window} ({source}) disagrees with its plain version: max abs {err}, "
-             f"row-scaled {row_rel}, |want| {scale}")
+        fail(f"{what} disagrees with its plain version: max abs {err}, row-scaled {row_rel}, "
+             f"|want| {scale}")
+    return {"max_abs_err": err, "row_rel_err": row_rel, **scale}
+
+
+def _flash_record(torch, np, ref, fa_cuda, q, k, v, causal, window, source: str,
+                  with_lse: bool = False) -> dict:
+    """The forward kernel against its plain version on one call, timed beside
+    the plain version, SDPA and the bound. ``with_lse``: the call as the
+    training forward makes it, which also writes the LSE (checked too)."""
+    import torch.nn.functional as F
+
+    B, Sq, H, hd = q.shape
+    Skv, K = k.shape[1], k.shape[2]
+    what = (f"flash_attention {tuple(q.shape)} K={K} {q.dtype} causal={causal} "
+            f"window={window} ({source})")
+    if with_lse:
+        got, lse = fa_cuda(q, k, v, causal, window, with_lse=True)
+        want, want_lse = _flash_fwd_plain(torch, ref, q, k, v, causal, window)
+        lse_err = (lse - want_lse).abs().max().item()
+        if not torch.allclose(lse, want_lse, rtol=FLASH_LSE_RTOL, atol=FLASH_LSE_ATOL):
+            fail(f"{what}: its LSE disagrees with the plain one by {lse_err}")
+        del lse, want_lse
+    else:
+        got = fa_cuda(q, k, v, causal, window)
+        want = _flash_plain(torch, ref, q, k, v, causal, window)
+    torch.cuda.synchronize()
+    checked = _check_flash_fwd(torch, got, want, what)
+    bf16 = q.dtype == torch.bfloat16
     pairs = _band_pairs(np, Sq, Skv, causal, window)
     flops = 4.0 * hd * pairs * B * H
     nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
@@ -2363,7 +2606,8 @@ def _flash_record(torch, np, ref, fa_cuda, q, k, v, causal, window, source: str)
     tc_ms = max(t_bytes, flops / BF16_FLOP_PER_S * 1e3)
     t_ops = flops / (BF16_FLOP_PER_S if bf16 else FP32_FLOP_PER_S) * 1e3
     big = flops > 1e11
-    kern = measure(lambda: fa_cuda(q, k, v, causal, window), 5 if big else 50, floor_ms=tc_ms)
+    kern = measure(lambda: fa_cuda(q, k, v, causal, window, with_lse=with_lse), 5 if big else 50,
+                   floor_ms=tc_ms)
     plain = measure(lambda: _flash_plain(torch, ref, q, k, v, causal, window),
                     2 if big else 10, warmup=1, floor_ms=tc_ms)
     qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
@@ -2383,13 +2627,14 @@ def _flash_record(torch, np, ref, fa_cuda, q, k, v, causal, window, source: str)
     rec = {"phase": "kernel", "name": "flash_attention", "source": source,
            "shape": {"B": B, "Sq": Sq, "Skv": Skv, "H": H, "K": K, "hd": hd},
            "dtype": str(q.dtype).replace("torch.", ""), "causal": causal, "window": window,
-           "max_abs_err": err, "row_rel_err": row_rel, **scale,
-           **times(kernel=kern, plain=plain, library=lib),
+           "with_lse": with_lse, **checked, **times(kernel=kern, plain=plain, library=lib),
            "band_pairs": pairs, "flop": flops,
            "kernel_tflop_per_s": flops / kern["device_ms"] / 1e9,
            "bound_ms": max(t_bytes, t_ops),
            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
            "f32_core_bound_ms": f32_core_ms, "bf16_tc_bound_ms": tc_ms}
+    if with_lse:
+        rec["lse_max_abs_err"] = lse_err
     if bf16:
         rec["exact_share"] = (got == want).float().mean().item()
     emit(rec)
@@ -2412,6 +2657,116 @@ def flash_phase(torch, np, ref, fa_cuda, calls: list) -> dict:
         v = torch.randn(B, S, K, hd, device="cuda", generator=gen).to(dtype)
         _flash_record(torch, np, ref, fa_cuda, q, k, v, causal, window, "synthetic")
     return main
+
+
+def _flash_bwd_record(torch, np, ref, fa_mod, q, k, v, o, lse, do, causal, window,
+                      source: str) -> dict:
+    """The forward kernel's ``o`` and ``lse`` that the call was given against
+    ``attention_fwd_ref``'s (both feed the plain version below as well, so
+    only this check sees them); the backward kernel against
+    ``attention_bwd_ref`` on the call (the same q, k, v, o, lse and dO), a
+    bitwise re-run, and its time beside the
+    plain version's, the library's (the backward of
+    ``scaled_dot_product_attention(enable_gqa=True)`` through autograd,
+    timed apart from its forward) and the bound (10 hd FLOP a (query, key)
+    pair of the band: S recomputed, dP, dV, dQ, dK)."""
+    import torch.nn.functional as F
+
+    B, Sq, H, hd = q.shape
+    Skv, K = k.shape[1], k.shape[2]
+    bwd = fa_mod.flash_attention_bwd_cuda
+    block = 1024 if Sq > 1024 else None
+    what = (f"flash_attention {tuple(q.shape)} K={K} {q.dtype} causal={causal} "
+            f"window={window} ({source}, the backward's input)")
+    want_o, want_lse = _flash_fwd_plain(torch, ref, q, k, v, causal, window)
+    fwd = _check_flash_fwd(torch, o, want_o, what)
+    lse_err = (lse - want_lse).abs().max().item()
+    if not torch.allclose(lse, want_lse, rtol=FLASH_LSE_RTOL, atol=FLASH_LSE_ATOL):
+        fail(f"{what}: its LSE disagrees with the plain one by {lse_err}")
+    del want_o, want_lse
+
+    def plain():
+        return ref.attention_bwd_ref(q, k, v, o, lse, do, causal, window, block_q=block)
+
+    got = bwd(q, k, v, o, lse, do, causal, window)
+    want = plain()
+    torch.cuda.synchronize()
+    errs = {n: (g.float() - w.float()).abs().max().item() for n, g, w in zip("qkv", got, want)}
+    rels = {n: _row_rel(g, w, FLASH_BWD_ROW_FLOOR) for n, g, w in zip("qkv", got, want)}
+    if not all(flash_bwd_ok(g, w) for g, w in zip(got, want)):
+        fail(f"flash_attention_bwd {tuple(q.shape)} K={K} {q.dtype} causal={causal} "
+             f"window={window} ({source}) disagrees with attention_bwd_ref: max abs {errs}, "
+             f"row-scaled {rels}, |want| max {[w.abs().max().item() for w in want]}")
+    again = bwd(q, k, v, o, lse, do, causal, window)
+    if not all(torch.equal(a, b) for a, b in zip(got, again)):
+        fail(f"flash_attention_bwd {tuple(q.shape)} ({source}): a re-run is not bitwise equal")
+    del got, want, again
+    bf16 = q.dtype == torch.bfloat16
+    pairs = _band_pairs(np, Sq, Skv, causal, window)
+    flops = 10.0 * hd * pairs * B * H
+    nbytes = (2 * (q.numel() + k.numel() + v.numel()) + o.numel() + do.numel()) \
+        * q.element_size() + lse.numel() * 4
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / (BF16_FLOP_PER_S if bf16 else FP32_FLOP_PER_S) * 1e3
+    big = flops > 1e11
+    kern = measure(lambda: bwd(q, k, v, o, lse, do, causal, window), 5 if big else 20,
+                   floor_ms=max(t_bytes, t_ops))
+    pl = measure(plain, 2 if big else 10, warmup=1, floor_ms=max(t_bytes, t_ops))
+    leaves = [t.detach().transpose(1, 2).requires_grad_() for t in (q, k, v)]
+    if window is None:
+        lib_out = F.scaled_dot_product_attention(*leaves, is_causal=causal, enable_gqa=True)
+    else:
+        i = torch.arange(Sq, device=q.device)[:, None]
+        j = torch.arange(Skv, device=q.device)[None, :]
+        band = j > i - window
+        if causal:
+            band &= j <= i
+        lib_out = F.scaled_dot_product_attention(*leaves, attn_mask=band, enable_gqa=True)
+    g_out = do.transpose(1, 2)
+    lib = measure(lambda: torch.autograd.grad(lib_out, leaves, g_out, retain_graph=True),
+                  5 if big else 20, floor_ms=max(t_bytes, t_ops))
+    del lib_out, leaves
+    rec = {"phase": "kernel", "name": "flash_attention_bwd", "source": source,
+           "shape": {"B": B, "Sq": Sq, "Skv": Skv, "H": H, "K": K, "hd": hd},
+           "dtype": str(q.dtype).replace("torch.", ""), "causal": causal, "window": window,
+           "max_abs_err": max(errs.values()), "max_abs_err_by_grad": errs,
+           "row_rel_err": rels, "do_abs_max": do.abs().max().item(), "rerun_bitwise": True,
+           "o_max_abs_err": fwd["max_abs_err"], "o_row_rel_err": fwd["row_rel_err"],
+           "lse_max_abs_err": lse_err,
+           **times(kernel=kern, plain=pl, library=lib),
+           "band_pairs": pairs, "flop": flops,
+           "kernel_tflop_per_s": flops / kern["device_ms"] / 1e9,
+           "bound_ms": max(t_bytes, t_ops),
+           "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+    emit(rec)
+    return rec
+
+
+def flash_bwd_phase(torch, np, ref, fa_mod, calls: list, prefill_keys: set):
+    """The backward kernel on the first training call of each (shape,
+    dtype), then at ``FLASH_SYNTHETIC``'s shapes (the forward kernel's
+    output and LSE, a random dO): f32 causal and not, a tail tile, qwen2's
+    G 7, starcoder2's bf16 layout with its 4,096 window. The forward kernel,
+    with its LSE, on each training call whose key the prefill's records do
+    not have (the f32 steps'). Returns the main backward record and those
+    forward records."""
+    fwd = [_flash_record(torch, np, ref, fa_mod.flash_attention_cuda, q, k, v, causal, window,
+                         "lm training path", with_lse=True)
+           for q, k, v, _, _, _, causal, window in calls
+           if _flash_key(((q, k), {"causal": causal, "window": window})) not in prefill_keys]
+    recs = [_flash_bwd_record(torch, np, ref, fa_mod, *c, "lm training path") for c in calls]
+    main = max(recs, key=lambda r: (r["dtype"] == "float32", r["flop"]))
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    for (B, S, H, K, hd), dtype, causal, window in FLASH_SYNTHETIC:
+        dtype = getattr(torch, dtype)
+        q = torch.randn(B, S, H, hd, device="cuda", generator=gen).to(dtype)
+        k = torch.randn(B, S, K, hd, device="cuda", generator=gen).to(dtype)
+        v = torch.randn(B, S, K, hd, device="cuda", generator=gen).to(dtype)
+        do = torch.randn(B, S, H, hd, device="cuda", generator=gen).to(dtype)
+        o, lse = fa_mod.flash_attention_cuda(q, k, v, causal, window, with_lse=True)
+        _flash_bwd_record(torch, np, ref, fa_mod, q, k, v, o, lse, do, causal, window,
+                          "synthetic")
+    return main, fwd
 
 
 def main() -> None:
@@ -2470,6 +2825,7 @@ def main() -> None:
     ws = warm_start_phase(torch, np, tr, mp["recall"]["u2i"])
     sw = sweep_phase(torch, np, modules)
     lm = lm_path(torch, np, fa_mod)
+    lt = lm_training(torch, np, fa_mod)
     gc.collect()
     torch.cuda.empty_cache()  # the IVF phases' blocks: leave the card's memory free
     emit({"phase": "clocks", "before_kernel_phases": sm_clocks(),
@@ -2491,14 +2847,22 @@ def main() -> None:
                     {"ivf serving": iv["calls"]["ivf serving"],
                      "ivf exhaustive": iv["calls"]["ivf exhaustive"], "1M arm": m1["calls"]})
     flash = flash_phase(torch, np, ref, fa_mod.flash_attention_cuda, lm["calls"])
+    flash_bwd, flash_train = flash_bwd_phase(torch, np, ref, fa_mod, lt["bwd_calls"],
+                                             {_flash_key(c) for c in lm["calls"]})
 
-    def entry(name, rec, source, replaces, by_path):
-        return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
-                "launches": sum(by_path.values()), "launches_by_path": by_path,
-                "max_abs_err": rec["max_abs_err"], "ms": rec["kernel_ms"],
+    def timing(rec):
+        return {"max_abs_err": rec["max_abs_err"], "ms": rec["kernel_ms"],
                 "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
                 "bound_by": rec["bound_by"], "library_ms": rec["library_ms"],
                 "ms_from": {k: rec["ms_from"][k] for k in ("kernel", "plain", "library")}}
+
+    def entry(name, rec, source, replaces, by_path, other_calls=()):
+        out = {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+               "launches": sum(by_path.values()), "launches_by_path": by_path, **timing(rec)}
+        if other_calls:  # the same kernel timed at another call of the path
+            out["other_calls"] = [{"source": r["source"], "shape": r["shape"],
+                                   "dtype": r["dtype"], **timing(r)} for r in other_calls]
+        return out
 
     tl, fl = tr["launches"], fu["launches"]
     ml = mpt["mp_0"]["launches"]  # the run whose every sampling round crossed to a worker
@@ -2562,7 +2926,13 @@ def main() -> None:
               "consistency": {k: lm["consistency"][k] for k in (
                   "f32_prefill_vs_decode", "bf16_prefill_vs_decode", "bf16_prefill_vs_f32",
                   "bf16_decode_vs_f32")},
-              "card_vs_cpu_max_abs_diff": lm["card_vs_cpu"]["max_abs_diff"]}})
+              "card_vs_cpu_max_abs_diff": lm["card_vs_cpu"]["max_abs_diff"]},
+          "lm_training": {k: lt[k] for k in (
+              "arch", "tokens_per_s", "f32_tokens_per_s", "bf16_step_s", "f32_step_s_median",
+              "profiled_step", "launches", "peak_allocated_gib")} | {
+              "loss_first": lt["losses"][0], "loss_last": lt["losses"][-1],
+              "conformance": {k: lt["conformance"][k] for k in (
+                  "loss_max_abs_diff", "param_max_abs_diff", "card_runs_identical")}}})
     print(json.dumps({"kernels": [
         entry("seg_aggr", seg, "src/repro_torch/kernels/csrc/seg_aggr.cu",
               "src/repro/kernels/seg_aggr.py:45",
@@ -2591,7 +2961,11 @@ def main() -> None:
                "ivf exhaustive": iv["exhaustive"]["launches"], "1M arm": m1["launches"]}),
         entry("flash_attention", flash, "src/repro_torch/kernels/csrc/flash_attn.cu",
               "src/repro/kernels/flash_attn.py:81",
-              {"lm prefill": lm["launches"]["flash_attention"]}),
+              {"lm prefill": lm["launches"]["flash_attention"],
+               "lm training": lt["launches"]["flash_attention"]}, flash_train),
+        entry("flash_attention_bwd", flash_bwd, "src/repro_torch/kernels/csrc/flash_attn_bwd.cu",
+              "src/repro/kernels/ops.py:139 (no VJP); src/repro/models/layers.py:205",
+              {"lm training": lt["launches"]["flash_attention_bwd"]}),
     ]}), flush=True)
     print(smi, flush=True)  # the card's name and power limit, as nvidia-smi gives them
     print(json.dumps({"ok": True, "device": {

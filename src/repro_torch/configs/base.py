@@ -4,12 +4,12 @@
 Every arch module provides ``full()`` (the published config) and
 ``reduced()`` (a 2-layer smoke variant), each an ``ArchSpec``. The spec
 builds parameters (``init_params``), the serve-step cache (``init_cache``)
-and the step functions: prefill (the full-sequence forward, last-position
-logits), the one-token serve step and the loss (forward only).
-``repro``'s abstract shapes, sharding specs, depth probes and support
-table serve its TPU dry-run (ROADMAP Queue 1 item 8f) and are left out,
-with the VLM and Whisper fields; the training step needs the attention
-backward (item 8a). A ``vlm`` or ``whisper`` spec raises (items 8d, 8e).
+and the step functions: the loss, the training step (loss, gradients and
+an optimizer step), prefill (the full-sequence forward, last-position
+logits) and the one-token serve step. ``repro``'s abstract shapes, sharding
+specs, depth probes and support table serve its TPU dry-run (ROADMAP Queue
+1 item 8f) and are left out, with the VLM and Whisper fields. A ``vlm`` or
+``whisper`` spec raises (items 8d, 8e).
 """
 from __future__ import annotations
 
@@ -85,9 +85,58 @@ class ArchSpec:
         return loss
 
     def make_train_step(self, optimizer) -> Callable:
-        raise NotImplementedError(
-            "LM training is not ported yet: it needs the attention backward "
-            "(ROADMAP Queue 1 item 8a)")
+        """``train_step(model, opt_state, batch) -> (model, opt_state, loss)``
+        with ``optimizer`` from ``repro_torch.train.optimizer`` and
+        ``opt_state = optimizer.init(dict(model.named_parameters()))``.
+
+        The loss and its gradient in every parameter
+        (``torch.autograd.grad`` over ``dict(model.named_parameters())``),
+        then ``optimizer.update`` and ``apply_updates``. With
+        ``microbatches`` k > 1 the batch axis splits into k equal parts
+        whose losses and gradients are summed from zeros, in order, and
+        divided by k, as ``repro`` does.
+
+        The parameters are updated IN PLACE and the same model is returned
+        (``repro`` returns a new tree): each parameter takes its new value
+        by a copy, or, where the update changed its dtype (``adam`` turns a
+        bf16 parameter f32 at the first step, as ``repro``'s does: ROADMAP
+        C6), by replacing its ``data``. The loss comes back detached.
+        """
+        from repro_torch.train import optimizer as opt_lib
+
+        loss_fn = self.make_train_loss()
+        k = self.microbatches
+
+        def train_step(model, opt_state, batch):
+            params = dict(model.named_parameters())
+            leaves = list(params.values())
+            if k == 1:
+                loss = loss_fn(model, batch)
+                grads = torch.autograd.grad(loss, leaves)
+            else:  # gradient accumulation over k microbatches (batch dim split)
+                loss = torch.zeros((), dtype=torch.float32, device=leaves[0].device)
+                grads = [torch.zeros_like(p) for p in leaves]
+                for i in range(k):
+                    mb = {n: x.reshape((k, x.shape[0] // k) + x.shape[1:])[i]
+                          for n, x in batch.items()}
+                    lk = loss_fn(model, mb)
+                    gk = torch.autograd.grad(lk, leaves)
+                    loss = loss + lk.detach()
+                    grads = [g + d for g, d in zip(grads, gk)]
+                loss = loss / k
+                grads = [g / k for g in grads]
+            with torch.no_grad():
+                updates, opt_state = optimizer.update(dict(zip(params, grads)), opt_state,
+                                                      params)
+                new = opt_lib.apply_updates(params, updates)
+                for name, p in params.items():
+                    if new[name].dtype == p.dtype:
+                        p.copy_(new[name])
+                    else:
+                        p.data = new[name]
+            return model, opt_state, loss.detach()
+
+        return train_step
 
     def make_prefill(self) -> Callable:
         """Prefill: the full-sequence forward, last-position logits

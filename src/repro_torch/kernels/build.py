@@ -52,8 +52,10 @@ _SIGNATURES = {
     "g4r_window_pairs_i32": (_P, _P, _P, _P, _LL, _I, _I, _P),
     "g4r_ivf_list_topk_i8": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _LL, _I, _P),
     "g4r_ivf_attrs": (_I, _I, _I, _I, _I, _I, _P),
-    "g4r_flash_attn_fwd": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, *(_LL,) * 12, _F, _I,
-                           _I, _P),
+    "g4r_flash_attn_fwd": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, *(_LL,) * 12, _F,
+                           _I, _I, _P),
+    "g4r_flash_attn_bwd": (*(_P,) * 10, *(_I,) * 7, _P, _F, _I, _I, _P),
+    "g4r_flash_attn_bwd_attrs": (_I, _I, _I, _P),
     "g4r_flash_wgmma_probe": (_P, _P, _P, _P, _P, _P),
     "g4r_flash_attn_attrs": (_I, _I, _P),
     "g4r_empty": (_I, _I, _P),  # an empty kernel: the launch floor (chip_smoke.py)

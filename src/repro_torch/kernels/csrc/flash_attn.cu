@@ -1,5 +1,5 @@
 // Blockwise online-softmax (flash) attention, causal / sliding-window GQA,
-// forward only, for Hopper (sm_90a).
+// the forward, for Hopper (sm_90a); the backward is flash_attn_bwd.cu.
 //
 // Replaces the TPU kernel repro/kernels/flash_attn.py:flash_attention_pallas
 // (pallas_call at :103). q (B, Sq, H, hd) and k, v (B, Skv, K, hd), read in
@@ -15,6 +15,10 @@
 // masked behaves exactly as in the Pallas kernel: p = 1, wiped later by
 // alpha = 0). KV tiles wholly outside the causal band or the window are never
 // loaded (the Pallas kernel's pl.when), which keeps a window linear in S.
+// Where the caller passes an lse pointer (the training forward), each stored
+// row also writes its log-sum-exp, lse[b, h, i] = m + log l in natural
+// units, one f32 a row, which the backward's P = exp(s * scale - lse) needs;
+// the prefill passes null and stores nothing more.
 //
 // What bounds it on this card: operations. Attention at the model's shapes
 // does 4 * hd FLOP per (query, key) pair in the band against 2 * hd * 2 bytes
@@ -105,7 +109,8 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  int group, long long qsb, long long qss, long long qsh,
                  long long ksb, long long kss, long long ksh, long long vsb,
                  long long vss, long long vsh, long long osb, long long oss,
-                 long long osh, float scale, int causal, int window) {
+                 long long osh, float* __restrict__ lse, float scale, int causal,
+                 int window) {
   constexpr int QS = HD + 1;   // row stride of the Q tile
   constexpr int KS = kBK + 1;  // row stride of K^T and P
   constexpr int CPT = HD / 16; // accumulator columns per thread
@@ -242,13 +247,16 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
     float* orow = o + b * osb + qpos * oss + h * osh;
 #pragma unroll
     for (int c = 0; c < CPT; ++c) orow[tx + 16 * c] = acc[i][c] / den;
+    // the row's 16 lanes hold the same m and l (reduced by the shuffles)
+    if (lse != nullptr && tx == 0)
+      lse[((long long)b * gridDim.y + h) * sq + qpos] = m[i] + logf(den);
   }
 }
 
 template <int HD>
-int launch_f32(const void* q, const void* k, const void* v, void* o, int b_rows, int sq,
-               int skv, int heads, int group, const long long* st, float scale, int causal,
-               int window, cudaStream_t stream) {
+int launch_f32(const void* q, const void* k, const void* v, void* o, float* lse, int b_rows,
+               int sq, int skv, int heads, int group, const long long* st, float scale,
+               int causal, int window, cudaStream_t stream) {
   constexpr int smem = f32_smem_bytes<HD>();
   cudaError_t err = cudaFuncSetAttribute(flash_fwd_kernel<HD>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -256,8 +264,8 @@ int launch_f32(const void* q, const void* k, const void* v, void* o, int b_rows,
   const dim3 grid((unsigned)((sq + kBQ - 1) / kBQ), (unsigned)heads, (unsigned)b_rows);
   flash_fwd_kernel<HD><<<grid, kThreads, smem, stream>>>(
       (const float*)q, (const float*)k, (const float*)v, (float*)o, sq, skv, group, st[0],
-      st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8], st[9], st[10], st[11], scale,
-      causal, window);
+      st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8], st[9], st[10], st[11], lse,
+      scale, causal, window);
   return (int)cudaGetLastError();
 }
 
@@ -525,7 +533,8 @@ flash_fwd_kernel_wgmma(const __grid_constant__ CUtensorMap tq,
                        const __grid_constant__ CUtensorMap tk,
                        const __grid_constant__ CUtensorMap tv, __nv_bfloat16* __restrict__ o,
                        int sq, int skv, int group, long long osb, long long oss,
-                       long long osh, float scale_log2, int causal, int window) {
+                       long long osh, float* __restrict__ lse, float scale_log2, int causal,
+                       int window) {
   using W = WgmmaShape<HD>;
   extern __shared__ uint8_t smem_raw[];
   const WgmmaSmem<HD> sm(smem_raw);
@@ -665,6 +674,10 @@ flash_fwd_kernel_wgmma(const __grid_constant__ CUtensorMap tq,
         *reinterpret_cast<__nv_bfloat162*>(orow + col) = __floats2bfloat162_rn(
             acc[4 * j + 2 * r] / l[r], acc[4 * j + 2 * r + 1] / l[r]);
     }
+    // the quad holds the row's m (log2 units) and summed l: one store a row
+    if (lse != nullptr && (lane & 3) == 0)
+      lse[((long long)b * gridDim.x + h) * sq + qpos] =
+          (m[r] + log2f(l[r])) * 0.6931471805599453f;
   }
 }
 
@@ -758,8 +771,8 @@ int encode(CUtensorMap* map, const void* ptr, int hd, int heads, int seq, int b_
 }
 
 template <int HD>
-int launch_bf16(const void* q, const void* k, const void* v, void* o, int b_rows, int sq,
-                int skv, int heads, int kv_heads, const long long* st, float scale,
+int launch_bf16(const void* q, const void* k, const void* v, void* o, float* lse, int b_rows,
+                int sq, int skv, int heads, int kv_heads, const long long* st, float scale,
                 int causal, int window, cudaStream_t stream) {
   using W = WgmmaShape<HD>;
   const long long n_qt = (sq + kWBQ - 1) / kWBQ;
@@ -774,7 +787,7 @@ int launch_bf16(const void* q, const void* k, const void* v, void* o, int b_rows
   if (cerr != cudaSuccess) return (int)cerr;
   const dim3 grid((unsigned)heads, (unsigned)b_rows, (unsigned)n_qt);
   flash_fwd_kernel_wgmma<HD><<<grid, kWThreads, W::SMEM, stream>>>(
-      tq, tk, tv, (__nv_bfloat16*)o, sq, skv, heads / kv_heads, st[9], st[10], st[11],
+      tq, tk, tv, (__nv_bfloat16*)o, sq, skv, heads / kv_heads, st[9], st[10], st[11], lse,
       scale * 1.4426950408889634f, causal, window);
   return (int)cudaGetLastError();
 }
@@ -784,10 +797,11 @@ int launch_bf16(const void* q, const void* k, const void* v, void* o, int b_rows
 // q (B, Sq, H, hd), k and v (B, Skv, K, hd), o (B, Sq, H, hd), all of one
 // dtype (0: f32, 1: bf16), innermost stride 1; strides in elements for the
 // (batch, sequence, head) axes of q, k, v and o (bf16: multiples of 8, with
-// 16-byte aligned bases, for TMA). window <= 0 means none. Returns
-// cudaGetLastError() after the launch.
+// 16-byte aligned bases, for TMA). lse, when not null, is a contiguous (B, H,
+// Sq) f32 output. window <= 0 means none. Returns cudaGetLastError() after
+// the launch.
 extern "C" int g4r_flash_attn_fwd(const void* q, const void* k, const void* v, void* o,
-                                  int dtype, int b_rows, int sq, int skv, int heads,
+                                  float* lse, int dtype, int b_rows, int sq, int skv, int heads,
                                   int kv_heads, int hd, long long qsb, long long qss,
                                   long long qsh, long long ksb, long long kss,
                                   long long ksh, long long vsb, long long vss,
@@ -801,20 +815,20 @@ extern "C" int g4r_flash_attn_fwd(const void* q, const void* k, const void* v, v
   cudaStream_t s = (cudaStream_t)stream;
   if (dtype == 0) {
     switch (hd) {
-      case 32: return launch_f32<32>(q, k, v, o, b_rows, sq, skv, heads, group, st, scale,
+      case 32: return launch_f32<32>(q, k, v, o, lse, b_rows, sq, skv, heads, group, st, scale,
                                      causal, window, s);
-      case 64: return launch_f32<64>(q, k, v, o, b_rows, sq, skv, heads, group, st, scale,
+      case 64: return launch_f32<64>(q, k, v, o, lse, b_rows, sq, skv, heads, group, st, scale,
                                      causal, window, s);
-      case 128: return launch_f32<128>(q, k, v, o, b_rows, sq, skv, heads, group, st, scale,
+      case 128: return launch_f32<128>(q, k, v, o, lse, b_rows, sq, skv, heads, group, st, scale,
                                        causal, window, s);
     }
   } else if (dtype == 1) {
     switch (hd) {
-      case 32: return launch_bf16<32>(q, k, v, o, b_rows, sq, skv, heads, kv_heads, st,
+      case 32: return launch_bf16<32>(q, k, v, o, lse, b_rows, sq, skv, heads, kv_heads, st,
                                       scale, causal, window, s);
-      case 64: return launch_bf16<64>(q, k, v, o, b_rows, sq, skv, heads, kv_heads, st,
+      case 64: return launch_bf16<64>(q, k, v, o, lse, b_rows, sq, skv, heads, kv_heads, st,
                                       scale, causal, window, s);
-      case 128: return launch_bf16<128>(q, k, v, o, b_rows, sq, skv, heads, kv_heads, st,
+      case 128: return launch_bf16<128>(q, k, v, o, lse, b_rows, sq, skv, heads, kv_heads, st,
                                         scale, causal, window, s);
     }
   }

@@ -1,21 +1,29 @@
-"""CUDA wrapper: causal / sliding-window GQA flash attention (``csrc/flash_attn.cu``).
+"""CUDA wrappers: causal / sliding-window GQA flash attention, forward
+(``csrc/flash_attn.cu``) and backward (``csrc/flash_attn_bwd.cu``).
 
-The Hopper counterpart of ``repro/kernels/flash_attn.py:flash_attention_pallas``,
-forward only: q (B, Sq, H, hd) and k, v (B, Skv, K, hd), in the model's
-layout (no transpose copy: the kernel reads through the strides), give
-(B, Sq, H, hd) in q's dtype. f32 or bf16, hd in {32, 64, 128}, any Sq and
-Skv. Two kernels, by dtype: bf16 runs on the tensor cores (``wgmma``, with
-K/V tiles brought by TMA; the unnormalised softmax weights p are rounded to
-bf16 before the PV product, the row sums kept from the f32 p), f32 on the
-CUDA cores (p kept in f32 throughout). TMA takes only strides and base
-addresses that are multiples of 16 bytes, so a bf16 view that has others
-raises here, before any launch. The source file carries the design note.
+The forward is the Hopper counterpart of
+``repro/kernels/flash_attn.py:flash_attention_pallas``: q (B, Sq, H, hd) and
+k, v (B, Skv, K, hd), in the model's layout (no transpose copy: the kernel
+reads through the strides), give (B, Sq, H, hd) in q's dtype and, when
+asked, each row's log-sum-exp (B, H, Sq) f32. f32 or bf16, hd in {32, 64,
+128}, any Sq and Skv. Two kernels, by dtype: bf16 runs on the tensor cores
+(``wgmma``, with K/V tiles brought by TMA; the unnormalised softmax weights p
+are rounded to bf16 before the PV product, the row sums kept from the f32
+p), f32 on the CUDA cores (p kept in f32 throughout). TMA takes only strides
+and base addresses that are multiples of 16 bytes, so a bf16 view that has
+others raises here, before any launch.
+
+The backward replaces no TPU kernel (``repro``'s Pallas kernel has no VJP):
+from q, k, v, the forward's output and LSE and the output's gradient it
+gives dq, dk, dv, summing dk and dv over each KV head's G query heads,
+deterministically (no atomics), in three launches. The source files carry
+the design notes.
 """
 from __future__ import annotations
 
 import ctypes
 import math
-from typing import Optional, Tuple
+from typing import Optional, Tuple, Union
 
 import torch
 
@@ -26,10 +34,14 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 TMA_ALIGN = 16  # bytes: TMA's stride and base-address granule
 BF16_BLOCK_Q = 128  # query rows per block of the bf16 kernel
 MAX_GRID_Z = 65535
+BWD_KERNELS = ("dot", "dkdv", "dq")  # the backward's three kernels, in launch order
 
-# Kernel launches since the last reset (chip_smoke.py reads and resets it):
-# one ``flash_fwd_kernel`` (f32) or ``flash_fwd_kernel_wgmma`` (bf16) per call.
+# Launches since the last reset (chip_smoke.py reads and resets them):
+# ``launches``, one ``flash_fwd_kernel`` (f32) or ``flash_fwd_kernel_wgmma``
+# (bf16) per forward call; ``bwd_launches``, three per backward call, one
+# for each kernel of BWD_KERNELS, which it launches in that order.
 launches = 0
+bwd_launches = 0
 
 
 def _check_tma(name: str, t: torch.Tensor) -> None:
@@ -42,58 +54,121 @@ def _check_tma(name: str, t: torch.Tensor) -> None:
             f"{t.data_ptr():#x}")
 
 
-def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                         causal: bool = True, window: Optional[int] = None) -> torch.Tensor:
-    """(B, Sq, H, hd), (B, Skv, K, hd), (B, Skv, K, hd) on one CUDA device,
-    one dtype, innermost stride 1 -> (B, Sq, H, hd) contiguous, q's dtype."""
-    global launches
+def _check_qkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, window: Optional[int],
+               what: str = "flash_attention") -> None:
+    """The shape, dtype, layout and device checks the kernels share."""
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
-        raise ValueError(f"flash_attention wants 4-d q, k, v; got {tuple(q.shape)}, "
+        raise ValueError(f"{what} wants 4-d q, k, v; got {tuple(q.shape)}, "
                          f"{tuple(k.shape)}, {tuple(v.shape)}")
     B, Sq, H, hd = q.shape
     Skv, K = k.shape[1], k.shape[2]
     if k.shape != v.shape or k.shape[0] != B or k.shape[3] != hd:
-        raise ValueError(f"flash_attention: k {tuple(k.shape)} and v {tuple(v.shape)} do "
+        raise ValueError(f"{what}: k {tuple(k.shape)} and v {tuple(v.shape)} do "
                          f"not fit q {tuple(q.shape)}")
     if K == 0 or H % K != 0:
-        raise ValueError(f"flash_attention: {H} query heads over {K} KV heads")
+        raise ValueError(f"{what}: {H} query heads over {K} KV heads")
     if hd not in HEAD_DIMS:
-        raise ValueError(f"flash_attention kernel takes head_dim in {HEAD_DIMS}; got {hd}")
+        raise ValueError(f"{what} kernel takes head_dim in {HEAD_DIMS}; got {hd}")
     if window is not None and window < 1:
-        raise ValueError(f"flash_attention: window must be >= 1 or None; got {window}")
+        raise ValueError(f"{what}: window must be >= 1 or None; got {window}")
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
-        raise TypeError(f"flash_attention kernel takes f32 or bf16, one dtype; got "
+        raise TypeError(f"{what} kernel takes f32 or bf16, one dtype; got "
                         f"{q.dtype}, {k.dtype}, {v.dtype}")
     if q.stride(3) != 1 or k.stride(3) != 1 or v.stride(3) != 1:
-        raise ValueError("flash_attention kernel wants the head_dim axis contiguous")
+        raise ValueError(f"{what} kernel wants the head_dim axis contiguous")
     if Sq >= 2**31 or Skv >= 2**31 or B > 65535 or H > 65535:
-        raise ValueError(f"flash_attention kernel takes Sq, Skv < 2**31 and B, H <= 65535; "
+        raise ValueError(f"{what} kernel takes Sq, Skv < 2**31 and B, H <= 65535; "
                          f"got {tuple(q.shape)}, Skv={Skv}")
+
+
+def _on_one_card(what: str, *ts: torch.Tensor) -> None:
+    if not (ts[0].is_cuda and all(t.device == ts[0].device for t in ts)):
+        raise ValueError(f"{what} kernel wants its tensors on one CUDA device; got "
+                         f"{[str(t.device) for t in ts]}")
+
+
+def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         causal: bool = True, window: Optional[int] = None,
+                         with_lse: bool = False
+                         ) -> Union[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
+    """(B, Sq, H, hd), (B, Skv, K, hd), (B, Skv, K, hd) on one CUDA device,
+    one dtype, innermost stride 1 -> (B, Sq, H, hd) contiguous, q's dtype;
+    with ``with_lse`` also each row's log-sum-exp, (B, H, Sq) f32 (the
+    kernel stores it only when asked)."""
+    global launches
+    _check_qkv(q, k, v, window)
+    B, Sq, H, hd = q.shape
+    Skv, K = k.shape[1], k.shape[2]
     if q.dtype == torch.bfloat16:
         if -(-Sq // BF16_BLOCK_Q) > MAX_GRID_Z:
             raise ValueError(f"flash_attention's bf16 kernel takes Sq <= "
                              f"{BF16_BLOCK_Q * MAX_GRID_Z}; got {Sq}")
         for name, t in (("q", q), ("k", k), ("v", v)):
             _check_tma(name, t)
-    if not (q.is_cuda and k.device == q.device and v.device == q.device):
-        raise ValueError(f"flash_attention kernel wants q, k, v on one CUDA device; got "
-                         f"{q.device}, {k.device}, {v.device}")
+    _on_one_card("flash_attention", q, k, v)
     out = torch.empty((B, Sq, H, hd), dtype=q.dtype, device=q.device)
+    lse = (torch.empty((B, H, Sq), dtype=torch.float32, device=q.device) if with_lse
+           else None)
     if B == 0 or Sq == 0 or H == 0:
-        return out
+        return (out, lse) if with_lse else out
     if Skv == 0:
         raise ValueError("flash_attention: no keys (Skv == 0)")
     lib = build.library()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = lib.g4r_flash_attn_fwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), _DTYPES[q.dtype],
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            None if lse is None else lse.data_ptr(), _DTYPES[q.dtype],
             B, Sq, Skv, H, K, hd, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
             *out.stride()[:3], 1.0 / math.sqrt(hd), int(bool(causal)),
             0 if window is None else int(window), stream)
     build.check(err, "flash_attention")
     launches += 1
-    return out
+    return (out, lse) if with_lse else out
+
+
+def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                             o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
+                             causal: bool = True, window: Optional[int] = None
+                             ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The attention's gradient: q, k, v as the forward took them, its
+    output ``o`` and ``lse`` (B, H, Sq) f32, and ``do`` shaped like ``o``
+    (innermost stride 1, any other strides) -> (dq, dk, dv), contiguous, in
+    q's dtype."""
+    global bwd_launches
+    _check_qkv(q, k, v, window, "flash_attention backward")
+    B, Sq, H, hd = q.shape
+    Skv, K = k.shape[1], k.shape[2]
+    for name, t in (("o", o), ("do", do)):
+        if t.shape != q.shape or t.dtype != q.dtype or t.stride(3) != 1:
+            raise ValueError(f"flash_attention backward: {name} {tuple(t.shape)} {t.dtype} "
+                             f"(innermost stride {t.stride(3)}) does not fit q "
+                             f"{tuple(q.shape)} {q.dtype} with a contiguous head_dim")
+    if lse.shape != (B, H, Sq) or lse.dtype != torch.float32 or not lse.is_contiguous():
+        raise ValueError(f"flash_attention backward: lse must be a contiguous (B, H, Sq) = "
+                         f"{(B, H, Sq)} f32 tensor; got {tuple(lse.shape)} {lse.dtype}")
+    _on_one_card("flash_attention backward", q, k, v, o, lse, do)
+    dq = torch.empty_like(q, memory_format=torch.contiguous_format)
+    dk = torch.empty((B, Skv, K, hd), dtype=k.dtype, device=k.device)
+    dv = torch.empty_like(dk)
+    if B == 0 or Sq == 0 or H == 0:
+        return dq, dk.zero_(), dv.zero_()
+    if Skv == 0:
+        raise ValueError("flash_attention backward: no keys (Skv == 0)")
+    dd = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)  # D = rowsum(dO o O)
+    strides = (ctypes.c_longlong * 15)(*q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+                                       *o.stride()[:3], *do.stride()[:3])
+    lib = build.library()
+    with torch.cuda.device(q.device):
+        err = lib.g4r_flash_attn_bwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), dd.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            _DTYPES[q.dtype], B, Sq, Skv, H, K, hd, strides, 1.0 / math.sqrt(hd),
+            int(bool(causal)), 0 if window is None else int(window),
+            torch.cuda.current_stream(q.device).cuda_stream)
+    build.check(err, "flash_attention backward")
+    bwd_launches += len(BWD_KERNELS)
+    return dq, dk, dv
 
 
 def wgmma_probe(q: torch.Tensor, k: torch.Tensor,
@@ -125,3 +200,15 @@ def kernel_attrs(dtype: torch.dtype, hd: int) -> dict:
     build.check(build.library().g4r_flash_attn_attrs(_DTYPES[dtype], hd, out),
                 "flash_attention attributes")
     return {"registers": out[0], "local_bytes": out[1], "shared_bytes": out[2]}
+
+
+def bwd_kernel_attrs(dtype: torch.dtype, hd: int) -> dict:
+    """``kernel_attrs`` of each of the backward's three kernels for (dtype,
+    hd), by the names of BWD_KERNELS."""
+    out = {}
+    for which, name in enumerate(BWD_KERNELS):
+        a = (ctypes.c_int * 3)()
+        build.check(build.library().g4r_flash_attn_bwd_attrs(_DTYPES[dtype], hd, which, a),
+                    "flash_attention backward attributes")
+        out[name] = {"registers": a[0], "local_bytes": a[1], "shared_bytes": a[2]}
+    return out

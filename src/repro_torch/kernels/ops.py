@@ -9,7 +9,10 @@ CPU tests exercise. Any other device raises.
 
 ``seg_aggr``, ``inbatch_loss`` and ``flash_attention`` are
 ``torch.autograd.Function``s on both devices, so the CPU tests drive the very functions the card runs. The
-backward of ``seg_aggr`` is a kernel; that of ``inbatch_loss`` is the closed
+backwards of ``seg_aggr`` and ``flash_attention`` are kernels (the latter
+from the forward's output and row log-sum-exp, which its forward saves on
+both devices when an input needs a gradient, and skips otherwise, as in
+the prefill); that of ``inbatch_loss`` is the closed
 form ``(softmax - I) g / (P t)`` in plain tensor ops, as ``repro`` computes
 it in jnp outside its kernel (``repro/kernels/ops.py:_inbatch_bwd``).
 
@@ -27,7 +30,7 @@ import torch
 from torch.autograd.function import once_differentiable
 
 from repro_torch.kernels import ref
-from repro_torch.kernels.flash_attn import flash_attention_cuda
+from repro_torch.kernels.flash_attn import flash_attention_bwd_cuda, flash_attention_cuda
 from repro_torch.kernels.inbatch_loss import inbatch_loss_rows_cuda
 from repro_torch.kernels.ivf import ivf_list_topk_cuda
 from repro_torch.kernels.row_adagrad import row_adagrad_scatter_cuda
@@ -187,17 +190,37 @@ def window_pair_ids(paths: torch.Tensor,
 class _FlashAttention(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, causal, window):
+        # the row LSE only where a backward will follow: the prefill stores none
+        if not any(ctx.needs_input_grad[:3]):
+            if _route(q, "flash_attention"):
+                return flash_attention_cuda(q, k, v, causal, window)
+            return ref.attention_ref(q, k, v, causal, window)
         if _route(q, "flash_attention"):
-            return flash_attention_cuda(q, k, v, causal, window)
-        return ref.attention_ref(q, k, v, causal, window)
+            out, lse = flash_attention_cuda(q, k, v, causal, window, with_lse=True)
+        else:
+            out, lse = ref.attention_fwd_ref(q, k, v, causal, window)
+        ctx.causal, ctx.window = causal, window
+        ctx.save_for_backward(q, k, v, out, lse)
+        return out
 
     @staticmethod
     @once_differentiable
     def backward(ctx, g):
-        raise NotImplementedError(
-            "flash_attention has no backward yet: LM training is not ported "
-            "(ROADMAP Queue 1 item 8a, the attention backward)"
-        )
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, g, ctx.causal, ctx.window)
+        return dq, dk, dv, None, None
+
+
+def flash_attention_bwd(q, k, v, o, lse, do, causal=True, window=None):
+    """The attention's gradient from the forward's inputs, output and row
+    log-sum-exp -> (dq, dk, dv): the backward kernel on CUDA (``do`` made
+    contiguous only where its head_dim is not), ``attention_bwd_ref`` on
+    the CPU."""
+    if _route(q, "flash_attention backward"):
+        if do.stride(-1) != 1:
+            do = do.contiguous()
+        return flash_attention_bwd_cuda(q, k, v, o, lse, do, causal, window)
+    return ref.attention_bwd_ref(q, k, v, o, lse, do, causal, window)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

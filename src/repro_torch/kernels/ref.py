@@ -250,6 +250,56 @@ def ivf_list_topk_ref(
 
 
 # ----------------------------------------------------------------- attention
+def _band(Sq: int, Skv: int, causal: bool, window: Optional[int], q_offset: int,
+          device) -> torch.Tensor:
+    """(Sq, Skv) bool: key j is visible to query i (at position i + q_offset)."""
+    qi = torch.arange(Sq, device=device)[:, None] + q_offset
+    ki = torch.arange(Skv, device=device)[None, :]
+    ok = torch.ones((Sq, Skv), dtype=torch.bool, device=device)
+    if causal:
+        ok &= ki <= qi
+    if window is not None:
+        ok &= ki > qi - window
+    return ok
+
+
+def _attention(q, k, v, causal, window, q_offset):
+    """``attention_ref``'s output (B, Sq, H, hd), its masked f32 logits
+    (B, K, G, Sq, Skv) and the band (Sq, Skv)."""
+    B, Sq, H, hd = q.shape
+    Kh = k.shape[2]
+    G = H // Kh
+    qg = q.reshape(B, Sq, Kh, G, hd)
+    logits = torch.einsum("bqkgd,bskd->bkgqs", qg, k).float() / math.sqrt(hd)
+    ok = _band(Sq, k.shape[1], causal, window, q_offset, q.device)
+    logits = logits.masked_fill(~ok, NEG_INF)
+    att = torch.softmax(logits, dim=-1).to(q.dtype)
+    out = torch.einsum("bkgqs,bskd->bqkgd", att, v)
+    return out.reshape(B, Sq, H, hd), logits, ok
+
+
+def attention_fwd_ref(
+    q: torch.Tensor,  # (B, Sq, H, hd)
+    k: torch.Tensor,  # (B, Skv, K, hd)
+    v: torch.Tensor,  # (B, Skv, K, hd)
+    causal: bool = True,
+    window: Optional[int] = None,
+    q_offset: int = 0,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``attention_ref``'s output and each row's log-sum-exp of its scaled,
+    masked logits: ((B, Sq, H, hd), (B, H, Sq) f32), head h = k * G + g.
+    The LSE is what the flash kernel's forward writes for its backward, from
+    logits summed in f32 (bf16 products are exact there); the output keeps
+    ``repro``'s oracle's products in the inputs' dtype."""
+    out, logits, ok = _attention(q, k, v, causal, window, q_offset)
+    B, Sq, H, hd = q.shape
+    if q.dtype != torch.float32:
+        qg = q.float().reshape(B, Sq, k.shape[2], H // k.shape[2], hd)
+        logits = torch.einsum("bqkgd,bskd->bkgqs", qg, k.float()) / math.sqrt(hd)
+        logits = logits.masked_fill(~ok, NEG_INF)
+    return out, torch.logsumexp(logits, dim=-1).reshape(B, H, Sq)
+
+
 def attention_ref(
     q: torch.Tensor,  # (B, Sq, H, hd)
     k: torch.Tensor,  # (B, Skv, K, hd)
@@ -268,19 +318,51 @@ def attention_ref(
     its unnormalised weights go to bf16 before the PV product, and it
     divides by the f32 row sum last (in f32 it keeps them in f32).
     """
+    return _attention(q, k, v, causal, window, q_offset)[0]
+
+
+def attention_bwd_ref(
+    q: torch.Tensor,  # (B, Sq, H, hd)
+    k: torch.Tensor,  # (B, Skv, K, hd)
+    v: torch.Tensor,  # (B, Skv, K, hd)
+    o: torch.Tensor,  # (B, Sq, H, hd): the forward's output
+    lse: torch.Tensor,  # (B, H, Sq) f32: the forward's row log-sum-exp
+    do: torch.Tensor,  # (B, Sq, H, hd): the output's gradient
+    causal: bool = True,
+    window: Optional[int] = None,
+    block_q: Optional[int] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The flash backward's formulas in f32 -> (dq, dk, dv) in the inputs'
+    dtype: P = exp(S scale - LSE) inside the band (0 outside), dV = P^T dO,
+    dP = dO V^T, D = rowsum(dO o O), dS = P o (dP - D), dQ = dS K scale,
+    dK = dS^T Q scale, dK and dV summed over the G query heads of a KV head.
+    A row with no visible key has no gradient here (its forward output is
+    a uniform average over masked keys; no model path makes one).
+    ``block_q`` bounds the (B, H, block_q, Skv) f32 intermediates: query
+    blocks in order, dK and dV summed over them in f32."""
     B, Sq, H, hd = q.shape
-    Kh = k.shape[2]
+    Skv, Kh = k.shape[1], k.shape[2]
     G = H // Kh
-    qg = q.reshape(B, Sq, Kh, G, hd)
-    logits = torch.einsum("bqkgd,bskd->bkgqs", qg, k).float() / math.sqrt(hd)
-    qi = torch.arange(Sq, device=q.device)[:, None] + q_offset
-    ki = torch.arange(k.shape[1], device=q.device)[None, :]
-    ok = torch.ones((Sq, k.shape[1]), dtype=torch.bool, device=q.device)
-    if causal:
-        ok &= ki <= qi
-    if window is not None:
-        ok &= ki > qi - window
-    logits = logits.masked_fill(~ok, NEG_INF)
-    att = torch.softmax(logits, dim=-1).to(q.dtype)
-    out = torch.einsum("bkgqs,bskd->bqkgd", att, v)
-    return out.reshape(B, Sq, H, hd)
+    scale = 1.0 / math.sqrt(hd)
+    kf, vf = k.float(), v.float()
+    lse_g = lse.float().reshape(B, Kh, G, Sq)
+    dq = torch.empty((B, Sq, Kh, G, hd), dtype=torch.float32, device=q.device)
+    dk = torch.zeros((B, Skv, Kh, hd), dtype=torch.float32, device=q.device)
+    dv = torch.zeros_like(dk)
+    step = Sq if block_q is None else block_q
+    for i in range(0, Sq, step):
+        sl = slice(i, min(i + step, Sq))
+        n = sl.stop - sl.start
+        qg = q[:, sl].float().reshape(B, n, Kh, G, hd)
+        dog = do[:, sl].float().reshape(B, n, Kh, G, hd)
+        dd = (do[:, sl].float() * o[:, sl].float()).sum(-1)  # D: (B, n, H)
+        dd = dd.reshape(B, n, Kh, G).permute(0, 2, 3, 1)[..., None]
+        s = torch.einsum("bqkgd,bskd->bkgqs", qg, kf) * scale
+        ok = _band(n, Skv, causal, window, i, q.device)
+        p = torch.where(ok, torch.exp(s - lse_g[..., sl, None]), 0.0)
+        dv += torch.einsum("bkgqs,bqkgd->bskd", p, dog)
+        dp = torch.einsum("bqkgd,bskd->bkgqs", dog, vf)
+        ds = p * (dp - dd)
+        dq[:, sl] = torch.einsum("bkgqs,bskd->bqkgd", ds, kf) * scale
+        dk += torch.einsum("bkgqs,bqkgd->bskd", ds, qg) * scale
+    return (dq.reshape(B, Sq, H, hd).to(q.dtype), dk.to(k.dtype), dv.to(v.dtype))

@@ -10,11 +10,21 @@ StarCoder2, DeepSeek-Coder); a MoE or Mamba2 block raises
 the layers with ``lax.scan`` (leaf leading dim R, layer = rep * period +
 off); here an ``LM`` module holds one ``Block`` per layer in order and the
 forward is a Python loop, as PyTorch runs eagerly (``convert`` unstacks
-``repro``'s tree). ``LMConfig``'s compiler and mesh knobs (``remat``,
-``remat_policy``, ``scan_layers``, ``use_flash``, ``block_q``,
-``gather_head``, ``shard_cache_seq``, ``pad_heads`` beyond the head count)
-are kept so configs stay interchangeable, and select nothing: the
-full-sequence attention is the flash kernel on CUDA whatever they say.
+``repro``'s tree). ``remat`` runs each block under
+``torch.utils.checkpoint`` when gradients are recorded, as ``repro`` wraps
+each period of its scan in ``jax.checkpoint``: the block's activations are
+recomputed in the backward (its flash forward launches again), and no value
+changes. ``LMConfig``'s other compiler and mesh knobs (``remat_policy``,
+``scan_layers``, ``use_flash``, ``block_q``, ``gather_head``,
+``shard_cache_seq``, ``pad_heads`` beyond the head count) are kept so
+configs stay interchangeable, and select nothing: the full-sequence
+attention is the flash kernel on CUDA whatever they say, and
+``remat_policy="dots"`` (``repro`` saves the matmul outputs) recomputes the
+whole block here too, which changes no value either.
+
+The forward follows the parameters' dtype, not ``cfg.dtype``: ``repro``'s
+Adam turns a bf16 model's parameters f32 at its first step (ROADMAP C6),
+and so does the port's, after which both train in f32.
 
 Weights come from the port's own init (``init_lm``): ``repro``'s
 distributions and scales, drawn from an explicit ``torch.Generator``, so
@@ -29,6 +39,7 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import layers as L
 
@@ -65,12 +76,12 @@ class LMConfig:
     mamba: Optional[Any] = None  # repro's Mamba2Config; Mamba2 is not ported
     tie_embeddings: bool = False
     dtype: str = "bfloat16"
-    remat: bool = True  # selects nothing (no backward yet)
+    remat: bool = True  # each block under torch.utils.checkpoint while training
     use_flash: bool = False  # selects nothing: the flash kernel always runs on CUDA
     aux_loss_weight: float = 0.01
     scan_layers: bool = True  # selects nothing (layers are a Python loop)
     block_q: int = 256  # selects nothing
-    remat_policy: str = "full"  # selects nothing
+    remat_policy: str = "full"  # selects nothing ("dots" recomputes in full too)
     gather_head: bool = False  # selects nothing (one card)
     shard_cache_seq: bool = False  # selects nothing (one card)
     pad_heads: bool = False  # only shapes the weights (AttnConfig.n_heads_padded)
@@ -192,12 +203,18 @@ def _block_apply(cfg: LMConfig, spec: BlockSpec, bp: Block, x: torch.Tensor,
 def hidden_states(model: LM, cfg: LMConfig, tokens: Optional[torch.Tensor] = None,
                   inputs_embeds: Optional[torch.Tensor] = None,
                   positions: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Every layer and the final norm -> ((B, S, d), aux_loss)."""
+    """Every layer and the final norm -> ((B, S, d), aux_loss). With
+    ``cfg.remat`` and gradients recorded, each block is checkpointed."""
     x = inputs_embeds if inputs_embeds is not None else embed_tokens(model, cfg, tokens)
     acfg = cfg.attn_cfg()
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    remat = cfg.remat and torch.is_grad_enabled()
     for spec, bp in zip(cfg.block_list(), model.layers):
-        x, a = _block_apply(cfg, spec, bp, x, positions, acfg)
+        if remat:  # the blocks draw no random numbers: no RNG state to keep
+            x, a = checkpoint(_block_apply, cfg, spec, bp, x, positions, acfg,
+                              use_reentrant=False, preserve_rng_state=False)
+        else:
+            x, a = _block_apply(cfg, spec, bp, x, positions, acfg)
         aux = aux + a
     return L.apply_norm(cfg.norm, model.final_norm, x), aux
 
@@ -226,8 +243,9 @@ def gold_logit(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
 def lm_loss(model: LM, cfg: LMConfig, tokens: torch.Tensor, labels: torch.Tensor,
             positions: Optional[torch.Tensor] = None,
             inputs_embeds: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Mean next-token cross-entropy over labels >= 0 (+ the aux loss).
-    Forward only: the attention has no backward yet."""
+    """Mean next-token cross-entropy over labels >= 0 (+ the aux loss),
+    differentiable in every parameter (the flash attention's backward is a
+    kernel on CUDA, its plain version on the CPU)."""
     logits, aux = forward(model, cfg, tokens, inputs_embeds, positions)
     logits = logits.float()
     logz = torch.logsumexp(logits, dim=-1)

@@ -8,6 +8,18 @@ updates, state = opt.update(grads, state, params);
 params = apply_updates(params, updates)``. Updates are functional: new
 tensors, never in place. The states are NamedTuples and dicts of tensors,
 which ``repro_torch.convert`` carries to and from numpy.
+
+Types follow JAX's rules, not torch's, where the two differ on a bf16 leaf
+(``adam`` on an LM; the GNN's leaves are f32, whose bits these rules leave
+as they were):
+- ``adam`` divides each moment by an f32 0-d bias correction, which JAX
+  promotes to f32 whatever the moment's dtype, while torch keeps a
+  dimensioned bf16 tensor bf16 against a 0-d f32 one. So a bf16 leaf's
+  update is computed in f32, as ``repro``'s is, and ``apply_updates`` turns
+  the parameter f32 (ROADMAP C6).
+- A Python scalar is weakly typed in JAX: ``0.9 * m`` rounds 0.9 to bf16
+  before the product, where torch multiplies by the unrounded scalar in f32.
+  ``_weak`` rounds it first, so the bf16 moments are bitwise ``repro``'s.
 """
 from __future__ import annotations
 
@@ -46,6 +58,15 @@ def rowwise_adagrad(lr: float, eps: float = 1e-8, init_accum: float = 0.1) -> Op
     return Optimizer(init, update)
 
 
+def _weak(x: float, t: torch.Tensor) -> float:
+    """The Python scalar ``x`` as JAX applies it to ``t``: rounded to a bf16
+    (or f16) ``t``'s dtype first; unchanged for f32, where torch and JAX
+    both take it in f32."""
+    if t.dtype in (torch.float32, torch.float64):
+        return x
+    return float(torch.tensor(x, dtype=t.dtype))
+
+
 class AdamState(NamedTuple):
     step: torch.Tensor  # () int32
     mu: Tree
@@ -66,16 +87,20 @@ def adam(lr: float, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
 
     def update(grads: Tree, state: AdamState, params=None):
         step = state.step + 1
-        mu = {k: b1 * m + (1 - b1) * grads[k] for k, m in state.mu.items()}
-        nu = {k: b2 * v + (1 - b2) * grads[k] * grads[k] for k, v in state.nu.items()}
+        mu = {k: _weak(b1, m) * m + _weak(1 - b1, grads[k]) * grads[k]
+              for k, m in state.mu.items()}
+        nu = {k: _weak(b2, v) * v + _weak(1 - b2, grads[k]) * grads[k] * grads[k]
+              for k, v in state.nu.items()}
         stepf = step.to(torch.float32)
         bc1 = 1 - torch.pow(b1, stepf)
         bc2 = 1 - torch.pow(b2, stepf)
         updates = {}
         for k in mu:
-            upd = -lr * (mu[k] / bc1) / (torch.sqrt(nu[k] / bc2) + eps)
+            # JAX's promotion of (moment, f32 0-d): bf16 moments give an f32 update
+            dt = torch.promote_types(mu[k].dtype, bc1.dtype)
+            upd = -lr * (mu[k].to(dt) / bc1) / (torch.sqrt(nu[k].to(dt) / bc2) + eps)
             if weight_decay and params is not None:
-                upd = upd - lr * weight_decay * params[k]
+                upd = upd - _weak(lr * weight_decay, params[k]) * params[k]
             updates[k] = upd
         return updates, AdamState(step=step, mu=mu, nu=nu)
 

@@ -14,9 +14,15 @@ f32) at atol 3e-2, ``tests/test_kernels.py``'s bound; and a plain-torch
 emulation of the bf16 kernel's arithmetic (128 x 128 tiles of the block's
 band in order, log2-domain online softmax, the unnormalised p rounded to
 bf16 before PV, l from the f32 p) against the Pallas kernel and the plain
-version at the same 3e-2. The backward raises; the wrapper's checks
-(TMA's 16-byte strides and base addresses for bf16 among them) raise
-before any launch.
+version at the same 3e-2. The backward: ``attention_bwd_ref`` and the
+dispatcher's autograd against autograd through ``ref.attention_ref`` (f32,
+atol 1e-5) and against ``jax.vjp`` of ``repro``'s oracle, naive and chunked
+(block 64) paths (atol 2e-5), over causal and not, windows, G 1/3/7, hd
+32/64/128 and S 200; in bf16 to 3e-2 of the largest |gradient| (the
+gradients are rounded to bf16, so the error scales with them) against the
+f32 gradients of the same values and ``repro``'s bf16 oracle; the plain
+LSE against ``torch.logsumexp``. The wrappers' checks (TMA's 16-byte
+strides and base addresses for bf16 among them) raise before any launch.
 
 On the card (``cuda`` marker, skipped here): one tile of the bf16 kernel's
 building blocks (TMA loads, the Q K^T wgmma, the PV wgmma fed P from
@@ -26,7 +32,15 @@ in another order), at bf16 full-width shapes with tails, at hd 32, 64 and
 128, on a packed strided view and on tiles whose real keys are all masked
 (atol 3e-2: the two round the weights to bf16 at nearly the same place, the
 plain version after normalising, the kernel before), and against the
-emulation; a bf16 view TMA cannot take raises.
+emulation; a bf16 view TMA cannot take raises; the forward's LSE against
+the plain one and its output with and without the LSE bitwise; the
+backward kernel against ``attention_bwd_ref`` on the same hazards (f32 to
+rtol 1e-4 with a floor of 1e-4 of the largest |gradient|: one function
+summed in another order; bf16 to 2^-6 of each row's largest |value|, no
+row's scale below 2^-10 of the tensor's: both sum in f32 and round once, a
+rounding step is at most 2^-7, and a row that cancels to 0 holds only
+rounding residue), bitwise on a
+re-run, one launch count a call, through the dispatcher's autograd.
 
     python -m pytest -q -m cuda tests/test_torch_flash.py   # on the card
 """
@@ -34,6 +48,7 @@ import importlib.util
 import itertools
 import pathlib
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -253,12 +268,128 @@ def test_row_scaled_bound_catches_window_edge_faults(chip_smoke, window_edge_cas
         assert row_rel > 4 * chip_smoke.FLASH_BF16_ROW_REL
 
 
-def test_backward_raises():
-    q, k, v = (_t(a).requires_grad_() for a in _qkv(1, 1, 32, 1, 3, 32))
-    out = ops.flash_attention(q, k, v, True, None)
-    assert out.grad_fn is not None
-    with pytest.raises(NotImplementedError, match="item 8a"):
-        out.sum().backward()
+# (S, K, G, hd, window, causal): G 1/3/7, hd 32/64/128, tails, windows
+BWD_CASES = [(128, 1, 3, 64, None, True), (128, 2, 3, 64, None, False),
+             (200, 2, 1, 32, 16, True), (200, 1, 7, 64, None, True),
+             (256, 1, 7, 128, None, False), (256, 2, 3, 128, 64, True),
+             (192, 2, 1, 32, 64, False)]
+BWD_ATOL = 1e-5  # the plain backward vs autograd through the plain forward
+
+
+def _qkvd(seed, B, S, K, G, hd):
+    q, k, v = _qkv(seed, B, S, K, G, hd)
+    return q, k, v, np.random.default_rng(seed + 1).standard_normal(q.shape).astype(np.float32)
+
+
+def _rel_err(got, want) -> float:
+    """max |got - want| / max |want|, in f32."""
+    got, want = (torch.as_tensor(np.asarray(t, np.float32)) if not torch.is_tensor(t)
+                 else t.float() for t in (got, want))
+    return ((got - want).abs().max() / want.abs().max()).item()
+
+
+def _vjp(fn, q, k, v, do):
+    _, pull = jax.vjp(fn, jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    return [np.asarray(g) for g in pull(jnp.asarray(do))]
+
+
+@pytest.mark.parametrize("case", BWD_CASES, ids=_case_id)
+def test_backward_plain_matches_autograd_and_repro(case):
+    S, K, G, hd, window, causal = case
+    q, k, v, do = _qkvd(S + 3 * G + hd, 2, S, K, G, hd)
+    tq, tk, tv, tdo = (_t(a) for a in (q, k, v, do))
+    o, lse = ref.attention_fwd_ref(tq, tk, tv, causal, window)
+    mine = ref.attention_bwd_ref(tq, tk, tv, o, lse, tdo, causal, window)
+    # the dispatcher's autograd is the plain backward on the CPU
+    leaves = [t.clone().requires_grad_() for t in (tq, tk, tv)]
+    out = ops.flash_attention(*leaves, causal, window)
+    for got, want in zip(torch.autograd.grad(out, leaves, tdo), mine):
+        assert torch.equal(got, want)
+    leaves = [t.clone().requires_grad_() for t in (tq, tk, tv)]
+    out = ref.attention_ref(*leaves, causal, window)
+    for got, want in zip(mine, torch.autograd.grad(out, leaves, tdo)):
+        torch.testing.assert_close(got, want, rtol=0, atol=BWD_ATOL)
+    wants = {
+        "oracle": _vjp(lambda a, b, c: jax_ref.attention_ref(a, b, c, causal=causal,
+                                                             window=window), q, k, v, do),
+        "naive": _vjp(lambda a, b, c: gqa_attention(a, b, c, gqa_scores_mask(S, S, causal,
+                                                                             window)),
+                      q, k, v, do),
+    }
+    if S % 64 == 0:
+        wants["chunked"] = _vjp(lambda a, b, c: chunked_gqa_attention(a, b, c, causal, window,
+                                                                      block_q=64), q, k, v, do)
+    assert S % 64 == 0 or set(wants) == {"oracle", "naive"}
+    for name, want in wants.items():
+        for got, w, what in zip(mine, want, "qkv"):
+            np.testing.assert_allclose(got.numpy(), w, atol=ATOL, err_msg=f"{name} d{what}")
+
+
+def test_backward_plain_query_blocks():
+    """``block_q`` only bounds the plain version's memory: dq is the same,
+    dk and dv are summed over the blocks in f32."""
+    q, k, v, do = (_t(a) for a in _qkvd(9, 1, 200, 2, 3, 64))
+    o, lse = ref.attention_fwd_ref(q, k, v, True, 48)
+    whole = ref.attention_bwd_ref(q, k, v, o, lse, do, True, 48)
+    blocks = ref.attention_bwd_ref(q, k, v, o, lse, do, True, 48, block_q=64)
+    assert torch.equal(whole[0], blocks[0])
+    for got, want in zip(blocks[1:], whole[1:]):
+        torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("S,K,G,hd,window", BF16_CASES + [(200, 2, 1, 32, 16)])
+def test_backward_bf16_matches_f32_and_repro(S, K, G, hd, window):
+    q, k, v, do = _qkvd(S + G, 2, S, K, G, hd)
+    bq, bk, bv, bdo = (_t(a, torch.bfloat16) for a in (q, k, v, do))
+    leaves = [t.clone().requires_grad_() for t in (bq, bk, bv)]
+    got = torch.autograd.grad(ops.flash_attention(*leaves, True, window), leaves, bdo)
+    assert all(g.dtype == torch.bfloat16 for g in got)
+    f32 = [t.float() for t in (bq, bk, bv)]
+    o, lse = ref.attention_fwd_ref(*f32, True, window)
+    want = ref.attention_bwd_ref(*f32, o, lse, bdo.float(), True, window)
+    jb = [jnp.asarray(a).astype(jnp.bfloat16) for a in (q, k, v, do)]
+    _, pull = jax.vjp(lambda a, b, c: jax_ref.attention_ref(a, b, c, causal=True,
+                                                            window=window), *jb[:3])
+    for g, w, jw in zip(got, want, pull(jb[3])):
+        assert _rel_err(g, w) <= BF16_ATOL
+        assert _rel_err(g, jw) <= BF16_ATOL
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal,window", [(True, None), (True, 24), (False, None)])
+def test_plain_lse_matches_logsumexp(dtype, causal, window):
+    q, k, v = (_t(a, dtype) for a in _qkv(4, 2, 96, 2, 3, 32))
+    out, lse = ref.attention_fwd_ref(q, k, v, causal, window)
+    assert torch.equal(out, ref.attention_ref(q, k, v, causal, window))
+    assert lse.shape == (2, 6, 96) and lse.dtype == torch.float32
+    s = torch.einsum("bqhd,bshd->bhqs", q.float(), k.float().repeat_interleave(3, dim=2))
+    i, j = torch.arange(96)[:, None], torch.arange(96)[None, :]
+    ok = torch.ones(96, 96, dtype=torch.bool)
+    if causal:
+        ok &= j <= i
+    if window is not None:
+        ok &= j > i - window
+    want = torch.logsumexp((s / np.sqrt(32)).masked_fill(~ok, -1e30), dim=-1)
+    torch.testing.assert_close(lse, want, rtol=1e-6, atol=1e-5)
+
+
+def test_backward_wrapper_checks_before_launching():
+    q, k, v, do = (_t(a) for a in _qkvd(1, 1, 32, 1, 3, 32))
+    o, lse = ref.attention_fwd_ref(q, k, v)
+    with pytest.raises(ValueError, match="CUDA"):
+        fa_mod.flash_attention_bwd_cuda(q, k, v, o, lse, do)
+    with pytest.raises(ValueError, match="lse"):
+        fa_mod.flash_attention_bwd_cuda(q, k, v, o, lse[:, :1], do)
+    with pytest.raises(ValueError, match="lse"):
+        fa_mod.flash_attention_bwd_cuda(q, k, v, o, lse.double(), do)
+    with pytest.raises(ValueError, match="do"):
+        fa_mod.flash_attention_bwd_cuda(q, k, v, o, lse, do.bfloat16())
+    with pytest.raises(ValueError, match="head_dim"):
+        fa_mod.flash_attention_bwd_cuda(q, k, v, o, lse, do[..., ::2].repeat(1, 1, 1, 2)[..., ::2])
+    with pytest.raises(ValueError, match="window"):
+        fa_mod.flash_attention_bwd_cuda(q, k, v, o, lse, do, window=0)
+    with pytest.raises(ValueError, match="device"):
+        ops.flash_attention_bwd(q.to("meta"), k, v, o, lse, do)
 
 
 def test_kernel_wrapper_checks_before_launching():
@@ -407,3 +538,94 @@ class TestOnCard:
         n = fa_mod.launches
         ops.flash_attention(q, k, v, True, None)
         assert fa_mod.launches == n + 1
+
+    # --------------------------------------------------- LSE and backward
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+    @pytest.mark.parametrize("case", BWD_CASES, ids=_case_id)
+    def test_forward_lse_matches_plain(self, cuda, dtype, case):
+        S, K, G, hd, window, causal = case
+        q, k, v = _on(cuda, _qkv(S + 1, 2, S, K, G, hd), dtype)
+        n = fa_mod.launches
+        out, lse = flash_attention_cuda(q, k, v, causal, window, with_lse=True)
+        assert fa_mod.launches == n + 1 and lse.shape == (2, K * G, S)
+        # the null-lse launch (the prefill's) writes the same output
+        assert torch.equal(flash_attention_cuda(q, k, v, causal, window), out)
+        torch.testing.assert_close(lse, ref.attention_fwd_ref(q, k, v, causal, window)[1],
+                                   rtol=1e-5, atol=1e-5)
+
+    @staticmethod
+    def _check_bwd(cs, got, want, dtype):
+        """``chip_smoke.py``'s tolerances for the backward kernel."""
+        for g, w in zip(got, want):
+            assert g.dtype == dtype and g.shape == w.shape and g.is_contiguous()
+            assert cs.flash_bwd_ok(g, w), (cs._rel(g, w),
+                                           cs._row_rel(g, w, cs.FLASH_BWD_ROW_FLOOR))
+
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+    @pytest.mark.parametrize("case", BWD_CASES, ids=_case_id)
+    def test_backward_kernel_matches_plain(self, cuda, chip_smoke, dtype, case):
+        S, K, G, hd, window, causal = case
+        q, k, v, do = _on(cuda, _qkvd(S + 2, 2, S, K, G, hd), dtype)
+        o, lse = flash_attention_cuda(q, k, v, causal, window, with_lse=True)
+        n = fa_mod.bwd_launches
+        got = fa_mod.flash_attention_bwd_cuda(q, k, v, o, lse, do, causal, window)
+        torch.cuda.synchronize()
+        assert fa_mod.bwd_launches == n + len(fa_mod.BWD_KERNELS)
+        self._check_bwd(chip_smoke, got, ref.attention_bwd_ref(q, k, v, o, lse, do, causal, window),
+                        dtype)
+        again = fa_mod.flash_attention_bwd_cuda(q, k, v, o, lse, do, causal, window)
+        assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+    @pytest.mark.parametrize("B,S,K,G,hd,window", [
+        (4, 2048, 3, 3, 64, None),  # smollm-135m's training call
+        (1, 1000, 2, 7, 64, None),  # qwen2-0.5b, a tail tile
+        (1, 4100, 4, 9, 128, 4096),  # starcoder2-7b's window, a tail tile
+    ])
+    def test_backward_kernel_full_width_bf16(self, cuda, chip_smoke, B, S, K, G, hd, window):
+        q, k, v, do = _on(cuda, _qkvd(S, B, S, K, G, hd), torch.bfloat16)
+        o, lse = flash_attention_cuda(q, k, v, True, window, with_lse=True)
+        got = fa_mod.flash_attention_bwd_cuda(q, k, v, o, lse, do, True, window)
+        want = ref.attention_bwd_ref(q, k, v, o, lse, do, True, window, block_q=512)
+        self._check_bwd(chip_smoke, got, want, torch.bfloat16)
+
+    def test_backward_reads_strided_views(self, cuda, chip_smoke):
+        """q, k, v from one packed tensor and a dO whose rows are strided."""
+        B, S, K, G, hd = 2, 200, 2, 3, 64
+        qkv = torch.randn(B, S, K * G + 2 * K, hd, device=cuda)
+        q, k, v = qkv[:, :, :K * G], qkv[:, :, K * G:K * G + K], qkv[:, :, K * G + K:]
+        do = torch.randn(B, S, K * G + 1, hd, device=cuda)[:, :, 1:]
+        o, lse = flash_attention_cuda(q, k, v, True, 32, with_lse=True)
+        got = fa_mod.flash_attention_bwd_cuda(q, k, v, o, lse, do, True, 32)
+        self._check_bwd(chip_smoke, got, ref.attention_bwd_ref(q, k, v, o, lse, do, True, 32),
+                        torch.float32)
+
+    def test_ops_routes_the_backward_to_the_kernel(self, cuda, chip_smoke):
+        q, k, v, do = _on(cuda, _qkvd(3, 1, 96, 1, 3, 32))
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        n, nb = fa_mod.launches, fa_mod.bwd_launches
+        got = torch.autograd.grad(ops.flash_attention(*leaves, True, None), leaves, do)
+        assert (fa_mod.launches, fa_mod.bwd_launches) == (n + 1, nb + len(fa_mod.BWD_KERNELS))
+        o, lse = ref.attention_fwd_ref(q, k, v)
+        self._check_bwd(chip_smoke, got, ref.attention_bwd_ref(q, k, v, o, lse, do),
+                        torch.float32)
+
+
+    def test_forward_stores_the_lse_only_for_a_backward(self, cuda, monkeypatch):
+        """The prefill (no input needing a gradient) passes a null LSE."""
+        q, k, v = _on(cuda, _qkv(5, 1, 64, 1, 3, 32))
+        lib, seen = fa_mod.build.library(), []
+
+        class Spy:
+            def __getattr__(self, name):
+                return getattr(lib, name)
+
+            @staticmethod
+            def g4r_flash_attn_fwd(*args):
+                seen.append(args[4])  # the lse pointer
+                return lib.g4r_flash_attn_fwd(*args)
+
+        monkeypatch.setattr(fa_mod.build, "library", Spy)
+        with torch.no_grad():
+            ops.flash_attention(q, k, v, True, None)
+        ops.flash_attention(q.requires_grad_(), k, v, True, None)
+        assert seen[0] is None and seen[1] is not None
