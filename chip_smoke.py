@@ -2359,7 +2359,7 @@ def lm_training(torch, np, fa_mod) -> dict:
     spec, model = res["spec"], res["model"]
     cfg = spec.lm
     want = {"fwd": cfg.n_layers * (2 if cfg.remat else 1),
-            "bwd": cfg.n_layers * len(fa_mod.BWD_KERNELS)}
+            "bwd": cfg.n_layers * fa_mod.bwd_launches_per_call(cfg.n_heads, cfg.n_kv)}
     if any(s != want for s in per_step):
         fail(f"lm training: launches a step {per_step}, want {want} (n_layers "
              f"{cfg.n_layers}, remat {cfg.remat})")

@@ -1,12 +1,29 @@
 #!/usr/bin/env python3
-"""The port's ``seg_aggr`` backward and ``row_adagrad`` kernels against
-another checkout's, on one CUDA card.
+"""The port's ``seg_aggr`` backward, ``row_adagrad`` and flash attention
+(backward and forward) kernels against other checkouts', on one CUDA card.
 
-    python3 scripts/kernel_ab.py --other DIR [--rounds 2]
+    python3 scripts/kernel_ab.py --other DIR [--other DIR2 ...] [--rounds 2]
+        [--only flash|train]
 
-DIR is a checkout of another commit (for example the parent, unpacked with
-``git archive`` into a directory that ``.gitignore`` lists); its kernels
-are built from its own sources into its own ``build/``. At the training
+Each DIR is a checkout of another commit (for example the parent, unpacked
+with ``git archive`` into a directory that ``.gitignore`` lists); its
+kernels are built from its own sources into its own ``build/``. The
+comparisons below name ``DIR``'s kernels "other" and take only the first
+``--other``; the flash ones take every DIR.
+
+Flash (``--only flash``): at the LM training call (smollm-135m: B 4, S
+2,048, H 9, K 3, hd 64, causal) in f32 and in bf16, on seeded q, k, v and
+dO with this tree's forward's output and LSE, the backward through each
+tree's ``g4r_flash_attn_bwd`` (scratch sized by this tree's
+``bwd_scratch_floats``, which covers the earlier layouts), each held to
+``attention_bwd_ref`` by ``chip_smoke.flash_bwd_ok`` and its re-run
+bitwise, timed in turns (every DIR, this tree, this tree, every DIR in
+reverse; ``--rounds`` times) beside SDPA's backward; then the forward
+through each tree's ``g4r_flash_attn_fwd`` at the prefill call (bf16, no
+LSE) and the f32 training call (with its LSE), each output bitwise this
+tree's, timed in the same turns.
+
+Training kernels (``--only train``): at the training
 paths' recorded shapes (the calls ``chip_smoke.py`` keeps: backward
 [4096, 3, 64] and [512, 4, 64] on the host path, [2736, 3, 64] and
 [342, 4, 64] on the fused one, each mask a relation's row-strided view;
@@ -48,8 +65,10 @@ def _load_module(name: str, path: str):
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--other", required=True, help="a checkout of the commit to compare with")
+    ap.add_argument("--other", required=True, action="append",
+                    help="a checkout of a commit to compare with (repeatable)")
     ap.add_argument("--rounds", type=int, default=2)
+    ap.add_argument("--only", choices=("flash", "train"), default=None)
     args = ap.parse_args()
 
     import torch
@@ -60,8 +79,11 @@ def main() -> None:
     import chip_smoke
     from repro_torch.kernels import build, ref, seg_aggr
 
-    other = _load_module("other_build", os.path.join(
-        os.path.abspath(args.other), "src", "repro_torch", "kernels", "build.py")).library()
+    others = {os.path.basename(os.path.abspath(d).rstrip("/")): _load_module(
+        f"other_build_{i}", os.path.join(os.path.abspath(d), "src", "repro_torch", "kernels",
+                                         "build.py")).library()
+        for i, d in enumerate(args.other)}
+    other = next(iter(others.values()))
     lib = build.library()
     stream = torch.cuda.current_stream().cuda_stream
     sms = torch.cuda.get_device_properties(0).multi_processor_count
@@ -79,6 +101,10 @@ def main() -> None:
           "empty_one_block_ms": ms(lambda: lib.g4r_empty(1, 32, stream)),
           "empty_one_wave_ms": ms(lambda: lib.g4r_empty(sms * 8, 256, stream)),
           "torch_add_one_element_ms": ms(lambda: one.add_(1.0))})
+    if args.only != "train":
+        flash_ab(torch, others, lib, stream, args.rounds, emit)
+    if args.only == "flash":
+        return
 
     for n, f, d, zero_rows, valid_rows in BWD_SHAPES:
         g = torch.randn(n, d, device="cuda", generator=gen)
@@ -149,6 +175,102 @@ def main() -> None:
               "ms_other": turns["other"], "ms_this": turns["this"],
               "plain_ms": ms(lambda: ref.row_adagrad_scatter_ref(t, a, ids, grads, 0.05, 1e-8),
                              50)})
+
+
+def flash_ab(torch, others: dict, lib, stream, rounds: int, emit) -> None:
+    """The flash backward and forward of every other tree against this
+    tree's, at the training and prefill calls (the module docstring)."""
+    import ctypes
+    import math
+
+    import chip_smoke
+    from repro_torch.kernels import build, ref
+    from repro_torch.kernels import flash_attn as fa
+
+    B, S, H, K, hd = 4, 2048, 9, 3, 64
+    trees = dict(others, this=lib)
+    order = [*others, "this", "this", *reversed(list(others))]
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    flops = 10.0 * hd * (S * (S + 1) // 2) * B * H
+
+    def turns(fn):
+        out = {name: [] for name in trees}
+        for _ in range(rounds):
+            for name in order:
+                out[name].append(chip_smoke.measure(lambda: fn(trees[name]), 10)["device_ms"])
+        return out
+
+    for dtype in (torch.float32, torch.bfloat16):
+        q = torch.randn(B, S, H, hd, device="cuda", generator=gen).to(dtype)
+        k, v = (torch.randn(B, S, K, hd, device="cuda", generator=gen).to(dtype)
+                for _ in range(2))
+        do = (torch.randn(B, S, H, hd, device="cuda", generator=gen) / (B * S)).to(dtype)
+        o, lse = fa.flash_attention_cuda(q, k, v, True, None, with_lse=True)
+        scratch = torch.empty(fa.bwd_scratch_floats(B, S, S, H, K, hd), device="cuda")
+        strides = (ctypes.c_longlong * 15)(*q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+                                           *o.stride()[:3], *do.stride()[:3])
+        grads = [torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)]
+
+        def bwd(which):
+            err = which.g4r_flash_attn_bwd(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
+                lse.data_ptr(), scratch.data_ptr(), *(g.data_ptr() for g in grads),
+                fa._DTYPES[dtype], B, S, S, H, K, hd, strides, 1.0 / math.sqrt(hd), 1, 0, stream)
+            build.check(err, "flash_attention backward")
+
+        want = ref.attention_bwd_ref(q, k, v, o, lse, do, True, None, block_q=1024)
+        got = {}
+        for name, which in trees.items():
+            bwd(which)
+            first = [g.clone() for g in grads]
+            bwd(which)
+            if not all(torch.equal(a, b) for a, b in zip(first, grads)):
+                sys.exit(f"kernel_ab: the {name} flash backward ({dtype}) is not bitwise on a re-run")
+            if not all(chip_smoke.flash_bwd_ok(g, w) for g, w in zip(first, want)):
+                sys.exit(f"kernel_ab: the {name} flash backward ({dtype}) disagrees with "
+                         "attention_bwd_ref")
+            got[name] = first
+        leaves = [t.detach().transpose(1, 2).requires_grad_() for t in (q, k, v)]
+        sdpa = torch.nn.functional.scaled_dot_product_attention(*leaves, is_causal=True,
+                                                                 enable_gqa=True)
+        g_out = do.transpose(1, 2)
+        times = turns(bwd)
+        emit({"what": "flash_bwd", "shape": {"B": B, "S": S, "H": H, "K": K, "hd": hd},
+              "dtype": str(dtype).replace("torch.", ""), "causal": True,
+              "ms": times, "flop": flops,
+              "tflop_per_s": {n: flops / min(t) / 1e9 for n, t in times.items()},
+              "sdpa_bwd_ms": chip_smoke.measure(lambda: torch.autograd.grad(
+                  sdpa, leaves, g_out, retain_graph=True), 10)["device_ms"],
+              "max_abs_vs_plain": {n: [(a.float() - w.float()).abs().max().item()
+                                       for a, w in zip(g, want)] for n, g in got.items()}})
+        del want, got, sdpa, leaves, scratch
+
+    # the forward: the header move must leave every bit and the time as they were
+    for dtype, with_lse in ((torch.bfloat16, False), (torch.float32, True)):
+        q = torch.randn(B, S, H, hd, device="cuda", generator=gen).to(dtype)
+        k, v = (torch.randn(B, S, K, hd, device="cuda", generator=gen).to(dtype)
+                for _ in range(2))
+        out = torch.empty_like(q)
+        lse = torch.empty((B, H, S), device="cuda") if with_lse else None
+        st = (*q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3])
+
+        def fwd(which):
+            err = which.g4r_flash_attn_fwd(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                None if lse is None else lse.data_ptr(), fa._DTYPES[dtype], B, S, S, H, K, hd,
+                *st, 1.0 / math.sqrt(hd), 1, 0, stream)
+            build.check(err, "flash_attention")
+
+        fwd(lib)
+        mine = (out.clone(), None if lse is None else lse.clone())
+        for name, which in others.items():
+            fwd(which)
+            if not (torch.equal(out, mine[0]) and (lse is None or torch.equal(lse, mine[1]))):
+                sys.exit(f"kernel_ab: the {name} flash forward ({dtype}) is not bitwise this "
+                         "tree's")
+        emit({"what": "flash_fwd", "shape": {"B": B, "S": S, "H": H, "K": K, "hd": hd},
+              "dtype": str(dtype).replace("torch.", ""), "with_lse": with_lse,
+              "bitwise_equal": True, "ms": turns(fwd)})
 
 
 if __name__ == "__main__":

@@ -2,13 +2,14 @@
 
 Every ``csrc/*.cu`` is compiled by its own ``nvcc`` process, all started
 together, and the objects are linked into one shared library with a plain C
-interface (no PyTorch headers, so a build takes seconds):
+interface (no PyTorch headers, so a build takes seconds; ``csrc/*.cuh`` are
+headers the sources include):
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -Xcompiler -fPIC
 
 The library lands in ``build/repro_torch/`` at the repository root, named by
-a hash of the sources and flags, so an edit rebuilds and an unchanged tree
-loads what is there. A failed build raises with the compiler's output; there
+a hash of the sources, headers and flags, so an edit rebuilds and an
+unchanged tree loads what is there. A failed build raises with the compiler's output; there
 are no prebuilt binaries and no fallback.
 """
 from __future__ import annotations
@@ -81,7 +82,7 @@ def sources() -> List[Path]:
 
 def source_hash() -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources():
+    for src in sorted(CSRC.glob("*.cu*")):  # the sources and the headers they include
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return h.hexdigest()[:16]

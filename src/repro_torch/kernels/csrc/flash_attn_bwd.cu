@@ -63,8 +63,9 @@ struct BwdArgs {
   const void *q, *k, *v, *o, *dout;
   const float* lse;  // (B, H, Sq)
   float* dd;         // D: (B, H, Sq)
+  float* part;       // G > 1: partial dK, dV of each query head, 2 x (G, B, Skv, K, hd) f32
   void *dq, *dk, *dv;  // contiguous (B, Sq, H, hd), (B, Skv, K, hd), (B, Skv, K, hd)
-  int sq, skv, heads, kv_heads, group;
+  int b_rows, sq, skv, heads, kv_heads, group;
   // (batch, seq, head) strides in elements of q, k, v, o and dO
   long long qs[3], ks[3], vs[3], os[3], ds[3];
   float scale;
@@ -147,7 +148,9 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkdv_kernel(BwdArgs a) {
   float* slse = sds + kBK * kPS;
   float* sdd = slse + kBQ;
 
-  const int k0 = blockIdx.x * kBK, kh = blockIdx.y, b = blockIdx.z;
+  // one query head a block; key tiles longest band first (blockIdx.z)
+  const int k0 = blockIdx.z * kBK, h = blockIdx.x, b = blockIdx.y;
+  const int kh = h / a.group, g = h - kh * a.group;
   const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
   load_tile<T, HD>(sk, (const T*)a.k + b * a.ks[0] + kh * a.ks[2], a.ks[1], k0, a.skv);
   load_tile<T, HD>(sv, (const T*)a.v + b * a.vs[0] + kh * a.vs[2], a.vs[1], k0, a.skv);
@@ -165,8 +168,7 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkdv_kernel(BwdArgs a) {
     qt_hi = (int)min((long long)qt_hi,
                      ((long long)min(k0 + kBK, a.skv) - 2 + a.window) / kBQ);
 
-  for (int g = 0; g < a.group; ++g) {
-    const int h = kh * a.group + g;
+  {
     const T* qb = (const T*)a.q + b * a.qs[0] + h * a.qs[2];
     const T* db = (const T*)a.dout + b * a.ds[0] + h * a.ds[2];
     for (int qt = qt_lo; qt <= qt_hi; ++qt) {
@@ -246,11 +248,33 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkdv_kernel(BwdArgs a) {
     const int kpos = k0 + ty * 4 + i;
     if (kpos >= a.skv) continue;
     const long long at = (((long long)b * a.skv + kpos) * a.kv_heads + kh) * HD;
+    const long long n = (long long)a.b_rows * a.skv * a.kv_heads * HD;
 #pragma unroll
     for (int c = 0; c < CPT; ++c) {
-      ((T*)a.dk)[at + tx + 16 * c] = from_f<T>(dk[i][c] * a.scale);
-      ((T*)a.dv)[at + tx + 16 * c] = from_f<T>(dv[i][c]);
+      if (a.group == 1) {
+        ((T*)a.dk)[at + tx + 16 * c] = from_f<T>(dk[i][c] * a.scale);
+        ((T*)a.dv)[at + tx + 16 * c] = from_f<T>(dv[i][c]);
+      } else {
+        a.part[g * n + at + tx + 16 * c] = dk[i][c];
+        a.part[(a.group + g) * n + at + tx + 16 * c] = dv[i][c];
+      }
     }
+  }
+}
+
+// G > 1: dK and dV from the G partials of each element, summed in order g
+// = 0 .. G-1, in f32, and written in the inputs' dtype
+template <typename T>
+__global__ void __launch_bounds__(kThreads) flash_bwd_sum_kernel(BwdArgs a, long long n) {
+  for (long long i = (long long)blockIdx.x * kThreads + threadIdx.x; i < n;
+       i += (long long)gridDim.x * kThreads) {
+    float sk = 0.f, sv = 0.f;
+    for (int g = 0; g < a.group; ++g) {
+      sk += a.part[g * n + i];
+      sv += a.part[(a.group + g) * n + i];
+    }
+    ((T*)a.dk)[i] = from_f<T>(sk * a.scale);
+    ((T*)a.dv)[i] = from_f<T>(sv);
   }
 }
 
@@ -383,12 +407,20 @@ int launch_bwd(const BwdArgs& a, int b_rows, cudaStream_t stream) {
   flash_bwd_dot_kernel<T, HD><<<(unsigned)dot_blocks, kThreads, 0, stream>>>(a, rows);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  const dim3 kv_grid((unsigned)((a.skv + kBK - 1) / kBK), (unsigned)a.kv_heads, (unsigned)b_rows);
+  const long long n_kt = (a.skv + kBK - 1) / kBK;
+  if (n_kt > 65535) return (int)cudaErrorInvalidValue;
+  const dim3 kv_grid((unsigned)a.heads, (unsigned)b_rows, (unsigned)n_kt);
   flash_bwd_dkdv_kernel<T, HD><<<kv_grid, kThreads, dkdv_smem, stream>>>(a);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   const dim3 q_grid((unsigned)((a.sq + kBQ - 1) / kBQ), (unsigned)a.heads, (unsigned)b_rows);
   flash_bwd_dq_kernel<T, HD><<<q_grid, kThreads, dq_smem, stream>>>(a);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || a.group == 1) return (int)err;
+  const long long n = (long long)b_rows * a.skv * a.kv_heads * HD;
+  const long long sum_blocks = (n + kThreads - 1) / kThreads;
+  flash_bwd_sum_kernel<T><<<(unsigned)(sum_blocks < 1056 ? sum_blocks : 1056), kThreads, 0,
+                            stream>>>(a, n);
   return (int)cudaGetLastError();
 }
 
@@ -419,6 +451,7 @@ int attrs_of(int which, int* out) {
     case 1: return fill_attrs((const void*)flash_bwd_dkdv_kernel<T, HD>, dkdv_smem_bytes<HD>(),
                               out);
     case 2: return fill_attrs((const void*)flash_bwd_dq_kernel<T, HD>, dq_smem_bytes<HD>(), out);
+    case 3: return fill_attrs((const void*)flash_bwd_sum_kernel<T>, 0, out);
   }
   return (int)cudaErrorInvalidValue;
 }
@@ -451,7 +484,8 @@ extern "C" int g4r_flash_attn_bwd(const void* q, const void* k, const void* v, c
   BwdArgs a;
   a.q = q; a.k = k; a.v = v; a.o = o; a.dout = dout;
   a.lse = lse; a.dd = dd; a.dq = dq; a.dk = dk; a.dv = dv;
-  a.sq = sq; a.skv = skv; a.heads = heads; a.kv_heads = kv_heads;
+  a.part = dd + (long long)b_rows * heads * sq;
+  a.b_rows = b_rows; a.sq = sq; a.skv = skv; a.heads = heads; a.kv_heads = kv_heads;
   a.group = heads / kv_heads;
   for (int i = 0; i < 3; ++i) {
     a.qs[i] = strides[i];

@@ -16,8 +16,8 @@ others raises here, before any launch.
 The backward replaces no TPU kernel (``repro``'s Pallas kernel has no VJP):
 from q, k, v, the forward's output and LSE and the output's gradient it
 gives dq, dk, dv, summing dk and dv over each KV head's G query heads,
-deterministically (no atomics), in three launches. The source files carry
-the design notes.
+deterministically (no atomics), in four launches (three where G = 1). The
+source files carry the design notes.
 """
 from __future__ import annotations
 
@@ -34,14 +34,29 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 TMA_ALIGN = 16  # bytes: TMA's stride and base-address granule
 BF16_BLOCK_Q = 128  # query rows per block of the bf16 kernel
 MAX_GRID_Z = 65535
-BWD_KERNELS = ("dot", "dkdv", "dq")  # the backward's three kernels, in launch order
+# the backward's kernels, in launch order; "sum" (dK and dV summed over the G
+# query heads of a KV head) runs only where G > 1
+BWD_KERNELS = ("dot", "dkdv", "dq", "sum")
 
 # Launches since the last reset (chip_smoke.py reads and resets them):
 # ``launches``, one ``flash_fwd_kernel`` (f32) or ``flash_fwd_kernel_wgmma``
-# (bf16) per forward call; ``bwd_launches``, three per backward call, one
-# for each kernel of BWD_KERNELS, which it launches in that order.
+# (bf16) per forward call; ``bwd_launches``, ``bwd_launches_per_call(H, K)``
+# per backward call, one for each kernel of BWD_KERNELS it launches.
 launches = 0
 bwd_launches = 0
+
+
+def bwd_launches_per_call(heads: int, kv_heads: int) -> int:
+    """The backward's launches for H query heads over K KV heads: every
+    kernel of BWD_KERNELS, but "sum" only where G = H / K > 1."""
+    return len(BWD_KERNELS) - (heads == kv_heads)
+
+
+def bwd_scratch_floats(B: int, Sq: int, Skv: int, H: int, K: int, hd: int) -> int:
+    """f32 scratch the backward's C entry carves: D (B, H, Sq) and, where
+    G > 1, the partial dK and dV of each query head, 2 x (G, B, Skv, K, hd)."""
+    G = H // K
+    return B * H * Sq + (2 * G * B * Skv * K * hd if G > 1 else 0)
 
 
 def _check_tma(name: str, t: torch.Tensor) -> None:
@@ -155,7 +170,8 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return dq, dk.zero_(), dv.zero_()
     if Skv == 0:
         raise ValueError("flash_attention backward: no keys (Skv == 0)")
-    dd = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)  # D = rowsum(dO o O)
+    dd = torch.empty(bwd_scratch_floats(B, Sq, Skv, H, K, hd), dtype=torch.float32,
+                     device=q.device)
     strides = (ctypes.c_longlong * 15)(*q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
                                        *o.stride()[:3], *do.stride()[:3])
     lib = build.library()
@@ -167,7 +183,7 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             int(bool(causal)), 0 if window is None else int(window),
             torch.cuda.current_stream(q.device).cuda_stream)
     build.check(err, "flash_attention backward")
-    bwd_launches += len(BWD_KERNELS)
+    bwd_launches += bwd_launches_per_call(H, K)
     return dq, dk, dv
 
 
@@ -203,8 +219,8 @@ def kernel_attrs(dtype: torch.dtype, hd: int) -> dict:
 
 
 def bwd_kernel_attrs(dtype: torch.dtype, hd: int) -> dict:
-    """``kernel_attrs`` of each of the backward's three kernels for (dtype,
-    hd), by the names of BWD_KERNELS."""
+    """``kernel_attrs`` of each of the backward's kernels for (dtype, hd),
+    by the names of BWD_KERNELS."""
     out = {}
     for which, name in enumerate(BWD_KERNELS):
         a = (ctypes.c_int * 3)()

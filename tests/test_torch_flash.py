@@ -570,7 +570,7 @@ class TestOnCard:
         n = fa_mod.bwd_launches
         got = fa_mod.flash_attention_bwd_cuda(q, k, v, o, lse, do, causal, window)
         torch.cuda.synchronize()
-        assert fa_mod.bwd_launches == n + len(fa_mod.BWD_KERNELS)
+        assert fa_mod.bwd_launches == n + fa_mod.bwd_launches_per_call(K * G, K)
         self._check_bwd(chip_smoke, got, ref.attention_bwd_ref(q, k, v, o, lse, do, causal, window),
                         dtype)
         again = fa_mod.flash_attention_bwd_cuda(q, k, v, o, lse, do, causal, window)
@@ -605,6 +605,7 @@ class TestOnCard:
         n, nb = fa_mod.launches, fa_mod.bwd_launches
         got = torch.autograd.grad(ops.flash_attention(*leaves, True, None), leaves, do)
         assert (fa_mod.launches, fa_mod.bwd_launches) == (n + 1, nb + len(fa_mod.BWD_KERNELS))
+        assert fa_mod.bwd_launches_per_call(3, 1) == len(fa_mod.BWD_KERNELS)
         o, lse = ref.attention_fwd_ref(q, k, v)
         self._check_bwd(chip_smoke, got, ref.attention_bwd_ref(q, k, v, o, lse, do),
                         torch.float32)
