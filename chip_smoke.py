@@ -11,10 +11,12 @@ nothing of JAX or of the JAX package ``repro``. Phases, each failing loudly:
    TF32 off (it would reorder near-tied top-k scores), and bf16 GEMMs
    without reduced-precision split-K reductions;
 2. build the kernels from ``src/repro_torch/kernels/csrc`` with nvcc (timed);
-   then the flash kernel's instantiations: the bf16 ones' SASS must hold
-   ``HGMMA`` (the tensor cores' wgmma; ``cuobjdump -sass`` on the built
-   library), and each instantiation's registers, local memory (spills) and
-   dynamic shared memory are printed, a bf16 one with local memory failing;
+   then the flash kernels' instantiations, forward and backward: the bf16
+   ones' SASS (the backward's dK/dV and dQ kernels) must hold ``HGMMA``
+   (the tensor cores' wgmma; ``cuobjdump -sass`` on the built library), and
+   each instantiation's registers, local memory (spills) and dynamic shared
+   memory are printed, a bf16 forward or any backward one with local
+   memory failing;
    the same for each ``topk`` instantiation (with resident blocks an SM and
    resident 8-block clusters), the ``inbatch_loss`` kernel at d 64, 256
    and 768 (with resident blocks an SM), the ``seg_aggr`` forward's and
@@ -127,7 +129,7 @@ nothing of JAX or of the JAX package ``repro``. Phases, each failing loudly:
    3e-4, seed 0; the port's bf16 init, which Adam turns f32 at step 1 as
    ``repro``'s does): ``flash_attention`` and ``flash_attention_bwd``
    launches zeroed before and read after each step (30 forwards and 30
-   remat recomputes, 30 backward calls of three kernels each), every
+   remat recomputes, 30 backward calls of four kernels each), every
    parameter f32 after step 1, the loss falling; tokens/s and the step
    wall, the bf16 first step apart; one more step profiled (the flash
    forward's and backward's device time and share); the first backward
@@ -2049,6 +2051,15 @@ FLASH_BWD_RTOL = 1e-4
 # the training forward's LSE (m + log l, f32, values ~1e1) against attention_fwd_ref's
 # logsumexp: the same f32 logits, the row sum in another order
 FLASH_LSE_RTOL = FLASH_LSE_ATOL = 1e-5
+# The bf16 kernel rounds P and dS to bf16 before its products (the wgmma's operands), which
+# the plain version does not: tests/test_torch_flash.py emulates that arithmetic on the CPU and
+# reads at most 8.0e-3 (2^-6.97) against the plain version at its backward cases and at
+# smollm's training layout (S 512), 7.8e-3 at starcoder2's hd 128 and 4,096 window, so the
+# bound stands with a margin of 1.95 there; a 64-key tile dropped at that window's edge, or its
+# mask skipped, reads 0.36 and 0.50, 23x and 32x the bound
+# (test_backward_row_bound_catches_window_edge_faults). On the card the kernel reads 1.18e-2
+# for dq at the LM training call (an H100; the model's step-1 activations, whose dq rows
+# cancel more than random data's) and 7.8e-3 at starcoder2's layout
 FLASH_BWD_BF16_ROW_REL = 2.0 ** -6
 FLASH_BWD_ROW_FLOOR = 2.0 ** -10
 FLASH_SYNTHETIC = (  # ((B, S, H, K, hd), dtype, causal, window)
@@ -2058,6 +2069,20 @@ FLASH_SYNTHETIC = (  # ((B, S, H, K, hd), dtype, causal, window)
     ((1, 512, 14, 2, 64), "float32", True, None),  # qwen2-0.5b's G 7
     ((1, 8192, 36, 4, 128), "bfloat16", True, 4096),  # starcoder2-7b's layout and window
 )
+
+
+# the first backward kernel's device ms at each call (CUDA cores in both dtypes, one dK/dV
+# block a KV head), before its redesign for Hopper, on an H100 80GB HBM3 at 700 W:
+# ((B, S, H, K, hd), dtype, causal, window) -> ms, the records' ``parent_ms``
+FLASH_BWD_PARENT_MS = {
+    ((4, 2048, 9, 3, 64), "bfloat16", True, None): 3.732436752319336,
+    ((4, 2048, 9, 3, 64), "float32", True, None): 3.742409515380859,
+    ((2, 256, 4, 2, 64), "float32", True, None): 0.15505919456481934,
+    ((2, 256, 4, 2, 64), "float32", False, None): 0.15515999794006347,
+    ((2, 200, 4, 2, 64), "float32", True, None): 0.1494287967681885,
+    ((1, 512, 14, 2, 64), "float32", True, None): 0.7973519802093506,
+    ((1, 8192, 36, 4, 128), "bfloat16", True, 4096): 74.30053100585937,
+}
 
 
 def _rel(a, b) -> float:
@@ -2422,9 +2447,11 @@ def lm_training(torch, np, fa_mod) -> dict:
 def flash_build_phase(torch, build, fa_mod, lib) -> None:
     """The flash kernel as built: each instantiation's registers, local
     memory bytes (spills and stack) and dynamic shared memory, and whether
-    its SASS holds HGMMA (``cuobjdump -sass`` on the library). The bf16
-    instantiations must run on the tensor cores and must not spill. The
-    backward's three kernels' registers, local and shared bytes beside."""
+    its SASS holds HGMMA (``cuobjdump -sass`` on the library); the same for
+    each of the backward's kernels (``bwd_kernel_attrs``). The bf16
+    instantiations of the forward and of the backward's dK/dV and dQ
+    kernels must run on the tensor cores, and no instantiation of the
+    backward and no bf16 one of the forward may use local memory."""
     cuobjdump = os.path.join(os.path.dirname(build.find_nvcc()), "cuobjdump")
     sass = subprocess.run([cuobjdump, "-sass", str(lib)], capture_output=True, text=True,
                           check=True, timeout=300).stdout
@@ -2449,10 +2476,27 @@ def flash_build_phase(torch, build, fa_mod, lib) -> None:
             if dtype == torch.bfloat16 and rec["local_bytes"]:
                 fail(f"flash build: the bf16 kernel at hd {hd} uses {rec['local_bytes']} bytes "
                      "of local memory (spills)")
-    # the backward's three kernels (CUDA cores, both dtypes), reported
-    out["backward"] = {f"{str(dtype).replace('torch.', '')} hd {hd}":
-                       fa_mod.bwd_kernel_attrs(dtype, hd)
-                       for dtype in (torch.bfloat16, torch.float32) for hd in fa_mod.HEAD_DIMS}
+    # the backward's kernels, both dtypes; the bf16 dK/dV and dQ kernels' HGMMA count
+    out["backward"] = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        for hd in fa_mod.HEAD_DIMS:
+            recs = fa_mod.bwd_kernel_attrs(dtype, hd)
+            out["backward"][f"{str(dtype).replace('torch.', '')} hd {hd}"] = recs
+            for name, rec in recs.items():
+                if rec["local_bytes"]:
+                    fail(f"flash build: the backward's {name} kernel ({dtype}, hd {hd}) uses "
+                         f"{rec['local_bytes']} bytes of local memory (spills)")
+            if dtype != torch.bfloat16:
+                continue
+            for name in ("dkdv", "dq"):
+                names = [n for n in bodies if f"flash_bwd_{name}_wgmmaILi{hd}E" in n]
+                if len(names) != 1:
+                    fail(f"flash build: {len(names)} SASS functions for flash_bwd_{name}_wgmma "
+                         f"hd {hd}: {names}")
+                recs[name]["hgmma"] = bodies[names[0]].count("HGMMA")
+                if not recs[name]["hgmma"]:
+                    fail(f"flash build: the backward's bf16 {name} kernel at hd {hd} has no "
+                         "HGMMA in its SASS: it does not run on the tensor cores")
     emit(out)
 
 
@@ -2726,9 +2770,11 @@ def _flash_bwd_record(torch, np, ref, fa_mod, q, k, v, o, lse, do, causal, windo
     lib = measure(lambda: torch.autograd.grad(lib_out, leaves, g_out, retain_graph=True),
                   5 if big else 20, floor_ms=max(t_bytes, t_ops))
     del lib_out, leaves
+    dtype = str(q.dtype).replace("torch.", "")
     rec = {"phase": "kernel", "name": "flash_attention_bwd", "source": source,
            "shape": {"B": B, "Sq": Sq, "Skv": Skv, "H": H, "K": K, "hd": hd},
-           "dtype": str(q.dtype).replace("torch.", ""), "causal": causal, "window": window,
+           "dtype": dtype, "causal": causal, "window": window,
+           "parent_ms": FLASH_BWD_PARENT_MS.get(((B, Sq, H, K, hd), dtype, causal, window)),
            "max_abs_err": max(errs.values()), "max_abs_err_by_grad": errs,
            "row_rel_err": rels, "do_abs_max": do.abs().max().item(), "rerun_bitwise": True,
            "o_max_abs_err": fwd["max_abs_err"], "o_row_rel_err": fwd["row_rel_err"],
@@ -2862,6 +2908,8 @@ def main() -> None:
         if other_calls:  # the same kernel timed at another call of the path
             out["other_calls"] = [{"source": r["source"], "shape": r["shape"],
                                    "dtype": r["dtype"], **timing(r)} for r in other_calls]
+        if "parent_ms" in rec:  # the kernel's time at this call before its redesign
+            out["parent_ms"] = rec["parent_ms"]
         return out
 
     tl, fl = tr["launches"], fu["launches"]

@@ -1,5 +1,6 @@
 // Blockwise online-softmax (flash) attention, causal / sliding-window GQA,
-// the forward, for Hopper (sm_90a); the backward is flash_attn_bwd.cu.
+// the forward, for Hopper (sm_90a); the backward is flash_attn_bwd.cu, and
+// the Hopper building blocks both use (mbarriers, TMA, wgmma) hopper.cuh.
 //
 // Replaces the TPU kernel repro/kernels/flash_attn.py:flash_attention_pallas
 // (pallas_call at :103). q (B, Sq, H, hd) and k, v (B, Skv, K, hd), read in

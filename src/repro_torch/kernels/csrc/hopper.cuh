@@ -201,14 +201,21 @@ __device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, uint32_
                                           uint32_t bar) {
   asm volatile(
       "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];"
-      ::"r"(dst), "l"(src), "r"(bytes), "r"(bar)
+      ::"r"(dst), "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(bar)
       : "memory");
 }
 
 // one float into shared memory at ``dst``: from ``src`` when ``in``, else 0
 __device__ __forceinline__ void cp_async4(uint32_t dst, const float* src, bool in) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;" ::"r"(dst), "l"(src),
-               "r"(in ? 4 : 0)
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;" ::"r"(dst),
+               "l"(reinterpret_cast<uint64_t>(src)), "r"(in ? 4 : 0)
+               : "memory");
+}
+// 16 bytes into shared memory at ``dst`` (16-byte aligned): from ``src``
+// (16-byte aligned) when ``in``, else zeros
+__device__ __forceinline__ void cp_async16(uint32_t dst, const float* src, bool in) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(dst),
+               "l"(reinterpret_cast<uint64_t>(src)), "r"(in ? 16 : 0)
                : "memory");
 }
 __device__ __forceinline__ void cp_async_commit() {

@@ -52,11 +52,16 @@ def bwd_launches_per_call(heads: int, kv_heads: int) -> int:
     return len(BWD_KERNELS) - (heads == kv_heads)
 
 
+BWD_ROW_PAD = 128  # the backward pads its lse and D rows to a multiple of this
+
+
 def bwd_scratch_floats(B: int, Sq: int, Skv: int, H: int, K: int, hd: int) -> int:
-    """f32 scratch the backward's C entry carves: D (B, H, Sq) and, where
-    G > 1, the partial dK and dV of each query head, 2 x (G, B, Skv, K, hd)."""
+    """f32 scratch the backward's C entry carves: the lse and D rows, 2 x (B,
+    H, Sq rounded up to BWD_ROW_PAD), and, where G = H / K > 1, the partial
+    dK and dV of each query head, 2 x (G, B, Skv, K, hd)."""
     G = H // K
-    return B * H * Sq + (2 * G * B * Skv * K * hd if G > 1 else 0)
+    sq_pad = -(-Sq // BWD_ROW_PAD) * BWD_ROW_PAD
+    return 2 * B * H * sq_pad + (2 * G * B * Skv * K * hd if G > 1 else 0)
 
 
 def _check_tma(name: str, t: torch.Tensor) -> None:

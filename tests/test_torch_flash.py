@@ -21,7 +21,14 @@ atol 1e-5) and against ``jax.vjp`` of ``repro``'s oracle, naive and chunked
 32/64/128 and S 200; in bf16 to 3e-2 of the largest |gradient| (the
 gradients are rounded to bf16, so the error scales with them) against the
 f32 gradients of the same values and ``repro``'s bf16 oracle; the plain
-LSE against ``torch.logsumexp``. The wrappers' checks (TMA's 16-byte
+LSE against ``torch.logsumexp``. A plain-torch emulation of the bf16
+backward kernels' arithmetic (P and dS rounded to bf16 before the
+products, each query head's dK and dV summed over G in order) within
+``chip_smoke.py``'s row-scaled bound (2^-6) of the plain version and 3e-2
+of ``jax.vjp`` of ``repro``'s oracle, at the backward cases and smollm's
+training layout at S 512; that bound failing the emulation with a
+window-edge tile dropped or unmasked at starcoder2's hd 128 and 4,096
+window. The wrappers' checks (TMA's 16-byte
 strides and base addresses for bf16 among them) raise before any launch.
 
 On the card (``cuda`` marker, skipped here): one tile of the bf16 kernel's
@@ -40,13 +47,20 @@ summed in another order; bf16 to 2^-6 of each row's largest |value|, no
 row's scale below 2^-10 of the tensor's: both sum in f32 and round once, a
 rounding step is at most 2^-7, and a row that cancels to 0 holds only
 rounding residue), bitwise on a
-re-run, one launch count a call, through the dispatcher's autograd.
+re-run, one launch count a call, through the dispatcher's autograd; at the
+grids' edges (G 1 with no sum pass, G 7 and 9, Sq and Skv off the tile,
+windows of one key and under one tile) in both dtypes, four launches a
+call where G > 1 and three at G 1, re-runs bitwise under deterministic
+algorithms; the bf16 kernels against their emulation; no backward
+instantiation with local memory, HGMMA in every bf16 dK/dV and dQ one.
 
     python -m pytest -q -m cuda tests/test_torch_flash.py   # on the card
 """
 import importlib.util
 import itertools
 import pathlib
+import re
+import subprocess
 
 import jax
 import jax.numpy as jnp
@@ -355,6 +369,107 @@ def test_backward_bf16_matches_f32_and_repro(S, K, G, hd, window):
         assert _rel_err(g, jw) <= BF16_ATOL
 
 
+def bwd_kernel_emulation(q, k, v, o, lse, do, causal=True, window=None, fault=None):
+    """The bf16 backward kernels' arithmetic (``csrc/flash_attn_bwd.cu``,
+    ``flash_bwd_dkdv_wgmma`` and ``flash_bwd_dq_wgmma``) in plain torch on
+    (B, S, H, hd) bf16 q, k, v, o, dO and the forward's f32 lse: D =
+    rowsum(dO o O) in f32; S and dP in f32 from the bf16 products; P =
+    exp2(S scale log2 e - lse log2 e) in the band, else 0; dS = P o (dP - D);
+    P and dS rounded to bf16 before their products (the wgmmas' register
+    operands), the products summed in f32; each query head's dK and dV, then
+    the G partials summed in order g = 0 .. G-1 (the sum pass); every output
+    rounded to bf16 once, dQ and dK after the scale.
+
+    ``fault`` breaks the band where a window cuts a dQ block's (128 rows)
+    band, as a kernel's bug could: ``"drop_edge_tile"`` loses the band's
+    first 64-key tile, ``"unmasked_edge_tile"`` leaves the window's mask off
+    it."""
+    B, Sq, H, hd = q.shape
+    Skv, K = k.shape[1], k.shape[2]
+    G = H // K
+    c = np.float32(np.log2(np.e) / np.sqrt(hd))
+    lse2 = (lse.float() * np.float32(np.log2(np.e)))[..., None]  # (B, H, Sq, 1)
+    qf, dof = q.float().transpose(1, 2), do.float().transpose(1, 2)
+    kf = k.float().transpose(1, 2).repeat_interleave(G, dim=1)
+    vf = v.float().transpose(1, 2).repeat_interleave(G, dim=1)
+    dd = (do.float() * o.float()).sum(-1).transpose(1, 2)[..., None]
+    ok = ref._band(Sq, Skv, causal, window, 0, q.device)
+    if fault is not None:
+        causal_only = ref._band(Sq, Skv, causal, None, 0, q.device)
+        for q0 in range(0, Sq, 128):
+            lo = q0 - window + 1
+            if lo <= 0:
+                continue
+            rows, keys = slice(q0, q0 + 128), slice(lo // 64 * 64, lo // 64 * 64 + 64)
+            ok[rows, keys] = False if fault == "drop_edge_tile" else causal_only[rows, keys]
+    p = torch.where(ok, torch.exp2((qf @ kf.transpose(-1, -2)) * c - lse2), 0.0)
+    ds = p * (dof @ vf.transpose(-1, -2) - dd)
+    pb, dsb = p.bfloat16().float(), ds.bfloat16().float()
+    scale = np.float32(1.0 / np.sqrt(hd))
+    dq = (dsb @ kf) * scale
+    dvh = (pb.transpose(-1, -2) @ dof).reshape(B, K, G, Skv, hd)
+    dkh = (dsb.transpose(-1, -2) @ qf).reshape(B, K, G, Skv, hd)
+    dk, dv = dkh[:, :, 0], dvh[:, :, 0]
+    for g in range(1, G):
+        dk, dv = dk + dkh[:, :, g], dv + dvh[:, :, g]
+    return (dq.transpose(1, 2).bfloat16(), (dk * scale).transpose(1, 2).bfloat16(),
+            dv.transpose(1, 2).bfloat16())
+
+
+# BWD_CASES with batch 2, and smollm-135m's training layout (B 4, H 9, K 3,
+# hd 64, causal) at S 512
+EMU_CASES = [(2,) + c for c in BWD_CASES] + [(4, 512, 3, 3, 64, None, True)]
+
+
+@pytest.mark.parametrize("case", EMU_CASES, ids=lambda c: f"B{c[0]}-" + _case_id(c[1:]))
+def test_backward_kernel_arithmetic_bf16(chip_smoke, case):
+    """The bf16 backward's numerics, pinned on the CPU: the emulation within
+    ``chip_smoke.py``'s row-scaled bound (FLASH_BWD_BF16_ROW_REL) of the
+    plain version, and within 3e-2 of the largest |gradient| of ``jax.vjp``
+    of ``repro``'s oracle on the same bf16 values in f32."""
+    B, S, K, G, hd, window, causal = case
+    q, k, v, do = _qkvd(S + 5 * G + hd, B, S, K, G, hd)
+    bq, bk, bv, bdo = (_t(a, torch.bfloat16) for a in (q, k, v, do))
+    o, lse = ref.attention_fwd_ref(bq, bk, bv, causal, window)
+    mine = bwd_kernel_emulation(bq, bk, bv, o, lse, bdo, causal, window)
+    assert all(g.dtype == torch.bfloat16 and torch.isfinite(g.float()).all() for g in mine)
+    plain = ref.attention_bwd_ref(bq, bk, bv, o, lse, bdo, causal, window)
+    for g, w in zip(mine, plain):
+        assert chip_smoke.flash_bwd_ok(g, w), chip_smoke._row_rel(g, w, chip_smoke.FLASH_BWD_ROW_FLOOR)
+    f32 = [np.asarray(t.float().numpy()) for t in (bq, bk, bv, bdo)]
+    want = _vjp(lambda a, b, c: jax_ref.attention_ref(a, b, c, causal=causal, window=window), *f32)
+    for g, w in zip(mine, want):
+        assert _rel_err(g, w) <= BF16_ATOL
+
+
+@pytest.fixture(scope="module")
+def window_edge_bwd(window_edge_case):
+    """``window_edge_case`` with a dO, the forward's output and LSE, and the
+    plain backward."""
+    q, k, v, _ = window_edge_case
+    do = _t(np.random.default_rng(23).standard_normal(q.shape).astype(np.float32),
+            torch.bfloat16)
+    o, lse = ref.attention_fwd_ref(q, k, v, True, 4096)
+    return q, k, v, o, lse, do, ref.attention_bwd_ref(q, k, v, o, lse, do, True, 4096,
+                                                      block_q=1024)
+
+
+@pytest.mark.parametrize("fault", [None, "drop_edge_tile", "unmasked_edge_tile"])
+def test_backward_row_bound_catches_window_edge_faults(chip_smoke, window_edge_bwd, fault):
+    """At starcoder2's hd 128 and 4,096 window the emulation passes
+    ``chip_smoke.py``'s bf16 backward bound (every gradient's rows within
+    2^-6 of their largest |value|); with its window-edge tile dropped or
+    unmasked it fails it by a factor above 4 (dQ's rows, which cancel, read
+    the fault most)."""
+    *inputs, plain = window_edge_bwd
+    mine = bwd_kernel_emulation(*inputs, True, 4096, fault=fault)
+    rels = [chip_smoke._row_rel(g, w, chip_smoke.FLASH_BWD_ROW_FLOOR) for g, w in zip(mine, plain)]
+    if fault is None:
+        assert all(chip_smoke.flash_bwd_ok(g, w) for g, w in zip(mine, plain)), rels
+    else:
+        assert max(rels) > 4 * chip_smoke.FLASH_BWD_BF16_ROW_REL, rels
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("causal,window", [(True, None), (True, 24), (False, None)])
 def test_plain_lse_matches_logsumexp(dtype, causal, window):
@@ -587,6 +702,69 @@ class TestOnCard:
         got = fa_mod.flash_attention_bwd_cuda(q, k, v, o, lse, do, True, window)
         want = ref.attention_bwd_ref(q, k, v, o, lse, do, True, window, block_q=512)
         self._check_bwd(chip_smoke, got, want, torch.bfloat16)
+        again = fa_mod.flash_attention_bwd_cuda(q, k, v, o, lse, do, True, window)
+        assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+    # (B, S, K, G, hd, window, causal): the edges of the backward's grids
+    @pytest.mark.parametrize("B,S,K,G,hd,window,causal", [
+        (2, 200, 2, 1, 64, None, True),  # G 1: dK/dV written by their blocks, no sum pass
+        (1, 333, 2, 7, 64, None, True),  # G 7 (qwen2), Sq and Skv off the tile
+        (2, 256, 1, 9, 128, None, False),  # G 9 (starcoder2's heads)
+        (1, 333, 3, 3, 32, 100, True),  # off the tile, under a window
+        (2, 300, 2, 3, 64, 16, True),  # a window shorter than one tile
+        (1, 130, 2, 3, 128, 2, True),  # a window of two keys
+    ])
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+    def test_backward_grid_edges(self, cuda, chip_smoke, dtype, B, S, K, G, hd, window, causal):
+        q, k, v, do = _on(cuda, _qkvd(S + G, B, S, K, G, hd), dtype)
+        o, lse = flash_attention_cuda(q, k, v, causal, window, with_lse=True)
+        n = fa_mod.bwd_launches
+        got = fa_mod.flash_attention_bwd_cuda(q, k, v, o, lse, do, causal, window)
+        torch.cuda.synchronize()
+        launches = fa_mod.bwd_launches - n
+        assert launches == (len(fa_mod.BWD_KERNELS) if G > 1 else len(fa_mod.BWD_KERNELS) - 1)
+        self._check_bwd(chip_smoke, got, ref.attention_bwd_ref(q, k, v, o, lse, do, causal, window),
+                        dtype)
+        torch.use_deterministic_algorithms(True)
+        try:
+            again = fa_mod.flash_attention_bwd_cuda(q, k, v, o, lse, do, causal, window)
+        finally:
+            torch.use_deterministic_algorithms(False)
+        assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+    @pytest.mark.parametrize("B,S,K,G,hd,window", [(2, 300, 2, 3, 64, None), (1, 256, 1, 7, 128, 100),
+                                                   (2, 130, 2, 1, 32, None)])
+    def test_backward_kernel_matches_its_emulation_bf16(self, cuda, chip_smoke, B, S, K, G, hd,
+                                                        window):
+        """The card against the CPU emulation of its arithmetic (P and dS
+        rounded to bf16 before the products): the same roundings, other
+        summation orders and exp2 implementations."""
+        q, k, v, do = (_t(a, torch.bfloat16) for a in _qkvd(S + 7, B, S, K, G, hd))
+        o, lse = flash_attention_cuda(q.to(cuda), k.to(cuda), v.to(cuda), True, window,
+                                      with_lse=True)
+        got = fa_mod.flash_attention_bwd_cuda(q.to(cuda), k.to(cuda), v.to(cuda), o, lse,
+                                              do.to(cuda), True, window)
+        want = bwd_kernel_emulation(q, k, v, o.cpu(), lse.cpu(), do, True, window)
+        for g, w in zip(got, want):
+            assert chip_smoke.flash_bwd_ok(g.cpu(), w)
+
+    def test_backward_builds_on_the_tensor_cores_without_local_memory(self, cuda):
+        """No instantiation of the backward uses local memory (spills or a
+        stack), and the SASS of every bf16 dK/dV and dQ instantiation holds
+        HGMMA (``cuobjdump -sass`` on the built library)."""
+        for dtype in (torch.float32, torch.bfloat16):
+            for hd in HEAD_DIMS:
+                for name, attrs in fa_mod.bwd_kernel_attrs(dtype, hd).items():
+                    assert attrs["local_bytes"] == 0, (dtype, hd, name, attrs)
+        cuobjdump = pathlib.Path(fa_mod.build.find_nvcc()).parent / "cuobjdump"
+        sass = subprocess.run([str(cuobjdump), "-sass", str(fa_mod.build.build())],
+                              capture_output=True, text=True, check=True).stdout
+        bodies = re.split(r"^\s*Function : ", sass, flags=re.M)[1:]
+        for hd in HEAD_DIMS:
+            for name in ("dkdv", "dq"):
+                body = [b for b in bodies if b.startswith("_Z") and
+                        f"flash_bwd_{name}_wgmmaILi{hd}E" in b.split(None, 1)[0]]
+                assert len(body) == 1 and "HGMMA" in body[0], (name, hd, len(body))
 
     def test_backward_reads_strided_views(self, cuda, chip_smoke):
         """q, k, v from one packed tensor and a dO whose rows are strided."""
@@ -598,6 +776,21 @@ class TestOnCard:
         got = fa_mod.flash_attention_bwd_cuda(q, k, v, o, lse, do, True, 32)
         self._check_bwd(chip_smoke, got, ref.attention_bwd_ref(q, k, v, o, lse, do, True, 32),
                         torch.float32)
+
+    @pytest.mark.parametrize("which", ["q", "k", "do"])
+    def test_backward_reads_views_off_16_bytes(self, cuda, which):
+        """An f32 view 4 bytes past a 16-byte boundary takes the tile
+        kernels' 4-byte copies, which load the same values: the gradients
+        are bitwise those of the aligned inputs."""
+        q, k, v, do = _on(cuda, _qkvd(11, 2, 200, 2, 3, 64))
+        o, lse = flash_attention_cuda(q, k, v, True, 48, with_lse=True)
+        want = fa_mod.flash_attention_bwd_cuda(q, k, v, o, lse, do, True, 48)
+        ins = {"q": q, "k": k, "do": do}
+        t = ins[which]
+        ins[which] = torch.cat([torch.zeros(1, device=cuda), t.flatten()])[1:].view(t.shape)
+        assert ins[which].data_ptr() % 16 == 4 and torch.equal(ins[which], t)
+        got = fa_mod.flash_attention_bwd_cuda(ins["q"], ins["k"], v, o, lse, ins["do"], True, 48)
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
 
     def test_ops_routes_the_backward_to_the_kernel(self, cuda, chip_smoke):
         q, k, v, do = _on(cuda, _qkvd(3, 1, 96, 1, 3, 32))
