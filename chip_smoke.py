@@ -12,7 +12,7 @@ nothing of JAX or of the JAX package ``repro``. Phases, each failing loudly:
    without reduced-precision split-K reductions;
 2. build the kernels from ``src/repro_torch/kernels/csrc`` with nvcc (timed);
    then the flash kernels' instantiations, forward and backward: the bf16
-   ones' SASS (the backward's dK/dV and dQ kernels) must hold ``HGMMA``
+   ones' SASS (the backward's dK/dV and dQ kernel) must hold ``HGMMA``
    (the tensor cores' wgmma; ``cuobjdump -sass`` on the built library), and
    each instantiation's registers, local memory (spills) and dynamic shared
    memory are printed, a bf16 forward or any backward one with local
@@ -129,7 +129,7 @@ nothing of JAX or of the JAX package ``repro``. Phases, each failing loudly:
    3e-4, seed 0; the port's bf16 init, which Adam turns f32 at step 1 as
    ``repro``'s does): ``flash_attention`` and ``flash_attention_bwd``
    launches zeroed before and read after each step (30 forwards and 30
-   remat recomputes, 30 backward calls of four kernels each), every
+   remat recomputes, 30 backward calls of three kernels each), every
    parameter f32 after step 1, the loss falling; tokens/s and the step
    wall, the bf16 first step apart; one more step profiled (the flash
    forward's and backward's device time and share); the first backward
@@ -238,8 +238,12 @@ def measure(fn, iters: int, warmup: int = 2, floor_ms: float = 0.0) -> dict:
     in a few), so the call's device time is each kernel's mean over the
     records kept, times its launches per call. A profile that kept fewer
     than half of some kernel's records, or whose time is under ``floor_ms``
-    (a bound the card cannot beat), is taken again, and after
-    ``CUPTI_TRIES`` such the run fails.
+    (a bound the card cannot beat), is taken again with twice the calls,
+    and after ``CUPTI_TRIES`` such the run fails. (The f32 forward's small
+    synthetic calls, 50 calls of 0.03 ms, keep 21 of their records in a
+    first profile on an H100 again and again, and the first of them once
+    did in all three; a longer loop outweighs a loss of a fixed count,
+    though not every loss is one.)
     """
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -272,18 +276,19 @@ def measure(fn, iters: int, warmup: int = 2, floor_ms: float = 0.0) -> dict:
     if queued and span_ms >= EVENT_MS:
         return {"call_ms": call_ms, "device_ms": span_ms, "ms_from": "cuda events"}
     for attempt in range(CUPTI_TRIES):
+        calls = iters << attempt
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            for _ in range(iters):
+            for _ in range(calls):
                 fn()
             torch.cuda.synchronize()
         dev = [e for e in prof.key_averages()
                if e.device_type == torch.autograd.DeviceType.CUDA and e.count > 0]
-        per_call = [max(1, round(e.count / iters)) for e in dev]
+        per_call = [max(1, round(e.count / calls)) for e in dev]
         dev_ms = sum(e.self_device_time_total / e.count * n for e, n in zip(dev, per_call)) / 1e3
-        if (dev and all(2 * e.count >= n * iters for e, n in zip(dev, per_call))
+        if (dev and all(2 * e.count >= n * calls for e, n in zip(dev, per_call))
                 and dev_ms > floor_ms):
             return {"call_ms": call_ms, "device_ms": dev_ms, "ms_from": "cupti"}
-        print(f"chip_smoke: profile {attempt + 1} of {iters} calls kept "
+        print(f"chip_smoke: profile {attempt + 1} of {calls} calls kept "
               f"{[e.count for e in dev]} kernel records, {dev_ms} ms a call "
               f"(floor {floor_ms} ms)", file=sys.stderr, flush=True)
     fail(f"torch.profiler lost the device records of a {call_ms} ms call {CUPTI_TRIES} times")
@@ -2057,9 +2062,11 @@ FLASH_LSE_RTOL = FLASH_LSE_ATOL = 1e-5
 # smollm's training layout (S 512), 7.8e-3 at starcoder2's hd 128 and 4,096 window, so the
 # bound stands with a margin of 1.95 there; a 64-key tile dropped at that window's edge, or its
 # mask skipped, reads 0.36 and 0.50, 23x and 32x the bound
-# (test_backward_row_bound_catches_window_edge_faults). On the card the kernel reads 1.18e-2
-# for dq at the LM training call (an H100; the model's step-1 activations, whose dq rows
-# cancel more than random data's) and 7.8e-3 at starcoder2's layout
+# (test_backward_row_bound_catches_window_edge_faults). On the card each bf16 call is also
+# held to the emulation run on its own inputs (bwd_kernel_emulation, the same bound), and the
+# emulation's distance to the plain version is recorded beside the kernel's: where the
+# kernel reads more than on random data (dq at the LM training call, on the model's step-1
+# inputs), that reading says whether the arithmetic or the kernel makes the difference
 FLASH_BWD_BF16_ROW_REL = 2.0 ** -6
 FLASH_BWD_ROW_FLOOR = 2.0 ** -10
 FLASH_SYNTHETIC = (  # ((B, S, H, K, hd), dtype, causal, window)
@@ -2069,20 +2076,6 @@ FLASH_SYNTHETIC = (  # ((B, S, H, K, hd), dtype, causal, window)
     ((1, 512, 14, 2, 64), "float32", True, None),  # qwen2-0.5b's G 7
     ((1, 8192, 36, 4, 128), "bfloat16", True, 4096),  # starcoder2-7b's layout and window
 )
-
-
-# the first backward kernel's device ms at each call (CUDA cores in both dtypes, one dK/dV
-# block a KV head), before its redesign for Hopper, on an H100 80GB HBM3 at 700 W:
-# ((B, S, H, K, hd), dtype, causal, window) -> ms, the records' ``parent_ms``
-FLASH_BWD_PARENT_MS = {
-    ((4, 2048, 9, 3, 64), "bfloat16", True, None): 3.732436752319336,
-    ((4, 2048, 9, 3, 64), "float32", True, None): 3.742409515380859,
-    ((2, 256, 4, 2, 64), "float32", True, None): 0.15505919456481934,
-    ((2, 256, 4, 2, 64), "float32", False, None): 0.15515999794006347,
-    ((2, 200, 4, 2, 64), "float32", True, None): 0.1494287967681885,
-    ((1, 512, 14, 2, 64), "float32", True, None): 0.7973519802093506,
-    ((1, 8192, 36, 4, 128), "bfloat16", True, 4096): 74.30053100585937,
-}
 
 
 def _rel(a, b) -> float:
@@ -2109,6 +2102,52 @@ def flash_bwd_ok(got, want) -> bool:
         return _row_rel(got, want, FLASH_BWD_ROW_FLOOR) <= FLASH_BWD_BF16_ROW_REL
     return torch.allclose(got, want, rtol=FLASH_BWD_RTOL,
                           atol=FLASH_BWD_RTOL * want.abs().max().item())
+
+
+def bwd_kernel_emulation(q, k, v, o, lse, do, causal=True, window=None, band=None):
+    """The bf16 backward kernel's arithmetic (``flash_bwd_tiles_wgmma`` in
+    ``csrc/flash_attn_bwd.cu``) in plain torch, on the inputs' device, one
+    query head at a time: from (B, S, H, hd) bf16 q, k, v, o, dO and the
+    forward's f32 lse, D = rowsum(dO o O) in f32; S and dP in f32 from the
+    bf16 products; P = exp2(S scale log2 e - lse log2 e) in the band, else
+    0; dS = P o (dP - D); P and dS rounded to bf16 before their products
+    (the wgmmas' register operands), the products summed in f32; each query
+    head's dK and dV, then the G partials summed in order g = 0 .. G-1 (the
+    sum pass; a grid the kernel splits adds more partials, in another
+    order); every output rounded to bf16 once, dQ and dK after the scale. ``band``, an (Sq, Skv) bool tensor, replaces the causal / window
+    band (a fault to inject)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import ref
+
+    B, Sq, H, hd = q.shape
+    Skv, K = k.shape[1], k.shape[2]
+    G = H // K
+    ok = ref._band(Sq, Skv, causal, window, 0, q.device) if band is None else band
+    c = float(np.float32(np.log2(np.e) / np.sqrt(hd)))
+    log2e = float(np.float32(np.log2(np.e)))
+    scale = float(np.float32(1.0 / np.sqrt(hd)))
+    dd = (do.float() * o.float()).sum(-1)  # (B, Sq, H)
+    dq = torch.empty(q.shape, dtype=torch.bfloat16, device=q.device)
+    dk = torch.empty(k.shape, dtype=torch.bfloat16, device=q.device)
+    dv = torch.empty_like(dk)
+    for b in range(B):
+        for kh in range(K):
+            kf, vf = k[b, :, kh].float(), v[b, :, kh].float()
+            for g in range(G):
+                h = kh * G + g
+                qf, dof = q[b, :, h].float(), do[b, :, h].float()
+                lse2 = (lse[b, h].float() * log2e)[:, None]
+                p = torch.where(ok, torch.exp2((qf @ kf.T) * c - lse2), 0.0)
+                ds = p * (dof @ vf.T - dd[b, :, h, None])
+                pb, dsb = p.bfloat16().float(), ds.bfloat16().float()
+                dq[b, :, h] = ((dsb @ kf) * scale).bfloat16()
+                pk, pv = dsb.T @ qf, pb.T @ dof
+                sk, sv = (pk, pv) if g == 0 else (sk + pk, sv + pv)
+            dk[b, :, kh] = (sk * scale).bfloat16()
+            dv[b, :, kh] = sv.bfloat16()
+    return dq, dk, dv
 
 
 def _flash_key(call):
@@ -2384,7 +2423,8 @@ def lm_training(torch, np, fa_mod) -> dict:
     spec, model = res["spec"], res["model"]
     cfg = spec.lm
     want = {"fwd": cfg.n_layers * (2 if cfg.remat else 1),
-            "bwd": cfg.n_layers * fa_mod.bwd_launches_per_call(cfg.n_heads, cfg.n_kv)}
+            "bwd": cfg.n_layers * fa_mod.bwd_plan(torch.float32, LM_BATCH, LM_SEQ, LM_SEQ,
+                                                  cfg.n_heads, cfg.n_kv, cfg.head_dim)["launches"]}
     if any(s != want for s in per_step):
         fail(f"lm training: launches a step {per_step}, want {want} (n_layers "
              f"{cfg.n_layers}, remat {cfg.remat})")
@@ -2450,7 +2490,7 @@ def flash_build_phase(torch, build, fa_mod, lib) -> None:
     its SASS holds HGMMA (``cuobjdump -sass`` on the library); the same for
     each of the backward's kernels (``bwd_kernel_attrs``). The bf16
     instantiations of the forward and of the backward's dK/dV and dQ
-    kernels must run on the tensor cores, and no instantiation of the
+    kernel must run on the tensor cores, and no instantiation of the
     backward and no bf16 one of the forward may use local memory."""
     cuobjdump = os.path.join(os.path.dirname(build.find_nvcc()), "cuobjdump")
     sass = subprocess.run([cuobjdump, "-sass", str(lib)], capture_output=True, text=True,
@@ -2476,7 +2516,7 @@ def flash_build_phase(torch, build, fa_mod, lib) -> None:
             if dtype == torch.bfloat16 and rec["local_bytes"]:
                 fail(f"flash build: the bf16 kernel at hd {hd} uses {rec['local_bytes']} bytes "
                      "of local memory (spills)")
-    # the backward's kernels, both dtypes; the bf16 dK/dV and dQ kernels' HGMMA count
+    # the backward's kernels, both dtypes; the bf16 dK/dV and dQ kernel's HGMMA count
     out["backward"] = {}
     for dtype in (torch.bfloat16, torch.float32):
         for hd in fa_mod.HEAD_DIMS:
@@ -2488,15 +2528,14 @@ def flash_build_phase(torch, build, fa_mod, lib) -> None:
                          f"{rec['local_bytes']} bytes of local memory (spills)")
             if dtype != torch.bfloat16:
                 continue
-            for name in ("dkdv", "dq"):
-                names = [n for n in bodies if f"flash_bwd_{name}_wgmmaILi{hd}E" in n]
-                if len(names) != 1:
-                    fail(f"flash build: {len(names)} SASS functions for flash_bwd_{name}_wgmma "
-                         f"hd {hd}: {names}")
-                recs[name]["hgmma"] = bodies[names[0]].count("HGMMA")
-                if not recs[name]["hgmma"]:
-                    fail(f"flash build: the backward's bf16 {name} kernel at hd {hd} has no "
-                         "HGMMA in its SASS: it does not run on the tensor cores")
+            names = [n for n in bodies if f"flash_bwd_tiles_wgmmaILi{hd}E" in n]
+            if len(names) != 1:
+                fail(f"flash build: {len(names)} SASS functions for flash_bwd_tiles_wgmma "
+                     f"hd {hd}: {names}")
+            recs["tiles"]["hgmma"] = bodies[names[0]].count("HGMMA")
+            if not recs["tiles"]["hgmma"]:
+                fail(f"flash build: the backward's bf16 dK/dV and dQ kernel at hd {hd} has no "
+                     "HGMMA in its SASS: it does not run on the tensor cores")
     emit(out)
 
 
@@ -2709,7 +2748,9 @@ def _flash_bwd_record(torch, np, ref, fa_mod, q, k, v, o, lse, do, causal, windo
     ``attention_fwd_ref``'s (both feed the plain version below as well, so
     only this check sees them); the backward kernel against
     ``attention_bwd_ref`` on the call (the same q, k, v, o, lse and dO), a
-    bitwise re-run, and its time beside the
+    bitwise re-run, in bf16 also against ``bwd_kernel_emulation`` (whose
+    own distance to the plain version is recorded beside the kernel's), and
+    its time beside the
     plain version's, the library's (the backward of
     ``scaled_dot_product_attention(enable_gqa=True)`` through autograd,
     timed apart from its forward) and the bound (10 hd FLOP a (query, key)
@@ -2744,6 +2785,18 @@ def _flash_bwd_record(torch, np, ref, fa_mod, q, k, v, o, lse, do, causal, windo
     again = bwd(q, k, v, o, lse, do, causal, window)
     if not all(torch.equal(a, b) for a, b in zip(got, again)):
         fail(f"flash_attention_bwd {tuple(q.shape)} ({source}): a re-run is not bitwise equal")
+    emulated = {}
+    if q.dtype == torch.bfloat16:  # the kernel's arithmetic on the same inputs
+        emu = bwd_kernel_emulation(q, k, v, o, lse, do, causal, window)
+        emulated = {
+            "emulation_row_rel_err": {n: _row_rel(e, w, FLASH_BWD_ROW_FLOOR)
+                                      for n, e, w in zip("qkv", emu, want)},
+            "kernel_vs_emulation_row_rel_err": {n: _row_rel(g, e, FLASH_BWD_ROW_FLOOR)
+                                                for n, g, e in zip("qkv", got, emu)}}
+        if not all(flash_bwd_ok(g, e) for g, e in zip(got, emu)):
+            fail(f"flash_attention_bwd {tuple(q.shape)} ({source}) disagrees with the "
+                 f"emulation of its arithmetic: {emulated}")
+        del emu
     del got, want, again
     bf16 = q.dtype == torch.bfloat16
     pairs = _band_pairs(np, Sq, Skv, causal, window)
@@ -2774,9 +2827,10 @@ def _flash_bwd_record(torch, np, ref, fa_mod, q, k, v, o, lse, do, causal, windo
     rec = {"phase": "kernel", "name": "flash_attention_bwd", "source": source,
            "shape": {"B": B, "Sq": Sq, "Skv": Skv, "H": H, "K": K, "hd": hd},
            "dtype": dtype, "causal": causal, "window": window,
-           "parent_ms": FLASH_BWD_PARENT_MS.get(((B, Sq, H, K, hd), dtype, causal, window)),
            "max_abs_err": max(errs.values()), "max_abs_err_by_grad": errs,
-           "row_rel_err": rels, "do_abs_max": do.abs().max().item(), "rerun_bitwise": True,
+           "plan": fa_mod.bwd_plan(q.dtype, B, Sq, Skv, H, K, hd),
+           "row_rel_err": rels, **emulated, "do_abs_max": do.abs().max().item(),
+           "rerun_bitwise": True,
            "o_max_abs_err": fwd["max_abs_err"], "o_row_rel_err": fwd["row_rel_err"],
            "lse_max_abs_err": lse_err,
            **times(kernel=kern, plain=pl, library=lib),
@@ -2908,8 +2962,6 @@ def main() -> None:
         if other_calls:  # the same kernel timed at another call of the path
             out["other_calls"] = [{"source": r["source"], "shape": r["shape"],
                                    "dtype": r["dtype"], **timing(r)} for r in other_calls]
-        if "parent_ms" in rec:  # the kernel's time at this call before its redesign
-            out["parent_ms"] = rec["parent_ms"]
         return out
 
     tl, fl = tr["launches"], fu["launches"]

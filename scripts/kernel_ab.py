@@ -2,28 +2,27 @@
 """The port's ``seg_aggr`` backward, ``row_adagrad`` and flash attention
 (backward and forward) kernels against other checkouts', on one CUDA card.
 
-    python3 scripts/kernel_ab.py --other DIR [--other DIR2 ...] [--rounds 2]
-        [--only flash|train]
+    python3 scripts/kernel_ab.py --other DIR [--rounds 2]
 
-Each DIR is a checkout of another commit (for example the parent, unpacked
-with ``git archive`` into a directory that ``.gitignore`` lists); its
-kernels are built from its own sources into its own ``build/``. The
-comparisons below name ``DIR``'s kernels "other" and take only the first
-``--other``; the flash ones take every DIR.
+DIR is a checkout of another commit (for example the parent, unpacked with
+``git archive`` into a directory that ``.gitignore`` lists); its kernels
+are built from its own sources into its own ``build/`` and named "other"
+below. To compare a third tree, run the script again with it as DIR.
 
-Flash (``--only flash``): at the LM training call (smollm-135m: B 4, S
-2,048, H 9, K 3, hd 64, causal) in f32 and in bf16, on seeded q, k, v and
-dO with this tree's forward's output and LSE, the backward through each
-tree's ``g4r_flash_attn_bwd`` (scratch sized by this tree's
-``bwd_scratch_floats``, which covers the earlier layouts), each held to
-``attention_bwd_ref`` by ``chip_smoke.flash_bwd_ok`` and its re-run
-bitwise, timed in turns (every DIR, this tree, this tree, every DIR in
-reverse; ``--rounds`` times) beside SDPA's backward; then the forward
-through each tree's ``g4r_flash_attn_fwd`` at the prefill call (bf16, no
-LSE) and the f32 training call (with its LSE), each output bitwise this
-tree's, timed in the same turns.
+Flash: at the LM training call (smollm-135m: B 4, S 2,048, H 9, K 3, hd
+64, causal) in f32 and in bf16, and at ``chip_smoke.py``'s causal f32
+synthetic calls: qwen2-0.5b's layout on one batch row (B 1, S 512, H 14, K
+2, hd 64) and B 2, S 256 and 200, H 4, K 2, hd 64; on seeded q, k, v and dO with this tree's forward's output
+and LSE, the backward through each tree's ``g4r_flash_attn_bwd`` (scratch
+sized by this tree's ``bwd_plan``, which covers the earlier layouts at
+these calls), each held to ``attention_bwd_ref`` by ``chip_smoke.flash_bwd_ok``
+and its re-run bitwise, timed in turns (other, this, this, other;
+``--rounds`` times) beside SDPA's backward; then the forward through each
+tree's ``g4r_flash_attn_fwd`` at the prefill call (bf16, no LSE) and the
+f32 training call (with its LSE), each output bitwise this tree's, timed in
+the same turns.
 
-Training kernels (``--only train``): at the training
+Training kernels: at the training
 paths' recorded shapes (the calls ``chip_smoke.py`` keeps: backward
 [4096, 3, 64] and [512, 4, 64] on the host path, [2736, 3, 64] and
 [342, 4, 64] on the fused one, each mask a relation's row-strided view;
@@ -65,10 +64,8 @@ def _load_module(name: str, path: str):
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--other", required=True, action="append",
-                    help="a checkout of a commit to compare with (repeatable)")
+    ap.add_argument("--other", required=True, help="a checkout of a commit to compare with")
     ap.add_argument("--rounds", type=int, default=2)
-    ap.add_argument("--only", choices=("flash", "train"), default=None)
     args = ap.parse_args()
 
     import torch
@@ -79,11 +76,8 @@ def main() -> None:
     import chip_smoke
     from repro_torch.kernels import build, ref, seg_aggr
 
-    others = {os.path.basename(os.path.abspath(d).rstrip("/")): _load_module(
-        f"other_build_{i}", os.path.join(os.path.abspath(d), "src", "repro_torch", "kernels",
-                                         "build.py")).library()
-        for i, d in enumerate(args.other)}
-    other = next(iter(others.values()))
+    other = _load_module("other_build", os.path.join(
+        os.path.abspath(args.other), "src", "repro_torch", "kernels", "build.py")).library()
     lib = build.library()
     stream = torch.cuda.current_stream().cuda_stream
     sms = torch.cuda.get_device_properties(0).multi_processor_count
@@ -101,10 +95,7 @@ def main() -> None:
           "empty_one_block_ms": ms(lambda: lib.g4r_empty(1, 32, stream)),
           "empty_one_wave_ms": ms(lambda: lib.g4r_empty(sms * 8, 256, stream)),
           "torch_add_one_element_ms": ms(lambda: one.add_(1.0))})
-    if args.only != "train":
-        flash_ab(torch, others, lib, stream, args.rounds, emit)
-    if args.only == "flash":
-        return
+    flash_ab(torch, other, lib, stream, args.rounds, emit)
 
     for n, f, d, zero_rows, valid_rows in BWD_SHAPES:
         g = torch.randn(n, d, device="cuda", generator=gen)
@@ -177,8 +168,8 @@ def main() -> None:
                              50)})
 
 
-def flash_ab(torch, others: dict, lib, stream, rounds: int, emit) -> None:
-    """The flash backward and forward of every other tree against this
+def flash_ab(torch, other, lib, stream, rounds: int, emit) -> None:
+    """The flash backward and forward of the other tree against this
     tree's, at the training and prefill calls (the module docstring)."""
     import ctypes
     import math
@@ -187,26 +178,29 @@ def flash_ab(torch, others: dict, lib, stream, rounds: int, emit) -> None:
     from repro_torch.kernels import build, ref
     from repro_torch.kernels import flash_attn as fa
 
-    B, S, H, K, hd = 4, 2048, 9, 3, 64
-    trees = dict(others, this=lib)
-    order = [*others, "this", "this", *reversed(list(others))]
+    trees = {"other": other, "this": lib}
     gen = torch.Generator(device="cuda").manual_seed(5)
-    flops = 10.0 * hd * (S * (S + 1) // 2) * B * H
 
     def turns(fn):
         out = {name: [] for name in trees}
         for _ in range(rounds):
-            for name in order:
+            for name in ("other", "this", "this", "other"):
                 out[name].append(chip_smoke.measure(lambda: fn(trees[name]), 10)["device_ms"])
         return out
 
-    for dtype in (torch.float32, torch.bfloat16):
+    for (B, S, H, K, hd), dtype in (((4, 2048, 9, 3, 64), torch.float32),
+                                    ((4, 2048, 9, 3, 64), torch.bfloat16),
+                                    ((1, 512, 14, 2, 64), torch.float32),
+                                    ((2, 256, 4, 2, 64), torch.float32),
+                                    ((2, 200, 4, 2, 64), torch.float32)):
+        flops = 10.0 * hd * (S * (S + 1) // 2) * B * H
         q = torch.randn(B, S, H, hd, device="cuda", generator=gen).to(dtype)
         k, v = (torch.randn(B, S, K, hd, device="cuda", generator=gen).to(dtype)
                 for _ in range(2))
         do = (torch.randn(B, S, H, hd, device="cuda", generator=gen) / (B * S)).to(dtype)
         o, lse = fa.flash_attention_cuda(q, k, v, True, None, with_lse=True)
-        scratch = torch.empty(fa.bwd_scratch_floats(B, S, S, H, K, hd), device="cuda")
+        scratch = torch.empty(fa.bwd_plan(dtype, B, S, S, H, K, hd)["scratch_floats"],
+                              device="cuda")
         strides = (ctypes.c_longlong * 15)(*q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
                                            *o.stride()[:3], *do.stride()[:3])
         grads = [torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)]
@@ -246,6 +240,7 @@ def flash_ab(torch, others: dict, lib, stream, rounds: int, emit) -> None:
         del want, got, sdpa, leaves, scratch
 
     # the forward: the header move must leave every bit and the time as they were
+    B, S, H, K, hd = 4, 2048, 9, 3, 64
     for dtype, with_lse in ((torch.bfloat16, False), (torch.float32, True)):
         q = torch.randn(B, S, H, hd, device="cuda", generator=gen).to(dtype)
         k, v = (torch.randn(B, S, K, hd, device="cuda", generator=gen).to(dtype)
@@ -263,11 +258,9 @@ def flash_ab(torch, others: dict, lib, stream, rounds: int, emit) -> None:
 
         fwd(lib)
         mine = (out.clone(), None if lse is None else lse.clone())
-        for name, which in others.items():
-            fwd(which)
-            if not (torch.equal(out, mine[0]) and (lse is None or torch.equal(lse, mine[1]))):
-                sys.exit(f"kernel_ab: the {name} flash forward ({dtype}) is not bitwise this "
-                         "tree's")
+        fwd(other)
+        if not (torch.equal(out, mine[0]) and (lse is None or torch.equal(lse, mine[1]))):
+            sys.exit(f"kernel_ab: the other flash forward ({dtype}) is not bitwise this tree's")
         emit({"what": "flash_fwd", "shape": {"B": B, "S": S, "H": H, "K": K, "hd": hd},
               "dtype": str(dtype).replace("torch.", ""), "with_lse": with_lse,
               "bitwise_equal": True, "ms": turns(fwd)})

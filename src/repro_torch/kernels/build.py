@@ -57,6 +57,7 @@ _SIGNATURES = {
                            _I, _I, _P),
     "g4r_flash_attn_bwd": (*(_P,) * 10, *(_I,) * 7, _P, _F, _I, _I, _P),
     "g4r_flash_attn_bwd_attrs": (_I, _I, _I, _P),
+    "g4r_flash_attn_bwd_plan": (*(_I,) * 7, _P),
     "g4r_flash_wgmma_probe": (_P, _P, _P, _P, _P, _P),
     "g4r_flash_attn_attrs": (_I, _I, _P),
     "g4r_empty": (_I, _I, _P),  # an empty kernel: the launch floor (chip_smoke.py)

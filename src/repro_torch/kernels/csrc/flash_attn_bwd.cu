@@ -17,28 +17,37 @@
 // K), and dK, dV summed over the G query heads of each KV head. Every sum is
 // taken in f32; outputs are written in the inputs' dtype.
 //
-// FA2's split, four kernels a call (three where G = 1), each output element
-// written by one thread and summed in a fixed order, so two runs are bitwise
-// equal (no atomics; conformance runs under
-// torch.use_deterministic_algorithms):
+// FA2's split in three kernels a call (two where neither G nor the plan's
+// splits exceed 1), each output element written by one thread and summed in
+// a fixed order, so two runs are bitwise equal (no atomics; conformance
+// runs under torch.use_deterministic_algorithms):
 //   - flash_bwd_dot_kernel: D, one warp a (b, h, i) row, lanes over hd, then
 //     a shuffle tree; it also copies lse (times log2 e for bf16) into rows
 //     padded to a multiple of 128, zeros past Sq, so that the tile kernels
 //     read a tile's lse and D as one aligned copy with no bounds check.
-//   - dK/dV: one block a (key tile, query head, batch row), looping over the
-//     query tiles of the band (tiles that see none of its keys are skipped:
-//     causal from the diagonal on, a window up to k_last + window - 1). A
-//     block a query head, not a KV head, balances the grid: a KV head's
-//     block did G times the work, 3 to 96 query tiles at the training call
-//     (B 4, S 2,048, H 9, K 3), and its heaviest block alone took 1.33x an
-//     even split. Key tiles are issued longest band first (blockIdx.z counts
-//     along Skv, whose first tiles see the most queries under the causal
-//     mask). With G = 1 the block writes dK and dV; with G > 1 each writes
-//     its query head's partial sums, f32, to a scratch of 2 x (G, B, Skv, K,
-//     hd), and flash_bwd_sum_kernel adds the G partials in order g = 0 ..
-//     G-1 and writes dK and dV (at the training call 38 MB read once).
-//   - dQ: one block a (query tile, query head, batch row), looping over the
-//     KV tiles of the band as the forward does, longest band first.
+//   - the tile kernel (flash_bwd_tiles_*), dK/dV and dQ blocks in one
+//     launch (dkdv_block): where B H tiles is under the card's block slots,
+//     as at qwen2-0.5b's G 7 on one batch row of 512 tokens (112 tiles of
+//     each kind for 132 SMs), the two kinds run side by side, and elsewhere
+//     the dQ blocks fill the dK/dV blocks' last wave.
+//     - dK/dV: a (key tile, query head, batch row), looping over the query
+//       tiles of the band (tiles that see none of its keys are skipped:
+//       causal from the diagonal on, a window up to k_last + window - 1).
+//       A query head, not a KV head, balances the grid: a KV head's block
+//       did G times the work, 3 to 96 query tiles at the training call (B
+//       4, S 2,048, H 9, K 3), and its heaviest block alone took 1.33x an
+//       even split. Key tiles are issued longest band first (their rank
+//       counts along Skv, whose first tiles see the most queries under the
+//       causal mask).
+//     - dQ: a (query tile, query head, batch row), looping over the KV
+//       tiles of the band as the forward does, longest band first.
+//     - A grid too small for the card (plan_of) gives each tile ``splits``
+//       blocks, split c taking tiles c, c + splits, ... of the band.
+//   - flash_bwd_sum_kernel, where G splits > 1: the tile blocks write f32
+//     partials (dK and dV a (query head, split), 2 x (G splits, B, Skv, K,
+//     hd); dQ a split, (splits, B, Sq, H, hd)), and it adds each element's
+//     partials in order and writes dK, dV and dQ (at the training call, G
+//     3 and no split: 38 MB read once). Else the tile blocks write them.
 // S and dP are computed in both tile kernels: 14 hd FLOP a (query, key)
 // pair against the 10 hd the math needs, the price of a dQ with no atomics.
 // Only tiles that straddle the diagonal, the window's edge, Sq or Skv
@@ -48,7 +57,7 @@
 // 10 hd FLOP against a few bytes read per key row, far above either dtype's
 // FLOP/byte balance.
 //
-// bf16: flash_bwd_dkdv_wgmma and flash_bwd_dq_wgmma, on the tensor cores
+// bf16: flash_bwd_tiles_wgmma (dkdv_wgmma and dq_wgmma), on the tensor cores
 // (bound: the band's FLOP over 989 TFLOP/s), built from the forward's parts
 // (hopper.cuh): tiles by TMA into 128-byte-swizzled panels, a producer
 // warpgroup keeping a two-stage mbarrier ring full while two consumer
@@ -71,7 +80,7 @@
 //   - P and dS are rounded to bf16 before their products (the plain version
 //     keeps them f32): tests/test_torch_flash.py emulates this arithmetic.
 //
-// f32: flash_bwd_dkdv_f32 and flash_bwd_dq_f32, on the CUDA cores (bound:
+// f32: flash_bwd_tiles_f32 (dkdv_f32 and dq_f32), on the CUDA cores (bound:
 // the band's FLOP over 67 TFLOP/s), f32 FMAs only (no TF32: the f32 contract,
 // 1e-4 against the plain version). 256 threads, 64 x 64 tiles. What held
 // the first version back was shared memory: one 4-byte load for every 2
@@ -83,8 +92,8 @@
 // rows: one shared-memory wavefront for 8 (S, dP) or 16 (products) FMAs a
 // thread. Rows are padded to hd + 4 floats (16-byte aligned, 8 consecutive
 // rows on 8 distinct 4-bank groups: conflict-free), the P^T / dS^T / dS
-// tiles to 68. Tiles come by cp.async, 16 bytes a copy where every base
-// address and stride is 16-byte aligned, else 4 (any view). With one block
+// tiles to 68. Tiles come by cp.async, 16 bytes a copy (the wrapper copies
+// an f32 operand whose base or strides are off 16 bytes). With one block
 // an SM the kernels stalled on latency more than on any unit: at hd <= 64
 // two blocks an SM (128 registers a thread) ran faster on an H100 than one
 // block with the next tile copied into a second buffer during the
@@ -112,9 +121,15 @@ struct BwdArgs {
   const float* lse;  // (B, H, Sq)
   float* lse_pad;    // (B, H, sq_pad): lse (bf16: times log2 e), 0 past Sq
   float* dd;         // (B, H, sq_pad): D, 0 past Sq
-  float* part;       // G > 1: partial dK, dV of each query head, 2 x (G, B, Skv, K, hd) f32
+  // where G splits > 1: partial dK, dV of each (query head, split), 2 x (G
+  // splits, B, Skv, K, hd) f32
+  float* part;
+  float* qpart;        // splits > 1: partial dQ of each split, (splits, B, Sq, H, hd) f32
   void *dq, *dk, *dv;  // contiguous (B, Sq, H, hd), (B, Skv, K, hd), (B, Skv, K, hd)
   int b_rows, sq, sq_pad, skv, heads, kv_heads, group;
+  // blocks a (tile, query head, batch row), each taking every splits-th
+  // tile of the band
+  int splits;
   // (batch, seq, head) strides in elements of q, k, v, o and dO
   long long qs[3], ks[3], vs[3], os[3], ds[3];
   float scale;
@@ -159,17 +174,22 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dot_kernel(BwdArgs a, long
   }
 }
 
-// G > 1: dK and dV from the G partials of each element, summed in order g
-// = 0 .. G-1 in f32, written in the inputs' dtype; four elements a thread
+// dK and dV from their G splits partials (where G splits > 1) and dQ from
+// its splits partials (where splits > 1), each element summed in f32 in
+// order (query head g, then split c: slot g splits + c), written in the
+// inputs' dtype; four elements a thread. n_kv and n_q: elements of dK and
+// of dQ.
 template <typename T>
-__global__ void __launch_bounds__(kThreads) flash_bwd_sum_kernel(BwdArgs a, long long n) {
-  const float4* pk = reinterpret_cast<const float4*>(a.part);
-  const long long n4 = n / 4;
-  for (long long i = (long long)blockIdx.x * kThreads + threadIdx.x; i < n4;
+__global__ void __launch_bounds__(kThreads) flash_bwd_sum_kernel(BwdArgs a, long long n_kv,
+                                                                 long long n_q) {
+  const int pk = a.group * a.splits;
+  const long long k4 = pk > 1 ? n_kv / 4 : 0, q4 = a.splits > 1 ? n_q / 4 : 0;
+  const float4* p = reinterpret_cast<const float4*>(a.part);
+  for (long long i = (long long)blockIdx.x * kThreads + threadIdx.x; i < k4;
        i += (long long)gridDim.x * kThreads) {
-    float4 sk = pk[i], sv = pk[a.group * n4 + i];
-    for (int g = 1; g < a.group; ++g) {
-      const float4 x = pk[g * n4 + i], y = pk[(a.group + g) * n4 + i];
+    float4 sk = p[i], sv = p[pk * k4 + i];
+    for (int t = 1; t < pk; ++t) {
+      const float4 x = p[t * k4 + i], y = p[(pk + t) * k4 + i];
       sk.x += x.x; sk.y += x.y; sk.z += x.z; sk.w += x.w;
       sv.x += y.x; sv.y += y.y; sv.z += y.z; sv.w += y.w;
     }
@@ -185,9 +205,43 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_sum_kernel(BwdArgs a, long
       }
     }
   }
+  const float4* pq = reinterpret_cast<const float4*>(a.qpart);
+  for (long long i = (long long)blockIdx.x * kThreads + threadIdx.x; i < q4;
+       i += (long long)gridDim.x * kThreads) {
+    float4 sq = pq[i];
+    for (int t = 1; t < a.splits; ++t) {
+      const float4 x = pq[t * q4 + i];
+      sq.x += x.x; sq.y += x.y; sq.z += x.z; sq.w += x.w;
+    }
+    const float qf[4] = {sq.x, sq.y, sq.z, sq.w};
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      if constexpr (sizeof(T) == 2) {
+        ((__nv_bfloat16*)a.dq)[4 * i + e] = __float2bfloat16_rn(qf[e] * a.scale);
+      } else {
+        ((float*)a.dq)[4 * i + e] = qf[e] * a.scale;
+      }
+    }
+  }
 }
 
 // ------------------------------------------------------------- f32 kernels
+// a split's share of a band of n tiles: split c of ``splits`` takes tiles
+// c, c + splits, ... of it
+__device__ __forceinline__ int split_tiles(int n, int c, int splits) {
+  return n > c ? (n - c + splits - 1) / splits : 0;
+}
+
+// this block's split (dkdv_block), from blockIdx.z read afresh by an asm
+// volatile, which the compiler neither merges with another read nor keeps
+// live: a tile loop holds no register for it (the f32 tile kernel at hd 64
+// uses all of its 128)
+__device__ __forceinline__ int split_of(const BwdArgs& a) {
+  unsigned z;
+  asm volatile("mov.u32 %0, %%ctaid.z;" : "=r"(z));
+  return (int)(z % (unsigned)a.splits);
+}
+
 // ``blocks`` blocks of ``floats`` floats of shared memory fit an SM (228 KB,
 // 1 KB of it reserved a block)
 constexpr bool fits_sm(int blocks, int floats) { return blocks * (4 * floats + 1024) <= 233472; }
@@ -218,22 +272,17 @@ struct F32Tiles {
 };
 
 // rows r0 .. r0 + 63 of one head (``base`` at its row 0, rows ``rs`` floats
-// apart) into a tile of rows padded to HD + 4 by cp.async, rows at or past n
-// zeros: 16-byte copies where the launcher found every base address and
-// stride 16-byte aligned (VEC), else 4-byte ones (any view)
-template <int HD, bool VEC>
+// apart) into a tile of rows padded to HD + 4 by 16-byte cp.async copies
+// (the wrapper hands over f32 operands whose base and strides are 16-byte
+// multiples), rows at or past n zeros
+template <int HD>
 __device__ __forceinline__ void tile_async(float* dst, const float* base, long long rs, int r0,
                                            int n) {
-  constexpr int RS = F32Tiles<HD>::RS, W = VEC ? 4 : 1;
-  for (int i = threadIdx.x; i < kTile * HD / W; i += kThreads) {
-    const int r = i / (HD / W), d = W * (i - r * (HD / W));
+  constexpr int RS = F32Tiles<HD>::RS;
+  for (int i = threadIdx.x; i < kTile * HD / 4; i += kThreads) {
+    const int r = i / (HD / 4), d = 4 * (i - r * (HD / 4));
     const bool in = r0 + r < n;
-    const float* src = in ? base + (long long)(r0 + r) * rs + d : base;
-    if constexpr (VEC) {
-      cp_async16(smem_addr(dst + r * RS + d), src, in);
-    } else {
-      cp_async4(smem_addr(dst + r * RS + d), src, in);
-    }
+    cp_async16(smem_addr(dst + r * RS + d), in ? base + (long long)(r0 + r) * rs + d : base, in);
   }
 }
 
@@ -285,19 +334,18 @@ __device__ __forceinline__ void dot_tiles(float (&acc)[4][4], const float* ta, i
   }
 }
 
-template <int HD, bool VEC>
-__global__ void __launch_bounds__(kThreads, F32Tiles<HD>::MIN_BLOCKS)
-flash_bwd_dkdv_f32(BwdArgs a) {
+// a dK/dV block: keys k0 .. k0 + 63 of query head blockIdx.x
+template <int HD>
+__device__ __forceinline__ void dkdv_f32(const BwdArgs& a, float* smem, int k0) {
   using F = F32Tiles<HD>;
   constexpr int RS = F::RS, ST = F::DKDV_STAGES, CPT = F::CPT;
-  extern __shared__ __align__(16) float smem[];
   float* sk = smem;
   float* sv = sk + F::TILE;
   float* stages = sv + F::TILE;  // stage s: Q, dO, lse, D at stages + s * DKDV_STAGE
   float* sp = stages + ST * F::DKDV_STAGE;  // P^T as (query, key)
   float* sds = sp + kTile * kPS;            // dS^T as (query, key)
 
-  const int h = blockIdx.x, b = blockIdx.y, k0 = blockIdx.z * kTile;
+  const int h = blockIdx.x, b = blockIdx.y;
   const int kh = h / a.group, g = h - kh * a.group;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   // S^T and dP^T: keys kg + 16 i, queries qg + 16 j (a warp: 4 x 8 of them);
@@ -310,23 +358,26 @@ flash_bwd_dkdv_f32(BwdArgs a) {
   if (a.window > 0)  // the last query that sees the tile's last key
     qt_hi = (int)min((long long)qt_hi,
                      ((long long)min(k0 + kTile, a.skv) - 2 + a.window) / kTile);
-  const int n_qt = qt_hi - qt_lo + 1;
+  // this split's query tiles: qt0, qt0 + splits, ... to qt_hi (a loop over
+  // the tile index with the constant-bank stride holds one register less
+  // than a counter; this kernel at hd 64 uses all of its 128)
+  const int qt0 = qt_lo + split_of(a);
 
   const float* qb = (const float*)a.q + b * a.qs[0] + h * a.qs[2];
   const float* db = (const float*)a.dout + b * a.ds[0] + h * a.ds[2];
   const long long rows = ((long long)b * a.heads + h) * a.sq_pad;
-  auto load_stage = [&](int it) {
-    float* st = stages + (it % ST) * F::DKDV_STAGE;
-    const int q0 = (qt_lo + it) * kTile;
-    tile_async<HD, VEC>(st, qb, a.qs[1], q0, a.sq);
-    tile_async<HD, VEC>(st + F::TILE, db, a.ds[1], q0, a.sq);
+  auto load_stage = [&](int qt, int stage) {
+    float* st = stages + stage * F::DKDV_STAGE;
+    const int q0 = qt * kTile;
+    tile_async<HD>(st, qb, a.qs[1], q0, a.sq);
+    tile_async<HD>(st + F::TILE, db, a.ds[1], q0, a.sq);
     if (tid < 2 * kTile)  // lse then D: rows padded past Sq, no bound to check
       cp_async4(smem_addr(st + 2 * F::TILE + tid),
                 (tid < kTile ? a.lse_pad : a.dd) + rows + q0 + (tid & (kTile - 1)), true);
   };
-  tile_async<HD, VEC>(sk, (const float*)a.k + b * a.ks[0] + kh * a.ks[2], a.ks[1], k0, a.skv);
-  tile_async<HD, VEC>(sv, (const float*)a.v + b * a.vs[0] + kh * a.vs[2], a.vs[1], k0, a.skv);
-  if (ST == 2 && n_qt > 0) load_stage(0);
+  tile_async<HD>(sk, (const float*)a.k + b * a.ks[0] + kh * a.ks[2], a.ks[1], k0, a.skv);
+  tile_async<HD>(sv, (const float*)a.v + b * a.vs[0] + kh * a.vs[2], a.vs[1], k0, a.skv);
+  if (ST == 2 && qt0 <= qt_hi) load_stage(qt0, 0);
   cp_async_commit();
 
   float dk[4][CPT], dv[4][CPT];
@@ -335,12 +386,12 @@ flash_bwd_dkdv_f32(BwdArgs a) {
 #pragma unroll
     for (int c = 0; c < CPT; ++c) dk[i][c] = dv[i][c] = 0.f;
 
-  for (int it = 0; it < n_qt; ++it) {
+  for (int qt = qt0, it = 0; qt <= qt_hi; qt += a.splits, ++it) {
     __syncthreads();  // every read of the stage the next copy overwrites is done
     if (ST == 1) {
-      load_stage(it);
-    } else if (it + 1 < n_qt) {
-      load_stage(it + 1);
+      load_stage(qt, 0);
+    } else if (qt + a.splits <= qt_hi) {
+      load_stage(qt + a.splits, (it + 1) % ST);
     }
     cp_async_commit();
     if (ST == 2) {
@@ -353,7 +404,7 @@ flash_bwd_dkdv_f32(BwdArgs a) {
     const float* sdo = sqt + F::TILE;
     const float* slse = sdo + F::TILE;
     const float* sdd = slse + kTile;
-    const int q0 = (qt_lo + it) * kTile;
+    const int q0 = qt * kTile;
 
     float st[4][4], dpt[4][4];
 #pragma unroll
@@ -397,7 +448,9 @@ flash_bwd_dkdv_f32(BwdArgs a) {
   }
   cp_async_wait<0>();
 
+  // G splits > 1: this block's partials go to slot g splits + split of pk
   const long long n = (long long)a.b_rows * a.skv * a.kv_heads * HD;
+  const int pk = a.group * a.splits, slot = g * a.splits + split_of(a);
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int kpos = k0 + 4 * kg + i;
@@ -406,30 +459,28 @@ flash_bwd_dkdv_f32(BwdArgs a) {
 #pragma unroll
     for (int c = 0; c < CPT; ++c) {
       const int col = col_of<HD>(qg, c);
-      if (a.group == 1) {
+      if (pk == 1) {
         ((float*)a.dk)[at + col] = dk[i][c] * a.scale;
         ((float*)a.dv)[at + col] = dv[i][c];
       } else {
-        a.part[g * n + at + col] = dk[i][c];
-        a.part[(a.group + g) * n + at + col] = dv[i][c];
+        a.part[slot * n + at + col] = dk[i][c];
+        a.part[(pk + slot) * n + at + col] = dv[i][c];
       }
     }
   }
 }
 
-template <int HD, bool VEC>
-__global__ void __launch_bounds__(kThreads, F32Tiles<HD>::MIN_BLOCKS)
-flash_bwd_dq_f32(BwdArgs a) {
+// a dQ block: query rows q0 .. q0 + 63 of query head blockIdx.x
+template <int HD>
+__device__ __forceinline__ void dq_f32(const BwdArgs& a, float* smem, int q0) {
   using F = F32Tiles<HD>;
   constexpr int RS = F::RS, ST = F::DQ_STAGES, CPT = F::CPT;
-  extern __shared__ __align__(16) float smem[];
   float* sqt = smem;
   float* sdo = sqt + F::TILE;
   float* stages = sdo + F::TILE;  // stage s: K, V at stages + 2 s TILE
   float* sds = stages + ST * 2 * F::TILE;  // dS as (key, query)
 
   const int h = blockIdx.x, b = blockIdx.y;
-  const int q0 = ((int)gridDim.z - 1 - (int)blockIdx.z) * kTile;  // longest band first
   const int kh = h / a.group;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   // S and dP: queries qg + 16 i, keys kg + 16 j (a warp: 4 x 8 of them);
@@ -453,19 +504,20 @@ flash_bwd_dq_f32(BwdArgs a) {
     const int lo = q0 - a.window + 1;
     kt_lo = lo > 0 ? lo / kTile : 0;
   }
-  const int n_kt = kt_hi - kt_lo + 1;
+  // this split's KV tiles: kt0, kt0 + splits, ... to kt_hi (as dkdv_f32)
+  const int kt0 = kt_lo + split_of(a);
 
   const float* kb = (const float*)a.k + b * a.ks[0] + kh * a.ks[2];
   const float* vb = (const float*)a.v + b * a.vs[0] + kh * a.vs[2];
-  auto load_stage = [&](int it) {
-    float* st = stages + (it % ST) * 2 * F::TILE;
-    const int k0 = (kt_lo + it) * kTile;
-    tile_async<HD, VEC>(st, kb, a.ks[1], k0, a.skv);
-    tile_async<HD, VEC>(st + F::TILE, vb, a.vs[1], k0, a.skv);
+  auto load_stage = [&](int kt, int stage) {
+    float* st = stages + stage * 2 * F::TILE;
+    const int k0 = kt * kTile;
+    tile_async<HD>(st, kb, a.ks[1], k0, a.skv);
+    tile_async<HD>(st + F::TILE, vb, a.vs[1], k0, a.skv);
   };
-  tile_async<HD, VEC>(sqt, (const float*)a.q + b * a.qs[0] + h * a.qs[2], a.qs[1], q0, a.sq);
-  tile_async<HD, VEC>(sdo, (const float*)a.dout + b * a.ds[0] + h * a.ds[2], a.ds[1], q0, a.sq);
-  if (ST == 2 && n_kt > 0) load_stage(0);
+  tile_async<HD>(sqt, (const float*)a.q + b * a.qs[0] + h * a.qs[2], a.qs[1], q0, a.sq);
+  tile_async<HD>(sdo, (const float*)a.dout + b * a.ds[0] + h * a.ds[2], a.ds[1], q0, a.sq);
+  if (ST == 2 && kt0 <= kt_hi) load_stage(kt0, 0);
   cp_async_commit();
 
   float dq[4][CPT];
@@ -474,12 +526,12 @@ flash_bwd_dq_f32(BwdArgs a) {
 #pragma unroll
     for (int c = 0; c < CPT; ++c) dq[i][c] = 0.f;
 
-  for (int it = 0; it < n_kt; ++it) {
+  for (int kt = kt0, it = 0; kt <= kt_hi; kt += a.splits, ++it) {
     __syncthreads();  // every read of the stage the next copy overwrites is done
     if (ST == 1) {
-      load_stage(it);
-    } else if (it + 1 < n_kt) {
-      load_stage(it + 1);
+      load_stage(kt, 0);
+    } else if (kt + a.splits <= kt_hi) {
+      load_stage(kt + a.splits, (it + 1) % ST);
     }
     cp_async_commit();
     if (ST == 2) {
@@ -490,7 +542,7 @@ flash_bwd_dq_f32(BwdArgs a) {
     __syncthreads();
     const float* sk = stages + (it % ST) * 2 * F::TILE;
     const float* sv = sk + F::TILE;
-    const int k0 = (kt_lo + it) * kTile;
+    const int k0 = kt * kTile;
 
     float s[4][4], dp[4][4];
 #pragma unroll
@@ -528,13 +580,47 @@ flash_bwd_dq_f32(BwdArgs a) {
   }
   cp_async_wait<0>();
 
+  // splits > 1: this block's partial goes to its split's part of qpart
+  float* out = a.splits == 1 ? (float*)a.dq
+                             : a.qpart + split_of(a) * ((long long)a.b_rows * a.sq * a.heads * HD);
+  const float mul = a.splits == 1 ? a.scale : 1.f;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int qpos = q0 + 4 * qg + i;
     if (qpos >= a.sq) continue;
     const long long at = (((long long)b * a.sq + qpos) * a.heads + h) * HD;
 #pragma unroll
-    for (int c = 0; c < CPT; ++c) ((float*)a.dq)[at + col_of<HD>(kg, c)] = dq[i][c] * a.scale;
+    for (int c = 0; c < CPT; ++c) out[at + col_of<HD>(kg, c)] = dq[i][c] * mul;
+  }
+}
+
+// blockIdx.z of the tile kernels: nk dK/dV tiles (key tiles) and nq dQ
+// tiles (query tiles) in one grid, so that either kind fills the SMs the
+// other leaves idle, each tile's ``splits`` blocks side by side (split =
+// z % splits, split_of). The tiles alternate, dK/dV's r-th key tile beside dQ's r-th
+// longest query tile (the last), so each wave holds both kinds, longest
+// band first; past 2 min(nk, nq) come the rest of the more numerous kind.
+// True for a dK/dV block, with its tile's rank r.
+__device__ __forceinline__ bool dkdv_block(int nk, int nq, int splits, int* r) {
+  const int z = (int)blockIdx.z / splits, m = min(nk, nq);
+  if (z < 2 * m) {
+    *r = z >> 1;
+    return !(z & 1);
+  }
+  *r = z - m;
+  return nk > nq;
+}
+
+// f32 dK/dV and dQ blocks, one launch (dkdv_block)
+template <int HD>
+__global__ void __launch_bounds__(kThreads, F32Tiles<HD>::MIN_BLOCKS)
+flash_bwd_tiles_f32(BwdArgs a, int nk, int nq) {
+  extern __shared__ __align__(16) float smem[];
+  int r;
+  if (dkdv_block(nk, nq, a.splits, &r)) {
+    dkdv_f32<HD>(a, smem, r * kTile);
+  } else {
+    dq_f32<HD>(a, smem, (nq - 1 - r) * kTile);
   }
 }
 
@@ -624,15 +710,15 @@ __device__ __forceinline__ void rs_tile(float* d, const uint32_t (&f)[4][4], uin
     wgmma_rs<BwdWgmma<HD>::NP * kPanel>(d, f[t], sw128_desc(b + t * 16 * kRowBytes, pb, 1024));
 }
 
+// a dK/dV block: keys k0 .. k0 + 127 of query head blockIdx.x; Q and dO by
+// 64-row tiles, K and V by 128-row ones
 template <int HD>
-__global__ void __launch_bounds__(kWThreads, 1)
-flash_bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap tq,
-                     const __grid_constant__ CUtensorMap tk,
-                     const __grid_constant__ CUtensorMap tv,
-                     const __grid_constant__ CUtensorMap tdo, BwdArgs a, float scale_log2) {
+__device__ __forceinline__ void dkdv_wgmma(const CUtensorMap& tq, const CUtensorMap& tk,
+                                           const CUtensorMap& tv, const CUtensorMap& tdo,
+                                           const BwdArgs& a, float scale_log2,
+                                           uint8_t* smem_raw, int k0) {
   using W = BwdWgmma<HD>;
   constexpr int NA = W::NP * 32;  // accumulator floats a thread of dK (or dV)
-  extern __shared__ uint8_t smem_raw[];
   const uint32_t raw = smem_addr(smem_raw);
   const uint32_t base = (raw + 1023u) & ~1023u;
   const uint32_t s_k = base, s_v = base + W::KV_BYTES, s_q = base + W::DKDV_Q,
@@ -641,7 +727,7 @@ flash_bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap tq,
                  bar_empty = bar_full + 8 * kStages;
   const float* rows_f = reinterpret_cast<const float*>(smem_raw + (s_rows - raw));
 
-  const int h = blockIdx.x, b = blockIdx.y, k0 = blockIdx.z * kWKeys;  // longest band first
+  const int h = blockIdx.x, b = blockIdx.y;
   const int kh = h / a.group, g = h - kh * a.group;
   // the query tiles some row of which sees a key of this block
   int qt_lo = 0, qt_hi = (a.sq - 1) / kWQ;
@@ -649,7 +735,8 @@ flash_bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap tq,
   if (a.window > 0)
     qt_hi = (int)min((long long)qt_hi,
                      ((long long)min(k0 + kWKeys, a.skv) - 2 + a.window) / kWQ);
-  const int n_qt = qt_hi - qt_lo + 1;
+  const int split = split_of(a);
+  const int n_qt = split_tiles(qt_hi - qt_lo + 1, split, a.splits), qt0 = qt_lo + split;
 
   const int tid = threadIdx.x;
   if (tid == 0) init_ring(bar_kv, bar_full, bar_empty);
@@ -669,7 +756,7 @@ flash_bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap tq,
         mbar_wait(bar_empty + 8 * s, ((i / kStages) & 1) ^ 1);
         const uint32_t full = bar_full + 8 * s;
         mbar_expect_tx(full, 2 * W::QT_BYTES + 2 * W::ROW_BYTES);
-        const int q0 = (qt_lo + i) * kWQ;
+        const int q0 = (qt0 + i * a.splits) * kWQ;
         for (int p = 0; p < W::NP; ++p) {
           tma_load_4d(s_q + s * W::QT_BYTES + p * W::QT_PANEL, &tq, full, p * kPanel, h, q0, b);
           tma_load_4d(s_do + s * W::QT_BYTES + p * W::QT_PANEL, &tdo, full, p * kPanel, h, q0,
@@ -698,7 +785,7 @@ flash_bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap tq,
   mbar_wait(bar_kv, 0);
   for (int i = 0; i < n_qt; ++i) {
     const int s = i % kStages;
-    const int q0 = (qt_lo + i) * kWQ;
+    const int q0 = (qt0 + i * a.splits) * kWQ;
     mbar_wait(bar_full + 8 * s, (i / kStages) & 1);
     // a warpgroup none of whose keys this tile sees skips it
     const bool none = (a.causal && kw_lo > q0 + kWQ - 1) ||
@@ -749,7 +836,9 @@ flash_bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap tq,
     mbar_arrive(bar_empty + 8 * s);  // this thread is done with the stage
   }
 
+  // G splits > 1: this block's partials go to slot g splits + split of pk
   const long long n = (long long)a.b_rows * a.skv * a.kv_heads * HD;
+  const int pk = a.group * a.splits, slot = g * a.splits + split_of(a);
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int kpos = kr + 8 * r;
@@ -761,36 +850,35 @@ flash_bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap tq,
       if (col >= HD) continue;
       const float k_lo = dk[4 * j + 2 * r], k_hi = dk[4 * j + 2 * r + 1];
       const float v_lo = dv[4 * j + 2 * r], v_hi = dv[4 * j + 2 * r + 1];
-      if (a.group == 1) {
+      if (pk == 1) {
         *reinterpret_cast<__nv_bfloat162*>((__nv_bfloat16*)a.dk + at + col) =
             __floats2bfloat162_rn(k_lo * a.scale, k_hi * a.scale);
         *reinterpret_cast<__nv_bfloat162*>((__nv_bfloat16*)a.dv + at + col) =
             __floats2bfloat162_rn(v_lo, v_hi);
       } else {
-        *reinterpret_cast<float2*>(a.part + g * n + at + col) = make_float2(k_lo, k_hi);
-        *reinterpret_cast<float2*>(a.part + (a.group + g) * n + at + col) =
+        *reinterpret_cast<float2*>(a.part + slot * n + at + col) = make_float2(k_lo, k_hi);
+        *reinterpret_cast<float2*>(a.part + (pk + slot) * n + at + col) =
             make_float2(v_lo, v_hi);
       }
     }
   }
 }
 
+// a dQ block: query rows q0 .. q0 + 127 of query head blockIdx.x; Q and dO
+// by 128-row tiles, K and V by 64-row ones
 template <int HD>
-__global__ void __launch_bounds__(kWThreads, 1)
-flash_bwd_dq_wgmma(const __grid_constant__ CUtensorMap tq,
-                   const __grid_constant__ CUtensorMap tk,
-                   const __grid_constant__ CUtensorMap tv,
-                   const __grid_constant__ CUtensorMap tdo, BwdArgs a, float scale_log2) {
+__device__ __forceinline__ void dq_wgmma(const CUtensorMap& tq, const CUtensorMap& tk,
+                                         const CUtensorMap& tv, const CUtensorMap& tdo,
+                                         const BwdArgs& a, float scale_log2, uint8_t* smem_raw,
+                                         int q0) {
   using W = BwdWgmma<HD>;
   constexpr int NA = W::NP * 32;
-  extern __shared__ uint8_t smem_raw[];
   const uint32_t base = (smem_addr(smem_raw) + 1023u) & ~1023u;
   const uint32_t s_q = base, s_do = base + W::DQ_DO, s_k = base + W::DQ_K, s_v = base + W::DQ_V;
   const uint32_t bar_q = base + W::DQ_BAR, bar_full = bar_q + 8,
                  bar_empty = bar_full + 8 * kStages;
 
   const int h = blockIdx.x, b = blockIdx.y, kh = h / a.group;
-  const int q0 = ((int)gridDim.z - 1 - (int)blockIdx.z) * kWRows;  // longest band first
   // the band of KV tiles some query of this block can see
   const int q_last = min(q0 + kWRows, a.sq) - 1;
   int kt_hi = (a.skv - 1) / kWKv;
@@ -800,7 +888,8 @@ flash_bwd_dq_wgmma(const __grid_constant__ CUtensorMap tq,
     const int lo = q0 - a.window + 1;
     kt_lo = lo > 0 ? lo / kWKv : 0;
   }
-  const int n_kt = kt_hi - kt_lo + 1;
+  const int split = split_of(a);
+  const int n_kt = split_tiles(kt_hi - kt_lo + 1, split, a.splits), kt0 = kt_lo + split;
 
   const int tid = threadIdx.x;
   if (tid == 0) init_ring(bar_q, bar_full, bar_empty);
@@ -819,7 +908,7 @@ flash_bwd_dq_wgmma(const __grid_constant__ CUtensorMap tq,
         mbar_wait(bar_empty + 8 * s, ((i / kStages) & 1) ^ 1);
         const uint32_t full = bar_full + 8 * s;
         mbar_expect_tx(full, 2 * W::KT_BYTES);
-        const int k0 = (kt_lo + i) * kWKv;
+        const int k0 = (kt0 + i * a.splits) * kWKv;
         for (int p = 0; p < W::NP; ++p) {
           tma_load_4d(s_k + s * W::KT_BYTES + p * W::KT_PANEL, &tk, full, p * kPanel, kh, k0, b);
           tma_load_4d(s_v + s * W::KT_BYTES + p * W::KT_PANEL, &tv, full, p * kPanel, kh, k0, b);
@@ -847,7 +936,7 @@ flash_bwd_dq_wgmma(const __grid_constant__ CUtensorMap tq,
   mbar_wait(bar_q, 0);
   for (int i = 0; i < n_kt; ++i) {
     const int s = i % kStages;
-    const int k0 = (kt_lo + i) * kWKv;
+    const int k0 = (kt0 + i * a.splits) * kWKv;
     mbar_wait(bar_full + 8 * s, (i / kStages) & 1);
     // a warpgroup none of whose rows sees a key of this tile skips it
     const bool none = (a.causal && k0 > wg_hi) ||
@@ -888,58 +977,129 @@ flash_bwd_dq_wgmma(const __grid_constant__ CUtensorMap tq,
     mbar_arrive(bar_empty + 8 * s);
   }
 
+  // splits > 1: this block's partial (f32) goes to its split's part of qpart
+  float* qp = a.splits == 1 ? nullptr
+                            : a.qpart + split_of(a) * ((long long)a.b_rows * a.sq * a.heads * HD);
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int qpos = r0 + 8 * r;
     if (qpos >= a.sq) continue;
-    __nv_bfloat16* row = (__nv_bfloat16*)a.dq + (((long long)b * a.sq + qpos) * a.heads + h) * HD;
+    const long long at = (((long long)b * a.sq + qpos) * a.heads + h) * HD;
 #pragma unroll
     for (int j = 0; j < W::NP * 8; ++j) {
       const int col = 8 * j + c0;
-      if (col < HD)
-        *reinterpret_cast<__nv_bfloat162*>(row + col) = __floats2bfloat162_rn(
-            dq[4 * j + 2 * r] * a.scale, dq[4 * j + 2 * r + 1] * a.scale);
+      if (col >= HD) continue;
+      if (a.splits == 1) {
+        *reinterpret_cast<__nv_bfloat162*>((__nv_bfloat16*)a.dq + at + col) =
+            __floats2bfloat162_rn(dq[4 * j + 2 * r] * a.scale, dq[4 * j + 2 * r + 1] * a.scale);
+      } else {
+        *reinterpret_cast<float2*>(qp + at + col) =
+            make_float2(dq[4 * j + 2 * r], dq[4 * j + 2 * r + 1]);
+      }
     }
   }
 }
 
+// bf16 dK/dV and dQ blocks, one launch (dkdv_block); the tensor maps cover
+// (B, S, heads, hd), Q and dO by 64 rows (dK/dV) and 128 (dQ), K and V the
+// other way round
+template <int HD>
+__global__ void __launch_bounds__(kWThreads, 1)
+flash_bwd_tiles_wgmma(const __grid_constant__ CUtensorMap tq64,
+                      const __grid_constant__ CUtensorMap tdo64,
+                      const __grid_constant__ CUtensorMap tk128,
+                      const __grid_constant__ CUtensorMap tv128,
+                      const __grid_constant__ CUtensorMap tq128,
+                      const __grid_constant__ CUtensorMap tdo128,
+                      const __grid_constant__ CUtensorMap tk64,
+                      const __grid_constant__ CUtensorMap tv64, BwdArgs a, float scale_log2,
+                      int nk, int nq) {
+  extern __shared__ uint8_t smem_raw[];
+  int r;
+  if (dkdv_block(nk, nq, a.splits, &r)) {
+    dkdv_wgmma<HD>(tq64, tk128, tv128, tdo64, a, scale_log2, smem_raw, r * kWKeys);
+  } else {
+    dq_wgmma<HD>(tq128, tk64, tv64, tdo128, a, scale_log2, smem_raw, (nq - 1 - r) * kWRows);
+  }
+}
+
 // ---------------------------------------------------------------- launches
-int grid_z(int n, int rows_a_block, unsigned* z) {
-  const long long tiles = ((long long)n + rows_a_block - 1) / rows_a_block;
-  if (tiles > 65535) return (int)cudaErrorInvalidValue;
-  *z = (unsigned)tiles;
+constexpr int kMaxSplits = 8;
+
+// The backward's plan for a call on the current card: blocks a tile
+// (splits), the f32 scratch the C entry carves and its launches. A grid
+// whose blocks fill under half the card's block slots takes twice the
+// blocks, each with every other tile of its band, and again while that
+// holds (at most kMaxSplits, at most the band's 64-row tiles): a band's
+// tiles run one after another in a block, so a small grid (B 2, S 256, H 4:
+// 64 blocks of 4 tiles for 264 slots at hd 64) is bound by one block's
+// latency.
+struct Plan {
+  int splits;
+  long long scratch;  // floats
+  int launches;
+};
+
+int plan_of(bool bf16, int b_rows, int sq, int skv, int heads, int kv_heads, int hd, Plan* p) {
+  int per_sm;  // blocks an SM of the tile kernel
+  switch (hd) {
+    case 32: per_sm = bf16 ? 1 : F32Tiles<32>::MIN_BLOCKS; break;
+    case 64: per_sm = bf16 ? 1 : F32Tiles<64>::MIN_BLOCKS; break;
+    case 128: per_sm = bf16 ? 1 : F32Tiles<128>::MIN_BLOCKS; break;
+    default: return (int)cudaErrorInvalidValue;
+  }
+  int dev, sms;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return (int)err;
+  const int keys = bf16 ? kWKeys : kTile, rows = bf16 ? kWRows : kTile;
+  const long long blocks = ((long long)(skv + keys - 1) / keys + (sq + rows - 1) / rows) *
+                           heads * b_rows;
+  const int band = ((sq > skv ? sq : skv) + 63) / 64;  // the longest band, in 64-row tiles
+  int splits = 1;
+  const long long slots = (long long)sms * per_sm;
+  while (splits < kMaxSplits && 2 * splits <= band && 2 * splits * blocks <= slots) splits *= 2;
+  const long long sq_pad = ((long long)sq + kRowPad - 1) / kRowPad * kRowPad;
+  const long long pk = (long long)(heads / kv_heads) * splits;
+  p->splits = splits;
+  p->scratch = 2 * b_rows * heads * sq_pad +
+               (pk > 1 ? 2 * pk * b_rows * skv * kv_heads * hd : 0) +
+               (splits > 1 ? (long long)splits * b_rows * sq * heads * hd : 0);
+  p->launches = pk > 1 ? 3 : 2;
   return 0;
 }
 
-template <int HD, bool VEC>
+// the tile kernels' grid: nk dK/dV tiles of ``keys`` keys and nq dQ tiles
+// of ``rows`` query rows, splits blocks each, along z
+int grid_z(const BwdArgs& a, int keys, int rows, int* nk, int* nq) {
+  const long long k = ((long long)a.skv + keys - 1) / keys, q = ((long long)a.sq + rows - 1) / rows;
+  if ((k + q) * a.splits > 65535) return (int)cudaErrorInvalidValue;
+  *nk = (int)k;
+  *nq = (int)q;
+  return 0;
+}
+
+template <int HD>
 int launch_f32(const BwdArgs& a, cudaStream_t stream) {
   using F = F32Tiles<HD>;
-  cudaError_t err = cudaFuncSetAttribute(flash_bwd_dkdv_f32<HD, VEC>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, F::DKDV_BYTES);
-  if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(flash_bwd_dq_f32<HD, VEC>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, F::DQ_BYTES);
-  if (err != cudaSuccess) return (int)err;
-  unsigned zk, zq;
-  int e = grid_z(a.skv, kTile, &zk);
-  if (!e) e = grid_z(a.sq, kTile, &zq);
+  constexpr int smem = F::DKDV_BYTES > F::DQ_BYTES ? F::DKDV_BYTES : F::DQ_BYTES;
+  int nk, nq;
+  const int e = grid_z(a, kTile, kTile, &nk, &nq);
   if (e) return e;
-  flash_bwd_dkdv_f32<HD, VEC><<<dim3(a.heads, a.b_rows, zk), kThreads, F::DKDV_BYTES, stream>>>(
-      a);
-  err = cudaGetLastError();
+  const cudaError_t err = cudaFuncSetAttribute(flash_bwd_tiles_f32<HD>,
+                                               cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
-  flash_bwd_dq_f32<HD, VEC><<<dim3(a.heads, a.b_rows, zq), kThreads, F::DQ_BYTES, stream>>>(a);
+  flash_bwd_tiles_f32<HD><<<dim3(a.heads, a.b_rows, (nk + nq) * a.splits), kThreads, smem,
+                            stream>>>(a, nk, nq);
   return (int)cudaGetLastError();
 }
 
 template <int HD>
 int launch_bf16(const BwdArgs& a, cudaStream_t stream) {
   using W = BwdWgmma<HD>;
-  unsigned zk, zq;
-  int e = grid_z(a.skv, kWKeys, &zk);
-  if (!e) e = grid_z(a.sq, kWRows, &zq);
-  // (B, S, heads, hd) maps: Q and dO by 64-row tiles for dK/dV and by 128-row
-  // blocks for dQ, K and V the other way round
+  constexpr int smem = W::DKDV_SMEM > W::DQ_SMEM ? W::DKDV_SMEM : W::DQ_SMEM;
+  int nk, nq;
+  int e = grid_z(a, kWKeys, kWRows, &nk, &nq);
   CUtensorMap tq64, tdo64, tk128, tv128, tq128, tdo128, tk64, tv64;
   const long long* qs = a.qs;
   if (!e) e = encode(&tq64, a.q, HD, a.heads, a.sq, a.b_rows, qs[0], qs[1], qs[2], kWQ);
@@ -954,33 +1114,13 @@ int launch_bf16(const BwdArgs& a, cudaStream_t stream) {
   if (!e) e = encode(&tk64, a.k, HD, a.kv_heads, a.skv, a.b_rows, a.ks[0], a.ks[1], a.ks[2], kWKv);
   if (!e) e = encode(&tv64, a.v, HD, a.kv_heads, a.skv, a.b_rows, a.vs[0], a.vs[1], a.vs[2], kWKv);
   if (e) return e;
-  cudaError_t err = cudaFuncSetAttribute(flash_bwd_dkdv_wgmma<HD>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, W::DKDV_SMEM);
-  if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(flash_bwd_dq_wgmma<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               W::DQ_SMEM);
+  const cudaError_t err = cudaFuncSetAttribute(flash_bwd_tiles_wgmma<HD>,
+                                               cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
-  const float scale_log2 = a.scale * kLog2e;
-  flash_bwd_dkdv_wgmma<HD><<<dim3(a.heads, a.b_rows, zk), kWThreads, W::DKDV_SMEM, stream>>>(
-      tq64, tk128, tv128, tdo64, a, scale_log2);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  flash_bwd_dq_wgmma<HD><<<dim3(a.heads, a.b_rows, zq), kWThreads, W::DQ_SMEM, stream>>>(
-      tq128, tk64, tv64, tdo128, a, scale_log2);
+  flash_bwd_tiles_wgmma<HD><<<dim3(a.heads, a.b_rows, (nk + nq) * a.splits), kWThreads, smem,
+                              stream>>>(
+      tq64, tdo64, tk128, tv128, tq128, tdo128, tk64, tv64, a, a.scale * kLog2e, nk, nq);
   return (int)cudaGetLastError();
-}
-
-// every base address and (batch, seq, head) stride of q, k, v and dO a
-// multiple of 16 bytes (f32: the tile copies' 16-byte path)
-bool aligned16(const BwdArgs& a) {
-  const void* ptrs[4] = {a.q, a.k, a.v, a.dout};
-  const long long* strides[4] = {a.qs, a.ks, a.vs, a.ds};
-  for (int t = 0; t < 4; ++t) {
-    if ((uintptr_t)ptrs[t] % 16) return false;
-    for (int i = 0; i < 3; ++i)
-      if (strides[t][i] % 4) return false;
-  }
-  return true;
 }
 
 template <typename T, int HD>
@@ -991,16 +1131,13 @@ int launch_bwd(const BwdArgs& a, cudaStream_t stream) {
   flash_bwd_dot_kernel<T, HD><<<(unsigned)dot_blocks, kThreads, 0, stream>>>(a, rows);
   int err = (int)cudaGetLastError();
   if (err) return err;
-  if (sizeof(T) == 2) {
-    err = launch_bf16<HD>(a, stream);
-  } else {
-    err = aligned16(a) ? launch_f32<HD, true>(a, stream) : launch_f32<HD, false>(a, stream);
-  }
-  if (err || a.group == 1) return err;
-  const long long n = (long long)a.b_rows * a.skv * a.kv_heads * HD;
-  const long long blocks = (n / 4 + kThreads - 1) / kThreads;
-  flash_bwd_sum_kernel<T><<<(unsigned)(blocks < 1056 ? blocks : 1056), kThreads, 0, stream>>>(a,
-                                                                                               n);
+  err = sizeof(T) == 2 ? launch_bf16<HD>(a, stream) : launch_f32<HD>(a, stream);
+  if (err || a.group * a.splits == 1) return err;
+  const long long n_kv = (long long)a.b_rows * a.skv * a.kv_heads * HD;
+  const long long n_q = (long long)a.b_rows * a.sq * a.heads * HD;
+  const long long blocks = ((n_kv + (a.splits > 1 ? n_q : 0)) / 4 + kThreads - 1) / kThreads;
+  flash_bwd_sum_kernel<T><<<(unsigned)(blocks < 1056 ? blocks : 1056), kThreads, 0, stream>>>(
+      a, n_kv, n_q);
   return (int)cudaGetLastError();
 }
 
@@ -1024,34 +1161,19 @@ int fill_attrs(const void* fn, int smem, int* out) {
   return 0;
 }
 
-// an f32 tile kernel's two instantiations (16- and 4-byte copies): the
-// larger registers and local memory of the two
-int fill_attrs2(const void* vec, const void* any, int smem, int* out) {
-  int other[3];
-  int err = fill_attrs(vec, smem, out);
-  if (!err) err = fill_attrs(any, smem, other);
-  if (err) return err;
-  out[0] = out[0] > other[0] ? out[0] : other[0];
-  out[1] = out[1] > other[1] ? out[1] : other[1];
-  return 0;
-}
-
 template <typename T, int HD>
 int attrs_of(int which, int* out) {
-  constexpr bool bf16 = sizeof(T) == 2;
+  using F = F32Tiles<HD>;
+  using W = BwdWgmma<HD>;
   switch (which) {
     case 0: return fill_attrs((const void*)flash_bwd_dot_kernel<T, HD>, 0, out);
     case 1:
-      return bf16 ? fill_attrs((const void*)flash_bwd_dkdv_wgmma<HD>, BwdWgmma<HD>::DKDV_SMEM, out)
-                  : fill_attrs2((const void*)flash_bwd_dkdv_f32<HD, true>,
-                                (const void*)flash_bwd_dkdv_f32<HD, false>,
-                                F32Tiles<HD>::DKDV_BYTES, out);
-    case 2:
-      return bf16 ? fill_attrs((const void*)flash_bwd_dq_wgmma<HD>, BwdWgmma<HD>::DQ_SMEM, out)
-                  : fill_attrs2((const void*)flash_bwd_dq_f32<HD, true>,
-                                (const void*)flash_bwd_dq_f32<HD, false>, F32Tiles<HD>::DQ_BYTES,
-                                out);
-    case 3: return fill_attrs((const void*)flash_bwd_sum_kernel<T>, 0, out);
+      if (sizeof(T) == 2)
+        return fill_attrs((const void*)flash_bwd_tiles_wgmma<HD>,
+                          W::DKDV_SMEM > W::DQ_SMEM ? W::DKDV_SMEM : W::DQ_SMEM, out);
+      return fill_attrs((const void*)flash_bwd_tiles_f32<HD>,
+                        F::DKDV_BYTES > F::DQ_BYTES ? F::DKDV_BYTES : F::DQ_BYTES, out);
+    case 2: return fill_attrs((const void*)flash_bwd_sum_kernel<T>, 0, out);
   }
   return (int)cudaErrorInvalidValue;
 }
@@ -1069,31 +1191,38 @@ int attrs_hd(int hd, int which, int* out) {
 }  // namespace
 
 // q (B, Sq, H, hd), k and v (B, Skv, K, hd), o and dout (B, Sq, H, hd), all of
-// one dtype (0: f32, 1: bf16), innermost stride 1 (bf16: TMA's 16-byte strides
-// and base addresses for q, k, v and dout); ``strides`` holds the (batch, seq,
-// head) strides in elements of q, k, v, o and dout, 15 in all. lse (B, H, Sq)
-// f32 from the forward; dd an f32 scratch of 2 B H sq_pad floats (sq_pad: Sq
-// rounded up to a multiple of 128) and, where G = H / K > 1, 2 G B Skv K hd
-// more; dq, dk, dv contiguous outputs in the inputs' dtype. window <= 0 means
-// none. Four launches on ``stream`` (three where G = 1); returns
-// cudaGetLastError() after them.
+// one dtype (0: f32, 1: bf16), innermost stride 1, and 16-byte strides and
+// base addresses for q, k, v and dout (bf16: TMA's; f32: the tile copies');
+// ``strides`` holds the (batch, seq, head) strides in elements of q, k, v, o
+// and dout, 15 in all. lse (B, H, Sq) f32 from the forward; dd an f32
+// scratch of g4r_flash_attn_bwd_plan's floats; dq, dk, dv contiguous outputs
+// in the inputs' dtype. window <= 0 means none. The plan's launches on
+// ``stream``; returns cudaGetLastError() after them.
 extern "C" int g4r_flash_attn_bwd(const void* q, const void* k, const void* v, const void* o,
                                   const void* dout, const float* lse, float* dd, void* dq,
                                   void* dk, void* dv, int dtype, int b_rows, int sq, int skv,
                                   int heads, int kv_heads, int hd, const long long* strides,
                                   float scale, int causal, int window, void* stream) {
   if (b_rows <= 0 || sq <= 0 || heads <= 0) return (int)cudaGetLastError();
-  if (kv_heads <= 0 || heads % kv_heads != 0 || skv <= 0) return (int)cudaErrorInvalidValue;
+  if (kv_heads <= 0 || heads % kv_heads != 0 || skv <= 0 || (dtype != 0 && dtype != 1))
+    return (int)cudaErrorInvalidValue;
+  Plan plan;
+  const int err = plan_of(dtype == 1, b_rows, sq, skv, heads, kv_heads, hd, &plan);
+  if (err) return err;
   BwdArgs a;
   a.q = q; a.k = k; a.v = v; a.o = o; a.dout = dout;
   a.lse = lse; a.dq = dq; a.dk = dk; a.dv = dv;
   a.b_rows = b_rows; a.sq = sq; a.skv = skv; a.heads = heads; a.kv_heads = kv_heads;
   a.group = heads / kv_heads;
+  a.splits = plan.splits;
   a.sq_pad = (sq + kRowPad - 1) / kRowPad * kRowPad;
+  // lse and D rows, then the dK / dV partials, then the dQ partials
   const long long padded = (long long)b_rows * heads * a.sq_pad;
+  const long long pk = (long long)a.group * a.splits;
   a.lse_pad = dd;
   a.dd = dd + padded;
   a.part = dd + 2 * padded;
+  a.qpart = a.part + (pk > 1 ? 2 * pk * b_rows * skv * kv_heads * hd : 0);
   for (int i = 0; i < 3; ++i) {
     a.qs[i] = strides[i];
     a.ks[i] = strides[3 + i];
@@ -1105,15 +1234,29 @@ extern "C" int g4r_flash_attn_bwd(const void* q, const void* k, const void* v, c
   a.causal = causal;
   a.window = window;
   cudaStream_t s = (cudaStream_t)stream;
-  if (dtype == 0) return dispatch_hd<float>(a, hd, s);
-  if (dtype == 1) return dispatch_hd<__nv_bfloat16>(a, hd, s);
-  return (int)cudaErrorInvalidValue;
+  return dtype == 0 ? dispatch_hd<float>(a, hd, s) : dispatch_hd<__nv_bfloat16>(a, hd, s);
+}
+
+// The backward's plan for these dimensions on the current card: out[0] the
+// blocks a tile (splits), out[1] the scratch g4r_flash_attn_bwd takes (f32
+// floats), out[2] its launches. Returns a cudaError_t.
+extern "C" int g4r_flash_attn_bwd_plan(int dtype, int b_rows, int sq, int skv, int heads,
+                                       int kv_heads, int hd, long long* out) {
+  if (b_rows <= 0 || sq <= 0 || skv <= 0 || heads <= 0 || kv_heads <= 0 ||
+      heads % kv_heads != 0 || (dtype != 0 && dtype != 1))
+    return (int)cudaErrorInvalidValue;
+  Plan plan;
+  const int err = plan_of(dtype == 1, b_rows, sq, skv, heads, kv_heads, hd, &plan);
+  if (err) return err;
+  out[0] = plan.splits;
+  out[1] = plan.scratch;
+  out[2] = plan.launches;
+  return 0;
 }
 
 // Registers, local memory (spills and stack) and dynamic shared memory of the
-// backward's kernel ``which`` (0 the D pass, 1 dK/dV, 2 dQ, 3 the sum over G)
-// for (dtype, hd), f32's dK/dV and dQ the larger of their 16- and 4-byte
-// copy instantiations: out[0..2]. Returns a cudaError_t.
+// backward's kernel ``which`` (0 the D pass, 1 the dK/dV and dQ tiles, 2 the
+// sum of the partials) for (dtype, hd): out[0..2]. Returns a cudaError_t.
 extern "C" int g4r_flash_attn_bwd_attrs(int dtype, int hd, int which, int* out) {
   if (dtype == 0) return attrs_hd<float>(hd, which, out);
   if (dtype == 1) return attrs_hd<__nv_bfloat16>(hd, which, out);

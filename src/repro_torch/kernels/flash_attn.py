@@ -16,8 +16,8 @@ others raises here, before any launch.
 The backward replaces no TPU kernel (``repro``'s Pallas kernel has no VJP):
 from q, k, v, the forward's output and LSE and the output's gradient it
 gives dq, dk, dv, summing dk and dv over each KV head's G query heads,
-deterministically (no atomics), in four launches (three where G = 1). The
-source files carry the design notes.
+deterministically (no atomics), in three launches (two where no partials
+are summed, ``bwd_plan``). The source files carry the design notes.
 """
 from __future__ import annotations
 
@@ -34,34 +34,36 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 TMA_ALIGN = 16  # bytes: TMA's stride and base-address granule
 BF16_BLOCK_Q = 128  # query rows per block of the bf16 kernel
 MAX_GRID_Z = 65535
-# the backward's kernels, in launch order; "sum" (dK and dV summed over the G
-# query heads of a KV head) runs only where G > 1
-BWD_KERNELS = ("dot", "dkdv", "dq", "sum")
+# the backward's kernels, in launch order: D, the dK/dV and dQ tiles (one
+# launch), and "sum" (each gradient element's f32 partials added in order),
+# which runs only where the tile blocks write partials (bwd_plan)
+BWD_KERNELS = ("dot", "tiles", "sum")
 
 # Launches since the last reset (chip_smoke.py reads and resets them):
 # ``launches``, one ``flash_fwd_kernel`` (f32) or ``flash_fwd_kernel_wgmma``
-# (bf16) per forward call; ``bwd_launches``, ``bwd_launches_per_call(H, K)``
+# (bf16) per forward call; ``bwd_launches``, ``bwd_plan(...)["launches"]``
 # per backward call, one for each kernel of BWD_KERNELS it launches.
 launches = 0
 bwd_launches = 0
 
 
-def bwd_launches_per_call(heads: int, kv_heads: int) -> int:
-    """The backward's launches for H query heads over K KV heads: every
-    kernel of BWD_KERNELS, but "sum" only where G = H / K > 1."""
-    return len(BWD_KERNELS) - (heads == kv_heads)
+def bwd_plan(dtype: torch.dtype, B: int, Sq: int, Skv: int, H: int, K: int, hd: int) -> dict:
+    """The backward's plan on the current CUDA card: ``splits``, the blocks
+    each tile of its grid takes (more than 1 only where the grid would fill
+    under half the card's block slots), ``scratch_floats``, the f32 scratch
+    its C entry carves (lse and D rows, the partials), and ``launches``: 3,
+    or 2 where G = H / K and splits are both 1 (no sum pass)."""
+    out = (ctypes.c_longlong * 3)()
+    build.check(build.library().g4r_flash_attn_bwd_plan(_DTYPES[dtype], B, Sq, Skv, H, K, hd,
+                                                         out),
+                "flash_attention backward plan")
+    return {"splits": out[0], "scratch_floats": out[1], "launches": out[2]}
 
 
-BWD_ROW_PAD = 128  # the backward pads its lse and D rows to a multiple of this
-
-
-def bwd_scratch_floats(B: int, Sq: int, Skv: int, H: int, K: int, hd: int) -> int:
-    """f32 scratch the backward's C entry carves: the lse and D rows, 2 x (B,
-    H, Sq rounded up to BWD_ROW_PAD), and, where G = H / K > 1, the partial
-    dK and dV of each query head, 2 x (G, B, Skv, K, hd)."""
-    G = H // K
-    sq_pad = -(-Sq // BWD_ROW_PAD) * BWD_ROW_PAD
-    return 2 * B * H * sq_pad + (2 * G * B * Skv * K * hd if G > 1 else 0)
+def _aligned16(t: torch.Tensor) -> bool:
+    """Base address and (batch, seq, head) strides multiples of 16 bytes."""
+    return t.data_ptr() % TMA_ALIGN == 0 and all(
+        s * t.element_size() % TMA_ALIGN == 0 for s in t.stride()[:3])
 
 
 def _check_tma(name: str, t: torch.Tensor) -> None:
@@ -175,12 +177,15 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return dq, dk.zero_(), dv.zero_()
     if Skv == 0:
         raise ValueError("flash_attention backward: no keys (Skv == 0)")
-    dd = torch.empty(bwd_scratch_floats(B, Sq, Skv, H, K, hd), dtype=torch.float32,
-                     device=q.device)
+    if q.dtype == torch.float32:  # the f32 tile kernels copy 16 bytes at a time
+        q, k, v, do = (t if _aligned16(t) else t.clone(memory_format=torch.contiguous_format)
+                       for t in (q, k, v, do))
     strides = (ctypes.c_longlong * 15)(*q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
                                        *o.stride()[:3], *do.stride()[:3])
     lib = build.library()
     with torch.cuda.device(q.device):
+        plan = bwd_plan(q.dtype, B, Sq, Skv, H, K, hd)
+        dd = torch.empty(plan["scratch_floats"], dtype=torch.float32, device=q.device)
         err = lib.g4r_flash_attn_bwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
             lse.data_ptr(), dd.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
@@ -188,7 +193,7 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             int(bool(causal)), 0 if window is None else int(window),
             torch.cuda.current_stream(q.device).cuda_stream)
     build.check(err, "flash_attention backward")
-    bwd_launches += bwd_launches_per_call(H, K)
+    bwd_launches += plan["launches"]
     return dq, dk, dv
 
 

@@ -48,11 +48,15 @@ row's scale below 2^-10 of the tensor's: both sum in f32 and round once, a
 rounding step is at most 2^-7, and a row that cancels to 0 holds only
 rounding residue), bitwise on a
 re-run, one launch count a call, through the dispatcher's autograd; at the
-grids' edges (G 1 with no sum pass, G 7 and 9, Sq and Skv off the tile,
-windows of one key and under one tile) in both dtypes, four launches a
-call where G > 1 and three at G 1, re-runs bitwise under deterministic
-algorithms; the bf16 kernels against their emulation; no backward
-instantiation with local memory, HGMMA in every bf16 dK/dV and dQ one.
+grids' edges (G 1 on a full grid with no sum pass and on a small, split
+one, G 7 and 9, Sq and Skv off the tile, windows of two keys and under one
+tile) in both dtypes, the plan's launches (two where neither G nor its
+splits exceed 1, else three), re-runs bitwise under deterministic
+algorithms; the plan splitting only grids under half the card's block
+slots; the bf16 kernel against its emulation; no backward
+instantiation with local memory, HGMMA in every bf16 dK/dV-and-dQ one; f32
+views off 16 bytes, which the wrapper copies, bitwise the aligned inputs'
+gradients.
 
     python -m pytest -q -m cuda tests/test_torch_flash.py   # on the card
 """
@@ -369,51 +373,27 @@ def test_backward_bf16_matches_f32_and_repro(S, K, G, hd, window):
         assert _rel_err(g, jw) <= BF16_ATOL
 
 
-def bwd_kernel_emulation(q, k, v, o, lse, do, causal=True, window=None, fault=None):
-    """The bf16 backward kernels' arithmetic (``csrc/flash_attn_bwd.cu``,
-    ``flash_bwd_dkdv_wgmma`` and ``flash_bwd_dq_wgmma``) in plain torch on
-    (B, S, H, hd) bf16 q, k, v, o, dO and the forward's f32 lse: D =
-    rowsum(dO o O) in f32; S and dP in f32 from the bf16 products; P =
-    exp2(S scale log2 e - lse log2 e) in the band, else 0; dS = P o (dP - D);
-    P and dS rounded to bf16 before their products (the wgmmas' register
-    operands), the products summed in f32; each query head's dK and dV, then
-    the G partials summed in order g = 0 .. G-1 (the sum pass); every output
-    rounded to bf16 once, dQ and dK after the scale.
+def bwd_kernel_emulation(cs, q, k, v, o, lse, do, causal=True, window=None, fault=None):
+    """``chip_smoke.bwd_kernel_emulation`` (of module ``cs``), the bf16
+    backward kernel's arithmetic: P and dS rounded to bf16 before the
+    products, each query head's dK and dV summed over G in order.
 
     ``fault`` breaks the band where a window cuts a dQ block's (128 rows)
     band, as a kernel's bug could: ``"drop_edge_tile"`` loses the band's
     first 64-key tile, ``"unmasked_edge_tile"`` leaves the window's mask off
     it."""
-    B, Sq, H, hd = q.shape
-    Skv, K = k.shape[1], k.shape[2]
-    G = H // K
-    c = np.float32(np.log2(np.e) / np.sqrt(hd))
-    lse2 = (lse.float() * np.float32(np.log2(np.e)))[..., None]  # (B, H, Sq, 1)
-    qf, dof = q.float().transpose(1, 2), do.float().transpose(1, 2)
-    kf = k.float().transpose(1, 2).repeat_interleave(G, dim=1)
-    vf = v.float().transpose(1, 2).repeat_interleave(G, dim=1)
-    dd = (do.float() * o.float()).sum(-1).transpose(1, 2)[..., None]
-    ok = ref._band(Sq, Skv, causal, window, 0, q.device)
+    Sq, Skv = q.shape[1], k.shape[1]
+    band = None
     if fault is not None:
+        band = ref._band(Sq, Skv, causal, window, 0, q.device)
         causal_only = ref._band(Sq, Skv, causal, None, 0, q.device)
         for q0 in range(0, Sq, 128):
             lo = q0 - window + 1
             if lo <= 0:
                 continue
             rows, keys = slice(q0, q0 + 128), slice(lo // 64 * 64, lo // 64 * 64 + 64)
-            ok[rows, keys] = False if fault == "drop_edge_tile" else causal_only[rows, keys]
-    p = torch.where(ok, torch.exp2((qf @ kf.transpose(-1, -2)) * c - lse2), 0.0)
-    ds = p * (dof @ vf.transpose(-1, -2) - dd)
-    pb, dsb = p.bfloat16().float(), ds.bfloat16().float()
-    scale = np.float32(1.0 / np.sqrt(hd))
-    dq = (dsb @ kf) * scale
-    dvh = (pb.transpose(-1, -2) @ dof).reshape(B, K, G, Skv, hd)
-    dkh = (dsb.transpose(-1, -2) @ qf).reshape(B, K, G, Skv, hd)
-    dk, dv = dkh[:, :, 0], dvh[:, :, 0]
-    for g in range(1, G):
-        dk, dv = dk + dkh[:, :, g], dv + dvh[:, :, g]
-    return (dq.transpose(1, 2).bfloat16(), (dk * scale).transpose(1, 2).bfloat16(),
-            dv.transpose(1, 2).bfloat16())
+            band[rows, keys] = False if fault == "drop_edge_tile" else causal_only[rows, keys]
+    return cs.bwd_kernel_emulation(q, k, v, o, lse, do, causal, window, band=band)
 
 
 # BWD_CASES with batch 2, and smollm-135m's training layout (B 4, H 9, K 3,
@@ -431,7 +411,7 @@ def test_backward_kernel_arithmetic_bf16(chip_smoke, case):
     q, k, v, do = _qkvd(S + 5 * G + hd, B, S, K, G, hd)
     bq, bk, bv, bdo = (_t(a, torch.bfloat16) for a in (q, k, v, do))
     o, lse = ref.attention_fwd_ref(bq, bk, bv, causal, window)
-    mine = bwd_kernel_emulation(bq, bk, bv, o, lse, bdo, causal, window)
+    mine = bwd_kernel_emulation(chip_smoke, bq, bk, bv, o, lse, bdo, causal, window)
     assert all(g.dtype == torch.bfloat16 and torch.isfinite(g.float()).all() for g in mine)
     plain = ref.attention_bwd_ref(bq, bk, bv, o, lse, bdo, causal, window)
     for g, w in zip(mine, plain):
@@ -462,7 +442,7 @@ def test_backward_row_bound_catches_window_edge_faults(chip_smoke, window_edge_b
     unmasked it fails it by a factor above 4 (dQ's rows, which cancel, read
     the fault most)."""
     *inputs, plain = window_edge_bwd
-    mine = bwd_kernel_emulation(*inputs, True, 4096, fault=fault)
+    mine = bwd_kernel_emulation(chip_smoke, *inputs, True, 4096, fault=fault)
     rels = [chip_smoke._row_rel(g, w, chip_smoke.FLASH_BWD_ROW_FLOOR) for g, w in zip(mine, plain)]
     if fault is None:
         assert all(chip_smoke.flash_bwd_ok(g, w) for g, w in zip(mine, plain)), rels
@@ -685,7 +665,8 @@ class TestOnCard:
         n = fa_mod.bwd_launches
         got = fa_mod.flash_attention_bwd_cuda(q, k, v, o, lse, do, causal, window)
         torch.cuda.synchronize()
-        assert fa_mod.bwd_launches == n + fa_mod.bwd_launches_per_call(K * G, K)
+        plan = fa_mod.bwd_plan(dtype, 2, S, S, K * G, K, hd)
+        assert fa_mod.bwd_launches == n + plan["launches"]
         self._check_bwd(chip_smoke, got, ref.attention_bwd_ref(q, k, v, o, lse, do, causal, window),
                         dtype)
         again = fa_mod.flash_attention_bwd_cuda(q, k, v, o, lse, do, causal, window)
@@ -707,7 +688,8 @@ class TestOnCard:
 
     # (B, S, K, G, hd, window, causal): the edges of the backward's grids
     @pytest.mark.parametrize("B,S,K,G,hd,window,causal", [
-        (2, 200, 2, 1, 64, None, True),  # G 1: dK/dV written by their blocks, no sum pass
+        (4, 1024, 4, 1, 64, None, True),  # G 1 on a full grid: no partials, no sum pass
+        (2, 200, 2, 1, 64, None, True),  # G 1 on a small grid: split, dQ partials summed
         (1, 333, 2, 7, 64, None, True),  # G 7 (qwen2), Sq and Skv off the tile
         (2, 256, 1, 9, 128, None, False),  # G 9 (starcoder2's heads)
         (1, 333, 3, 3, 32, 100, True),  # off the tile, under a window
@@ -722,7 +704,8 @@ class TestOnCard:
         got = fa_mod.flash_attention_bwd_cuda(q, k, v, o, lse, do, causal, window)
         torch.cuda.synchronize()
         launches = fa_mod.bwd_launches - n
-        assert launches == (len(fa_mod.BWD_KERNELS) if G > 1 else len(fa_mod.BWD_KERNELS) - 1)
+        plan = fa_mod.bwd_plan(dtype, B, S, S, K * G, K, hd)
+        assert launches == plan["launches"] == (3 if G * plan["splits"] > 1 else 2)
         self._check_bwd(chip_smoke, got, ref.attention_bwd_ref(q, k, v, o, lse, do, causal, window),
                         dtype)
         torch.use_deterministic_algorithms(True)
@@ -731,6 +714,25 @@ class TestOnCard:
         finally:
             torch.use_deterministic_algorithms(False)
         assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+    def test_backward_plan_splits_only_small_grids(self, cuda):
+        """``bwd_plan`` gives a tile more blocks only where its grid fills
+        under half the card's block slots: one at the LM training call (B
+        4, S 2,048, H 9, K 3, hd 64) in both dtypes and at G 1 on a full
+        grid (no partials, two launches); more at B 2, S 200, H 4 (f32: 8
+        tiles a head, two blocks an SM), with the scratch for the lse and D
+        rows and every partial."""
+        for dtype in (torch.float32, torch.bfloat16):
+            assert fa_mod.bwd_plan(dtype, 4, 2048, 2048, 9, 3, 64)["splits"] == 1
+        assert fa_mod.bwd_plan(torch.float32, 4, 1024, 1024, 4, 4, 64) == {
+            "splits": 1, "scratch_floats": 2 * 4 * 4 * 1024, "launches": 2}
+        small = fa_mod.bwd_plan(torch.float32, 2, 200, 200, 4, 2, 64)
+        s, blocks = small["splits"], (4 + 4) * 4 * 2
+        slots = 2 * torch.cuda.get_device_properties(cuda).multi_processor_count
+        assert s > 1 and blocks * s <= slots and (2 * blocks * s > slots or 2 * s > 4)
+        assert small["launches"] == 3
+        assert small["scratch_floats"] == (2 * 2 * 4 * 256 + 2 * (2 * s) * 2 * 200 * 2 * 64
+                                           + s * 2 * 200 * 4 * 64)
 
     @pytest.mark.parametrize("B,S,K,G,hd,window", [(2, 300, 2, 3, 64, None), (1, 256, 1, 7, 128, 100),
                                                    (2, 130, 2, 1, 32, None)])
@@ -744,14 +746,14 @@ class TestOnCard:
                                       with_lse=True)
         got = fa_mod.flash_attention_bwd_cuda(q.to(cuda), k.to(cuda), v.to(cuda), o, lse,
                                               do.to(cuda), True, window)
-        want = bwd_kernel_emulation(q, k, v, o.cpu(), lse.cpu(), do, True, window)
+        want = bwd_kernel_emulation(chip_smoke, q, k, v, o.cpu(), lse.cpu(), do, True, window)
         for g, w in zip(got, want):
             assert chip_smoke.flash_bwd_ok(g.cpu(), w)
 
     def test_backward_builds_on_the_tensor_cores_without_local_memory(self, cuda):
         """No instantiation of the backward uses local memory (spills or a
-        stack), and the SASS of every bf16 dK/dV and dQ instantiation holds
-        HGMMA (``cuobjdump -sass`` on the built library)."""
+        stack), and the SASS of every bf16 instantiation of the dK/dV and dQ
+        kernel holds HGMMA (``cuobjdump -sass`` on the built library)."""
         for dtype in (torch.float32, torch.bfloat16):
             for hd in HEAD_DIMS:
                 for name, attrs in fa_mod.bwd_kernel_attrs(dtype, hd).items():
@@ -761,10 +763,9 @@ class TestOnCard:
                               capture_output=True, text=True, check=True).stdout
         bodies = re.split(r"^\s*Function : ", sass, flags=re.M)[1:]
         for hd in HEAD_DIMS:
-            for name in ("dkdv", "dq"):
-                body = [b for b in bodies if b.startswith("_Z") and
-                        f"flash_bwd_{name}_wgmmaILi{hd}E" in b.split(None, 1)[0]]
-                assert len(body) == 1 and "HGMMA" in body[0], (name, hd, len(body))
+            body = [b for b in bodies if b.startswith("_Z") and
+                    f"flash_bwd_tiles_wgmmaILi{hd}E" in b.split(None, 1)[0]]
+            assert len(body) == 1 and "HGMMA" in body[0], (hd, len(body))
 
     def test_backward_reads_strided_views(self, cuda, chip_smoke):
         """q, k, v from one packed tensor and a dO whose rows are strided."""
@@ -779,9 +780,9 @@ class TestOnCard:
 
     @pytest.mark.parametrize("which", ["q", "k", "do"])
     def test_backward_reads_views_off_16_bytes(self, cuda, which):
-        """An f32 view 4 bytes past a 16-byte boundary takes the tile
-        kernels' 4-byte copies, which load the same values: the gradients
-        are bitwise those of the aligned inputs."""
+        """An f32 view 4 bytes past a 16-byte boundary, which the wrapper
+        copies for the tile kernel's 16-byte loads: the gradients are
+        bitwise those of the aligned inputs."""
         q, k, v, do = _on(cuda, _qkvd(11, 2, 200, 2, 3, 64))
         o, lse = flash_attention_cuda(q, k, v, True, 48, with_lse=True)
         want = fa_mod.flash_attention_bwd_cuda(q, k, v, o, lse, do, True, 48)
@@ -798,7 +799,8 @@ class TestOnCard:
         n, nb = fa_mod.launches, fa_mod.bwd_launches
         got = torch.autograd.grad(ops.flash_attention(*leaves, True, None), leaves, do)
         assert (fa_mod.launches, fa_mod.bwd_launches) == (n + 1, nb + len(fa_mod.BWD_KERNELS))
-        assert fa_mod.bwd_launches_per_call(3, 1) == len(fa_mod.BWD_KERNELS)
+        plan = fa_mod.bwd_plan(torch.float32, 1, 96, 96, 3, 1, 32)
+        assert plan["launches"] == len(fa_mod.BWD_KERNELS)
         o, lse = ref.attention_fwd_ref(q, k, v)
         self._check_bwd(chip_smoke, got, ref.attention_bwd_ref(q, k, v, o, lse, do),
                         torch.float32)
