@@ -136,6 +136,33 @@ nothing of JAX or of the JAX package ``repro``. Phases, each failing loudly:
    call of each (shape, dtype) recorded; then the reduced model in f32, 5
    steps on the CPU and twice on the card under deterministic algorithms:
    losses and parameters to 1e-4, the two card runs bitwise;
+6d. the MoE, SSM and hybrid block kinds, each through the same entry
+   points (weights from the port's init, seed 0; OLMoE's and Jamba's drawn
+   on the card, Mamba2's on the CPU): ``lm_moe``, OLMoE-1B-7B at full
+   width and depth (16 layers, 64 experts top-8, bf16): the prefill (B 4 x
+   S 2,048, 16 ``flash_attention`` launches a forward) with the MoE layers'
+   and the flash kernel's shares of a profiled forward and the share of
+   token choices the capacity drops; layer 0 alone on its recorded input,
+   prefill grouping vs groups of one (capacity factor 8: no drops) in f32
+   and bf16, and card vs CPU in f32 on one group (rows routed alike to
+   1e-4, or 3e-2 of each row's largest value in bf16; rows routed apart
+   only at near-ties of the K-th and (K+1)-th router probabilities,
+   within 1e-5); prefill vs decode on 4 x 256 tokens at capacity factor 8,
+   every (layer, token) routing difference counted, the first layer's
+   held to near-ties (1e-5 in f32; in bf16 a log-ratio of the two
+   probabilities within 2^-4), the error gated at 1e-4 / 3e-2 only where
+   none differs; ``BatchedServer`` twice, equal;
+   ``lm_ssm``, Mamba2-1.3B at full width and depth (48 layers): the same
+   prefill (no flash launch), in f32 the SSD in chunks of 256 against one
+   chunk of 512 to 1e-4, prefill vs decode on 4 x 256 tokens and serving; ``lm_hybrid``, one full-width 8-layer period of
+   Jamba-v0.1-52B (B 1 x S 2,048, one flash launch a forward; prefill vs
+   decode as OLMoE's, its f32 side on the model turned f32 in place);
+   ``lm_moe_training``, OLMoE at full width cut to 2 layers, 10 steps as
+   6c (4 flash forwards and 2 backward calls a step, routers f32 from the
+   start, every MoE aux loss finite); the reduced Jamba and Mixtral in
+   f32, card vs CPU (forward and 16 decode steps to 1e-4), and the reduced
+   Jamba's 5 training steps at lr 1e-5, card vs CPU to 1e-4 and card twice
+   bitwise;
 7. the launch floor: the time ``measure`` reports for an empty kernel of
    the same library, one block and one wave of blocks, on a line of its own;
    then kernel phases: each kernel against its plain PyTorch version on the
@@ -149,14 +176,14 @@ nothing of JAX or of the JAX package ``repro``. Phases, each failing loudly:
    call of the three IVF runs, rows exactly, with the launch plan each took,
    and a synthetic call past a cluster's shared memory on the kernel's
    global path; ``flash_attention``: the LM
-   prefill's recorded call, bf16 to atol 3e-2 and to 2^-4 of each output
+   prefills' recorded calls (smollm's, OLMoE's, Jamba's), bf16 to atol 3e-2 and to 2^-4 of each output
    row's largest value, with the output's max and median |value| printed
    beside the errors; ``topk``: every call of the serving path and the 1M
    arm, each shape's launch plan (query tile, splits = cluster size,
    blocks), and the U2I call with fewer exclusions and a smaller k, to
    show where its time goes; ``inbatch_loss``: every kept call, bitwise on
    a re-run; ``flash_attention_bwd``: the first LM training call of each
-   dtype against ``attention_bwd_ref``, f32 to rtol 1e-4, bf16 to 2^-6 of
+   dtype (smollm's, OLMoE's) against ``attention_bwd_ref``, f32 to rtol 1e-4, bf16 to 2^-6 of
    each row's largest value, a bitwise re-run, beside the backward of
    ``scaled_dot_product_attention`` through autograd), then (``seg_aggr``,
    ``topk``, ``inbatch_loss``, ``window_pairs``, ``flash_attention``) at
@@ -2026,6 +2053,30 @@ LM_ARCH, LM_BATCH, LM_SEQ = "smollm-135m", 4, 2048  # the prefill: full width, B
 # prompts on the CPU (tests/lm_bf16_consistency.py)
 LM_F32_REL, LM_BF16_REL = 1e-4, 3e-2
 LM_RTOL, LM_ATOL = 1e-4, 1e-4  # card vs CPU, reduced f32: other summation orders
+# the MoE, SSM and hybrid paths: OLMoE-1B-7B at full width and depth (6.92 B parameters,
+# 13.8 GB in bf16), Mamba2-1.3B at full width and depth, one full-width 8-layer period
+# of Jamba-v0.1-52B (about 13 B parameters; the whole model's 104 GB do not fit a card),
+# OLMoE cut to 2 layers to train (Adam's f32 state for all 16 would take about 111 GB)
+MOE_ARCH, SSM_ARCH, HYBRID_ARCH, MIXTRAL_ARCH = (
+    "olmoe-1b-7b", "mamba2-1.3b", "jamba-v0.1-52b", "mixtral-8x22b")
+HYBRID_LAYERS = 8
+MOE_TRAIN_LAYERS, MOE_TRAIN_STEPS = 2, 10
+SSM_CHUNKS_SEQ = 512  # Mamba2's chunked SSD at chunk 256 vs one chunk of 512, in f32
+# no capacity drops, as repro's own forward-vs-decode test (tests/test_models.py:109-113):
+# at g 512 an expert's C is 512, at g 1 it is 4
+MOE_CF_EXACT = 8.0
+# routing may differ only at a near-tie of the K-th and (K+1)-th router probabilities
+# (ROADMAP C1's rule for top-k): within 1e-5 where the inputs agree to f32 rounding. In
+# bf16 the residual stream reaching a router differs between prefill and decode by bf16
+# roundings (2^-8 of a value, a few times over a layer), which moves a router logit by up to
+# a few 1e-2: there a tie is a log-ratio log(p_K / p_(K+1)) within 2^-4. An H100 read
+# first-layer gaps up to 3.1e-4 at OLMoE's p ~ 1/64 (2 % of it) and 1.1e-3 in a Jamba
+# period; a misrouted token's ratio is anything up to the largest probability's
+ROUTE_TIE, ROUTE_TIE_BF16_LOG = 1e-5, 2.0 ** -4
+# the reduced Jamba's training, card vs CPU: Adam's first update is lr g / (|g| + 1e-8), so
+# an element whose gradient lies within f32 rounding of zero moves by up to lr either
+# way; at 1e-5 such an element stays inside the 1e-4 bound (tests/test_torch_lm_blocks_train.py)
+LM_BLOCKS_CONF_LR = 1e-5
 FLASH_RTOL, FLASH_ATOL = 1e-5, 2e-5  # f32 kernel vs plain: one function, another order
 # bf16: both round the softmax weights to bf16 before PV, the plain version
 # after normalising them, the kernel before (it divides by the row sum last)
@@ -2168,63 +2219,236 @@ def _decode_all(torch, T, model, cfg, tokens):
     return logits, time.perf_counter() - t0
 
 
-def lm_path(torch, np, fa_mod) -> dict:
-    """The LM substrate's serving side on smollm-135m at full width (random
-    weights from the port's init, seed 0): the prefill through
-    ``examples/serve_lm_torch.py``'s ``run`` (``make_prefill`` on B 4 x S
-    2,048, 30 ``flash_attention`` launches a forward; counts zeroed before,
-    read after; the first call of each shape recorded), the flash share of
-    one forward's device time, prefill vs decode on 256-token prompts (bf16
-    and the same weights in f32), ``BatchedServer`` twice on 16 requests,
-    and the reduced model in f32 on the card vs the CPU."""
+@contextlib.contextmanager
+def moe_routes(torch, moe_mod, routes: list, limit: int = -1):
+    """While active, every ``moe_forward`` call (prefill or decode), or the
+    first ``limit`` of them, also appends its routing to ``routes``: the chosen experts sorted (B, S, K),
+    the gap between the K-th and (K+1)-th router probabilities (B, S),
+    which choices were kept (B, S, K), and the log of those probabilities'
+    ratio (B, S)."""
+    real = moe_mod.moe_forward
+
+    def spy(p, cfg, x):
+        if len(routes) == limit:
+            return real(p, cfg, x)
+        B, S, d = x.shape
+        with torch.no_grad():
+            r = moe_mod.route(p, cfg, x.reshape(-1, moe_mod.group_size(cfg, S), d))
+            top = torch.sort(r.probs, dim=-1, descending=True).values
+            K = cfg.top_k
+            routes.append((r.top_idx.reshape(B, S, K).sort(-1).values,
+                           (top[..., K - 1] - top[..., K]).reshape(B, S),
+                           r.kept.reshape(B, S, K),
+                           (top[..., K - 1].log() - top[..., K].log()).reshape(B, S)))
+        return real(p, cfg, x)
+
+    moe_mod.moe_forward = spy
+    try:
+        yield
+    finally:
+        moe_mod.moe_forward = real
+
+
+@contextlib.contextmanager
+def annotated(torch, module, name: str, label: str):
+    """Run every call of ``module.name`` inside ``record_function(label)``,
+    so that a profile can sum the device time of the kernels it launched."""
+    real = getattr(module, name)
+
+    def spy(*args, **kwargs):
+        with torch.profiler.record_function(label):
+            return real(*args, **kwargs)
+
+    setattr(module, name, spy)
+    try:
+        yield
+    finally:
+        setattr(module, name, real)
+
+
+def _annotated_device_us(prof, label: str) -> float:
+    """The device time of the kernels launched inside ``label``'s ranges."""
+    return sum(e.device_time_total for e in prof.events()
+               if e.name == label and e.device_type.name == "CPU")
+
+
+def _route_compare(torch, pre: list, dec: list, tie: float, log_ratio: bool = False) -> dict:
+    """Prefill's routes (one entry a MoE layer, (B, S, ·)) against decode's
+    (S steps of one entry a layer, (B, 1, ·)): the (layer, token) pairs
+    whose expert sets differ, per layer, and each difference's gap (the
+    smaller of the two paths' K-th minus (K+1)-th probabilities, or with
+    ``log_ratio`` the log of their ratio). The first layer with a
+    difference sees inputs that differ by rounding only; each of its
+    differences must be a near-tie (gap <= ``tie``). Later layers'
+    differences may follow from it (a swapped token moves by a whole
+    expert's share, and attention spreads it): counted, not gated."""
+    col = 3 if log_ratio else 1
+    L = len(pre)
+    S = pre[0][0].shape[1]
+    if len(dec) != L * S:
+        fail(f"routing: {len(dec)} decode calls for {L} MoE layers x {S} steps")
+    per_layer, max_gap, first = [], 0.0, None
+    for layer in range(L):
+        d_idx = torch.cat([dec[i * L + layer][0] for i in range(S)], dim=1)
+        d_gap = torch.cat([dec[i * L + layer][col] for i in range(S)], dim=1)
+        differs = (pre[layer][0] != d_idx).any(-1)
+        n = int(differs.sum())
+        gaps = torch.minimum(pre[layer][col], d_gap)[differs]
+        g = gaps.max().item() if n else 0.0
+        per_layer.append(n)
+        max_gap = max(max_gap, g)
+        if n and first is None:
+            first = {"layer": layer, "count": n, "max_gap": g}
+    out = {"differences": sum(per_layer), "per_layer": per_layer, "first": first,
+           "max_gap": max_gap, "gap": "log ratio" if log_ratio else "probability", "tie": tie}
+    if first is not None and first["max_gap"] > tie:
+        fail(f"routing: prefill and decode route {first['count']} tokens of MoE layer "
+             f"{first['layer']} apart at gaps up to {first['max_gap']} (near-tie bound {tie})")
+    return out
+
+
+def _prefill_decode(torch, np, T, moe_mod, spec, model, prompts):
+    """The last prefill logits and the last of S decode steps on the same
+    prompts, with each path's MoE routes."""
+    pre, dec = [], []
+    with moe_routes(torch, moe_mod, pre):
+        full = spec.make_prefill()(model, {"tokens": prompts})
+    with moe_routes(torch, moe_mod, dec):
+        last, dec_s = _decode_all(torch, T, model, spec.lm, prompts)
+    return full, last, dec_s, pre, dec
+
+
+def lm_consistency(torch, np, spec, model, prompts, phase: str, in_place_f32=False,
+                   gate_bf16=True) -> dict:
+    """Prefill vs decode on ``prompts`` (relative max of the last logits,
+    ``repro``'s measure): in the model's bf16, and with the same weights in
+    f32 (a copy, or the model itself turned f32 where a copy would not fit
+    beside it), beside each bf16 path's distance to f32. A MoE arch runs at
+    capacity factor ``MOE_CF_EXACT`` (no drops, as ``repro``'s own test) and
+    its routing differences are counted (``_route_compare``); its error is
+    gated only where no token routes apart (else printed ungated). Without
+    ``gate_bf16`` the bf16 figures are printed, not gated (Mamba2's 48
+    layers of bf16 state: ROADMAP C7)."""
     import copy
 
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.models import transformer as T
+
+    cfg = spec.lm
+    if cfg.moe is not None:
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe,
+                                                               capacity_factor=MOE_CF_EXACT))
+        spec = dataclasses.replace(spec, lm=cfg)
+    V = cfg.vocab  # the padded vocabulary's logits are -1e30 in every path
+    full, dec, dec_s, pre_r, dec_r = _prefill_decode(torch, np, T, moe_mod, spec, model, prompts)
+    m32 = model.float() if in_place_f32 else copy.deepcopy(model).float()
+    spec32 = dataclasses.replace(spec, lm=dataclasses.replace(cfg, dtype="float32"))
+    full32, dec32, _, pre32, dec32_r = _prefill_decode(torch, np, T, moe_mod, spec32, m32,
+                                                       prompts)
+    del m32
+    full, dec, full32, dec32 = (t[..., :V] for t in (full, dec, full32, dec32))
+    cons = {"phase": phase, "arch": spec.arch_id, "layers": cfg.n_layers,
+            "prompts": list(prompts.shape),
+            "f32_prefill_vs_decode": _rel(dec32, full32),
+            "bf16_prefill_vs_decode": _rel(dec, full),
+            "bf16_prefill_vs_f32": _rel(full, full32), "bf16_decode_vs_f32": _rel(dec, full32),
+            "f32_bound": LM_F32_REL, "bf16_bound": LM_BF16_REL,
+            "decode_steps_per_s": prompts.shape[1] / dec_s}
+    gated = {"f32": True, "bf16": gate_bf16}
+    if cfg.moe is not None:
+        cons["capacity_factor"] = MOE_CF_EXACT
+        cons["routing_f32"] = _route_compare(torch, pre32, dec32_r, ROUTE_TIE)
+        cons["routing_bf16"] = _route_compare(torch, pre_r, dec_r, ROUTE_TIE_BF16_LOG,
+                                              log_ratio=True)
+        gated = {d: gated[d] and cons[f"routing_{d}"]["differences"] == 0 for d in gated}
+    cons["gated"] = gated
+    emit(cons)
+    for dtype, bound in (("f32", LM_F32_REL), ("bf16", LM_BF16_REL)):
+        if gated[dtype] and not cons[f"{dtype}_prefill_vs_decode"] < bound:
+            fail(f"{phase}: {dtype} prefill vs decode differ by "
+                 f"{cons[f'{dtype}_prefill_vs_decode']} (bound {bound})")
+    for k in ("f32_prefill_vs_decode", "bf16_prefill_vs_decode", "bf16_prefill_vs_f32",
+              "bf16_decode_vs_f32"):
+        if not np.isfinite(cons[k]):
+            fail(f"{phase}: {k} is not finite")
+    return cons
+
+
+def lm_prefill(torch, np, fa_mod, arch: str, batch: int, seq: int, phase: str,
+               layers: int = 0, draw_on_device: bool = False) -> dict:
+    """The prefill through ``examples/serve_lm_torch.py``'s ``run`` at full
+    width (``make_prefill`` on B x S tokens from ``default_rng(0)``, a
+    warm-up and 5 timed forwards; ``flash_attention`` launches zeroed
+    before, read after, one a forward per attention layer; the first call
+    of each shape recorded), then one profiled forward: its device time,
+    the flash kernel's share and, for a MoE arch, the share of the MoE
+    layers (routing, dispatch, the expert einsums and the combine), beside
+    the forward's host wall. A MoE arch also records each layer's input in
+    the first timed forward, and the share of token choices its capacity
+    drops. Returns the record with the spec, model and recorded inputs."""
     import serve_lm_torch
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.configs import get_arch
     from repro_torch.kernels import ops
-    from repro_torch.models import transformer as T
-    from repro_torch.serve import BatchedServer, ServeConfig
+    from repro_torch.models import moe as moe_mod
 
-    args = serve_lm_torch.parser().parse_args(
-        ["--arch", LM_ARCH, "--batch", str(LM_BATCH), "--prefill-len", str(LM_SEQ),
-         "--tokens", "0", "--seed", "0"])
+    argv = ["--arch", arch, "--batch", str(batch), "--prefill-len", str(seq),
+            "--tokens", "0", "--seed", "0", "--layers", str(layers)]
+    args = serve_lm_torch.parser().parse_args(argv + (["--draw-on-device"] if draw_on_device
+                                                      else []))
     calls: list = []
+    routes: list = []  # the warm-up forward's, so that no timed forward routes twice
+    first_moe: dict = {}  # the first MoE call's (p, cfg, x): layer 0's input
+    n_moe = sum(f == "moe" for _, f in get_arch(arch).lm.block_list()[:layers or None])
     fa_mod.launches = 0
-    with recording(ops, "flash_attention", calls):
-        res = serve_lm_torch.run(args)
+    t0 = time.perf_counter()
+    with recording(ops, "flash_attention", calls), moe_routes(torch, moe_mod, routes, n_moe):
+        restore = _keeping_first(moe_mod, "moe_forward", lambda a: 0, first_moe)
+        try:
+            res = serve_lm_torch.run(args)
+        finally:
+            restore()
+    wall = time.perf_counter() - t0
     launches = fa_mod.launches
     calls = first_of_each_shape(calls, _flash_key)
     spec, model = res["spec"], res["model"]
     cfg = spec.lm
-    if launches != cfg.n_layers * res["prefill_forwards"]:
-        fail(f"lm prefill: {launches} flash_attention launches in {res['prefill_forwards']} "
-             f"forwards of {cfg.n_layers} layers")
+    n_attn = sum(m == "attn" for m, _ in cfg.block_list())
+    if launches != n_attn * res["prefill_forwards"]:
+        fail(f"{phase}: {launches} flash_attention launches in {res['prefill_forwards']} "
+             f"forwards of {n_attn} attention layers")
     last = res["prefill_last_logits"]
-    if last.shape != (LM_BATCH, cfg.vocab_padded) or not torch.isfinite(last).all():
-        fail(f"lm prefill: last logits {tuple(last.shape)} not finite or misshapen")
-    out = {"phase": "lm prefill", "arch": spec.arch_id, "batch": LM_BATCH, "seq": LM_SEQ,
-           "dtype": cfg.dtype, "params": sum(p.numel() for p in model.parameters()),
+    if last.shape != (batch, cfg.vocab_padded) or not torch.isfinite(last).all():
+        fail(f"{phase}: last logits {tuple(last.shape)} not finite or misshapen")
+    out = {"phase": phase, "arch": spec.arch_id, "batch": batch, "seq": seq,
+           "layers": cfg.n_layers, "dtype": cfg.dtype,
+           "params": sum(p.numel() for p in model.parameters()),
+           "weights_drawn_on": "card" if draw_on_device else "cpu", "run_s": wall,
            "launches": {"flash_attention": launches}, "forwards": res["prefill_forwards"],
            "launches_per_forward": launches / res["prefill_forwards"],
            "prefill_s": res["prefill_s"], "prefill_tokens_per_s": res["prefill_tokens_per_s"]}
+    if n_moe:
+        kept = torch.cat([r[2].flatten() for r in routes]).float()
+        out["capacity_factor"] = cfg.moe.capacity_factor
+        out["dropped_choice_share"] = 1.0 - kept.mean().item()
 
     prefill = spec.make_prefill()
     toks = torch.from_numpy(np.random.default_rng(0).integers(
-        0, cfg.vocab, size=(LM_BATCH, LM_SEQ))).to("cuda")
-    for _ in range(CUPTI_TRIES):  # until the profile keeps the kernel's 30 records
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        0, cfg.vocab, size=(batch, seq))).to("cuda")
+    for _ in range(CUPTI_TRIES):  # until the profile keeps the kernel's records
+        with annotated(torch, moe_mod, "moe_forward", "moe_forward"), profile(
+                activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             prefill(model, {"tokens": toks})
             torch.cuda.synchronize()
         dev = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
+               if e.device_type == torch.autograd.DeviceType.CUDA and e.key != "moe_forward"]
         # flash_fwd_kernel (f32) and flash_fwd_kernel_wgmma (bf16)
         flash = [e for e in dev if "flash_fwd_kernel" in e.key]
-        if sum(e.count for e in flash) == cfg.n_layers:
+        if sum(e.count for e in flash) == n_attn:
             break
     else:
-        fail(f"lm prefill: {CUPTI_TRIES} profiles of the forward lost flash_attention records")
+        fail(f"{phase}: {CUPTI_TRIES} profiles of the forward lost flash_attention records")
     total_us = sum(e.self_device_time_total for e in dev)
     flash_us = sum(e.self_device_time_total for e in flash)
     # the forward's device time beside its host wall (the median timed
@@ -2233,34 +2457,21 @@ def lm_path(torch, np, fa_mod) -> dict:
     out.update(forward_device_ms=total_us / 1e3, flash_device_ms=flash_us / 1e3,
                flash_share=flash_us / total_us, forward_host_ms=host_ms,
                paced_by="host" if host_ms > total_us / 1e3 else "card")
+    if n_moe:
+        moe_us = _annotated_device_us(prof, "moe_forward")
+        out.update(moe_device_ms=moe_us / 1e3, moe_share=moe_us / total_us)
     emit(out)
+    out.update(spec=spec, model=model, toks=toks, calls=calls, first_moe=first_moe.get(0))
+    return out
 
-    # prefill vs decode, 256-token prompts: bf16 as served, and the same
-    # weights in f32 (the regime of repro's bound)
-    p256 = toks[:, :256].contiguous()
-    full = prefill(model, {"tokens": p256})
-    dec, dec_s = _decode_all(torch, T, model, cfg, p256)
-    spec32 = dataclasses.replace(spec, lm=dataclasses.replace(cfg, dtype="float32"))
-    m32 = copy.deepcopy(model).float()
-    full32 = spec32.make_prefill()(m32, {"tokens": p256})
-    dec32, _ = _decode_all(torch, T, m32, spec32.lm, p256)
-    del m32
-    cons = {"phase": "lm consistency", "prompts": list(p256.shape),
-            "f32_prefill_vs_decode": _rel(dec32, full32),
-            "bf16_prefill_vs_decode": _rel(dec, full),
-            "bf16_prefill_vs_f32": _rel(full, full32), "bf16_decode_vs_f32": _rel(dec, full32),
-            "f32_bound": LM_F32_REL, "bf16_bound": LM_BF16_REL,
-            "decode_steps_per_s": p256.shape[1] / dec_s}
-    emit(cons)
-    for dtype, bound in (("f32", LM_F32_REL), ("bf16", LM_BF16_REL)):
-        if not cons[f"{dtype}_prefill_vs_decode"] < bound:
-            fail(f"lm consistency: {dtype} prefill vs decode differ by "
-                 f"{cons[f'{dtype}_prefill_vs_decode']} (bound {bound})")
-    for k in ("bf16_prefill_vs_f32", "bf16_decode_vs_f32"):
-        if not np.isfinite(cons[k]):
-            fail(f"lm consistency: {k} is not finite")
 
-    # serving: 16 requests, prompts of 8-64 tokens, served twice
+def lm_serving(torch, np, spec, model, phase: str) -> dict:
+    """``BatchedServer`` (batch 8, 32 new tokens, cache 256) twice on 16
+    requests of 8-64 tokens from ``default_rng(0)``: greedy outputs equal
+    across the runs, and the tokens the requests hold per second."""
+    from repro_torch.serve import BatchedServer, ServeConfig
+
+    cfg = spec.lm
     rng = np.random.default_rng(0)
     prompts = [rng.integers(0, cfg.vocab, size=int(n)).tolist()
                for n in rng.integers(8, 65, size=16)]
@@ -2273,36 +2484,45 @@ def lm_path(torch, np, fa_mod) -> dict:
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
     if outs[0] != outs[1]:
-        fail("lm serving: two greedy runs of the same requests differ")
+        fail(f"{phase}: two greedy runs of the same requests differ")
     if any(len(o) != 32 or not all(0 <= t < cfg.vocab for t in o) for o in outs[0]):
-        fail("lm serving: an output is not 32 in-vocabulary tokens")
+        fail(f"{phase}: an output is not 32 in-vocabulary tokens")
     steps = sum(max(len(p) for p in prompts[lo:lo + 8]) + 31 for lo in (0, 8))
     # the tokens the requests hold: each prompt and what it generated (a
     # shorter prompt's row repeats its last token until the batch's longest
     # prompt is in, and those repeats are not counted), over both runs' wall
     served = sum(len(p) + len(o) for p, o in zip(prompts, outs[0]))
     generated = sum(len(o) for o in outs[0])
-    serve = {"phase": "lm serving", "requests": 16, "batch": 8, "new_tokens": 32,
-             "prompt_lens": [len(p) for p in prompts], "decode_steps": steps,
+    serve = {"phase": phase, "arch": spec.arch_id, "requests": 16, "batch": 8,
+             "new_tokens": 32, "prompt_lens": [len(p) for p in prompts], "decode_steps": steps,
              "serve_s": times, "identical": True,
              "decode_tokens_per_s": 2 * served / sum(times),
              "generated_tokens_per_s": 2 * generated / sum(times),
              "first_outputs": outs[0][:2]}
     emit(serve)
-    out.update(consistency=cons, serving=serve)
+    return serve
 
-    # card vs CPU: the reduced model in f32, forward and 16 decode steps
-    red = get_arch(LM_ARCH, reduced=True)
+
+def lm_card_vs_cpu(torch, np, arch: str, phase: str) -> dict:
+    """The reduced ``arch`` in f32 from the port's seed-0 init, on the card
+    vs the CPU under deterministic algorithms: the forward and 16 decode
+    steps to rtol/atol ``LM_RTOL`` / ``LM_ATOL``."""
+    import copy
+
+    from repro_torch.configs import get_arch
+    from repro_torch.models import transformer as T
+
+    red = get_arch(arch, reduced=True)
     m_cpu = red.init_params(torch.Generator().manual_seed(0), "cpu")
     m_gpu = copy.deepcopy(m_cpu).to("cuda")
-    t_cpu = torch.from_numpy(np.random.default_rng(1).integers(0, red.lm.vocab, size=(2, 32)))
+    t_cpu = torch.from_numpy(np.random.default_rng(1).integers(0, red.lm.vocab, size=(2, 64)))
     torch.use_deterministic_algorithms(True)
     try:
         with torch.no_grad():
             got = T.forward(m_gpu, red.lm, t_cpu.cuda())[0].cpu()
             want = T.forward(m_cpu, red.lm, t_cpu)[0]
         if not torch.allclose(got, want, rtol=LM_RTOL, atol=LM_ATOL):
-            fail("lm card vs CPU: forward logits differ")
+            fail(f"{phase}: forward logits differ by {(got - want).abs().max().item()}")
         diffs = [got - want]
         c_cpu = T.init_cache(red.lm, 2, 16, "cpu")
         c_gpu = T.init_cache(red.lm, 2, 16, "cuda")
@@ -2310,17 +2530,33 @@ def lm_path(torch, np, fa_mod) -> dict:
             a, c_cpu = T.decode_step(m_cpu, red.lm, c_cpu, t_cpu[:, i:i + 1])
             b, c_gpu = T.decode_step(m_gpu, red.lm, c_gpu, t_cpu[:, i:i + 1].cuda())
             if not torch.allclose(b.cpu(), a, rtol=LM_RTOL, atol=LM_ATOL):
-                fail(f"lm card vs CPU: decode step {i} logits differ")
+                fail(f"{phase}: decode step {i} logits differ")
             diffs.append(b.cpu() - a)
     finally:
         torch.use_deterministic_algorithms(False)
-    conf = {"phase": "lm card vs cpu", "arch": red.arch_id, "dtype": red.lm.dtype,
-            "tokens": [2, 32], "decode_steps": 16,
+    conf = {"phase": phase, "arch": red.arch_id, "dtype": red.lm.dtype,
+            "tokens": [2, 64], "decode_steps": 16,
             "max_abs_diff": max(d.abs().max().item() for d in diffs),
             "rtol": LM_RTOL, "atol": LM_ATOL}
     emit(conf)
-    out.update(card_vs_cpu=conf, calls=calls)
-    del model, res
+    return conf
+
+
+def lm_path(torch, np, fa_mod) -> dict:
+    """The LM substrate's serving side on smollm-135m at full width (random
+    weights from the port's init, seed 0): ``lm_prefill`` (B 4 x S 2,048,
+    30 ``flash_attention`` launches a forward), prefill vs decode on
+    256-token prompts (bf16 and the same weights in f32), ``BatchedServer``
+    twice on 16 requests, and the reduced model in f32 on the card vs the
+    CPU."""
+    out = lm_prefill(torch, np, fa_mod, LM_ARCH, LM_BATCH, LM_SEQ, "lm prefill")
+    spec, model, toks = out.pop("spec"), out.pop("model"), out.pop("toks")
+    out.pop("first_moe")
+    cons = lm_consistency(torch, np, spec, model, toks[:, :256].contiguous(), "lm consistency")
+    serve = lm_serving(torch, np, spec, model, "lm serving")
+    conf = lm_card_vs_cpu(torch, np, LM_ARCH, "lm card vs cpu")
+    out.update(consistency=cons, serving=serve, card_vs_cpu=conf)
+    del model, spec
     return out
 
 
@@ -2345,16 +2581,16 @@ def _keeping_first(module, name: str, key_of, kept: dict):
     return lambda: setattr(module, name, real)
 
 
-def _lm_conformance(torch, np) -> dict:
-    """The reduced model in f32, ``LM_CONF_STEPS`` steps of ``launch/train.py``'s
-    ``run`` on the CPU and twice on the card from the same seeded weights,
-    under deterministic algorithms."""
+def _lm_conformance(torch, np, arch: str, lr: float) -> dict:
+    """The reduced ``arch`` in f32, ``LM_CONF_STEPS`` steps of ``launch/train.py``'s
+    ``run`` at ``lr`` on the CPU and twice on the card from the same seeded
+    weights, under deterministic algorithms."""
     from repro_torch.launch import train as lm_train
 
     def args(device: str):
         return lm_train.parser().parse_args(
-            ["--arch", LM_ARCH, "--reduced", "--steps", str(LM_CONF_STEPS), "--seed", "1",
-             "--device", device])
+            ["--arch", arch, "--reduced", "--steps", str(LM_CONF_STEPS), "--seed", "1",
+             "--lr", str(lr), "--device", device])
 
     torch.use_deterministic_algorithms(True)
     try:
@@ -2362,48 +2598,59 @@ def _lm_conformance(torch, np) -> dict:
     finally:
         torch.use_deterministic_algorithms(False)
     if card["spec"].lm.dtype != "float32":
-        fail("lm training conformance: the reduced model is not f32")
+        fail(f"{arch} training conformance: the reduced model is not f32")
     loss_diff = float(np.max(np.abs(np.subtract(card["losses"], cpu["losses"]))))
     if not np.allclose(card["losses"], cpu["losses"], rtol=LM_CONF_RTOL, atol=LM_CONF_ATOL):
-        fail(f"lm training conformance: card vs CPU losses differ by {loss_diff}")
+        fail(f"{arch} training conformance: card vs CPU losses differ by {loss_diff}")
     want = cpu["model"].state_dict()
     param_diff = 0.0
     for name, t in card["model"].state_dict().items():
         param_diff = max(param_diff, (t.cpu() - want[name]).abs().max().item())
         if not torch.allclose(t.cpu(), want[name], rtol=LM_CONF_RTOL, atol=LM_CONF_ATOL):
-            fail(f"lm training conformance: {name} card vs CPU differs")
+            fail(f"{arch} training conformance: {name} card vs CPU differs")
     twin = again["model"].state_dict()
     if card["losses"] != again["losses"] or any(
             not torch.equal(t, twin[n]) for n, t in card["model"].state_dict().items()):
-        fail("lm training conformance: two same-seed card runs differ")
-    return {"arch": card["arch"], "steps": LM_CONF_STEPS, "dtype": "float32",
+        fail(f"{arch} training conformance: two same-seed card runs differ")
+    return {"arch": card["arch"], "steps": LM_CONF_STEPS, "dtype": "float32", "lr": lr,
             "loss_max_abs_diff": loss_diff, "param_max_abs_diff": param_diff,
             "card_runs_identical": True, "losses_card": card["losses"],
             "rtol": LM_CONF_RTOL, "atol": LM_CONF_ATOL}
 
 
-def lm_training(torch, np, fa_mod) -> dict:
-    """LM training on smollm-135m at full width through
-    ``repro_torch.launch.train``'s ``run`` (B 4 x S 2,048, the prefill's
-    shape; 20 steps, lr 3e-4, seed 0; bf16 weights from the port's init,
-    which Adam turns f32 at step 1 as ``repro``'s does): launches zeroed
-    before and read after each step (per step ``flash_attention`` n_layers
-    forwards, twice with remat, and n_layers backward calls of three
-    launches each), every
-    parameter f32 after step 1, the loss falling; tokens/s and the step wall
-    with the bf16 first step apart; one more step profiled for the flash
-    forward's and backward's device time; the first backward call of each
-    (shape, dtype) recorded. Then the reduced model's conformance."""
+def lm_train_phase(torch, np, fa_mod, arch: str, steps: int, phase: str, layers: int = 0,
+                   trend_gate: bool = False, profile_required: bool = True) -> dict:
+    """LM training at full width through ``repro_torch.launch.train``'s
+    ``run`` (B 4 x S 2,048, the prefill's shape; lr 3e-4, seed 0; bf16
+    weights from the port's init, which Adam turns f32 at step 1 as
+    ``repro``'s does), cut to ``layers`` if given: launches zeroed before
+    and read after each step (per step ``flash_attention`` one forward per
+    attention layer, twice with remat, and as many backward calls of
+    ``bwd_plan``'s launches in the step's dtype), every parameter f32
+    after step 1 (a MoE router f32 from the start, its aux loss finite in
+    every call), the loss falling: the first step's batch scored again
+    after the last step below its first loss (and with ``trend_gate`` the
+    last step's loss below the first's; on fresh random batches at random
+    init that trend sits inside the batches' spread, ±0.01, for OLMoE's
+    50,304-token untied head over 10 steps); tokens/s and the step wall with the bf16
+    first step apart; one more step profiled for the flash forward's and
+    backward's device time (and the MoE layers' forward and recompute); the
+    first backward call of each (shape, dtype) recorded. Without
+    ``profile_required`` a profile that keeps too few flash records in
+    ``CUPTI_TRIES`` tries is reported with its counts and no flash times,
+    instead of failing the run."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.kernels import ops
     from repro_torch.launch import train as lm_train
+    from repro_torch.models import moe as moe_mod
 
     args = lm_train.parser().parse_args(
-        ["--arch", LM_ARCH, "--batch", str(LM_BATCH), "--seq", str(LM_SEQ),
-         "--steps", str(LM_TRAIN_STEPS), "--lr", str(LM_TRAIN_LR), "--seed", "0"])
+        ["--arch", arch, "--batch", str(LM_BATCH), "--seq", str(LM_SEQ), "--layers", str(layers),
+         "--steps", str(steps), "--lr", str(LM_TRAIN_LR), "--seed", "0"])
     per_step, dtypes = [], []
     seen = {"fwd": 0, "bwd": 0}
+    auxes: list = []
 
     def after_step(step, model, loss):
         per_step.append({"fwd": fa_mod.launches - seen["fwd"],
@@ -2411,76 +2658,355 @@ def lm_training(torch, np, fa_mod) -> dict:
         seen.update(fwd=fa_mod.launches, bwd=fa_mod.bwd_launches)
         dtypes.append(sorted({str(p.dtype).replace("torch.", "") for p in model.parameters()}))
 
+    def aux_spy(p, cfg, x):
+        y, aux = real_moe(p, cfg, x)
+        auxes.append(aux.detach())
+        return y, aux
+
     kept: dict = {}
     restore = _keeping_first(ops, "flash_attention_bwd", lambda a: (
         tuple(a[0].shape), tuple(a[1].shape), str(a[0].dtype), a[6], a[7]), kept)
+    real_moe, moe_mod.moe_forward = moe_mod.moe_forward, aux_spy
     fa_mod.launches = fa_mod.bwd_launches = 0
     torch.cuda.reset_peak_memory_stats()
     try:
         res = lm_train.run(args, after_step=after_step)
     finally:
         restore()
+        moe_mod.moe_forward = real_moe
     spec, model = res["spec"], res["model"]
     cfg = spec.lm
-    want = {"fwd": cfg.n_layers * (2 if cfg.remat else 1),
-            "bwd": cfg.n_layers * fa_mod.bwd_plan(torch.float32, LM_BATCH, LM_SEQ, LM_SEQ,
-                                                  cfg.n_heads, cfg.n_kv, cfg.head_dim)["launches"]}
-    if any(s != want for s in per_step):
-        fail(f"lm training: launches a step {per_step}, want {want} (n_layers "
-             f"{cfg.n_layers}, remat {cfg.remat})")
+    launches = {"flash_attention": fa_mod.launches, "flash_attention_bwd": fa_mod.bwd_launches}
+    n_attn = sum(m == "attn" for m, _ in cfg.block_list())
+    n_moe = sum(f == "moe" for _, f in cfg.block_list())
+
+    def want(dtype):
+        return {"fwd": n_attn * (2 if cfg.remat else 1),
+                "bwd": n_attn * fa_mod.bwd_plan(dtype, LM_BATCH, LM_SEQ, LM_SEQ, cfg.n_heads,
+                                                cfg.n_kv, cfg.head_dim)["launches"]}
+
+    wants = [want(getattr(torch, cfg.dtype) if i == 0 else torch.float32)
+             for i in range(steps)]
+    if per_step != wants:
+        fail(f"{phase}: launches a step {per_step}, want {wants} (attention layers "
+             f"{n_attn}, remat {cfg.remat})")
     if cfg.dtype != "bfloat16" or dtypes[0] != ["float32"]:
-        fail(f"lm training: parameter dtypes after step 1 {dtypes[0]} (config {cfg.dtype}); "
+        fail(f"{phase}: parameter dtypes after step 1 {dtypes[0]} (config {cfg.dtype}); "
              "repro's Adam turns every bf16 parameter f32 at step 1")
     losses = res["losses"]
-    if not (np.all(np.isfinite(losses)) and losses[-1] < losses[0]):
-        fail(f"lm training: the loss did not fall: {losses}")
+    first = lm_train.synth_batch(np.random.default_rng(int(args.seed)), spec, LM_BATCH, LM_SEQ,
+                                 "cuda")  # run's first batch: its stream's first draw
+    with torch.no_grad():
+        first_after = float(spec.make_train_loss()(model, first))
+    if not (np.all(np.isfinite(losses)) and first_after < losses[0]
+            and (losses[-1] < losses[0] or not trend_gate)):
+        fail(f"{phase}: the loss did not fall: {losses}; the first batch after "
+             f"{steps} steps {first_after}")
     tokens = LM_BATCH * LM_SEQ
     f32_s = res["step_s"][1:]
-    out = {"phase": "lm training", "arch": spec.arch_id, "batch": LM_BATCH, "seq": LM_SEQ,
-           "steps": LM_TRAIN_STEPS, "lr": LM_TRAIN_LR, "config_dtype": cfg.dtype,
+    out = {"phase": phase, "arch": spec.arch_id, "layers": cfg.n_layers, "batch": LM_BATCH,
+           "seq": LM_SEQ, "steps": steps, "lr": LM_TRAIN_LR, "config_dtype": cfg.dtype,
            "remat": cfg.remat, "microbatches": spec.microbatches,
            "params": sum(p.numel() for p in model.parameters()),
            "dtypes_after_step": dtypes[:2], "losses": losses,
-           "launches": {"flash_attention": fa_mod.launches,
-                        "flash_attention_bwd": fa_mod.bwd_launches},
-           "launches_per_step": want, "bwd_calls_per_step": cfg.n_layers,
+           "first_batch_loss_after": first_after,
+           "launches": launches, "launches_per_step": wants[-1],
+           "bwd_calls_per_step": n_attn,
            "step_s": res["step_s"],
            "bf16_step_s": res["step_s"][0], "f32_step_s_median": statistics.median(f32_s),
            "tokens_per_s": res["tokens_per_s"],
            "f32_tokens_per_s": tokens * len(f32_s) / sum(f32_s),
            "peak_allocated_gib": torch.cuda.max_memory_allocated() / 2**30}
+    if n_moe:
+        routers = {n: str(d).replace("torch.", "") for n, d in res["init_dtypes"].items()
+                   if n.endswith(".router")}
+        if len(routers) != n_moe or set(routers.values()) != {"float32"}:
+            fail(f"{phase}: router dtypes before step 1 {routers}; a bf16 model keeps them f32")
+        aux = torch.stack(auxes).float()
+        # each MoE layer's forward every step (a remat recompute stops once it has rebuilt
+        # what the backward needs, before the MoE returns: torch's checkpoint early stop)
+        if len(auxes) != n_moe * steps or not torch.isfinite(aux).all():
+            fail(f"{phase}: {len(auxes)} MoE aux losses in {steps} steps, or not all finite")
+        out.update(router_dtype_at_init="float32", aux_calls=len(auxes),
+                   aux_min=aux.min().item(), aux_max=aux.max().item())
 
     # one more (f32) step profiled: the flash kernels' share of its device time
     batch = lm_train.synth_batch(res["rng"], spec, LM_BATCH, LM_SEQ, "cuda")
     state = res["opt_state"]
     for _ in range(CUPTI_TRIES):  # until the profile keeps every flash record
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with annotated(torch, moe_mod, "moe_forward", "moe_forward"), profile(
+                activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
             model, state, loss = res["step_fn"](model, state, batch)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
         dev = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
+               if e.device_type == torch.autograd.DeviceType.CUDA and e.key != "moe_forward"]
         fwd = [e for e in dev if "flash_fwd_kernel" in e.key]
         bwd = [e for e in dev if "flash_bwd_" in e.key]
-        if (sum(e.count for e in fwd) == want["fwd"]
-                and sum(e.count for e in bwd) == want["bwd"]):
+        records = {"fwd": sum(e.count for e in fwd), "bwd": sum(e.count for e in bwd)}
+        if records == wants[-1]:
             break
     else:
-        fail(f"lm training: {CUPTI_TRIES} profiles of a step lost flash kernel records")
+        if profile_required:
+            fail(f"{phase}: {CUPTI_TRIES} profiles of a step lost flash kernel records")
     total_us = sum(e.self_device_time_total for e in dev)
-    out["profiled_step"] = {
-        "wall_ms": wall * 1e3, "device_ms": total_us / 1e3,
-        "flash_fwd_ms": sum(e.self_device_time_total for e in fwd) / 1e3,
-        "flash_bwd_ms": sum(e.self_device_time_total for e in bwd) / 1e3,
-        "flash_bwd_by_kernel_ms": {e.key: e.self_device_time_total / 1e3 for e in bwd},
-        "flash_share": sum(e.self_device_time_total for e in fwd + bwd) / total_us}
-    out["conformance"] = _lm_conformance(torch, np)
+    out["profiled_step"] = {"wall_ms": wall * 1e3, "device_ms": total_us / 1e3,
+                            "flash_records_kept": records, "flash_records_launched": wants[-1]}
+    if records == wants[-1]:
+        out["profiled_step"].update(
+            flash_fwd_ms=sum(e.self_device_time_total for e in fwd) / 1e3,
+            flash_bwd_ms=sum(e.self_device_time_total for e in bwd) / 1e3,
+            flash_bwd_by_kernel_ms={e.key: e.self_device_time_total / 1e3 for e in bwd},
+            flash_share=sum(e.self_device_time_total for e in fwd + bwd) / total_us)
+    if n_moe:
+        out["profiled_step"]["moe_fwd_and_recompute_ms"] = _annotated_device_us(
+            prof, "moe_forward") / 1e3
     out["bwd_calls"] = [{"shape": list(k[0]), "kv_shape": list(k[1]), "dtype": k[2],
                          "causal": k[3], "window": k[4]} for k in kept]
     emit(out)
     out["bwd_calls"] = list(kept.values())
     del model, res, state
+    return out
+
+
+def lm_training(torch, np, fa_mod) -> dict:
+    """LM training on smollm-135m at full width (``lm_train_phase``, 20
+    steps), then the reduced model's conformance (lr 3e-4)."""
+    out = lm_train_phase(torch, np, fa_mod, LM_ARCH, LM_TRAIN_STEPS, "lm training",
+                         trend_gate=True)
+    out["conformance"] = _lm_conformance(torch, np, LM_ARCH, LM_TRAIN_LR)
+    emit({"phase": "lm training conformance", **out["conformance"]})
+    return out
+
+
+def moe_layer_checks(torch, np, p, cfg, x, phase: str) -> dict:
+    """One MoE layer alone on its recorded prefill input ``x`` (B, S, d):
+    prefill grouping against groups of one token (decode's) at capacity
+    factor ``MOE_CF_EXACT`` (no drops in either), in f32 (the same weights)
+    and in bf16; then the card against the CPU in f32 on the first group of
+    512 tokens at the config's own capacity (drops included). Rows whose
+    routing (experts, and slots kept) agrees are held to rtol/atol
+    ``LM_RTOL`` in f32 and to ``LM_BF16_REL`` of each row's largest |value|
+    in bf16; every other row must route apart at a near-tie (the gap
+    between the K-th and (K+1)-th router probabilities <= ``ROUTE_TIE``),
+    or lie in a group where such a near-tie moved the slots."""
+    import copy
+
+    from repro_torch.models import moe as moe_mod
+
+    cf8 = dataclasses.replace(cfg, capacity_factor=MOE_CF_EXACT)
+    g1 = dataclasses.replace(cf8, group_size=1)
+    B, S, d = x.shape
+    K = cfg.top_k
+
+    def routing(pm, c, xs):
+        """Per token: the chosen experts and the kept ones (E where dropped),
+        each sorted, and the K-th minus (K+1)-th probability."""
+        r = moe_mod.route(pm, c, xs.reshape(-1, moe_mod.group_size(c, xs.shape[1]), d))
+        top = torch.sort(r.probs, dim=-1, descending=True).values
+        kept = torch.where(r.kept, r.top_idx, cfg.num_experts)
+        return (r.top_idx.sort(-1).values.reshape(-1, K), kept.sort(-1).values.reshape(-1, K),
+                (top[..., K - 1] - top[..., K]).reshape(-1))
+
+    def run(pm, c, xs, chunk=None):
+        """y (tokens, d) and its routing; ``chunk`` tokens a call (groups of
+        one need (E, tokens, 4, d) expert inputs: 4 GiB a 512 tokens)."""
+        parts = [xs] if chunk is None else list(xs.reshape(-1, chunk, d).split(1))
+        ys, rs = [], []
+        for xp in parts:
+            ys.append(moe_mod.moe_forward(pm, c, xp)[0].reshape(-1, d))
+            rs.append(routing(pm, c, xp))
+        return torch.cat(ys), [torch.cat(t) for t in zip(*rs)]
+
+    def compare(ya, ra, yb, rb, group: int, dtype: str, what: str) -> dict:
+        same = (ra[0] == rb[0]).all(-1) & (ra[1] == rb[1]).all(-1)
+        diff = ~same
+        tie = diff & ((ra[0] != rb[0]).any(-1)) & (torch.minimum(ra[2], rb[2]) <= ROUTE_TIE)
+        tie_groups = tie.reshape(-1, group).any(-1, keepdim=True).expand(-1, group).reshape(-1)
+        unexplained = diff & ~tie & ~tie_groups
+        if unexplained.any():
+            fail(f"{phase} {what}: {int(unexplained.sum())} tokens route apart away from any "
+                 f"near-tie (gap <= {ROUTE_TIE})")
+        a, b = ya[same].float(), yb[same].float()
+        err = (a - b).abs().max().item() if len(a) else 0.0
+        row = ((a - b).abs().amax(-1) / b.abs().amax(-1).clamp_min(1e-30)).max().item() \
+            if len(a) else 0.0
+        ok = (torch.allclose(a, b, rtol=LM_RTOL, atol=LM_ATOL) if dtype == "float32"
+              else row <= LM_BF16_REL)
+        if not ok:
+            fail(f"{phase} {what}: rows routed alike differ by {err} (row-scaled {row})")
+        return {"tokens": int(same.numel()), "routed_apart": int(diff.sum()),
+                "near_ties": int(tie.sum()), "max_abs_err": err, "row_rel_err": row}
+
+    out = {"phase": phase, "input": list(x.shape), "input_dtype": str(x.dtype)[6:],
+           "top_k": K, "experts": cfg.num_experts}
+    with torch.no_grad():
+        for dtype in ("float32", "bfloat16"):
+            pm = copy.deepcopy(p).to(getattr(torch, dtype))
+            pm.router.data = p.router.data.float()  # the router stays f32
+            xs = x.to(getattr(torch, dtype))
+            ya, ra = run(pm, cf8, xs)
+            yb, rb = run(pm, g1, xs, chunk=512)
+            out[f"prefill_vs_g1_{dtype}"] = compare(
+                ya, ra, yb, rb, moe_mod.group_size(cf8, S), dtype, f"prefill groups vs g 1 {dtype}")
+            del pm, ya, yb
+        p32 = copy.deepcopy(p).float()
+        xg = x[:1, :cfg.group_size].float()
+        ya, ra = run(p32, cfg, xg)
+        p_cpu = copy.deepcopy(p32).cpu()
+        yb, rb = run(p_cpu, cfg, xg.cpu())
+        out["card_vs_cpu_float32"] = compare(
+            ya.cpu(), [t.cpu() for t in ra], yb, rb, cfg.group_size, "float32", "card vs CPU")
+        out["card_vs_cpu_float32"]["dropped_choice_share"] = (
+            ra[1] == cfg.num_experts).float().mean().item()
+    emit(out)
+    return out
+
+
+def lm_moe(torch, np, fa_mod) -> dict:
+    """``lm_moe``: OLMoE-1B-7B at full width and depth (16 layers, 64
+    experts top-8, bf16; weights drawn on the card from seed 0):
+    ``lm_prefill`` (B 4 x S 2,048, 16 ``flash_attention`` launches a
+    forward, the MoE share, the capacity's drop share), layer 0 alone
+    (``moe_layer_checks``), prefill vs decode on 4 prompts of 256 tokens
+    (``lm_consistency``) and ``BatchedServer`` twice (``lm_serving``)."""
+    out = lm_prefill(torch, np, fa_mod, MOE_ARCH, LM_BATCH, LM_SEQ, "lm_moe prefill",
+                     draw_on_device=True)
+    spec, model, toks = out.pop("spec"), out.pop("model"), out.pop("toks")
+    p0, cfg0, x0 = out.pop("first_moe")
+    out["layer"] = moe_layer_checks(torch, np, p0, cfg0, x0, "lm_moe layer")
+    del x0
+    out["consistency"] = lm_consistency(torch, np, spec, model, toks[:, :256].contiguous(),
+                                        "lm_moe consistency")
+    out["serving"] = lm_serving(torch, np, spec, model, "lm_moe serving")
+    del model, spec, p0
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def ssm_chunks(torch, np, spec, model, prompts, phase: str) -> dict:
+    """The chunked SSD's carry across chunks at full width, in f32 (a copy
+    of the weights): every position's final hidden state with chunks of 256
+    against one chunk of ``prompts``' length, held to ``LM_F32_REL``
+    (``repro``'s tests/test_models.py TestMamba2.test_chunk_boundaries_invisible;
+    prefill vs decode runs 256 tokens, one chunk)."""
+    import copy
+
+    from repro_torch.models import transformer as T
+
+    m32 = copy.deepcopy(model).float()
+    cfg = dataclasses.replace(spec.lm, dtype="float32")
+    one = dataclasses.replace(cfg, mamba=dataclasses.replace(cfg.mamba, chunk=prompts.shape[1]))
+    with torch.no_grad():
+        a = T.hidden_states(m32, cfg, prompts)[0]
+        b = T.hidden_states(m32, one, prompts)[0]
+    del m32
+    out = {"phase": phase, "prompts": list(prompts.shape), "chunk": cfg.mamba.chunk,
+           "chunks": prompts.shape[1] // cfg.mamba.chunk, "rel": _rel(a, b), "bound": LM_F32_REL}
+    emit(out)
+    if not out["rel"] < LM_F32_REL:
+        fail(f"{phase}: chunks of {cfg.mamba.chunk} and one chunk differ by {out['rel']}")
+    return out
+
+
+def lm_ssm(torch, np, fa_mod) -> dict:
+    """``lm_ssm``: Mamba2-1.3B at full width and depth (48 layers, bf16;
+    weights drawn on the CPU from seed 0, so a CPU can rebuild them):
+    ``lm_prefill`` (B 4 x S 2,048, no flash launch), chunks against one
+    chunk on 4 x ``SSM_CHUNKS_SEQ`` tokens (``ssm_chunks``), prefill vs
+    decode on 4 prompts of 256 tokens (f32 gated, bf16 printed beside each
+    path's distance to f32) and ``BatchedServer`` twice."""
+    out = lm_prefill(torch, np, fa_mod, SSM_ARCH, LM_BATCH, LM_SEQ, "lm_ssm prefill")
+    spec, model, toks = out.pop("spec"), out.pop("model"), out.pop("toks")
+    out.pop("first_moe")
+    out["chunks"] = ssm_chunks(torch, np, spec, model, toks[:, :SSM_CHUNKS_SEQ].contiguous(),
+                               "lm_ssm chunks")
+    out["consistency"] = lm_consistency(torch, np, spec, model, toks[:, :256].contiguous(),
+                                        "lm_ssm consistency", gate_bf16=False)
+    out["serving"] = lm_serving(torch, np, spec, model, "lm_ssm serving")
+    del model, spec
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def lm_hybrid(torch, np, fa_mod) -> dict:
+    """``lm_hybrid``: Jamba-v0.1-52B at full width, depth cut to one 8-layer
+    period (``HYBRID_LAYERS``: Mamba2 and attention mixers, dense and MoE
+    ffns; the whole model's 104 GB of bf16 weights do not fit one card;
+    weights drawn on the card from seed 0): ``lm_prefill`` (B 1 x S 2,048,
+    one ``flash_attention`` launch a forward), then prefill vs decode on 4
+    prompts of 256 tokens, the f32 side on the model itself turned f32 (a
+    53 GB f32 copy beside the bf16 one would not fit)."""
+    out = lm_prefill(torch, np, fa_mod, HYBRID_ARCH, 1, LM_SEQ, "lm_hybrid prefill",
+                     layers=HYBRID_LAYERS, draw_on_device=True)
+    spec, model = out.pop("spec"), out.pop("model")
+    out.pop("toks"), out.pop("first_moe")
+    prompts = torch.from_numpy(np.random.default_rng(1).integers(
+        0, spec.lm.vocab, size=(4, 256))).to("cuda")
+    out["consistency"] = lm_consistency(torch, np, spec, model, prompts, "lm_hybrid consistency",
+                                        in_place_f32=True)
+    del model, spec
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def lm_moe_training(torch, np, fa_mod) -> dict:
+    """``lm_moe_training``: OLMoE at full width, depth cut to
+    ``MOE_TRAIN_LAYERS`` (Adam's f32 state for all 16 layers would take
+    about 111 GB), ``MOE_TRAIN_STEPS`` steps of ``lm_train_phase``."""
+    out = lm_train_phase(torch, np, fa_mod, MOE_ARCH, MOE_TRAIN_STEPS, "lm_moe_training",
+                         layers=MOE_TRAIN_LAYERS, profile_required=False)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def lm_reduced(torch, np) -> dict:
+    """The reduced Jamba period and Mixtral (its sliding-window MoE) in f32,
+    card vs CPU (``lm_card_vs_cpu``), and the reduced Jamba's training
+    conformance at ``LM_BLOCKS_CONF_LR``."""
+    out = {arch: lm_card_vs_cpu(torch, np, arch, f"{arch} card vs cpu")
+           for arch in (HYBRID_ARCH, MIXTRAL_ARCH)}
+    out["training"] = _lm_conformance(torch, np, HYBRID_ARCH, LM_BLOCKS_CONF_LR)
+    emit({"phase": "lm_hybrid training conformance", **out["training"]})
+    return out
+
+
+def lm_blocks_summary(lmoe: dict, lssm: dict, lhyb: dict, lmt: dict, lred: dict) -> dict:
+    """The MoE, SSM and hybrid phases' end-to-end numbers for the summary."""
+    out = {}
+    for name, r in (("lm_moe", lmoe), ("lm_ssm", lssm), ("lm_hybrid", lhyb)):
+        c = r["consistency"]
+        out[name] = {k: r[k] for k in (
+            "arch", "layers", "batch", "seq", "params", "prefill_tokens_per_s",
+            "forward_device_ms", "forward_host_ms", "paced_by", "flash_share", "launches",
+            "moe_share", "moe_device_ms", "dropped_choice_share") if k in r}
+        out[name]["consistency"] = {k: c[k] for k in (
+            "f32_prefill_vs_decode", "bf16_prefill_vs_decode", "bf16_prefill_vs_f32",
+            "bf16_decode_vs_f32", "gated")}
+        for d in ("f32", "bf16"):
+            if f"routing_{d}" in c:
+                out[name]["consistency"][f"routing_{d}"] = {
+                    k: c[f"routing_{d}"][k] for k in ("differences", "first")}
+        if "chunks" in r:
+            out[name]["chunks_rel"] = r["chunks"]["rel"]
+        if "serving" in r:
+            out[name].update({k: r["serving"][k] for k in ("decode_tokens_per_s",
+                                                           "generated_tokens_per_s")})
+    out["lm_moe_layer"] = {k: lmoe["layer"][k] for k in (
+        "prefill_vs_g1_float32", "prefill_vs_g1_bfloat16", "card_vs_cpu_float32")}
+    out["lm_moe_training"] = {k: lmt[k] for k in (
+        "arch", "layers", "tokens_per_s", "f32_tokens_per_s", "bf16_step_s",
+        "f32_step_s_median", "profiled_step", "launches", "peak_allocated_gib",
+        "aux_min", "aux_max", "first_batch_loss_after")}
+    out["lm_moe_training"].update(loss_first=lmt["losses"][0], loss_last=lmt["losses"][-1])
+    out["lm_reduced"] = {a: lred[a]["max_abs_diff"] for a in (HYBRID_ARCH, MIXTRAL_ARCH)}
+    out["lm_reduced"]["jamba_training"] = {k: lred["training"][k] for k in (
+        "loss_max_abs_diff", "param_max_abs_diff", "card_runs_identical")}
     return out
 
 
@@ -2724,14 +3250,18 @@ def _flash_record(torch, np, ref, fa_cuda, q, k, v, causal, window, source: str,
     return rec
 
 
-def flash_phase(torch, np, ref, fa_cuda, calls: list) -> dict:
+def flash_phase(torch, np, ref, fa_cuda, paths: dict):
     """The kernel against its plain version on the first prefill call of
-    each shape, then at synthetic shapes: f32 causal and not, a tail tile,
-    qwen2's G 7, starcoder2's bf16 layout with its 4,096 window."""
-    recs = [_flash_record(torch, np, ref, fa_cuda, q, k, v, kw.get("causal", True),
-                          kw.get("window"), "lm prefill path")
-            for (q, k, v), kw in calls]
-    main = max(recs, key=lambda r: r["flop"])
+    each shape of each path (source -> calls), then at synthetic shapes: f32
+    causal and not, a tail tile, qwen2's G 7, starcoder2's bf16 layout with
+    its 4,096 window. Returns the first path's largest record and the other
+    paths' records."""
+    recs = {src: [_flash_record(torch, np, ref, fa_cuda, q, k, v, kw.get("causal", True),
+                                kw.get("window"), src) for (q, k, v), kw in calls]
+            for src, calls in paths.items()}
+    first, *rest = recs.values()
+    main = max(first, key=lambda r: r["flop"])
+    others = [r for rs in rest for r in rs]
     gen = torch.Generator(device="cuda").manual_seed(3)
     for (B, S, H, K, hd), dtype, causal, window in FLASH_SYNTHETIC:
         dtype = getattr(torch, dtype)
@@ -2739,7 +3269,7 @@ def flash_phase(torch, np, ref, fa_cuda, calls: list) -> dict:
         k = torch.randn(B, S, K, hd, device="cuda", generator=gen).to(dtype)
         v = torch.randn(B, S, K, hd, device="cuda", generator=gen).to(dtype)
         _flash_record(torch, np, ref, fa_cuda, q, k, v, causal, window, "synthetic")
-    return main
+    return main, others
 
 
 def _flash_bwd_record(torch, np, ref, fa_mod, q, k, v, o, lse, do, causal, window,
@@ -2842,20 +3372,24 @@ def _flash_bwd_record(torch, np, ref, fa_mod, q, k, v, o, lse, do, causal, windo
     return rec
 
 
-def flash_bwd_phase(torch, np, ref, fa_mod, calls: list, prefill_keys: set):
+def flash_bwd_phase(torch, np, ref, fa_mod, paths: dict, prefill_keys: set):
     """The backward kernel on the first training call of each (shape,
-    dtype), then at ``FLASH_SYNTHETIC``'s shapes (the forward kernel's
-    output and LSE, a random dO): f32 causal and not, a tail tile, qwen2's
-    G 7, starcoder2's bf16 layout with its 4,096 window. The forward kernel,
-    with its LSE, on each training call whose key the prefill's records do
-    not have (the f32 steps'). Returns the main backward record and those
-    forward records."""
+    dtype) of each path (source -> calls), then at ``FLASH_SYNTHETIC``'s
+    shapes (the forward kernel's output and LSE, a random dO): f32 causal
+    and not, a tail tile, qwen2's G 7, starcoder2's bf16 layout with its
+    4,096 window. The forward kernel, with its LSE, on each training call
+    whose key the prefills' records do not have (the f32 steps'). Returns
+    the first path's main backward record (its largest f32 call), the
+    other paths' backward records and those forward records."""
     fwd = [_flash_record(torch, np, ref, fa_mod.flash_attention_cuda, q, k, v, causal, window,
-                         "lm training path", with_lse=True)
-           for q, k, v, _, _, _, causal, window in calls
+                         src, with_lse=True)
+           for src, calls in paths.items() for q, k, v, _, _, _, causal, window in calls
            if _flash_key(((q, k), {"causal": causal, "window": window})) not in prefill_keys]
-    recs = [_flash_bwd_record(torch, np, ref, fa_mod, *c, "lm training path") for c in calls]
-    main = max(recs, key=lambda r: (r["dtype"] == "float32", r["flop"]))
+    recs = {src: [_flash_bwd_record(torch, np, ref, fa_mod, *c, src) for c in calls]
+            for src, calls in paths.items()}
+    first, *rest = recs.values()
+    main = max(first, key=lambda r: (r["dtype"] == "float32", r["flop"]))
+    others = [r for rs in rest for r in rs]
     gen = torch.Generator(device="cuda").manual_seed(4)
     for (B, S, H, K, hd), dtype, causal, window in FLASH_SYNTHETIC:
         dtype = getattr(torch, dtype)
@@ -2866,7 +3400,7 @@ def flash_bwd_phase(torch, np, ref, fa_mod, calls: list, prefill_keys: set):
         o, lse = fa_mod.flash_attention_cuda(q, k, v, causal, window, with_lse=True)
         _flash_bwd_record(torch, np, ref, fa_mod, q, k, v, o, lse, do, causal, window,
                           "synthetic")
-    return main, fwd
+    return main, others, fwd
 
 
 def main() -> None:
@@ -2926,6 +3460,11 @@ def main() -> None:
     sw = sweep_phase(torch, np, modules)
     lm = lm_path(torch, np, fa_mod)
     lt = lm_training(torch, np, fa_mod)
+    lmoe = lm_moe(torch, np, fa_mod)
+    lssm = lm_ssm(torch, np, fa_mod)
+    lhyb = lm_hybrid(torch, np, fa_mod)
+    lmt = lm_moe_training(torch, np, fa_mod)
+    lred = lm_reduced(torch, np)
     gc.collect()
     torch.cuda.empty_cache()  # the IVF phases' blocks: leave the card's memory free
     emit({"phase": "clocks", "before_kernel_phases": sm_clocks(),
@@ -2946,9 +3485,13 @@ def main() -> None:
     ivf = ivf_phase(torch, ref, ivf_mod,
                     {"ivf serving": iv["calls"]["ivf serving"],
                      "ivf exhaustive": iv["calls"]["ivf exhaustive"], "1M arm": m1["calls"]})
-    flash = flash_phase(torch, np, ref, fa_mod.flash_attention_cuda, lm["calls"])
-    flash_bwd, flash_train = flash_bwd_phase(torch, np, ref, fa_mod, lt["bwd_calls"],
-                                             {_flash_key(c) for c in lm["calls"]})
+    prefill_calls = {"lm prefill path": lm["calls"], "lm_moe prefill path": lmoe["calls"],
+                     "lm_hybrid prefill path": lhyb["calls"]}
+    flash, flash_others = flash_phase(torch, np, ref, fa_mod.flash_attention_cuda, prefill_calls)
+    flash_bwd, flash_bwd_others, flash_train = flash_bwd_phase(
+        torch, np, ref, fa_mod,
+        {"lm training path": lt["bwd_calls"], "lm_moe_training path": lmt["bwd_calls"]},
+        {_flash_key(c) for calls in prefill_calls.values() for c in calls})
 
     def timing(rec):
         return {"max_abs_err": rec["max_abs_err"], "ms": rec["kernel_ms"],
@@ -3032,7 +3575,8 @@ def main() -> None:
               "profiled_step", "launches", "peak_allocated_gib")} | {
               "loss_first": lt["losses"][0], "loss_last": lt["losses"][-1],
               "conformance": {k: lt["conformance"][k] for k in (
-                  "loss_max_abs_diff", "param_max_abs_diff", "card_runs_identical")}}})
+                  "loss_max_abs_diff", "param_max_abs_diff", "card_runs_identical")}},
+          **lm_blocks_summary(lmoe, lssm, lhyb, lmt, lred)})
     print(json.dumps({"kernels": [
         entry("seg_aggr", seg, "src/repro_torch/kernels/csrc/seg_aggr.cu",
               "src/repro/kernels/seg_aggr.py:45",
@@ -3062,10 +3606,16 @@ def main() -> None:
         entry("flash_attention", flash, "src/repro_torch/kernels/csrc/flash_attn.cu",
               "src/repro/kernels/flash_attn.py:81",
               {"lm prefill": lm["launches"]["flash_attention"],
-               "lm training": lt["launches"]["flash_attention"]}, flash_train),
+               "lm training": lt["launches"]["flash_attention"],
+               "lm_moe prefill": lmoe["launches"]["flash_attention"],
+               "lm_ssm prefill": lssm["launches"]["flash_attention"],
+               "lm_hybrid prefill": lhyb["launches"]["flash_attention"],
+               "lm_moe_training": lmt["launches"]["flash_attention"]},
+              flash_others + flash_train),
         entry("flash_attention_bwd", flash_bwd, "src/repro_torch/kernels/csrc/flash_attn_bwd.cu",
               "src/repro/kernels/ops.py:139 (no VJP); src/repro/models/layers.py:205",
-              {"lm training": lt["launches"]["flash_attention_bwd"]}),
+              {"lm training": lt["launches"]["flash_attention_bwd"],
+               "lm_moe_training": lmt["launches"]["flash_attention_bwd"]}, flash_bwd_others),
     ]}), flush=True)
     print(smi, flush=True)  # the card's name and power limit, as nvidia-smi gives them
     print(json.dumps({"ok": True, "device": {

@@ -2,10 +2,20 @@
 
     PYTHONPATH=src python examples/serve_lm_torch.py --arch smollm-135m \
         --batch 4 --prompt-len 8 --tokens 24 --prefill-len 2048
-    PYTHONPATH=src python examples/serve_lm_torch.py --device cpu --reduced
+    PYTHONPATH=src python examples/serve_lm_torch.py --arch olmoe-1b-7b \
+        --prefill-len 2048 --tokens 8 --draw-on-device
+    PYTHONPATH=src python examples/serve_lm_torch.py --arch jamba-v0.1-52b \
+        --layers 8 --batch 1 --prefill-len 2048 --tokens 0 --draw-on-device
+    PYTHONPATH=src python examples/serve_lm_torch.py --device cpu --reduced \
+        --arch olmoe-1b-7b --prefill-len 64
 
 The counterpart of ``examples/serve_lm.py``, at full width unless
-``--reduced``. Weights come from the port's init (``--seed``). ``--batch``
+``--reduced``; ``--layers n`` keeps the first n layers (whole periods of
+the block pattern: Jamba's full width fits one 80 GB card as one 8-layer
+period). Weights come from the port's init (``--seed``), drawn on the CPU,
+so every device serves the same weights, or with ``--draw-on-device`` on
+the serving device (other numbers; seconds instead of minutes for the
+billions of parameters of OLMoE or a Jamba period). ``--batch``
 requests of ``--prompt-len`` random tokens are served greedily through
 ``repro_torch.serve.BatchedServer`` (prefill-by-decode over the KV cache,
 then ``--tokens`` new tokens each); with ``--prefill-len`` S, the
@@ -33,7 +43,11 @@ PREFILL_REPS = 5  # timed prefill forwards, after one warm-up
 def parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--arch", default="smollm-135m", choices=PORTED_ARCH_IDS)
-    ap.add_argument("--reduced", action="store_true", help="the 2-layer smoke config")
+    ap.add_argument("--reduced", action="store_true", help="the smoke config")
+    ap.add_argument("--layers", type=int, default=0,
+                    help="keep the first n layers, whole periods (0: all)")
+    ap.add_argument("--draw-on-device", action="store_true",
+                    help="draw the weights on the serving device instead of the CPU")
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=8)
     ap.add_argument("--tokens", type=int, default=24, help="new tokens per request (0: none)")
@@ -54,8 +68,11 @@ def run(args: argparse.Namespace, device=None) -> dict:
     work that ends in a synchronize)."""
     dev = resolve_device(device if device is not None else args.device)
     spec = get_arch(args.arch, reduced=args.reduced)
+    if args.layers:
+        spec = spec.with_layers(args.layers)
     cfg = spec.lm
-    model = spec.init_params(torch.Generator().manual_seed(args.seed), dev)
+    gen = torch.Generator(device=dev if args.draw_on_device else "cpu").manual_seed(args.seed)
+    model = spec.init_params(gen, dev)
     res = {"arch": spec.arch_id, "device": str(dev), "model": model, "spec": spec}
 
     if args.tokens > 0:

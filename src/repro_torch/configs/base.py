@@ -2,11 +2,14 @@
 ``repro/configs/base.py``, limited to ``kind == "lm"``.
 
 Every arch module provides ``full()`` (the published config) and
-``reduced()`` (a 2-layer smoke variant), each an ``ArchSpec``. The spec
-builds parameters (``init_params``), the serve-step cache (``init_cache``)
-and the step functions: the loss, the training step (loss, gradients and
-an optimizer step), prefill (the full-sequence forward, last-position
-logits) and the one-token serve step. ``repro``'s abstract shapes, sharding
+``reduced()`` (a smoke variant: two layers, or Jamba's one 8-layer period),
+each an ``ArchSpec``. The spec builds parameters (``init_params``), the
+serve-step cache (``init_cache``: KV caches and Mamba2 states, layer by
+layer) and the step functions: the loss, the training step (loss,
+gradients and an optimizer step), prefill (the full-sequence forward,
+last-position logits) and the one-token serve step. ``with_layers`` cuts
+the depth to whole periods of the block pattern, for a card that cannot
+hold the whole model. ``repro``'s abstract shapes, sharding
 specs, depth probes and support table serve its TPU dry-run (ROADMAP Queue
 1 item 8f) and are left out, with the VLM and Whisper fields. A ``vlm`` or
 ``whisper`` spec raises (items 8d, 8e).
@@ -63,6 +66,18 @@ class ArchSpec:
         if self.kind != "lm":
             raise NotImplementedError(_UNPORTED_KIND.get(self.kind, f"kind {self.kind!r}"))
         return self.lm
+
+    def with_layers(self, n_layers: int) -> "ArchSpec":
+        """The same arch at full width with its first ``n_layers`` layers,
+        a whole number of periods of the block pattern."""
+        cfg = self._lm()
+        p = cfg.period()
+        if not 0 < n_layers <= cfg.n_layers or n_layers % p:
+            raise ValueError(f"{n_layers} layers: a multiple of the period {p} "
+                             f"up to {cfg.n_layers}")
+        lm = dataclasses.replace(cfg, n_layers=n_layers,
+                                 blocks=cfg.blocks[:n_layers] if cfg.blocks else ())
+        return dataclasses.replace(self, lm=lm)
 
     # ----------------------------------------------------------- parameters
     def init_params(self, generator: torch.Generator, device: DeviceLike = None) -> T.LM:

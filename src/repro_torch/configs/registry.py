@@ -1,29 +1,37 @@
 """Architecture registry: ``--arch <id>`` resolution.
 
-``ARCH_IDS`` lists all ten of ``repro``'s archs in its order; the four
-dense-attention ones are ported, and ``get_arch`` of any other raises
+``ARCH_IDS`` lists all ten of ``repro``'s archs in its order; the eight
+``kind == "lm"`` ones are ported (dense attention, MoE, Mamba2 and the
+Jamba hybrid), and ``get_arch`` of Qwen2-VL or Whisper raises
 ``NotImplementedError`` naming its ROADMAP item.
 """
 from __future__ import annotations
 
 from typing import List
 
-from repro_torch.configs import deepseek_coder_33b, qwen2_0_5b, smollm_135m, starcoder2_7b
+from repro_torch.configs import (
+    deepseek_coder_33b,
+    jamba_v0_1_52b,
+    mamba2_1_3b,
+    mixtral_8x22b,
+    olmoe_1b_7b,
+    qwen2_0_5b,
+    smollm_135m,
+    starcoder2_7b,
+)
 from repro_torch.configs.base import ArchSpec
 
-_MOE = "ROADMAP Queue 1 item 8b, MoE"
-_SSM = "ROADMAP Queue 1 item 8c, Mamba2 and Jamba"
 _ARCHS = {
     "qwen2-vl-7b": "ROADMAP Queue 1 item 8d, Qwen2-VL",
     "whisper-tiny": "ROADMAP Queue 1 item 8e, Whisper",
-    "mixtral-8x22b": _MOE,
+    "mixtral-8x22b": mixtral_8x22b,
     "qwen2-0.5b": qwen2_0_5b,
     "smollm-135m": smollm_135m,
     "starcoder2-7b": starcoder2_7b,
-    "olmoe-1b-7b": _MOE,
+    "olmoe-1b-7b": olmoe_1b_7b,
     "deepseek-coder-33b": deepseek_coder_33b,
-    "jamba-v0.1-52b": _SSM,
-    "mamba2-1.3b": _SSM,
+    "jamba-v0.1-52b": jamba_v0_1_52b,
+    "mamba2-1.3b": mamba2_1_3b,
 }
 
 ARCH_IDS: List[str] = list(_ARCHS)

@@ -19,10 +19,12 @@ the same fields), so both packages can search the very same index.
 The LM substrate's weights cross as ``repro``'s parameter tree of numpy
 arrays (``jax.tree_util.tree_map(np.asarray, params)``):
 ``lm_params_from_numpy`` unstacks its per-offset ``layers`` (leaf leading
-dim R, layer = rep * period + off) into the port's per-layer blocks, and
-``lm_model_to_numpy`` stacks them back. bf16 arrives as an ``ml_dtypes``
-array; it is recognised by its dtype's name and moved as its 16 bits, so
-the round trip is bitwise.
+dim R, layer = rep * period + off) into the port's per-layer blocks, of
+any (mixer, ffn) kind, and ``lm_model_to_numpy`` stacks them back. bf16
+arrives as an ``ml_dtypes`` array; it is recognised by its dtype's name and
+moved as its 16 bits, so the round trip is bitwise. Each leaf must be in
+``cfg.dtype``, except ``transformer.F32_LEAVES`` (MoE routers, Mamba2's
+``A_log``, ``D``, ``dt_bias``), which must be f32.
 
 Optimizer states cross the same way: ``state_to_numpy`` turns the trainer's
 state (``RowAdagradState.accum``, ``AdamState`` step/mu/nu, nested in
@@ -42,6 +44,8 @@ import torch
 from repro_torch.core.model import Graph4RecConfig, Graph4RecModel, init_model_params
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import layers as L
+from repro_torch.models import mamba2 as M
+from repro_torch.models import moe as MOE
 from repro_torch.models import transformer as T
 from repro_torch.retrieval.ivf import IVFConfig, IVFIndex
 
@@ -127,7 +131,17 @@ def _lm_array(t: torch.Tensor) -> np.ndarray:
         return bits
 
 
-def _lm_block_params(cfg: T.LMConfig, layer: Dict[str, Any], rep: int) -> T.Block:
+_BLOCK_GROUPS = ("norm1", "attn", "mamba", "norm2", "mlp", "moe")
+
+
+def _lm_block_params(cfg: T.LMConfig, spec: T.BlockSpec, layer: Dict[str, Any],
+                     rep: int) -> T.Block:
+    mixer, ffn = spec
+    want = {"norm1", mixer} | (set() if ffn == "none" else
+                               {"norm2", "mlp" if ffn == "dense" else "moe"})
+    if set(layer) != want:
+        raise KeyError(f"a {spec} block has groups {sorted(want)}, the tree {sorted(layer)}")
+
     def group(name):
         return {k: _lm_tensor(np.asarray(v)[rep]) for k, v in layer[name].items()}
 
@@ -137,8 +151,12 @@ def _lm_block_params(cfg: T.LMConfig, layer: Dict[str, Any], rep: int) -> T.Bloc
             raise KeyError(f"{name} params {sorted(g)}: a norm has scale and bias only")
         return L.Norm(cfg.norm, g["scale"], g.get("bias"))
 
-    return T.Block(norm("norm1"), L.Attention(cfg.attn_cfg(), group("attn")), norm("norm2"),
-                   L.MLP(cfg.mlp_kind, group("mlp")))
+    mix = (L.Attention(cfg.attn_cfg(), group("attn")) if mixer == "attn"
+           else M.Mamba2(group("mamba")))
+    if ffn == "none":
+        return T.Block(norm("norm1"), mix)
+    ff = L.MLP(cfg.mlp_kind, group("mlp")) if ffn == "dense" else MOE.MoE(cfg.moe, group("moe"))
+    return T.Block(norm("norm1"), mix, norm("norm2"), ff)
 
 
 def lm_params_from_numpy(cfg: T.LMConfig, tree: Mapping[str, Any],
@@ -146,14 +164,16 @@ def lm_params_from_numpy(cfg: T.LMConfig, tree: Mapping[str, Any],
     """``repro``'s LM parameter tree (numpy leaves) -> an ``LM`` on
     ``device``. Every name, shape and dtype is checked against ``cfg``."""
     dev = resolve_device(device)
-    for spec in cfg.block_list():
+    specs = cfg.block_list()
+    for spec in specs:
         T.check_block(spec)
     p = cfg.period()
     R = cfg.n_layers // p
     stacked = tree["layers"]
     if len(stacked) != p:
         raise ValueError(f"{len(stacked)} stacked offsets for a block period of {p}")
-    blocks = [_lm_block_params(cfg, stacked[i % p], i // p) for i in range(cfg.n_layers)]
+    blocks = [_lm_block_params(cfg, specs[i], stacked[i % p], i // p)
+              for i in range(cfg.n_layers)]
     for off, layer in enumerate(stacked):
         for name, group in layer.items():
             for leaf, a in group.items():
@@ -169,10 +189,10 @@ def lm_params_from_numpy(cfg: T.LMConfig, tree: Mapping[str, Any],
     if got != want:
         bad = sorted(set(got.items()) ^ set(want.items()))
         raise ValueError(f"LM params do not match the config: {bad[:8]}")
-    dtype = T.torch_dtype(cfg.dtype)
-    wrong = sorted(k for k, v in model.state_dict().items() if v.dtype != dtype)
+    wrong = sorted(f"{k} {v.dtype} (want {T.leaf_dtype(cfg, k)})"
+                   for k, v in model.state_dict().items() if v.dtype != T.leaf_dtype(cfg, k))
     if wrong:
-        raise TypeError(f"LM params not in {dtype}: {wrong[:8]}")
+        raise TypeError(f"LM params of the wrong dtype: {wrong[:8]}")
     return model.to(dev)
 
 
@@ -186,10 +206,25 @@ def lm_param_shapes(cfg: T.LMConfig) -> Dict[str, tuple]:
         attn.update(bq=(H * hd,), bk=(K * hd,), bv=(K * hd,))
     mlp = ({"wg": (d, ff), "wu": (d, ff), "wd": (ff, d)} if cfg.mlp_kind == "swiglu"
            else {"wu": (d, ff), "bu": (ff,), "wd": (ff, d), "bd": (d,)})
+    groups = {"norm1": norm, "attn": attn, "norm2": norm, "mlp": mlp}
+    if cfg.moe is not None:
+        m = cfg.moe
+        E, mf = m.num_experts, m.d_ff
+        groups["moe"] = {"router": (d, E), "wu": (E, d, mf), "wd": (E, mf, d)}
+        if m.mlp_kind == "swiglu":
+            groups["moe"]["wg"] = (E, d, mf)
+    if cfg.mamba is not None:
+        mc = cfg.mamba
+        di, N, Hm = mc.d_inner, mc.d_state, mc.n_heads
+        groups["mamba"] = {"wz": (d, di), "wx": (d, di), "wB": (d, N), "wC": (d, N),
+                           "wdt": (d, Hm), "wo": (di, d), "conv": (mc.conv_width, di + 2 * N),
+                           "A_log": (Hm,), "D": (Hm,), "dt_bias": (Hm,), "norm_scale": (di,)}
     out = {"embed": (cfg.vocab_padded, d)}
-    for i in range(cfg.n_layers):
-        for gname, g in (("norm1", norm), ("attn", attn), ("norm2", norm), ("mlp", mlp)):
-            out.update({f"layers.{i}.{gname}.{k}": s for k, s in g.items()})
+    for i, (mixer, ffn) in enumerate(cfg.block_list()):
+        names = ["norm1", mixer] + ([] if ffn == "none" else
+                                    ["norm2", "mlp" if ffn == "dense" else "moe"])
+        for gname in names:
+            out.update({f"layers.{i}.{gname}.{k}": s for k, s in groups[gname].items()})
     out.update({f"final_norm.{k}": s for k, s in norm.items()})
     if not cfg.tie_embeddings:
         out["lm_head"] = (d, cfg.vocab_padded)
@@ -209,7 +244,9 @@ def lm_model_to_numpy(model: T.LM) -> Dict[str, Any]:
     stacked = []
     for off in range(p):
         layer = {}
-        for gname in ("norm1", "attn", "norm2", "mlp"):
+        for gname in _BLOCK_GROUPS:
+            if getattr(model.layers[off], gname) is None:
+                continue
             names = module_leaves(getattr(model.layers[off], gname))
             layer[gname] = {
                 k: np.stack([_lm_array(getattr(getattr(model.layers[rep * p + off], gname), k))

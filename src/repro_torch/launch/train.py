@@ -3,14 +3,18 @@
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch smollm-135m \\
         --steps 20 --batch 4 --seq 2048
+    PYTHONPATH=src python -m repro_torch.launch.train --arch olmoe-1b-7b \\
+        --layers 2 --steps 10 --batch 4 --seq 2048
     PYTHONPATH=src python -m repro_torch.launch.train --device cpu --reduced
 
 Trains an LM arch on synthetic token streams (``synth_batch``: the same
 numpy stream as ``repro``'s, so tokens and labels are bitwise its own)
 with ``ArchSpec.make_train_step(adam(lr))``, from the port's seeded init
 (``--seed``; ``repro`` draws from ``jax.random``, so the weights differ).
-``--reduced`` takes the 2-layer smoke config and turns microbatching off,
-as ``repro`` does. On CUDA the attention's forward and backward are the
+``--reduced`` takes the smoke config and turns microbatching off, as
+``repro`` does; ``--layers n`` keeps the first n layers of the full width
+(whole periods of the block pattern), for a model whose Adam state does
+not fit the card. On CUDA the attention's forward and backward are the
 flash kernels; ``--device cpu`` runs the plain PyTorch path instead, and
 without it a machine with no CUDA raises.
 """
@@ -48,7 +52,9 @@ def synth_batch(rng: np.random.Generator, spec: ArchSpec, batch: int, seq: int,
 def parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--arch", default="smollm-135m", choices=PORTED_ARCH_IDS)
-    ap.add_argument("--reduced", action="store_true", help="the 2-layer smoke config")
+    ap.add_argument("--reduced", action="store_true", help="the smoke config")
+    ap.add_argument("--layers", type=int, default=0,
+                    help="keep the first n layers, whole periods (0: all)")
     ap.add_argument("--steps", type=int, default=50)
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--seq", type=int, default=128)
@@ -67,16 +73,20 @@ def run(args: argparse.Namespace,
         after_step: Optional[Callable[[int, torch.nn.Module, float], None]] = None) -> dict:
     """Train ``args.steps`` steps; returns the losses, each step's seconds
     (host clock around a step that ends in a synchronize; the batch is
-    drawn outside it), tokens/s over the steps' total, and the spec, model,
-    optimizer state, step function and batch stream to go on with.
+    drawn outside it), tokens/s over the steps' total, the parameters'
+    dtypes before the first step, and the spec, model, optimizer state,
+    step function and batch stream to go on with.
     ``after_step(step, model, loss)`` runs after each step, outside its
     time."""
     dev = resolve_device(args.device)
     spec = get_arch(args.arch, reduced=args.reduced)
     if args.reduced:  # smoke scale: no microbatching
         spec = dataclasses.replace(spec, microbatches=1)
+    if args.layers:
+        spec = spec.with_layers(args.layers)
     opt = opt_lib.adam(args.lr)
     model = spec.init_params(torch.Generator().manual_seed(args.seed), dev)
+    init_dtypes = {n: p.dtype for n, p in model.named_parameters()}
     opt_state = opt.init(dict(model.named_parameters()))
     step_fn = spec.make_train_step(opt)
     rng = np.random.default_rng(args.seed)
@@ -93,7 +103,7 @@ def run(args: argparse.Namespace,
             after_step(step, model, losses[-1])
     return {"arch": spec.arch_id, "device": str(dev), "spec": spec, "model": model,
             "opt_state": opt_state, "step_fn": step_fn, "rng": rng, "losses": losses,
-            "step_s": step_s,
+            "step_s": step_s, "init_dtypes": init_dtypes,
             "tokens_per_s": args.steps * args.batch * args.seq / max(sum(step_s), 1e-12)}
 
 

@@ -1,2 +1,3 @@
-"""The LM substrate, dense-attention blocks (``layers``, ``transformer``)."""
-from repro_torch.models import layers, transformer  # noqa: F401
+"""The LM substrate: norms, attention and MLPs (``layers``), the MoE and
+Mamba2 block kinds (``moe``, ``mamba2``) and the decoder (``transformer``)."""
+from repro_torch.models import layers, mamba2, moe, transformer  # noqa: F401

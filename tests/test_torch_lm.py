@@ -11,7 +11,8 @@ weights exactly. On the CPU the port's full-sequence attention is the
 flash kernel's plain version; ``repro`` at these lengths takes its naive
 einsum path. In bf16, the full configs' type, the norms and RoPE are held
 bitwise, the decode attention to a bf16 ulp, and the reduced archs from
-``repro``'s bf16 init to ``BF16_REL`` against ``repro``'s flash path.
+``repro``'s bf16 init to ``BF16_REL`` against ``repro``'s flash path. The
+MoE, Mamba2 and hybrid archs are held in ``test_torch_lm_blocks.py``.
 """
 import dataclasses
 import functools
@@ -70,21 +71,21 @@ def test_configs_equal_repro(arch, reduced):
 
 
 def test_unported_archs_raise():
+    """Qwen2-VL (8d) and Whisper (8e) are the two archs left; a block kind
+    outside (attn | mamba, dense | moe | none) is refused."""
     assert ARCH_IDS == JAX_ARCH_IDS
     unported = [a for a in ARCH_IDS if a not in PORTED_ARCH_IDS]
-    assert len(unported) == 6 and len(PORTED_ARCH_IDS) == 4
-    for arch in unported:
-        with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 8"):
+    assert unported == ["qwen2-vl-7b", "whisper-tiny"] and len(PORTED_ARCH_IDS) == 8
+    for arch, item in zip(unported, ("8d", "8e")):
+        with pytest.raises(NotImplementedError, match=f"ROADMAP Queue 1 item {item}"):
             get_arch(arch)
     with pytest.raises(KeyError):
         get_arch("no-such-arch")
     spec = get_arch("smollm-135m", reduced=True)
-    moe = dataclasses.replace(spec.lm, blocks=(("attn", "moe"),) * 2)
-    with pytest.raises(NotImplementedError, match="item 8b"):
-        T.init_lm(torch.Generator().manual_seed(0), moe)
-    ssm = dataclasses.replace(spec.lm, blocks=(("mamba", "none"),) * 2)
-    with pytest.raises(NotImplementedError, match="item 8c"):
-        T.init_cache(ssm, 1, 8)
+    for bad in (("conv", "dense"), ("attn", "sparse")):
+        with pytest.raises(ValueError, match="mixer in"):
+            T.init_lm(torch.Generator().manual_seed(0),
+                      dataclasses.replace(spec.lm, blocks=(bad,) * 2))
     with pytest.raises(NotImplementedError, match="item 8d"):
         dataclasses.replace(spec, kind="vlm").make_prefill()
     with pytest.raises(NotImplementedError, match="items 8d, 8e"):  # telemetry is ported
