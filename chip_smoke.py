@@ -2069,9 +2069,9 @@ MOE_CF_EXACT = 8.0
 # (ROADMAP C1's rule for top-k): within 1e-5 where the inputs agree to f32 rounding. In
 # bf16 the residual stream reaching a router differs between prefill and decode by bf16
 # roundings (2^-8 of a value, a few times over a layer), which moves a router logit by up to
-# a few 1e-2: there a tie is a log-ratio log(p_K / p_(K+1)) within 2^-4. An H100 read
-# first-layer gaps up to 3.1e-4 at OLMoE's p ~ 1/64 (2 % of it) and 1.1e-3 in a Jamba
-# period; a misrouted token's ratio is anything up to the largest probability's
+# a few 1e-2: there a tie is a log-ratio log(p_K / p_(K+1)) within 2^-4. On an H100 80GB
+# HBM3 at 700 W the first layer's differences read log-ratios up to 0.011 (OLMoE) and 0.016
+# (a Jamba period); a misrouted token's ratio is anything up to the largest probability's
 ROUTE_TIE, ROUTE_TIE_BF16_LOG = 1e-5, 2.0 ** -4
 # the reduced Jamba's training, card vs CPU: Adam's first update is lr g / (|g| + 1e-8), so
 # an element whose gradient lies within f32 rounding of zero moves by up to lr either
@@ -2811,7 +2811,8 @@ def moe_layer_checks(torch, np, p, cfg, x, phase: str) -> dict:
 
     def run(pm, c, xs, chunk=None):
         """y (tokens, d) and its routing; ``chunk`` tokens a call (groups of
-        one need (E, tokens, 4, d) expert inputs: 4 GiB a 512 tokens)."""
+        one need (E, tokens, 4, d) expert inputs: at OLMoE's width 1 GiB
+        of f32 a 512 tokens)."""
         parts = [xs] if chunk is None else list(xs.reshape(-1, chunk, d).split(1))
         ys, rs = [], []
         for xp in parts:
