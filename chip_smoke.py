@@ -2222,10 +2222,10 @@ def _decode_all(torch, T, model, cfg, tokens):
 @contextlib.contextmanager
 def moe_routes(torch, moe_mod, routes: list, limit: int = -1):
     """While active, every ``moe_forward`` call (prefill or decode), or the
-    first ``limit`` of them, also appends its routing to ``routes``: the chosen experts sorted (B, S, K),
-    the gap between the K-th and (K+1)-th router probabilities (B, S),
-    which choices were kept (B, S, K), and the log of those probabilities'
-    ratio (B, S)."""
+    first ``limit`` of them, also appends its routing to ``routes``: the
+    chosen experts sorted (B, S, K), the gap between the K-th and (K+1)-th
+    router probabilities (B, S), which choices were kept (B, S, K), and the
+    log of those probabilities' ratio (B, S)."""
     real = moe_mod.moe_forward
 
     def spy(p, cfg, x):
