@@ -191,8 +191,10 @@ nothing of JAX or of the JAX package ``repro``. Phases, each failing loudly:
    k 1 and k 256, an exclusion row past the shared cap, integer-valued
    ties exactly, a bitwise re-run; ``inbatch_loss``: P 2,048 and 8,192 at
    d 64, 8,192 at d 256, each beside the library call; flash: f32 to rtol
-   1e-5 / atol 2e-5, causal and not, a tail tile, qwen2's G 7,
-   starcoder2's bf16 (1, 8,192, 36, 4, 128) with its 4,096 window; the
+   1e-5 / atol 2e-5, causal and not, a tail tile, qwen2's G 7, hd 32, hd
+   128 with a tail tile and a 64-key window, starcoder2's bf16 (1, 8,192,
+   36, 4, 128) with its 4,096 window, every forward call also re-run
+   bitwise; the
    backward at the same shapes, from the forward kernel's output and LSE
    and a random dO); one
    JSON line per shape with the kernel's device time, the plain version's,
@@ -2125,6 +2127,8 @@ FLASH_SYNTHETIC = (  # ((B, S, H, K, hd), dtype, causal, window)
     ((2, 256, 4, 2, 64), "float32", False, None),
     ((2, 200, 4, 2, 64), "float32", True, None),  # a tail tile
     ((1, 512, 14, 2, 64), "float32", True, None),  # qwen2-0.5b's G 7
+    ((2, 256, 4, 2, 32), "float32", True, None),  # the f32 kernel at hd 32
+    ((2, 200, 4, 2, 128), "float32", True, 64),  # and at hd 128: a tail tile, a window's edge
     ((1, 8192, 36, 4, 128), "bfloat16", True, 4096),  # starcoder2-7b's layout and window
 )
 
@@ -2667,7 +2671,7 @@ def lm_train_phase(torch, np, fa_mod, arch: str, steps: int, phase: str, layers:
     restore = _keeping_first(ops, "flash_attention_bwd", lambda a: (
         tuple(a[0].shape), tuple(a[1].shape), str(a[0].dtype), a[6], a[7]), kept)
     real_moe, moe_mod.moe_forward = moe_mod.moe_forward, aux_spy
-    fa_mod.launches = fa_mod.bwd_launches = 0
+    fa_mod.launches = fa_mod.bwd_launches = fa_mod.copies = 0
     torch.cuda.reset_peak_memory_stats()
     try:
         res = lm_train.run(args, after_step=after_step)
@@ -2677,6 +2681,9 @@ def lm_train_phase(torch, np, fa_mod, arch: str, steps: int, phase: str, layers:
     spec, model = res["spec"], res["model"]
     cfg = spec.lm
     launches = {"flash_attention": fa_mod.launches, "flash_attention_bwd": fa_mod.bwd_launches}
+    if fa_mod.copies:
+        fail(f"{phase}: the flash wrappers copied {fa_mod.copies} f32 operands off 16 bytes; "
+             "the model's own q, k, v and dO must need none")
     n_attn = sum(m == "attn" for m, _ in cfg.block_list())
     n_moe = sum(f == "moe" for _, f in cfg.block_list())
 
@@ -3017,8 +3024,8 @@ def flash_build_phase(torch, build, fa_mod, lib) -> None:
     its SASS holds HGMMA (``cuobjdump -sass`` on the library); the same for
     each of the backward's kernels (``bwd_kernel_attrs``). The bf16
     instantiations of the forward and of the backward's dK/dV and dQ
-    kernel must run on the tensor cores, and no instantiation of the
-    backward and no bf16 one of the forward may use local memory."""
+    kernel must run on the tensor cores, and no instantiation of either
+    may use local memory."""
     cuobjdump = os.path.join(os.path.dirname(build.find_nvcc()), "cuobjdump")
     sass = subprocess.run([cuobjdump, "-sass", str(lib)], capture_output=True, text=True,
                           check=True, timeout=300).stdout
@@ -3040,9 +3047,9 @@ def flash_build_phase(torch, build, fa_mod, lib) -> None:
             if dtype == torch.bfloat16 and not rec["hgmma"]:
                 fail(f"flash build: the bf16 kernel at hd {hd} has no HGMMA in its SASS: "
                      "it does not run on the tensor cores")
-            if dtype == torch.bfloat16 and rec["local_bytes"]:
-                fail(f"flash build: the bf16 kernel at hd {hd} uses {rec['local_bytes']} bytes "
-                     "of local memory (spills)")
+            if rec["local_bytes"]:
+                fail(f"flash build: the {kernel} kernel at hd {hd} uses {rec['local_bytes']} "
+                     "bytes of local memory (spills)")
     # the backward's kernels, both dtypes; the bf16 dK/dV and dQ kernel's HGMMA count
     out["backward"] = {}
     for dtype in (torch.bfloat16, torch.float32):
@@ -3183,9 +3190,10 @@ def _check_flash_fwd(torch, got, want, what: str) -> dict:
 
 def _flash_record(torch, np, ref, fa_cuda, q, k, v, causal, window, source: str,
                   with_lse: bool = False) -> dict:
-    """The forward kernel against its plain version on one call, timed beside
-    the plain version, SDPA and the bound. ``with_lse``: the call as the
-    training forward makes it, which also writes the LSE (checked too)."""
+    """The forward kernel against its plain version on one call, and a
+    re-run bitwise, timed beside the plain version, SDPA and the bound.
+    ``with_lse``: the call as the training forward makes it, which also
+    writes the LSE (checked too)."""
     import torch.nn.functional as F
 
     B, Sq, H, hd = q.shape
@@ -3198,11 +3206,18 @@ def _flash_record(torch, np, ref, fa_cuda, q, k, v, causal, window, source: str,
         lse_err = (lse - want_lse).abs().max().item()
         if not torch.allclose(lse, want_lse, rtol=FLASH_LSE_RTOL, atol=FLASH_LSE_ATOL):
             fail(f"{what}: its LSE disagrees with the plain one by {lse_err}")
-        del lse, want_lse
+        again, again_lse = fa_cuda(q, k, v, causal, window, with_lse=True)
+        rerun = torch.equal(again, got) and torch.equal(again_lse, lse)
+        del lse, want_lse, again_lse
     else:
         got = fa_cuda(q, k, v, causal, window)
         want = _flash_plain(torch, ref, q, k, v, causal, window)
+        again = fa_cuda(q, k, v, causal, window)
+        rerun = torch.equal(again, got)
     torch.cuda.synchronize()
+    del again
+    if not rerun:
+        fail(f"{what}: a re-run is not bitwise equal")
     checked = _check_flash_fwd(torch, got, want, what)
     bf16 = q.dtype == torch.bfloat16
     pairs = _band_pairs(np, Sq, Skv, causal, window)
@@ -3237,7 +3252,8 @@ def _flash_record(torch, np, ref, fa_cuda, q, k, v, causal, window, source: str,
     rec = {"phase": "kernel", "name": "flash_attention", "source": source,
            "shape": {"B": B, "Sq": Sq, "Skv": Skv, "H": H, "K": K, "hd": hd},
            "dtype": str(q.dtype).replace("torch.", ""), "causal": causal, "window": window,
-           "with_lse": with_lse, **checked, **times(kernel=kern, plain=plain, library=lib),
+           "with_lse": with_lse, **checked, "rerun_bitwise": True,
+           **times(kernel=kern, plain=plain, library=lib),
            "band_pairs": pairs, "flop": flops,
            "kernel_tflop_per_s": flops / kern["device_ms"] / 1e9,
            "bound_ms": max(t_bytes, t_ops),
@@ -3254,8 +3270,9 @@ def _flash_record(torch, np, ref, fa_cuda, q, k, v, causal, window, source: str,
 def flash_phase(torch, np, ref, fa_cuda, paths: dict):
     """The kernel against its plain version on the first prefill call of
     each shape of each path (source -> calls), then at synthetic shapes: f32
-    causal and not, a tail tile, qwen2's G 7, starcoder2's bf16 layout with
-    its 4,096 window. Returns the first path's largest record and the other
+    causal and not, a tail tile, qwen2's G 7, hd 32, hd 128 with a tail
+    tile and a 64-key window, starcoder2's bf16 layout with its 4,096
+    window. Returns the first path's largest record and the other
     paths' records."""
     recs = {src: [_flash_record(torch, np, ref, fa_cuda, q, k, v, kw.get("causal", True),
                                 kw.get("window"), src) for (q, k, v), kw in calls]
@@ -3377,9 +3394,10 @@ def flash_bwd_phase(torch, np, ref, fa_mod, paths: dict, prefill_keys: set):
     """The backward kernel on the first training call of each (shape,
     dtype) of each path (source -> calls), then at ``FLASH_SYNTHETIC``'s
     shapes (the forward kernel's output and LSE, a random dO): f32 causal
-    and not, a tail tile, qwen2's G 7, starcoder2's bf16 layout with its
-    4,096 window. The forward kernel, with its LSE, on each training call
-    whose key the prefills' records do not have (the f32 steps'). Returns
+    and not, a tail tile, qwen2's G 7, hd 32, hd 128 with a tail tile and a
+    64-key window, starcoder2's bf16 layout with its 4,096 window. The
+    forward kernel, with its LSE, on each training call whose key the
+    prefills' records do not have (the f32 steps'). Returns
     the first path's main backward record (its largest f32 call), the
     other paths' backward records and those forward records."""
     fwd = [_flash_record(torch, np, ref, fa_mod.flash_attention_cuda, q, k, v, causal, window,

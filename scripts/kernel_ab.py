@@ -18,9 +18,12 @@ sized by this tree's ``bwd_plan``, which covers the earlier layouts at
 these calls), each held to ``attention_bwd_ref`` by ``chip_smoke.flash_bwd_ok``
 and its re-run bitwise, timed in turns (other, this, this, other;
 ``--rounds`` times) beside SDPA's backward; then the forward through each
-tree's ``g4r_flash_attn_fwd`` at the prefill call (bf16, no LSE) and the
-f32 training call (with its LSE), each output bitwise this tree's, timed in
-the same turns.
+tree's ``g4r_flash_attn_fwd`` at the prefill call (bf16, no LSE), bitwise
+this tree's, and at the f32 training calls with their LSE (smollm's, and
+OLMoE-1B-7B's: B 4, S 2,048, H = K = 16, hd 128, causal), each tree's
+output and LSE held to ``attention_fwd_ref`` (``chip_smoke.py``'s
+FLASH_RTOL / FLASH_ATOL and FLASH_LSE_RTOL), every re-run bitwise, timed in
+the same turns beside SDPA's forward and the bound.
 
 Training kernels: at the training
 paths' recorded shapes (the calls ``chip_smoke.py`` keeps: backward
@@ -239,9 +242,12 @@ def flash_ab(torch, other, lib, stream, rounds: int, emit) -> None:
                                        for a, w in zip(g, want)] for n, g in got.items()}})
         del want, got, sdpa, leaves, scratch
 
-    # the forward: the header move must leave every bit and the time as they were
-    B, S, H, K, hd = 4, 2048, 9, 3, 64
-    for dtype, with_lse in ((torch.bfloat16, False), (torch.float32, True)):
+    # the forward: bf16 at the prefill call, bitwise the other tree's (its kernel is the
+    # same); f32 at the training calls of smollm and OLMoE (with the LSE), each tree held to
+    # attention_fwd_ref, since a redesign of the f32 kernel changes its order of summation
+    for (B, S, H, K, hd), dtype, with_lse in (((4, 2048, 9, 3, 64), torch.bfloat16, False),
+                                              ((4, 2048, 9, 3, 64), torch.float32, True),
+                                              ((4, 2048, 16, 16, 128), torch.float32, True)):
         q = torch.randn(B, S, H, hd, device="cuda", generator=gen).to(dtype)
         k, v = (torch.randn(B, S, K, hd, device="cuda", generator=gen).to(dtype)
                 for _ in range(2))
@@ -256,15 +262,42 @@ def flash_ab(torch, other, lib, stream, rounds: int, emit) -> None:
                 *st, 1.0 / math.sqrt(hd), 1, 0, stream)
             build.check(err, "flash_attention")
 
-        fwd(lib)
-        mine = (out.clone(), None if lse is None else lse.clone())
-        fwd(other)
-        if not (torch.equal(out, mine[0]) and (lse is None or torch.equal(lse, mine[1]))):
-            sys.exit(f"kernel_ab: the other flash forward ({dtype}) is not bitwise this tree's")
+        got = {}
+        for name, which in trees.items():
+            fwd(which)
+            first = (out.clone(), None if lse is None else lse.clone())
+            fwd(which)
+            if not (torch.equal(out, first[0]) and (lse is None or torch.equal(lse, first[1]))):
+                sys.exit(f"kernel_ab: the {name} flash forward ({dtype}) is not bitwise on a "
+                         "re-run")
+            got[name] = first
+        errs = {}
+        if dtype == torch.bfloat16:
+            if not torch.equal(got["other"][0], got["this"][0]):
+                sys.exit("kernel_ab: the other bf16 flash forward is not bitwise this tree's")
+        else:
+            want, want_lse = chip_smoke._flash_fwd_plain(torch, ref, q, k, v, True, None)
+            for name, (o, m) in got.items():
+                if not (torch.allclose(o, want, rtol=chip_smoke.FLASH_RTOL,
+                                       atol=chip_smoke.FLASH_ATOL)
+                        and torch.allclose(m, want_lse, rtol=chip_smoke.FLASH_LSE_RTOL,
+                                           atol=chip_smoke.FLASH_LSE_ATOL)):
+                    sys.exit(f"kernel_ab: the {name} f32 flash forward at {(B, S, H, K, hd)} "
+                             "disagrees with attention_fwd_ref")
+                errs[name] = {"o": (o - want).abs().max().item(),
+                              "lse": (m - want_lse).abs().max().item()}
+            del want, want_lse
+        qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+        flops = 4.0 * hd * (S * (S + 1) // 2) * B * H
+        bf16 = dtype == torch.bfloat16
+        peak = chip_smoke.BF16_FLOP_PER_S if bf16 else chip_smoke.FP32_FLOP_PER_S
+        sdpa = chip_smoke.measure(lambda: torch.nn.functional.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, enable_gqa=True), 10)["device_ms"]
         emit({"what": "flash_fwd", "shape": {"B": B, "S": S, "H": H, "K": K, "hd": hd},
-              "dtype": str(dtype).replace("torch.", ""), "with_lse": with_lse,
-              "bitwise_equal": True, "ms": turns(fwd)})
-
+              "dtype": str(dtype).replace("torch.", ""), "causal": True, "with_lse": with_lse,
+              "rerun_bitwise": True, "bitwise_other": bf16, "max_abs_vs_plain": errs,
+              "ms": turns(fwd), "sdpa_ms": sdpa, "bound_ms": flops / peak * 1e3})
+        del got, q, k, v, qt, kt, vt, out, lse
 
 if __name__ == "__main__":
     main()

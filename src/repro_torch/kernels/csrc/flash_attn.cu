@@ -72,14 +72,57 @@
 //     above the 48 KB default, so the launcher raises the limit with
 //     cudaFuncSetAttribute first.
 //
-// f32: flash_fwd_kernel<HD> (f32 only), on the CUDA cores (bound: the band's
-// FLOP over 67 TFLOP/s). The tensor cores cannot keep the f32 contract (TF32
-// off, rtol 1e-5 against the plain version). One block of 256 threads per
-// (64-query tile, head, batch row) loops over the 64-key tiles of its band;
-// the Q tile, the K tile (transposed) and the V tile are staged in shared
-// memory with padded rows, each thread owns a 4 x 4 block of the score tile
-// and a 4 x hd/16 block of the accumulator, and P goes through shared memory
-// to the PV product. 41, 66 or 115 KB of shared memory (hd 32, 64, 128).
+// f32: flash_fwd_kernel<HD>, on the CUDA cores (bound: the band's FLOP over
+// 67 TFLOP/s; a kernel of FMAs alone sustains 60.7 on an H100 at 700 W,
+// scripts/flash_f32_variants.py). f32 FMAs only: the tensor cores cannot keep
+// the f32 contract (TF32 off, rtol 1e-5 against the plain version). The first
+// version (one 4-byte shared load for every 2 FMAs, a scalar transpose of K,
+// synchronous loads, the mask on every tile, the shortest band first) ran at
+// 28 % of the bound; this one is laid out as the backward's f32 tiles
+// (flash_attn_bwd.cu), with register tiles twice as large:
+//   - 16-byte shared operands. Q, K and V tiles stay hd-contiguous in shared
+//     memory, rows padded to hd + 4 floats (8 consecutive rows on 8 distinct
+//     4-bank groups); S = Q K^T reads Q and K rows as float4 along hd, P V
+//     reads P as float4 along the key axis (rows padded to keys + 8) and V
+//     rows as float4 (float2 at hd 32) along the columns. A warp's lanes
+//     cover 4 rows x 8 keys (or column vectors), so each load touches 4 or 8
+//     distinct rows, conflict-free.
+//   - 8 x 8 register tiles: a thread holds 8 query rows x 8 keys of S and
+//     its 8 rows x hd / TK columns of O, so a shared float feeds 4 FMAs (the
+//     SM's shared memory delivers 32 floats a clock against 128 FMA lanes).
+//     On an H100 at smollm's training call (hd 64) 4 x 4 tiles read 0.635
+//     ms, 8 x 8 0.573.
+//   - The row's threads in one warp where they fit (F32Cfg's KW). At hd 32
+//     and 64 a block is 4 warps, each 4 x 8 lanes over its own 32 rows, 128
+//     rows x 64-key tiles: the row max and sum are 3 shuffles, P goes from a
+//     warp to itself (no barrier), and two blocks share an SM (254
+//     registers; 106,496 and 73,728 bytes), the softmax of one between the
+//     products of the other: 0.539 ms against 0.573 for one 8-warp block,
+//     whose warps all meet at every barrier. At hd 128 a row's 8 x 16
+//     columns of O would take too many registers, so two warps share
+//     128-key tiles (maxima and sums exchanged through shared memory, a
+//     named barrier a warp pair) in one 8-warp block of 254 registers, P
+//     written over the K tile it came from (Q, K and V take 203,776 bytes):
+//     1.753 ms against 1.864 for 4-warp blocks of 4 x 8 tiles, two an SM.
+//   - cp.async tiles, 16 bytes a copy (the wrapper copies an f32 operand
+//     whose base or strides are off 16 bytes), into one K and one V buffer:
+//     V comes during Q K^T and, where P has its own buffer, the next K tile
+//     during P V. A second K/V buffer, tried where it fit, gained nothing.
+//   - Longest band first: query tiles on blockIdx.z counting down along Sq,
+//     as the bf16 kernel's; only tiles that straddle the diagonal, the
+//     window's edge or Skv evaluate the mask.
+//   - The softmax in the log2 domain: Q is scaled by scale log2 e once in
+//     shared memory, exponentials by ex2.approx.ftz (results under 2^-126
+//     flushed: 1 instruction against exp2f's 4); the masked logit is -1e30
+//     log2 e, so the LSE, (m + log2 l) ln 2, leaves in natural units. Each
+//     thread keeps its keys' share of the row sum until the end.
+//   - Each output element and LSE is written by one thread and summed in a
+//     fixed order: no atomics, re-runs bitwise.
+// At the training calls (H100 80GB HBM3, 700 W, scripts/kernel_ab.py in turns
+// with the first version): smollm's B 4 x S 2,048, H 9, K 3, hd 64 1.04 ->
+// 0.539 ms (bound 0.289, SDPA 3.04); OLMoE's H = K = 16, hd 128 3.16 -> 1.741
+// (bound 1.026, SDPA 1.686). chip_smoke.py fails on a spill of any
+// instantiation.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -94,181 +137,346 @@ namespace {
 constexpr float kNegInf = -1e30f;
 
 // ------------------------------------------------------------- f32 kernel
-constexpr int kBQ = 64;        // query rows per block
-constexpr int kBK = 64;        // keys per tile
-constexpr int kThreads = 256;  // 16 row groups x 16 column lanes
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
+// the masked logit, -1e30 in natural units, in the log2 domain: so m + log l
+// of a row whose keys are all masked is -1e30 in natural units, as the plain
+// version's
+constexpr float kNegInfLog2 = kNegInf * kLog2e;
 
-// dynamic shared memory bytes: Q (kBQ x HD+1), K^T (HD x kBK+1), V (kBK x
-// HD), P (kBQ x kBK+1), all f32
+// ``blocks`` blocks of ``bytes`` of shared memory fit an SM (228 KB, 1 KB of
+// it reserved a block)
+constexpr bool fits_sm(int blocks, int bytes) { return blocks * (bytes + 1024) <= 233472; }
+
+// The f32 kernel's shape. A warp's 32 lanes cover 4 row groups x 8 key
+// groups, so that each shared-memory load touches 4 or 8 distinct rows; KW
+// warps (1 or 2) side by side, a set, cover TK = 8 KW key groups of the same
+// row groups, and the block's THREADS / 32 / KW sets cover TR = 4 sets row
+// groups. A thread holds RQ rows (qg + TR i) and RK keys (kg + TK j) of S,
+// and the same rows x HD / TK columns of O; a block takes BQ = TR RQ query
+// rows and tiles of BK = TK RK keys, one K and one V buffer. MIN_BLOCKS
+// blocks an SM (__launch_bounds__); P_IN_K: the P tile written over the K
+// tile it was computed from (its keys are done with by then), which saves
+// the P tile's shared memory.
+template <int HD_, int THREADS_, int KW_, int RQ_, int RK_, int MIN_BLOCKS_, bool P_IN_K_>
+struct F32Cfg {
+  static constexpr int HD = HD_, THREADS = THREADS_, KW = KW_, RQ = RQ_, RK = RK_;
+  static constexpr int MIN_BLOCKS = MIN_BLOCKS_;
+  static constexpr bool P_IN_K = P_IN_K_;
+  static constexpr int SETS = THREADS / 32 / KW;
+  static constexpr int TR = 4 * SETS, TK = 8 * KW;  // row groups, key groups
+  static constexpr int BQ = TR * RQ;          // query rows a block
+  static constexpr int BK = TK * RK;          // keys a K/V tile
+  static constexpr int RS = HD + 4;           // row stride (floats) of the Q, K and V tiles
+  static constexpr int KV = BK * RS;          // floats of one K (or V) tile
+  // row stride of the P tile: 8 past a multiple of 32 banks, so that the
+  // scalar stores of a warp's 4 rows x 8 keys hit 32 banks; 4 past where P
+  // must fit in a K tile of stride RS (the stores then meet 2-way conflicts)
+  static constexpr int PS = P_IN_K && BK + 8 > RS ? BK + 4 : BK + 8;
+  static constexpr int CPT = HD / TK;           // columns of O a thread
+  static constexpr int VW = CPT >= 4 ? 4 : 2;   // columns of one V load and one O store
+  static constexpr int NV = CPT / VW;           // vectors of columns a thread
+  // floats: Q, K, V, P (unless in K), the sets' exchange (BQ x 2)
+  static constexpr int P_OFF = BQ * RS + 2 * KV;
+  static constexpr int X_OFF = P_OFF + (P_IN_K ? 0 : BQ * PS);
+  static constexpr int SMEM = 4 * (X_OFF + (KW == 2 ? 2 * BQ : 0));
+  static_assert(KW == 1 || KW == 2, "a row's keys in one warp or two");
+  static_assert(THREADS % (32 * KW) == 0 && CPT % VW == 0, "threads do not tile the block");
+  static_assert(!P_IN_K || BQ * PS <= KV, "the P tile does not fit in a K tile");
+  static_assert(fits_sm(MIN_BLOCKS, SMEM), "MIN_BLOCKS blocks do not fit an SM");
+};
+
+// The shape each head dim runs (scripts/flash_f32_variants.py times the others)
 template <int HD>
-constexpr int f32_smem_bytes() {
-  return 4 * (kBQ * (HD + 1) + HD * (kBK + 1) + kBK * HD + kBQ * (kBK + 1));
+struct F32Fwd;
+template <>
+struct F32Fwd<32> : F32Cfg<32, 128, 1, 8, 8, 2, false> {};
+template <>
+struct F32Fwd<64> : F32Cfg<64, 128, 1, 8, 8, 2, false> {};
+template <>
+struct F32Fwd<128> : F32Cfg<128, 256, 2, 8, 8, 1, true> {};
+
+// rows r0 .. r0 + n_rows - 1 of one head (``base`` at its row 0, rows ``rs``
+// floats apart) into a tile of rows RS floats apart by 16-byte cp.async
+// copies (the wrapper hands over operands whose base and strides are 16-byte
+// multiples), rows at or past n zeros
+template <class C>
+__device__ __forceinline__ void rows_async(float* dst, const float* base, long long rs, int r0,
+                                           int n, int n_rows) {
+  for (int i = threadIdx.x; i < n_rows * C::HD / 4; i += C::THREADS) {
+    const int r = i / (C::HD / 4), d = 4 * (i - r * (C::HD / 4));
+    const bool in = r0 + r < n;
+    cp_async16(smem_addr(dst + r * C::RS + d), in ? base + (long long)(r0 + r) * rs + d : base,
+               in);
+  }
 }
 
-template <int HD>
-__global__ void __launch_bounds__(kThreads)
+// 2^x on the special-function unit, results under 2^-126 flushed to 0 (exp2f
+// spends three more instructions a call to keep them)
+__device__ __forceinline__ float ex2_ftz(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// the warps of one set, which hold the same query rows
+template <class C>
+__device__ __forceinline__ void set_sync(int set) {
+  if constexpr (C::KW == 1) {
+    __syncwarp();
+  } else {
+    asm volatile("bar.sync %0, %1;" ::"r"(1 + set), "n"(32 * C::KW) : "memory");
+  }
+}
+
+// s[i][j] = q_i . k_j over hd for the rows ``qg`` + TR i of the Q tile and
+// the keys ``kg`` + TK j of the K tile, four columns a load
+template <class C>
+__device__ __forceinline__ void qk_f32(float (&s)[C::RQ][C::RK], const float* sq,
+                                       const float* sk, int qg, int kg) {
+#pragma unroll
+  for (int i = 0; i < C::RQ; ++i)
+#pragma unroll
+    for (int j = 0; j < C::RK; ++j) s[i][j] = 0.f;
+#pragma unroll 2
+  for (int d = 0; d < C::HD; d += 4) {
+    float4 x[C::RQ], y[C::RK];
+#pragma unroll
+    for (int i = 0; i < C::RQ; ++i)
+      x[i] = *reinterpret_cast<const float4*>(sq + (qg + C::TR * i) * C::RS + d);
+#pragma unroll
+    for (int j = 0; j < C::RK; ++j)
+      y[j] = *reinterpret_cast<const float4*>(sk + (kg + C::TK * j) * C::RS + d);
+#pragma unroll
+    for (int i = 0; i < C::RQ; ++i)
+#pragma unroll
+      for (int j = 0; j < C::RK; ++j) {
+        s[i][j] = fmaf(x[i].x, y[j].x, s[i][j]);
+        s[i][j] = fmaf(x[i].y, y[j].y, s[i][j]);
+        s[i][j] = fmaf(x[i].z, y[j].z, s[i][j]);
+        s[i][j] = fmaf(x[i].w, y[j].w, s[i][j]);
+      }
+  }
+}
+
+// acc[i][c] += sum over the tile's BK keys, in order, of p[row i][key] v[key][col c]
+// for the rows ``qg`` + TR i and the columns (kg + TK m) VW + e; P read four
+// keys a load, V one vector of VW columns a load
+template <class C>
+__device__ __forceinline__ void pv_f32(float (&acc)[C::RQ][C::CPT], const float* sp,
+                                       const float* sv, int qg, int kg) {
+#pragma unroll 2
+  for (int kk = 0; kk < C::BK; kk += 4) {
+    float4 p4[C::RQ];
+#pragma unroll
+    for (int i = 0; i < C::RQ; ++i)
+      p4[i] = *reinterpret_cast<const float4*>(sp + (qg + C::TR * i) * C::PS + kk);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      float vv[C::CPT];
+      const float* vrow = sv + (kk + e) * C::RS;
+#pragma unroll
+      for (int m = 0; m < C::NV; ++m) {
+        if constexpr (C::VW == 4) {
+          const float4 x = *reinterpret_cast<const float4*>(vrow + (kg + C::TK * m) * 4);
+          vv[4 * m] = x.x; vv[4 * m + 1] = x.y; vv[4 * m + 2] = x.z; vv[4 * m + 3] = x.w;
+        } else {
+          const float2 x = *reinterpret_cast<const float2*>(vrow + (kg + C::TK * m) * 2);
+          vv[2 * m] = x.x; vv[2 * m + 1] = x.y;
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < C::RQ; ++i) {
+        const float p = e == 0 ? p4[i].x : e == 1 ? p4[i].y : e == 2 ? p4[i].z : p4[i].w;
+#pragma unroll
+        for (int c = 0; c < C::CPT; ++c) acc[i][c] = fmaf(p, vv[c], acc[i][c]);
+      }
+    }
+  }
+}
+
+template <int HD, class C = F32Fwd<HD>>
+__global__ void __launch_bounds__(C::THREADS, C::MIN_BLOCKS)
 flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ v, float* __restrict__ o, int sq, int skv,
                  int group, long long qsb, long long qss, long long qsh,
                  long long ksb, long long kss, long long ksh, long long vsb,
                  long long vss, long long vsh, long long osb, long long oss,
-                 long long osh, float* __restrict__ lse, float scale, int causal,
+                 long long osh, float* __restrict__ lse, float scale_log2, int causal,
                  int window) {
-  constexpr int QS = HD + 1;   // row stride of the Q tile
-  constexpr int KS = kBK + 1;  // row stride of K^T and P
-  constexpr int CPT = HD / 16; // accumulator columns per thread
-  extern __shared__ float smem[];
-  float* sq_t = smem;
-  float* sk_t = sq_t + kBQ * QS;
-  float* sv_t = sk_t + HD * KS;
-  float* sp_t = sv_t + kBK * HD;
+  static_assert(C::HD == HD, "a shape for another head dim");
+  constexpr int RQ = C::RQ, RK = C::RK, CPT = C::CPT, BQ = C::BQ, BK = C::BK;
+  constexpr int TR = C::TR, TK = C::TK;
+  extern __shared__ __align__(16) float smem[];
+  float* s_q = smem;
+  float* sk = s_q + BQ * C::RS;  // K, and P where P_IN_K
+  float* sv = sk + C::KV;
+  float* s_x = smem + C::X_OFF;  // KW 2: (row, warp of the set) row maxima, then row sums
 
-  const int q0 = blockIdx.x * kBQ;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int kh = h / group;
-  const int tid = threadIdx.x;
-  const int ty = tid >> 4;  // rows ty*4 .. ty*4+3 of the tile
-  const int tx = tid & 15;  // columns tx + 16*j
+  const int h = blockIdx.x, b = blockIdx.y, kh = h / group;
+  const int q0 = ((int)gridDim.z - 1 - (int)blockIdx.z) * BQ;  // longest band first
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  // S: rows qg + TR i, keys kg + TK j; O: rows qg + TR i, columns (kg + TK m) VW + e;
+  // the TK threads of a row are the lanes of the set's warps that share lane >> 3
+  const int set = warp / C::KW, kw = warp % C::KW;
+  const int qg = set * 4 + (lane >> 3), kg = kw * 8 + (lane & 7);
 
-  const float* qb = q + b * qsb + h * qsh;
   const float* kb = k + b * ksb + kh * ksh;
   const float* vb = v + b * vsb + kh * vsh;
 
-  for (int i = tid; i < kBQ * HD; i += kThreads) {
-    const int r = i / HD, d = i - r * HD;
-    const int qpos = q0 + r;
-    sq_t[r * QS + d] = qpos < sq ? qb[qpos * qss + d] : 0.f;
+  // the band of KV tiles some query of this tile can see
+  const int q_last = min(q0 + BQ, sq) - 1;
+  int kt_hi = (skv - 1) / BK;
+  if (causal) kt_hi = min(kt_hi, q_last / BK);
+  int kt_lo = 0;
+  if (window > 0) {
+    const int lo = q0 - window + 1;  // the lowest key any row can see
+    kt_lo = lo > 0 ? lo / BK : 0;
   }
 
-  float m[4], l[4], acc[4][CPT];
+  rows_async<C>(s_q, q + b * qsb + h * qsh, qss, q0, sq, BQ);
+  if (!C::P_IN_K) rows_async<C>(sk, kb, kss, kt_lo * BK, skv, BK);
+  cp_async_commit();
+  // Q times scale log2 e, once: each thread scales what it copied (the loop's
+  // first barrier shows it to the others), so S comes in the log2 domain
+  cp_async_wait<0>();
+  for (int i = tid; i < BQ * C::HD / 4; i += C::THREADS) {
+    const int r = i / (C::HD / 4), d = 4 * (i - r * (C::HD / 4));  // as rows_async copied it
+    float4* x = reinterpret_cast<float4*>(s_q + r * C::RS + d);
+    *x = make_float4(x->x * scale_log2, x->y * scale_log2, x->z * scale_log2, x->w * scale_log2);
+  }
+
+  float m[RQ], l[RQ], acc[RQ][CPT];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = kNegInf;
-    l[i] = 0.f;
+  for (int i = 0; i < RQ; ++i) {
+    m[i] = kNegInfLog2;
+    l[i] = 0.f;  // this thread's keys' share of the row sum
 #pragma unroll
     for (int c = 0; c < CPT; ++c) acc[i][c] = 0.f;
   }
 
-  // the band of KV tiles some query of this tile can see
-  const int q_last = min(q0 + kBQ, sq) - 1;
-  int kt_hi = (skv - 1) / kBK;
-  if (causal) kt_hi = min(kt_hi, q_last / kBK);
-  int kt_lo = 0;
-  if (window > 0) {
-    const int lo = q0 - window + 1;  // the lowest key any row can see
-    kt_lo = lo > 0 ? lo / kBK : 0;
-  }
-
   for (int kt = kt_lo; kt <= kt_hi; ++kt) {
-    const int k0 = kt * kBK;
-    __syncthreads();  // the previous tile's K, V and P are consumed
-    for (int i = tid; i < kBK * HD; i += kThreads) {
-      const int r = i / HD, d = i - r * HD;
-      const int kpos = k0 + r;
-      const bool in = kpos < skv;
-      sk_t[d * KS + r] = in ? kb[kpos * kss + d] : 0.f;
-      sv_t[r * HD + d] = in ? vb[kpos * vss + d] : 0.f;
-    }
-    __syncthreads();
+    const int k0 = kt * BK;
+    __syncthreads();  // tile kt - 1 (its P and V, and K where P was written over it) is done with
+    if (C::P_IN_K) {
+      rows_async<C>(sk, kb, kss, k0, skv, BK);
+      cp_async_commit();
+    }  // else K came during tile kt - 1's P V
+    rows_async<C>(sv, vb, vss, k0, skv, BK);  // in flight during Q K^T
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();  // Q and K are in
 
-    float s[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-#pragma unroll 8
-    for (int d = 0; d < HD; ++d) {
-      float qa[4], kv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) qa[i] = sq_t[(ty * 4 + i) * QS + d];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) kv[j] = sk_t[d * KS + tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) s[i][j] = fmaf(qa[i], kv[j], s[i][j]);
-    }
+    float s[RQ][RK];
+    qk_f32<C>(s, s_q, sk, qg, kg);
 
+    // logits in the log2 domain; the mask only on tiles that straddle the
+    // diagonal, the window's edge or Skv
+    const bool edge = (causal && k0 + BK - 1 > q0) ||
+                      (window > 0 && k0 <= q0 + BQ - 1 - window) || k0 + BK > skv;
+    float mt[RQ];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int qpos = q0 + ty * 4 + i;
-      float mt = -INFINITY;
+    for (int i = 0; i < RQ; ++i) {
+      mt[i] = -INFINITY;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int kpos = k0 + tx + 16 * j;
-        float x = s[i][j] * scale;
-        if (kpos >= skv) {
-          x = -INFINITY;  // not a key: p = 0
-        } else if ((causal && kpos > qpos) || (window > 0 && kpos <= qpos - window)) {
-          x = kNegInf;
+      for (int j = 0; j < RK; ++j) {
+        float x = s[i][j];
+        if (edge) {
+          const int kpos = k0 + kg + TK * j, qpos = q0 + qg + TR * i;
+          if (kpos >= skv) {
+            x = -INFINITY;  // not a key: p = 0
+          } else if ((causal && kpos > qpos) || (window > 0 && kpos <= qpos - window)) {
+            x = kNegInfLog2;
+          }
         }
         s[i][j] = x;
-        mt = fmaxf(mt, x);
+        mt[i] = fmaxf(mt[i], x);
       }
+      // over the 8 lanes of the warp that hold the row
+      mt[i] = fmaxf(mt[i], __shfl_xor_sync(0xffffffffu, mt[i], 1));
+      mt[i] = fmaxf(mt[i], __shfl_xor_sync(0xffffffffu, mt[i], 2));
+      mt[i] = fmaxf(mt[i], __shfl_xor_sync(0xffffffffu, mt[i], 4));
+      if (C::KW == 2 && (lane & 7) == 0) s_x[(qg + TR * i) * 2 + kw] = mt[i];
+    }
+    // V is in, every warp is done with K and (KW 2) the set's two warps
+    // exchange their maxima
+    cp_async_wait<0>();
+    __syncthreads();
+    if constexpr (!C::P_IN_K) {  // the next tile's K comes during this tile's P V
+      if (kt < kt_hi) rows_async<C>(sk, kb, kss, k0 + BK, skv, BK);
+      cp_async_commit();
+    }
+    float* sp = C::P_IN_K ? sk : smem + C::P_OFF;
 #pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
-        mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, off));
-      const float m_new = fmaxf(m[i], mt);
-      const float alpha = expf(m[i] - m_new);
-      float rs = 0.f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float p = expf(s[i][j] - m_new);
-        rs += p;
-        sp_t[(ty * 4 + i) * KS + tx + 16 * j] = p;
-      }
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
-        rs += __shfl_xor_sync(0xffffffffu, rs, off);
-      l[i] = l[i] * alpha + rs;
+    for (int i = 0; i < RQ; ++i) {
+      const int r = qg + TR * i;
+      const float m_new = fmaxf(m[i], C::KW == 2 ? fmaxf(s_x[2 * r], s_x[2 * r + 1]) : mt[i]);
+      const float alpha = ex2_ftz(m[i] - m_new);
       m[i] = m_new;
+      l[i] *= alpha;
 #pragma unroll
       for (int c = 0; c < CPT; ++c) acc[i][c] *= alpha;
+#pragma unroll
+      for (int j = 0; j < RK; ++j) {
+        const float p = ex2_ftz(s[i][j] - m_new);
+        l[i] += p;
+        sp[r * C::PS + kg + TK * j] = p;
+      }
     }
-    __syncthreads();
-
-#pragma unroll 4
-    for (int kk = 0; kk < kBK; ++kk) {
-      float pv[4], vv[CPT];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) pv[i] = sp_t[(ty * 4 + i) * KS + kk];
-#pragma unroll
-      for (int c = 0; c < CPT; ++c) vv[c] = sv_t[kk * HD + tx + 16 * c];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int c = 0; c < CPT; ++c) acc[i][c] = fmaf(pv[i], vv[c], acc[i][c]);
-    }
+    set_sync<C>(set);  // the set's P rows are written
+    pv_f32<C>(acc, sp, sv, qg, kg);
   }
+  cp_async_wait<0>();
 
+  // the row sums: over the 8 lanes, then the set's two warps, in a fixed
+  // order (the other warp read the last tile's maxima before the last
+  // set_sync)
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int qpos = q0 + ty * 4 + i;
+  for (int i = 0; i < RQ; ++i) {
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 4);
+    if (C::KW == 2 && (lane & 7) == 0) s_x[(qg + TR * i) * 2 + kw] = l[i];
+  }
+  if constexpr (C::KW == 2) set_sync<C>(set);
+#pragma unroll
+  for (int i = 0; i < RQ; ++i) {
+    const int r = qg + TR * i, qpos = q0 + r;
     if (qpos >= sq) continue;
-    const float den = fmaxf(l[i], 1e-30f);
+    const float den = fmaxf(C::KW == 2 ? s_x[2 * r] + s_x[2 * r + 1] : l[i], 1e-30f);
     float* orow = o + b * osb + qpos * oss + h * osh;
 #pragma unroll
-    for (int c = 0; c < CPT; ++c) orow[tx + 16 * c] = acc[i][c] / den;
-    // the row's 16 lanes hold the same m and l (reduced by the shuffles)
-    if (lse != nullptr && tx == 0)
-      lse[((long long)b * gridDim.y + h) * sq + qpos] = m[i] + logf(den);
+    for (int mv = 0; mv < C::NV; ++mv) {
+      const int col = (kg + TK * mv) * C::VW;
+      if constexpr (C::VW == 4) {
+        *reinterpret_cast<float4*>(orow + col) =
+            make_float4(acc[i][4 * mv] / den, acc[i][4 * mv + 1] / den,
+                        acc[i][4 * mv + 2] / den, acc[i][4 * mv + 3] / den);
+      } else {
+        *reinterpret_cast<float2*>(orow + col) =
+            make_float2(acc[i][2 * mv] / den, acc[i][2 * mv + 1] / den);
+      }
+    }
+    // every thread of the row holds its m and summed l: one store a row
+    if (lse != nullptr && kw == 0 && (lane & 7) == 0)
+      lse[((long long)b * gridDim.x + h) * sq + qpos] = (m[i] + log2f(den)) * kLn2;
   }
 }
 
-template <int HD>
+template <int HD, class C = F32Fwd<HD>>
 int launch_f32(const void* q, const void* k, const void* v, void* o, float* lse, int b_rows,
                int sq, int skv, int heads, int group, const long long* st, float scale,
                int causal, int window, cudaStream_t stream) {
-  constexpr int smem = f32_smem_bytes<HD>();
-  cudaError_t err = cudaFuncSetAttribute(flash_fwd_kernel<HD>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  const long long n_qt = (sq + C::BQ - 1) / C::BQ;
+  if (n_qt > 65535) return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(flash_fwd_kernel<HD, C>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((unsigned)((sq + kBQ - 1) / kBQ), (unsigned)heads, (unsigned)b_rows);
-  flash_fwd_kernel<HD><<<grid, kThreads, smem, stream>>>(
+  const dim3 grid((unsigned)heads, (unsigned)b_rows, (unsigned)n_qt);
+  flash_fwd_kernel<HD, C><<<grid, C::THREADS, C::SMEM, stream>>>(
       (const float*)q, (const float*)k, (const float*)v, (float*)o, sq, skv, group, st[0],
       st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8], st[9], st[10], st[11], lse,
-      scale, causal, window);
+      scale * kLog2e, causal, window);
   return (int)cudaGetLastError();
 }
 
@@ -593,9 +801,10 @@ int launch_bf16(const void* q, const void* k, const void* v, void* o, float* lse
 // q (B, Sq, H, hd), k and v (B, Skv, K, hd), o (B, Sq, H, hd), all of one
 // dtype (0: f32, 1: bf16), innermost stride 1; strides in elements for the
 // (batch, sequence, head) axes of q, k, v and o (bf16: multiples of 8, with
-// 16-byte aligned bases, for TMA). lse, when not null, is a contiguous (B, H,
-// Sq) f32 output. window <= 0 means none. Returns cudaGetLastError() after
-// the launch.
+// 16-byte aligned bases, for TMA; f32: multiples of 4, with 16-byte aligned
+// bases, for the tile copies and o's 16-byte stores). lse, when not null, is
+// a contiguous (B, H, Sq) f32 output. window <= 0 means none. Returns
+// cudaGetLastError() after the launch.
 extern "C" int g4r_flash_attn_fwd(const void* q, const void* k, const void* v, void* o,
                                   float* lse, int dtype, int b_rows, int sq, int skv, int heads,
                                   int kv_heads, int hd, long long qsb, long long qss,
@@ -662,7 +871,7 @@ int fill_attrs(const void* fn, int smem, int* out) {
 // the instantiation for (dtype, hd) with the shared memory its launcher asks for
 template <int HD>
 int attrs_of(int dtype, int* out) {
-  if (dtype == 0) return fill_attrs((const void*)flash_fwd_kernel<HD>, f32_smem_bytes<HD>(), out);
+  if (dtype == 0) return fill_attrs((const void*)flash_fwd_kernel<HD>, F32Fwd<HD>::SMEM, out);
   if (dtype == 1)
     return fill_attrs((const void*)flash_fwd_kernel_wgmma<HD>, WgmmaShape<HD>::SMEM, out);
   return (int)cudaErrorInvalidValue;

@@ -9,9 +9,11 @@ asked, each row's log-sum-exp (B, H, Sq) f32. f32 or bf16, hd in {32, 64,
 128}, any Sq and Skv. Two kernels, by dtype: bf16 runs on the tensor cores
 (``wgmma``, with K/V tiles brought by TMA; the unnormalised softmax weights p
 are rounded to bf16 before the PV product, the row sums kept from the f32
-p), f32 on the CUDA cores (p kept in f32 throughout). TMA takes only strides
-and base addresses that are multiples of 16 bytes, so a bf16 view that has
-others raises here, before any launch.
+p), f32 on the CUDA cores (p kept in f32 throughout, tiles brought by
+16-byte ``cp.async`` copies). TMA takes only strides and base addresses
+that are multiples of 16 bytes, so a bf16 view that has others raises here,
+before any launch; an f32 view that has others is copied first, by the
+forward's wrapper and the backward's (counted in ``copies``).
 
 The backward replaces no TPU kernel (``repro``'s Pallas kernel has no VJP):
 from q, k, v, the forward's output and LSE and the output's gradient it
@@ -32,7 +34,7 @@ from repro_torch.kernels import build
 HEAD_DIMS = (32, 64, 128)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 TMA_ALIGN = 16  # bytes: TMA's stride and base-address granule
-BF16_BLOCK_Q = 128  # query rows per block of the bf16 kernel
+BLOCK_Q = 128  # query rows per block of either kernel, on the grid's z axis
 MAX_GRID_Z = 65535
 # the backward's kernels, in launch order: D, the dK/dV and dQ tiles (one
 # launch), and "sum" (each gradient element's f32 partials added in order),
@@ -45,6 +47,9 @@ BWD_KERNELS = ("dot", "tiles", "sum")
 # per backward call, one for each kernel of BWD_KERNELS it launches.
 launches = 0
 bwd_launches = 0
+# f32 operands the wrappers copied because their base or strides are off 16
+# bytes (the model's own calls take none; chip_smoke.py checks that)
+copies = 0
 
 
 def bwd_plan(dtype: torch.dtype, B: int, Sq: int, Skv: int, H: int, K: int, hd: int) -> dict:
@@ -109,6 +114,17 @@ def _on_one_card(what: str, *ts: torch.Tensor) -> None:
                          f"{[str(t.device) for t in ts]}")
 
 
+def _aligned_f32(*ts: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+    """The f32 kernels copy 16 bytes at a time: each tensor as it is where
+    its base and strides are 16-byte multiples, else a contiguous copy
+    (counted in ``copies``)."""
+    global copies
+    out = tuple(t if _aligned16(t) else t.clone(memory_format=torch.contiguous_format)
+                for t in ts)
+    copies += sum(a is not t for a, t in zip(out, ts))
+    return out
+
+
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          causal: bool = True, window: Optional[int] = None,
                          with_lse: bool = False
@@ -121,13 +137,15 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _check_qkv(q, k, v, window)
     B, Sq, H, hd = q.shape
     Skv, K = k.shape[1], k.shape[2]
+    if -(-Sq // BLOCK_Q) > MAX_GRID_Z:
+        raise ValueError(f"flash_attention's kernels take Sq <= {BLOCK_Q * MAX_GRID_Z}; "
+                         f"got {Sq}")
     if q.dtype == torch.bfloat16:
-        if -(-Sq // BF16_BLOCK_Q) > MAX_GRID_Z:
-            raise ValueError(f"flash_attention's bf16 kernel takes Sq <= "
-                             f"{BF16_BLOCK_Q * MAX_GRID_Z}; got {Sq}")
         for name, t in (("q", q), ("k", k), ("v", v)):
             _check_tma(name, t)
     _on_one_card("flash_attention", q, k, v)
+    if q.dtype == torch.float32:
+        q, k, v = _aligned_f32(q, k, v)
     out = torch.empty((B, Sq, H, hd), dtype=q.dtype, device=q.device)
     lse = (torch.empty((B, H, Sq), dtype=torch.float32, device=q.device) if with_lse
            else None)
@@ -177,9 +195,8 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return dq, dk.zero_(), dv.zero_()
     if Skv == 0:
         raise ValueError("flash_attention backward: no keys (Skv == 0)")
-    if q.dtype == torch.float32:  # the f32 tile kernels copy 16 bytes at a time
-        q, k, v, do = (t if _aligned16(t) else t.clone(memory_format=torch.contiguous_format)
-                       for t in (q, k, v, do))
+    if q.dtype == torch.float32:
+        q, k, v, do = _aligned_f32(q, k, v, do)
     strides = (ctypes.c_longlong * 15)(*q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
                                        *o.stride()[:3], *do.stride()[:3])
     lib = build.library()

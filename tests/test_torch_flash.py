@@ -14,12 +14,18 @@ f32) at atol 3e-2, ``tests/test_kernels.py``'s bound; and a plain-torch
 emulation of the bf16 kernel's arithmetic (128 x 128 tiles of the block's
 band in order, log2-domain online softmax, the unnormalised p rounded to
 bf16 before PV, l from the f32 p) against the Pallas kernel and the plain
-version at the same 3e-2. The backward: ``attention_bwd_ref`` and the
-dispatcher's autograd against autograd through ``ref.attention_ref`` (f32,
-atol 1e-5) and against ``jax.vjp`` of ``repro``'s oracle, naive and chunked
-(block 64) paths (atol 2e-5), over causal and not, windows, G 1/3/7, hd
-32/64/128 and S 200; in bf16 to 3e-2 of the largest |gradient| (the
-gradients are rounded to bf16, so the error scales with them) against the
+version at the same 3e-2; a plain-torch emulation of the f32 kernel's
+arithmetic (its tiles, q scaled into the log2 domain, exp2 online softmax,
+-1e30 log2 e in the mask and -inf past Skv, the final division and the
+natural-log LSE) against the Pallas kernel and the plain version's output
+and LSE at 1e-5, over causal and not, windows 1 to 64, G 1/3/7, hd
+32/64/128, tails and tiles whose real keys are all masked. The backward:
+``attention_bwd_ref`` and the dispatcher's autograd against autograd
+through ``ref.attention_ref`` (f32, atol 1e-5) and against ``jax.vjp`` of
+``repro``'s oracle, naive and chunked (block 64) paths (atol 2e-5), over
+causal and not, windows, G 1/3/7, hd 32/64/128 and S 200; in bf16 to
+3e-2 of the largest |gradient| (the gradients are rounded to bf16, so the
+error scales with them) against the
 f32 gradients of the same values and ``repro``'s bf16 oracle; the plain
 LSE against ``torch.logsumexp``. A plain-torch emulation of the bf16
 backward kernels' arithmetic (P and dS rounded to bf16 before the
@@ -39,7 +45,9 @@ in another order), at bf16 full-width shapes with tails, at hd 32, 64 and
 128, on a packed strided view and on tiles whose real keys are all masked
 (atol 3e-2: the two round the weights to bf16 at nearly the same place, the
 plain version after normalising, the kernel before), and against the
-emulation; a bf16 view TMA cannot take raises; the forward's LSE against
+emulation; the f32 kernel against its emulation (1e-5, output and LSE), an
+f32 view off 16 bytes copied by the wrapper (counted) to the aligned
+inputs' bits; a bf16 view TMA cannot take raises; the forward's LSE against
 the plain one and its output with and without the LSE bitwise; the
 backward kernel against ``attention_bwd_ref`` on the same hazards (f32 to
 rtol 1e-4 with a floor of 1e-4 of the largest |gradient|: one function
@@ -248,6 +256,92 @@ def test_kernel_arithmetic_on_masked_tiles_and_tails_bf16(S, window, causal):
     mine = kernel_emulation(q, k, v, causal, window)
     plain = ref.attention_ref(q, k, v, causal, window)
     np.testing.assert_allclose(mine.float().numpy(), plain.float().numpy(), atol=BF16_ATOL)
+
+
+def kernel_emulation_f32(q, k, v, causal=True, window=None, block_q=128, block_k=None):
+    """The f32 kernel's arithmetic (``csrc/flash_attn.cu``,
+    ``flash_fwd_kernel``) in plain torch on (B, S, H, hd) f32: per block of
+    ``block_q`` query rows, the ``block_k``-key tiles of the block's band in
+    order; q times scale * log2 e (one f32 constant) before Q K^T, so the
+    logits come in the log2 domain, band-masked ones -1e30 * log2 e, keys
+    past Skv -inf; m from -1e30 * log2 e, alpha =
+    exp2(m_prev - m_new), p = exp2(x - m_new) kept in f32; l gathers p, acc
+    the f32 PV product; out = acc / max(l, 1e-30) and the natural-log LSE
+    (m + log2 max(l, 1e-30)) * ln 2. Returns (out, lse (B, H, Sq)). The
+    kernel's tiles: 128 query rows, and 64 keys at hd 32 and 64, 128 at hd
+    128 (``F32Fwd``)."""
+    B, Sq, H, hd = q.shape
+    block_k = block_k or (128 if hd == 128 else 64)
+    Skv, K = k.shape[1], k.shape[2]
+    log2e = np.float32(np.log2(np.e))
+    c = float(np.float32(np.float32(1.0 / np.sqrt(hd)) * log2e))
+    masked = float(np.float32(-1e30) * log2e)
+    qf = q.float().transpose(1, 2) * c  # (B, H, Sq, hd), in the log2 domain
+    kf = k.float().transpose(1, 2).repeat_interleave(H // K, dim=1)
+    vf = v.float().transpose(1, 2).repeat_interleave(H // K, dim=1)
+    out = torch.empty_like(qf)
+    lse = torch.empty((B, H, Sq))
+    for q0 in range(0, Sq, block_q):
+        rows = torch.arange(q0, min(q0 + block_q, Sq))
+        kt_hi = (Skv - 1) // block_k
+        if causal:
+            kt_hi = min(kt_hi, (q0 + len(rows) - 1) // block_k)
+        lo = q0 - window + 1 if window is not None else 0
+        kt_lo = lo // block_k if lo > 0 else 0
+        m = torch.full((B, H, len(rows), 1), masked)
+        l = torch.zeros((B, H, len(rows), 1))
+        acc = torch.zeros((B, H, len(rows), hd))
+        for kt in range(kt_lo, kt_hi + 1):
+            keys = torch.arange(kt * block_k, (kt + 1) * block_k)
+            real = keys < Skv
+            kk = keys.clamp(max=Skv - 1)
+            x = qf[:, :, rows] @ kf[:, :, kk].transpose(-1, -2)
+            ok = torch.ones((len(rows), block_k), dtype=torch.bool)
+            if causal:
+                ok &= keys[None, :] <= rows[:, None]
+            if window is not None:
+                ok &= keys[None, :] > rows[:, None] - window
+            x = x.masked_fill(~ok, masked).masked_fill(~real, float("-inf"))
+            m_new = torch.maximum(m, x.amax(-1, keepdim=True))
+            alpha = torch.exp2(m - m_new)
+            p = torch.exp2(x - m_new)
+            l = l * alpha + p.sum(-1, keepdim=True)
+            acc = acc * alpha + p @ (vf[:, :, kk] * real[:, None].float())
+            m = m_new
+        den = l.clamp(min=1e-30)
+        out[:, :, rows] = acc / den
+        lse[:, :, rows] = ((m + torch.log2(den)) * float(np.float32(np.log(2.0))))[..., 0]
+    return out.transpose(1, 2), lse
+
+
+# (S, K, G, hd, window, causal): causal and not, windows 16 and 64, G 1 / 3 / 7, hd 32 /
+# 64 / 128, S 200 (a tail), and windows of 1, 5 and 10 keys, under which a row's first tile
+# of the block's band holds real keys that are all masked
+F32_EMU_CASES = [
+    (256, 2, 1, 32, None, True), (256, 1, 3, 64, None, False), (256, 2, 3, 128, 16, True),
+    (128, 1, 7, 64, 64, True), (256, 2, 7, 32, 64, False), (256, 1, 1, 128, None, False),
+    (200, 2, 3, 64, None, True), (200, 1, 7, 128, 64, False), (200, 2, 1, 32, 16, True),
+    (200, 2, 3, 64, 1, True), (300, 1, 3, 128, 10, True), (200, 2, 3, 32, 5, False),
+]
+
+
+@pytest.mark.parametrize("case", F32_EMU_CASES, ids=_case_id)
+def test_kernel_arithmetic_matches_repro_flash_f32(case):
+    """The f32 kernel's numerics pinned on the CPU: the emulation against
+    ``repro``'s Pallas kernel (interpret mode; it asserts S % 128 == 0, so
+    S 200 and 300 skip it) and against the plain version's output and LSE,
+    to 1e-5."""
+    S, K, G, hd, window, causal = case
+    q, k, v = _qkv(S * 3 + hd + G, 2, S, K, G, hd)
+    mine, mine_lse = kernel_emulation_f32(_t(q), _t(k), _t(v), causal, window)
+    assert torch.isfinite(mine).all() and torch.isfinite(mine_lse).all()
+    want, want_lse = ref.attention_fwd_ref(_t(q), _t(k), _t(v), causal, window)
+    np.testing.assert_allclose(mine.numpy(), want.numpy(), rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(mine_lse.numpy(), want_lse.numpy(), rtol=1e-5, atol=1e-5)
+    if S % 128 == 0:
+        pallas = jax_ops.flash_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                                         causal=causal, window=window)
+        np.testing.assert_allclose(mine.numpy(), np.asarray(pallas), rtol=1e-5, atol=1e-5)
 
 
 @pytest.fixture(scope="module")
@@ -557,6 +651,31 @@ class TestOnCard:
         torch.cuda.synchronize()
         assert got.dtype == torch.bfloat16
         torch.testing.assert_close(got.float(), want.float(), rtol=0, atol=BF16_ATOL)
+
+    @pytest.mark.parametrize("case", F32_EMU_CASES, ids=_case_id)
+    def test_kernel_matches_its_emulation_f32(self, cuda, case):
+        S, K, G, hd, window, causal = case
+        q, k, v = _on(cuda, _qkv(S * 3 + hd + G, 2, S, K, G, hd))
+        got, lse = flash_attention_cuda(q, k, v, causal, window, with_lse=True)
+        want, want_lse = kernel_emulation_f32(q.cpu(), k.cpu(), v.cpu(), causal, window)
+        torch.testing.assert_close(got.cpu(), want, rtol=1e-5, atol=1e-5)
+        torch.testing.assert_close(lse.cpu(), want_lse, rtol=1e-5, atol=1e-5)
+
+    @pytest.mark.parametrize("which", ["q", "k", "v"])
+    def test_kernel_reads_views_off_16_bytes_f32(self, cuda, which):
+        """An f32 view 4 bytes past a 16-byte boundary, which the wrapper
+        copies (``copies``) for the kernel's 16-byte loads: output and LSE
+        bitwise those of the aligned inputs."""
+        q, k, v = _on(cuda, _qkv(19, 2, 200, 2, 3, 64))
+        want, want_lse = flash_attention_cuda(q, k, v, True, 48, with_lse=True)
+        ins = {"q": q, "k": k, "v": v}
+        t = ins[which]
+        ins[which] = torch.cat([torch.zeros(1, device=cuda), t.flatten()])[1:].view(t.shape)
+        assert ins[which].data_ptr() % 16 == 4 and torch.equal(ins[which], t)
+        n = fa_mod.copies
+        got, lse = flash_attention_cuda(ins["q"], ins["k"], ins["v"], True, 48, with_lse=True)
+        assert fa_mod.copies == n + 1
+        assert torch.equal(got, want) and torch.equal(lse, want_lse)
 
     def test_kernel_reads_strided_views(self, cuda):
         """q, k, v sliced out of one packed (B, S, H + 2K, hd) tensor."""
