@@ -85,12 +85,11 @@ nothing of JAX or of the JAX package ``repro``. Phases, each failing loudly:
    interpreter lock with);
    ``mp_training``, the same host path (attribution on) on three graph
    engines in turns (inproc, mp at the default local threshold 8,192, mp
-   at 0 so every sampling round crosses to a worker process; then the
-   reverse order), two workers, ``os.cpu_count()`` beside them: pairs/s,
+   at 0 so every sampling round crosses to a worker process), two workers, ``os.cpu_count()`` beside them: pairs/s,
    the per-step split with thread CPU, the device span, local against
    worker rounds, pickled replies, slab high-water, the workers' start
    time, resident sets and torch imports, ``/dev/shm``'s free bytes; the
-   six runs' 200 losses bitwise equal, launches equal to the in-process
+   three runs' 200 losses bitwise equal, launches equal to the in-process
    run's and the training phase's; then 60 mp steps with health and
    telemetry on (every worker answering its heartbeats, worker serve spans
    in the trace under ``build/chip_smoke/``) and ``train_torch.py
@@ -120,7 +119,7 @@ nothing of JAX or of the JAX package ``repro``. Phases, each failing loudly:
    prefill vs decode on 4 prompts of 256 tokens (relative max), held
    to 3e-2 in bf16 and to 1e-4 with the same weights in f32, beside each
    bf16 path's distance to f32; ``BatchedServer`` (batch 8, 32 new tokens,
-   cache 256) twice on 16 requests of 8-64 tokens, greedy outputs equal,
+   cache 256) twice on 8 requests of 8-64 tokens, greedy outputs equal,
    and the tokens the requests hold (prompts and outputs) per second;
    the reduced model in f32, card vs CPU under deterministic algorithms,
    forward and 16 decode steps to rtol/atol 1e-4;
@@ -163,6 +162,27 @@ nothing of JAX or of the JAX package ``repro``. Phases, each failing loudly:
    f32, card vs CPU (forward and 16 decode steps to 1e-4), and the reduced
    Jamba's 5 training steps at lr 1e-5, card vs CPU to 1e-4 and card twice
    bitwise;
+6e. Qwen2-VL and Whisper through the same entry points (seed 0):
+   ``lm_vlm``, Qwen2-VL-7B at full width and depth (28 layers, 28 heads
+   over 4 KV heads at hd 128, bf16, weights drawn on the card): the
+   prefill (B 4 x S 2,048, the 1,024 patch embeddings over the span after
+   BOS, 28 ``flash_attention`` launches a forward) with the flash share of
+   a profiled forward; ``BatchedServer`` twice on text, equal; text-only
+   prefill vs decode on 4 x 256 tokens (M-RoPE ids (t, t, t)), 1e-4 in f32
+   (the model turned f32 in place) and 3e-2 in bf16; the reduced model in
+   f32 card vs CPU, forward with patches at 3-D ids and 16 decode steps;
+   training at full width cut to 2 layers, 10 steps as 6c (2 microbatches
+   a step: 8 flash forwards and 4 backward calls), and the reduced model's
+   5 steps at lr 1e-5 card vs CPU and card twice bitwise;
+   ``lm_whisper``, Whisper-tiny at full width and depth (4 + 4 layers, hd
+   64, bf16): the prefill (B 8 x 1,500 frames and 448 tokens, 8 launches a
+   forward: 4 non-causal, 4 causal) with the encoder's and decoder's device
+   time; teacher forcing vs 64 decode steps on 4 requests, 1e-4 in f32 and
+   3e-2 in bf16; greedy serving of 8 requests (4 prompt tokens, 64 new,
+   cache 448) twice, equal; full width in f32 card vs CPU (encoder states,
+   decoder logits, 16 decode steps to 1e-4); the reduced config (hd 24)
+   refused by the flash wrapper on the card; training B 8 x 448 tokens, 20
+   steps as 6c, ``enc_pos`` a bf16 parameter before step 1 and f32 after;
 7. the launch floor: the time ``measure`` reports for an empty kernel of
    the same library, one block and one wave of blocks, on a line of its own;
    then kernel phases: each kernel against its plain PyTorch version on the
@@ -176,14 +196,16 @@ nothing of JAX or of the JAX package ``repro``. Phases, each failing loudly:
    call of the three IVF runs, rows exactly, with the launch plan each took,
    and a synthetic call past a cluster's shared memory on the kernel's
    global path; ``flash_attention``: the LM
-   prefills' recorded calls (smollm's, OLMoE's, Jamba's), bf16 to atol 3e-2 and to 2^-4 of each output
+   prefills' recorded calls (smollm's, OLMoE's, Jamba's, Qwen2-VL's and
+   Whisper's encoder and decoder), bf16 to atol 3e-2 and to 2^-4 of each output
    row's largest value, with the output's max and median |value| printed
    beside the errors; ``topk``: every call of the serving path and the 1M
    arm, each shape's launch plan (query tile, splits = cluster size,
    blocks), and the U2I call with fewer exclusions and a smaller k, to
    show where its time goes; ``inbatch_loss``: every kept call, bitwise on
    a re-run; ``flash_attention_bwd``: the first LM training call of each
-   dtype (smollm's, OLMoE's) against ``attention_bwd_ref``, f32 to rtol 1e-4, bf16 to 2^-6 of
+   shape and dtype (smollm's, OLMoE's, Qwen2-VL's, Whisper's encoder and
+   decoder) against ``attention_bwd_ref``, f32 to rtol 1e-4, bf16 to 2^-6 of
    each row's largest value, a bitwise re-run, beside the backward of
    ``scaled_dot_product_attention`` through autograd), then (``seg_aggr``,
    ``topk``, ``inbatch_loss``, ``window_pairs``, ``flash_attention``) at
@@ -1591,9 +1613,10 @@ def _cli_workers() -> dict:
 
 def mp_training(torch, np, modules, tr: dict) -> dict:
     """The host training path on the in-process engine and on the graph
-    service, in one process, in turns (inproc, mp 8192, mp 0, mp 0, mp 8192,
-    inproc): UB, 200 sparse steps of 512 pairs, prefetch 2, two workers,
-    attribution on. Losses bitwise equal across all six, launches equal the
+    service, in one process, in turns (inproc, mp 8192, mp 0; each ran
+    twice, in both orders, until the run's time neared its limit): UB, 200
+    sparse steps of 512 pairs, prefetch 2, two workers, attribution on.
+    Losses bitwise equal across all three, launches equal the
     in-process run's, every round of ``mp_0`` served by a worker and no
     worker importing torch; then a short mp run with health and telemetry on
     (every worker answering its heartbeats, worker serve spans in the
@@ -1608,7 +1631,7 @@ def mp_training(torch, np, modules, tr: dict) -> dict:
     shm_before = shm_free_bytes()
     runs: dict = {name: [] for name in MP_CASES}
     losses0 = launches0 = None
-    for name in ("inproc", "mp_8192", "mp_0", "mp_0", "mp_8192", "inproc"):
+    for name in ("inproc", "mp_8192", "mp_0"):
         backend, threshold = MP_CASES[name]
         _zero(modules)
         res = train_torch.run(_mp_args(train_torch, backend, threshold, 200, "--attribution"),
@@ -2109,17 +2132,21 @@ FLASH_BWD_RTOL = 1e-4
 # the training forward's LSE (m + log l, f32, values ~1e1) against attention_fwd_ref's
 # logsumexp: the same f32 logits, the row sum in another order
 FLASH_LSE_RTOL = FLASH_LSE_ATOL = 1e-5
-# The bf16 kernel rounds P and dS to bf16 before its products (the wgmma's operands), which
-# the plain version does not: tests/test_torch_flash.py emulates that arithmetic on the CPU and
-# reads at most 8.0e-3 (2^-6.97) against the plain version at its backward cases and at
-# smollm's training layout (S 512), 7.8e-3 at starcoder2's hd 128 and 4,096 window, so the
-# bound stands with a margin of 1.95 there; a 64-key tile dropped at that window's edge, or its
-# mask skipped, reads 0.36 and 0.50, 23x and 32x the bound
-# (test_backward_row_bound_catches_window_edge_faults). On the card each bf16 call is also
+# The bf16 kernel rounds P to bf16 before its product and feeds dS as two bf16 parts (hi and
+# the rest; the wgmma's operands), which the plain version does not: tests/test_torch_flash.py
+# emulates that arithmetic on the CPU and reads at most 7.8e-3 (2^-7: dV's P and the outputs'
+# own rounding) against the plain version at its backward cases, at smollm's training layout
+# (S 512) and at starcoder2's hd 128 and 4,096 window, so the bound stands with a margin of 2;
+# a 64-key tile dropped at that window's edge, or its mask skipped, reads 0.51 and 0.38, 33x
+# and 24x the bound (test_backward_row_bound_catches_window_edge_faults). dS rounded to bf16
+# once read 0.060 on dK and 0.022 on dQ at Whisper's decoder at step 1, in the emulation as
+# on the card: keys (queries) sharing a large part cancel it exactly in dQ (dK), and one
+# rounding of dS leaves it in (tests/test_torch_whisper.py::
+# test_bf16_backward_arithmetic_holds_shared_parts). On the card each bf16 call is also
 # held to the emulation run on its own inputs (bwd_kernel_emulation, the same bound), and the
 # emulation's distance to the plain version is recorded beside the kernel's: where the
-# kernel reads more than on random data (dq at the LM training call, on the model's step-1
-# inputs), that reading says whether the arithmetic or the kernel makes the difference
+# kernel reads more than on random data, that reading says whether the arithmetic or the
+# kernel makes the difference
 FLASH_BWD_BF16_ROW_REL = 2.0 ** -6
 FLASH_BWD_ROW_FLOOR = 2.0 ** -10
 FLASH_SYNTHETIC = (  # ((B, S, H, K, hd), dtype, causal, window)
@@ -2159,18 +2186,22 @@ def flash_bwd_ok(got, want) -> bool:
                           atol=FLASH_BWD_RTOL * want.abs().max().item())
 
 
-def bwd_kernel_emulation(q, k, v, o, lse, do, causal=True, window=None, band=None):
+def bwd_kernel_emulation(q, k, v, o, lse, do, causal=True, window=None, band=None,
+                         ds_split=True):
     """The bf16 backward kernel's arithmetic (``flash_bwd_tiles_wgmma`` in
     ``csrc/flash_attn_bwd.cu``) in plain torch, on the inputs' device, one
     query head at a time: from (B, S, H, hd) bf16 q, k, v, o, dO and the
     forward's f32 lse, D = rowsum(dO o O) in f32; S and dP in f32 from the
     bf16 products; P = exp2(S scale log2 e - lse log2 e) in the band, else
-    0; dS = P o (dP - D); P and dS rounded to bf16 before their products
-    (the wgmmas' register operands), the products summed in f32; each query
+    0; dS = P o (dP - D); P rounded to bf16 before its product, dS split
+    into hi = bf16(dS) and lo = bf16(dS - hi), each multiplied (the wgmmas'
+    register operands), the products summed in f32; each query
     head's dK and dV, then the G partials summed in order g = 0 .. G-1 (the
     sum pass; a grid the kernel splits adds more partials, in another
-    order); every output rounded to bf16 once, dQ and dK after the scale. ``band``, an (Sq, Skv) bool tensor, replaces the causal / window
-    band (a fault to inject)."""
+    order); every output rounded to bf16 once, dQ and dK after the scale.
+    ``band``, an (Sq, Skv) bool tensor, replaces the causal / window band
+    (a fault to inject); ``ds_split=False`` rounds dS to bf16 once instead
+    (the arithmetic before the split)."""
     import numpy as np
     import torch
 
@@ -2196,9 +2227,10 @@ def bwd_kernel_emulation(q, k, v, o, lse, do, causal=True, window=None, band=Non
                 lse2 = (lse[b, h].float() * log2e)[:, None]
                 p = torch.where(ok, torch.exp2((qf @ kf.T) * c - lse2), 0.0)
                 ds = p * (dof @ vf.T - dd[b, :, h, None])
-                pb, dsb = p.bfloat16().float(), ds.bfloat16().float()
-                dq[b, :, h] = ((dsb @ kf) * scale).bfloat16()
-                pk, pv = dsb.T @ qf, pb.T @ dof
+                pb, dsh = p.bfloat16().float(), ds.bfloat16().float()
+                dsl = (ds - dsh).bfloat16().float() if ds_split else torch.zeros_like(dsh)
+                dq[b, :, h] = (((dsh @ kf) + (dsl @ kf)) * scale).bfloat16()
+                pk, pv = (dsh.T @ qf) + (dsl.T @ qf), pb.T @ dof
                 sk, sv = (pk, pv) if g == 0 else (sk + pk, sv + pv)
             dk[b, :, kh] = (sk * scale).bfloat16()
             dv[b, :, kh] = sv.bfloat16()
@@ -2311,12 +2343,25 @@ def _route_compare(torch, pre: list, dec: list, tie: float, log_ratio: bool = Fa
     return out
 
 
+def _text_prefill(torch, T, spec, model, tokens):
+    """``make_prefill`` on text alone. Qwen2-VL's prefill merges patches;
+    its text alone runs the same stack at M-RoPE ids (i, i, i), which are
+    what its decode step gives position i."""
+    if spec.kind != "vlm":
+        return spec.make_prefill()(model, {"tokens": tokens})
+    B, S = tokens.shape
+    pos = torch.arange(S, dtype=torch.int32, device=tokens.device)[None, :, None].expand(B, S, 3)
+    with torch.no_grad():
+        x, _ = T.hidden_states(model, spec.lm, tokens, positions=pos)
+        return T._mask_padded_vocab(spec.lm, x[:, -1, :] @ model.head())
+
+
 def _prefill_decode(torch, np, T, moe_mod, spec, model, prompts):
     """The last prefill logits and the last of S decode steps on the same
     prompts, with each path's MoE routes."""
     pre, dec = [], []
     with moe_routes(torch, moe_mod, pre):
-        full = spec.make_prefill()(model, {"tokens": prompts})
+        full = _text_prefill(torch, T, spec, model, prompts)
     with moe_routes(torch, moe_mod, dec):
         last, dec_s = _decode_all(torch, T, model, spec.lm, prompts)
     return full, last, dec_s, pre, dec
@@ -2379,23 +2424,30 @@ def lm_consistency(torch, np, spec, model, prompts, phase: str, in_place_f32=Fal
 
 
 def lm_prefill(torch, np, fa_mod, arch: str, batch: int, seq: int, phase: str,
-               layers: int = 0, draw_on_device: bool = False) -> dict:
+               layers: int = 0, draw_on_device: bool = False,
+               profile_required: bool = True) -> dict:
     """The prefill through ``examples/serve_lm_torch.py``'s ``run`` at full
-    width (``make_prefill`` on B x S tokens from ``default_rng(0)``, a
+    width (``make_prefill`` on B x S tokens from ``default_rng(0)``, with
+    Qwen2-VL's patch or Whisper's frame embeddings drawn after them, a
     warm-up and 5 timed forwards; ``flash_attention`` launches zeroed
-    before, read after, one a forward per attention layer; the first call
-    of each shape recorded), then one profiled forward: its device time,
-    the flash kernel's share and, for a MoE arch, the share of the MoE
-    layers (routing, dispatch, the expert einsums and the combine), beside
+    before, read after, one a forward per attention layer (Whisper: each
+    encoder and decoder layer); the first call of each shape recorded),
+    then one profiled forward: its device time, the flash kernel's share
+    and, for a MoE arch, the share of the MoE layers (routing, dispatch,
+    the expert einsums and the combine), for Whisper the encoder's, beside
     the forward's host wall. A MoE arch also records each layer's input in
     the first timed forward, and the share of token choices its capacity
-    drops. Returns the record with the spec, model and recorded inputs."""
+    drops. Without ``profile_required`` a profile that keeps too few flash
+    records in ``CUPTI_TRIES`` tries is reported with its counts and no
+    device times, instead of failing the run. Returns the record with the
+    spec, model, the prefill's batch and recorded inputs."""
     import serve_lm_torch
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.configs import get_arch
     from repro_torch.kernels import ops
     from repro_torch.models import moe as moe_mod
+    from repro_torch.models import whisper as whisper_mod
 
     argv = ["--arch", arch, "--batch", str(batch), "--prefill-len", str(seq),
             "--tokens", "0", "--seed", "0", "--layers", str(layers)]
@@ -2404,7 +2456,9 @@ def lm_prefill(torch, np, fa_mod, arch: str, batch: int, seq: int, phase: str,
     calls: list = []
     routes: list = []  # the warm-up forward's, so that no timed forward routes twice
     first_moe: dict = {}  # the first MoE call's (p, cfg, x): layer 0's input
-    n_moe = sum(f == "moe" for _, f in get_arch(arch).lm.block_list()[:layers or None])
+    full = get_arch(arch)
+    n_moe = 0 if full.kind == "whisper" else sum(
+        f == "moe" for _, f in full.lm.block_list()[:layers or None])
     fa_mod.launches = 0
     t0 = time.perf_counter()
     with recording(ops, "flash_attention", calls), moe_routes(torch, moe_mod, routes, n_moe):
@@ -2417,8 +2471,9 @@ def lm_prefill(torch, np, fa_mod, arch: str, batch: int, seq: int, phase: str,
     launches = fa_mod.launches
     calls = first_of_each_shape(calls, _flash_key)
     spec, model = res["spec"], res["model"]
-    cfg = spec.lm
-    n_attn = sum(m == "attn" for m, _ in cfg.block_list())
+    whisper = spec.kind == "whisper"
+    cfg = spec.whisper if whisper else spec.lm
+    n_attn = 2 * cfg.n_layers if whisper else sum(m == "attn" for m, _ in cfg.block_list())
     if launches != n_attn * res["prefill_forwards"]:
         fail(f"{phase}: {launches} flash_attention launches in {res['prefill_forwards']} "
              f"forwards of {n_attn} attention layers")
@@ -2432,27 +2487,42 @@ def lm_prefill(torch, np, fa_mod, arch: str, batch: int, seq: int, phase: str,
            "launches": {"flash_attention": launches}, "forwards": res["prefill_forwards"],
            "launches_per_forward": launches / res["prefill_forwards"],
            "prefill_s": res["prefill_s"], "prefill_tokens_per_s": res["prefill_tokens_per_s"]}
+    pbatch = res["prefill_batch"]
+    if spec.kind == "vlm":
+        out["patches"] = spec.n_patches
+    if whisper:
+        out["audio_frames"] = pbatch["audio_embeds"].shape[1]
     if n_moe:
         kept = torch.cat([r[2].flatten() for r in routes]).float()
         out["capacity_factor"] = cfg.moe.capacity_factor
         out["dropped_choice_share"] = 1.0 - kept.mean().item()
 
     prefill = spec.make_prefill()
-    toks = torch.from_numpy(np.random.default_rng(0).integers(
-        0, cfg.vocab, size=(batch, seq))).to("cuda")
+    labels = ("moe_forward", "whisper_encode")
+    kept = []
     for _ in range(CUPTI_TRIES):  # until the profile keeps the kernel's records
-        with annotated(torch, moe_mod, "moe_forward", "moe_forward"), profile(
+        torch.cuda.synchronize()
+        with annotated(torch, moe_mod, "moe_forward", labels[0]), annotated(
+                torch, whisper_mod, "encode", labels[1]), profile(
                 activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            prefill(model, {"tokens": toks})
+            prefill(model, pbatch)
             torch.cuda.synchronize()
         dev = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA and e.key != "moe_forward"]
+               if e.device_type == torch.autograd.DeviceType.CUDA and e.key not in labels]
         # flash_fwd_kernel (f32) and flash_fwd_kernel_wgmma (bf16)
         flash = [e for e in dev if "flash_fwd_kernel" in e.key]
-        if sum(e.count for e in flash) == n_attn:
+        kept.append(sum(e.count for e in flash))
+        if kept[-1] == n_attn:
             break
     else:
-        fail(f"{phase}: {CUPTI_TRIES} profiles of the forward lost flash_attention records")
+        if profile_required:
+            fail(f"{phase}: {CUPTI_TRIES} profiles of the forward kept {kept} flash_attention "
+                 f"records of {n_attn}")
+        out.update(profile_flash_records_kept=kept, profile_flash_records_launched=n_attn)
+        emit(out)
+        out.update(spec=spec, model=model, toks=pbatch["tokens"], batch_inputs=pbatch,
+                   calls=calls, first_moe=first_moe.get(0))
+        return out
     total_us = sum(e.self_device_time_total for e in dev)
     flash_us = sum(e.self_device_time_total for e in flash)
     # the forward's device time beside its host wall (the median timed
@@ -2462,23 +2532,30 @@ def lm_prefill(torch, np, fa_mod, arch: str, batch: int, seq: int, phase: str,
                flash_share=flash_us / total_us, forward_host_ms=host_ms,
                paced_by="host" if host_ms > total_us / 1e3 else "card")
     if n_moe:
-        moe_us = _annotated_device_us(prof, "moe_forward")
+        moe_us = _annotated_device_us(prof, labels[0])
         out.update(moe_device_ms=moe_us / 1e3, moe_share=moe_us / total_us)
+    if whisper:
+        enc_us = _annotated_device_us(prof, labels[1])
+        out.update(encoder_device_ms=enc_us / 1e3, decoder_device_ms=(total_us - enc_us) / 1e3,
+                   encoder_share=enc_us / total_us)
     emit(out)
-    out.update(spec=spec, model=model, toks=toks, calls=calls, first_moe=first_moe.get(0))
+    out.update(spec=spec, model=model, toks=pbatch["tokens"], batch_inputs=pbatch, calls=calls,
+               first_moe=first_moe.get(0))
     return out
 
 
-def lm_serving(torch, np, spec, model, phase: str) -> dict:
-    """``BatchedServer`` (batch 8, 32 new tokens, cache 256) twice on 16
-    requests of 8-64 tokens from ``default_rng(0)``: greedy outputs equal
-    across the runs, and the tokens the requests hold per second."""
+def lm_serving(torch, np, spec, model, phase: str, requests: int = 16) -> dict:
+    """``BatchedServer`` (batch 8, 32 new tokens, cache 256) twice on
+    ``requests`` requests of 8-64 tokens from ``default_rng(0)``: greedy
+    outputs equal across the runs, and the tokens the requests hold per
+    second. (The smollm, OLMoE and Mamba2 paths serve 8, one batch, since the
+    Qwen2-VL and Whisper phases took the run near its time limit.)"""
     from repro_torch.serve import BatchedServer, ServeConfig
 
     cfg = spec.lm
     rng = np.random.default_rng(0)
     prompts = [rng.integers(0, cfg.vocab, size=int(n)).tolist()
-               for n in rng.integers(8, 65, size=16)]
+               for n in rng.integers(8, 65, size=requests)]
     scfg = ServeConfig(batch_size=8, max_new_tokens=32, cache_len=256)
     outs, times = [], []
     for _ in range(2):
@@ -2491,13 +2568,13 @@ def lm_serving(torch, np, spec, model, phase: str) -> dict:
         fail(f"{phase}: two greedy runs of the same requests differ")
     if any(len(o) != 32 or not all(0 <= t < cfg.vocab for t in o) for o in outs[0]):
         fail(f"{phase}: an output is not 32 in-vocabulary tokens")
-    steps = sum(max(len(p) for p in prompts[lo:lo + 8]) + 31 for lo in (0, 8))
+    steps = sum(max(len(p) for p in prompts[lo:lo + 8]) + 31 for lo in range(0, requests, 8))
     # the tokens the requests hold: each prompt and what it generated (a
     # shorter prompt's row repeats its last token until the batch's longest
     # prompt is in, and those repeats are not counted), over both runs' wall
     served = sum(len(p) + len(o) for p, o in zip(prompts, outs[0]))
     generated = sum(len(o) for o in outs[0])
-    serve = {"phase": phase, "arch": spec.arch_id, "requests": 16, "batch": 8,
+    serve = {"phase": phase, "arch": spec.arch_id, "requests": requests, "batch": 8,
              "new_tokens": 32, "prompt_lens": [len(p) for p in prompts], "decode_steps": steps,
              "serve_s": times, "identical": True,
              "decode_tokens_per_s": 2 * served / sum(times),
@@ -2509,22 +2586,34 @@ def lm_serving(torch, np, spec, model, phase: str) -> dict:
 
 def lm_card_vs_cpu(torch, np, arch: str, phase: str) -> dict:
     """The reduced ``arch`` in f32 from the port's seed-0 init, on the card
-    vs the CPU under deterministic algorithms: the forward and 16 decode
-    steps to rtol/atol ``LM_RTOL`` / ``LM_ATOL``."""
+    vs the CPU under deterministic algorithms: the forward (Qwen2-VL's with
+    its patches merged, at 3-D M-RoPE ids) and 16 decode steps to
+    rtol/atol ``LM_RTOL`` / ``LM_ATOL``."""
     import copy
 
     from repro_torch.configs import get_arch
+    from repro_torch.models import qwen2_vl as vlm_mod
     from repro_torch.models import transformer as T
 
     red = get_arch(arch, reduced=True)
     m_cpu = red.init_params(torch.Generator().manual_seed(0), "cpu")
     m_gpu = copy.deepcopy(m_cpu).to("cuda")
-    t_cpu = torch.from_numpy(np.random.default_rng(1).integers(0, red.lm.vocab, size=(2, 64)))
+    rng = np.random.default_rng(1)
+    t_cpu = torch.from_numpy(rng.integers(0, red.lm.vocab, size=(2, 64)))
+    patches = (torch.from_numpy((rng.normal(size=(2, red.n_patches, red.lm.d_model)) * 0.02)
+                                .astype(np.float32)) if red.kind == "vlm" else None)
+
+    def forward(m, toks, p):
+        if p is None:
+            return T.forward(m, red.lm, toks)[0]
+        x, pos = vlm_mod.vlm_forward_inputs(m, red.lm, toks, p, red.grid_hw)
+        return T.forward(m, red.lm, inputs_embeds=x, positions=pos)[0]
+
     torch.use_deterministic_algorithms(True)
     try:
         with torch.no_grad():
-            got = T.forward(m_gpu, red.lm, t_cpu.cuda())[0].cpu()
-            want = T.forward(m_cpu, red.lm, t_cpu)[0]
+            got = forward(m_gpu, t_cpu.cuda(), None if patches is None else patches.cuda()).cpu()
+            want = forward(m_cpu, t_cpu, patches)
         if not torch.allclose(got, want, rtol=LM_RTOL, atol=LM_ATOL):
             fail(f"{phase}: forward logits differ by {(got - want).abs().max().item()}")
         diffs = [got - want]
@@ -2539,7 +2628,7 @@ def lm_card_vs_cpu(torch, np, arch: str, phase: str) -> dict:
     finally:
         torch.use_deterministic_algorithms(False)
     conf = {"phase": phase, "arch": red.arch_id, "dtype": red.lm.dtype,
-            "tokens": [2, 64], "decode_steps": 16,
+            "tokens": [2, 64], "patches": red.n_patches, "decode_steps": 16,
             "max_abs_diff": max(d.abs().max().item() for d in diffs),
             "rtol": LM_RTOL, "atol": LM_ATOL}
     emit(conf)
@@ -2551,13 +2640,13 @@ def lm_path(torch, np, fa_mod) -> dict:
     weights from the port's init, seed 0): ``lm_prefill`` (B 4 x S 2,048,
     30 ``flash_attention`` launches a forward), prefill vs decode on
     256-token prompts (bf16 and the same weights in f32), ``BatchedServer``
-    twice on 16 requests, and the reduced model in f32 on the card vs the
+    twice on 8 requests, and the reduced model in f32 on the card vs the
     CPU."""
     out = lm_prefill(torch, np, fa_mod, LM_ARCH, LM_BATCH, LM_SEQ, "lm prefill")
     spec, model, toks = out.pop("spec"), out.pop("model"), out.pop("toks")
     out.pop("first_moe")
     cons = lm_consistency(torch, np, spec, model, toks[:, :256].contiguous(), "lm consistency")
-    serve = lm_serving(torch, np, spec, model, "lm serving")
+    serve = lm_serving(torch, np, spec, model, "lm serving", requests=8)
     conf = lm_card_vs_cpu(torch, np, LM_ARCH, "lm card vs cpu")
     out.update(consistency=cons, serving=serve, card_vs_cpu=conf)
     del model, spec
@@ -2623,14 +2712,16 @@ def _lm_conformance(torch, np, arch: str, lr: float) -> dict:
 
 
 def lm_train_phase(torch, np, fa_mod, arch: str, steps: int, phase: str, layers: int = 0,
-                   trend_gate: bool = False, profile_required: bool = True) -> dict:
+                   trend_gate: bool = False, profile_required: bool = True,
+                   batch: int = LM_BATCH, seq: int = LM_SEQ) -> dict:
     """LM training at full width through ``repro_torch.launch.train``'s
-    ``run`` (B 4 x S 2,048, the prefill's shape; lr 3e-4, seed 0; bf16
-    weights from the port's init, which Adam turns f32 at step 1 as
-    ``repro``'s does), cut to ``layers`` if given: launches zeroed before
-    and read after each step (per step ``flash_attention`` one forward per
-    attention layer, twice with remat, and as many backward calls of
-    ``bwd_plan``'s launches in the step's dtype), every parameter f32
+    ``run`` (B ``batch`` x S ``seq``, by default the prefill's 4 x 2,048; lr
+    3e-4, seed 0; bf16 weights from the port's init, which Adam turns f32
+    at step 1 as ``repro``'s does), cut to ``layers`` if given: launches
+    zeroed before and read after each step (per step and microbatch
+    ``flash_attention`` one forward per attention layer (Whisper: each
+    encoder and decoder layer), twice with remat, and as many backward
+    calls of ``bwd_plan``'s launches in the step's dtype), every parameter f32
     after step 1 (a MoE router f32 from the start, its aux loss finite in
     every call), the loss falling: the first step's batch scored again
     after the last step below its first loss (and with ``trend_gate`` the
@@ -2650,7 +2741,7 @@ def lm_train_phase(torch, np, fa_mod, arch: str, steps: int, phase: str, layers:
     from repro_torch.models import moe as moe_mod
 
     args = lm_train.parser().parse_args(
-        ["--arch", arch, "--batch", str(LM_BATCH), "--seq", str(LM_SEQ), "--layers", str(layers),
+        ["--arch", arch, "--batch", str(batch), "--seq", str(seq), "--layers", str(layers),
          "--steps", str(steps), "--lr", str(LM_TRAIN_LR), "--seed", "0"])
     per_step, dtypes = [], []
     seen = {"fwd": 0, "bwd": 0}
@@ -2679,18 +2770,27 @@ def lm_train_phase(torch, np, fa_mod, arch: str, steps: int, phase: str, layers:
         restore()
         moe_mod.moe_forward = real_moe
     spec, model = res["spec"], res["model"]
-    cfg = spec.lm
+    whisper = spec.kind == "whisper"
+    cfg = spec.whisper if whisper else spec.lm
     launches = {"flash_attention": fa_mod.launches, "flash_attention_bwd": fa_mod.bwd_launches}
     if fa_mod.copies:
         fail(f"{phase}: the flash wrappers copied {fa_mod.copies} f32 operands off 16 bytes; "
              "the model's own q, k, v and dO must need none")
-    n_attn = sum(m == "attn" for m, _ in cfg.block_list())
-    n_moe = sum(f == "moe" for _, f in cfg.block_list())
+    k_mb = spec.microbatches
+    mb = batch // k_mb
+    # each microbatch's attention calls: (Sq = Skv, causal)
+    if whisper:
+        attn_calls = [(cfg.n_audio_frames, False)] * cfg.n_layers + [(seq, True)] * cfg.n_layers
+    else:
+        attn_calls = [(seq, True)] * sum(m == "attn" for m, _ in cfg.block_list())
+    n_attn = len(attn_calls)
+    n_moe = 0 if whisper else sum(f == "moe" for _, f in cfg.block_list())
 
     def want(dtype):
-        return {"fwd": n_attn * (2 if cfg.remat else 1),
-                "bwd": n_attn * fa_mod.bwd_plan(dtype, LM_BATCH, LM_SEQ, LM_SEQ, cfg.n_heads,
-                                                cfg.n_kv, cfg.head_dim)["launches"]}
+        return {"fwd": k_mb * n_attn * (2 if cfg.remat else 1),
+                "bwd": k_mb * sum(fa_mod.bwd_plan(dtype, mb, s_, s_, cfg.n_heads, cfg.n_kv,
+                                                  cfg.head_dim)["launches"]
+                                  for s_, _ in attn_calls)}
 
     wants = [want(getattr(torch, cfg.dtype) if i == 0 else torch.float32)
              for i in range(steps)]
@@ -2700,8 +2800,10 @@ def lm_train_phase(torch, np, fa_mod, arch: str, steps: int, phase: str, layers:
     if cfg.dtype != "bfloat16" or dtypes[0] != ["float32"]:
         fail(f"{phase}: parameter dtypes after step 1 {dtypes[0]} (config {cfg.dtype}); "
              "repro's Adam turns every bf16 parameter f32 at step 1")
+    if whisper and res["init_dtypes"].get("enc_pos") != torch.bfloat16:
+        fail(f"{phase}: enc_pos is not a bf16 parameter before step 1 (repro trains it)")
     losses = res["losses"]
-    first = lm_train.synth_batch(np.random.default_rng(int(args.seed)), spec, LM_BATCH, LM_SEQ,
+    first = lm_train.synth_batch(np.random.default_rng(int(args.seed)), spec, batch, seq,
                                  "cuda")  # run's first batch: its stream's first draw
     with torch.no_grad():
         first_after = float(spec.make_train_loss()(model, first))
@@ -2709,16 +2811,16 @@ def lm_train_phase(torch, np, fa_mod, arch: str, steps: int, phase: str, layers:
             and (losses[-1] < losses[0] or not trend_gate)):
         fail(f"{phase}: the loss did not fall: {losses}; the first batch after "
              f"{steps} steps {first_after}")
-    tokens = LM_BATCH * LM_SEQ
+    tokens = batch * seq
     f32_s = res["step_s"][1:]
-    out = {"phase": phase, "arch": spec.arch_id, "layers": cfg.n_layers, "batch": LM_BATCH,
-           "seq": LM_SEQ, "steps": steps, "lr": LM_TRAIN_LR, "config_dtype": cfg.dtype,
+    out = {"phase": phase, "arch": spec.arch_id, "layers": cfg.n_layers, "batch": batch,
+           "seq": seq, "steps": steps, "lr": LM_TRAIN_LR, "config_dtype": cfg.dtype,
            "remat": cfg.remat, "microbatches": spec.microbatches,
            "params": sum(p.numel() for p in model.parameters()),
            "dtypes_after_step": dtypes[:2], "losses": losses,
            "first_batch_loss_after": first_after,
            "launches": launches, "launches_per_step": wants[-1],
-           "bwd_calls_per_step": n_attn,
+           "bwd_calls_per_step": k_mb * n_attn,
            "step_s": res["step_s"],
            "bf16_step_s": res["step_s"][0], "f32_step_s_median": statistics.median(f32_s),
            "tokens_per_s": res["tokens_per_s"],
@@ -2738,13 +2840,13 @@ def lm_train_phase(torch, np, fa_mod, arch: str, steps: int, phase: str, layers:
                    aux_min=aux.min().item(), aux_max=aux.max().item())
 
     # one more (f32) step profiled: the flash kernels' share of its device time
-    batch = lm_train.synth_batch(res["rng"], spec, LM_BATCH, LM_SEQ, "cuda")
+    step_batch = lm_train.synth_batch(res["rng"], spec, batch, seq, "cuda")
     state = res["opt_state"]
     for _ in range(CUPTI_TRIES):  # until the profile keeps every flash record
         with annotated(torch, moe_mod, "moe_forward", "moe_forward"), profile(
                 activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
-            model, state, loss = res["step_fn"](model, state, batch)
+            model, state, loss = res["step_fn"](model, state, step_batch)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
         dev = [e for e in prof.key_averages()
@@ -2756,7 +2858,8 @@ def lm_train_phase(torch, np, fa_mod, arch: str, steps: int, phase: str, layers:
             break
     else:
         if profile_required:
-            fail(f"{phase}: {CUPTI_TRIES} profiles of a step lost flash kernel records")
+            fail(f"{phase}: {CUPTI_TRIES} profiles of a step kept {records} flash kernel "
+                 f"records of {wants[-1]} (the last try)")
     total_us = sum(e.self_device_time_total for e in dev)
     out["profiled_step"] = {"wall_ms": wall * 1e3, "device_ms": total_us / 1e3,
                             "flash_records_kept": records, "flash_records_launched": wants[-1]}
@@ -2887,7 +2990,7 @@ def lm_moe(torch, np, fa_mod) -> dict:
     del x0
     out["consistency"] = lm_consistency(torch, np, spec, model, toks[:, :256].contiguous(),
                                         "lm_moe consistency")
-    out["serving"] = lm_serving(torch, np, spec, model, "lm_moe serving")
+    out["serving"] = lm_serving(torch, np, spec, model, "lm_moe serving", requests=8)
     del model, spec, p0
     gc.collect()
     torch.cuda.empty_cache()
@@ -2933,7 +3036,7 @@ def lm_ssm(torch, np, fa_mod) -> dict:
                                "lm_ssm chunks")
     out["consistency"] = lm_consistency(torch, np, spec, model, toks[:, :256].contiguous(),
                                         "lm_ssm consistency", gate_bf16=False)
-    out["serving"] = lm_serving(torch, np, spec, model, "lm_ssm serving")
+    out["serving"] = lm_serving(torch, np, spec, model, "lm_ssm serving", requests=8)
     del model, spec
     gc.collect()
     torch.cuda.empty_cache()
@@ -3014,6 +3117,251 @@ def lm_blocks_summary(lmoe: dict, lssm: dict, lhyb: dict, lmt: dict, lred: dict)
     out["lm_moe_training"].update(loss_first=lmt["losses"][0], loss_last=lmt["losses"][-1])
     out["lm_reduced"] = {a: lred[a]["max_abs_diff"] for a in (HYBRID_ARCH, MIXTRAL_ARCH)}
     out["lm_reduced"]["jamba_training"] = {k: lred["training"][k] for k in (
+        "loss_max_abs_diff", "param_max_abs_diff", "card_runs_identical")}
+    return out
+
+
+# ------------------------------------------------------ Qwen2-VL and Whisper
+# Qwen2-VL-7B at full width and depth (about 7.6 B parameters with its untied 152,064-row
+# head, 15.2 GB in bf16; the f32 side of prefill vs decode turns it f32 in place), trained at
+# full width cut to 2 layers (parameters, gradients and Adam's two moments in f32 for all 28
+# would take about 122 GB; for 2, about 1.56 B parameters, 25 GB); the reduced
+# model's training against the CPU at LM_BLOCKS_CONF_LR, since its key biases have a zero
+# gradient (q . bk is one constant a softmax row) whose f32 rounding sets Adam's first sign
+VLM_ARCH, VLM_TRAIN_LAYERS, VLM_TRAIN_STEPS = "qwen2-vl-7b", 2, 10
+# Whisper-tiny at full width and depth: 8 requests of 1,500 frames and the 448 trained
+# decoder positions; teacher forcing vs 64 decode steps on 4 of them; serving 8 requests of
+# 4 prompt tokens and 64 new ones into a cache of 448 slots
+WHISPER_ARCH, WHISPER_BATCH, WHISPER_SEQ = "whisper-tiny", 8, 448
+WHISPER_DECODE, WHISPER_PROMPT, WHISPER_TRAIN_STEPS = 64, 4, 20
+
+
+def whisper_consistency(torch, np, spec, model, audio, tokens, phase: str) -> dict:
+    """Teacher forcing vs decode: the logits at the last of ``tokens``' S
+    positions from ``decode_train`` over the encoded ``audio`` and from S
+    decode steps through ``init_cache`` (relative max, ``repro``'s
+    measure), in the model's bf16 and with the same weights in f32 (a
+    copy), gated at ``LM_BF16_REL`` and ``LM_F32_REL``."""
+    import copy
+
+    from repro_torch.models import whisper as W
+
+    V = spec.whisper.vocab
+    S = tokens.shape[1]
+
+    def both(m, cfg, a):
+        with torch.no_grad():
+            forced = W.decode_train(m, cfg, W.encode(m, cfg, a), tokens)[:, -1, :V]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        cache = W.init_cache(m, cfg, a, S)
+        for i in range(S):
+            logits, cache = W.decode_step(m, cfg, cache, tokens[:, i:i + 1])
+        torch.cuda.synchronize()
+        return forced, logits[:, :V], time.perf_counter() - t0
+
+    f16, d16, dec_s = both(model, spec.whisper, audio)
+    m32 = copy.deepcopy(model).float()
+    f32, d32, _ = both(m32, dataclasses.replace(spec.whisper, dtype="float32"), audio.float())
+    del m32
+    out = {"phase": phase, "arch": spec.arch_id, "audio": list(audio.shape),
+           "tokens": list(tokens.shape),
+           "f32_teacher_vs_decode": _rel(d32, f32), "bf16_teacher_vs_decode": _rel(d16, f16),
+           "bf16_teacher_vs_f32": _rel(f16, f32), "bf16_decode_vs_f32": _rel(d16, f32),
+           "f32_bound": LM_F32_REL, "bf16_bound": LM_BF16_REL,
+           "decode_steps_per_s": S / dec_s}
+    emit(out)
+    for dtype, bound in (("f32", LM_F32_REL), ("bf16", LM_BF16_REL)):
+        if not out[f"{dtype}_teacher_vs_decode"] < bound:
+            fail(f"{phase}: {dtype} teacher forcing vs decode differ by "
+                 f"{out[f'{dtype}_teacher_vs_decode']} (bound {bound})")
+    return out
+
+
+def whisper_serving(torch, np, spec, model, phase: str) -> dict:
+    """``serve_lm_torch.whisper_greedy`` twice on ``WHISPER_BATCH`` requests
+    (frame embeddings and ``WHISPER_PROMPT`` prompt tokens from
+    ``default_rng(0)``, ``WHISPER_DECODE`` new tokens, a cache of
+    ``WHISPER_SEQ``): greedy outputs equal, and the tokens the requests
+    hold (prompts and outputs) per second over both runs' wall, the audio's
+    encoding included."""
+    import serve_lm_torch
+
+    cfg = spec.whisper
+    rng = np.random.default_rng(0)
+    prompts = rng.integers(0, cfg.vocab, size=(WHISPER_BATCH, WHISPER_PROMPT))
+    audio = torch.from_numpy((rng.normal(size=(WHISPER_BATCH, cfg.n_audio_frames, cfg.d_model))
+                              * 0.02).astype(np.float32)).to("cuda", spec.dtype)
+    outs, times = [], []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        outs.append(serve_lm_torch.whisper_greedy(spec, model, audio, prompts, WHISPER_DECODE,
+                                                  WHISPER_SEQ))
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    if outs[0] != outs[1]:
+        fail(f"{phase}: two greedy runs of the same requests differ")
+    if any(len(o) != WHISPER_DECODE or not all(0 <= t < cfg.vocab for t in o) for o in outs[0]):
+        fail(f"{phase}: an output is not {WHISPER_DECODE} in-vocabulary tokens")
+    served = WHISPER_BATCH * (WHISPER_PROMPT + WHISPER_DECODE)
+    out = {"phase": phase, "arch": spec.arch_id, "requests": WHISPER_BATCH,
+           "audio_frames": cfg.n_audio_frames, "prompt_len": WHISPER_PROMPT,
+           "new_tokens": WHISPER_DECODE, "cache_len": WHISPER_SEQ, "serve_s": times,
+           "identical": True, "decode_tokens_per_s": 2 * served / sum(times),
+           "generated_tokens_per_s": 2 * WHISPER_BATCH * WHISPER_DECODE / sum(times),
+           "first_outputs": outs[0][:2]}
+    emit(out)
+    return out
+
+
+def whisper_card_vs_cpu(torch, np, phase: str) -> dict:
+    """Whisper-tiny at full width in f32 from the port's seed-0 init, on the
+    card vs the CPU under deterministic algorithms: the encoder states of 2
+    x 1,500 frames, the decoder's logits of 32 tokens over them and 16
+    decode steps, to rtol/atol ``LM_RTOL`` / ``LM_ATOL``. Then the reduced
+    config (head_dim 24) on the card: the flash kernel's wrapper must refuse
+    it, with no route to the plain attention."""
+    import copy
+
+    from repro_torch.configs import get_arch
+    from repro_torch.models import whisper as W
+
+    full = get_arch(WHISPER_ARCH)
+    cfg = dataclasses.replace(full.whisper, dtype="float32")
+    m_cpu = W.init_whisper(torch.Generator().manual_seed(0), cfg, "cpu")
+    m_gpu = copy.deepcopy(m_cpu).to("cuda")
+    rng = np.random.default_rng(2)
+    audio = torch.from_numpy((rng.normal(size=(2, cfg.n_audio_frames, cfg.d_model)) * 0.02)
+                             .astype(np.float32))
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab, size=(2, 32)))
+    diffs = {}
+
+    def check(name, got, want):
+        diffs[name] = max(diffs.get(name, 0.0), (got.cpu() - want).abs().max().item())
+        if not torch.allclose(got.cpu(), want, rtol=LM_RTOL, atol=LM_ATOL):
+            fail(f"{phase}: {name} differ by {diffs[name]}")
+
+    torch.use_deterministic_algorithms(True)
+    try:
+        with torch.no_grad():
+            enc_g, enc_c = W.encode(m_gpu, cfg, audio.cuda()), W.encode(m_cpu, cfg, audio)
+            check("encoder states", enc_g, enc_c)
+            check("decoder logits", W.decode_train(m_gpu, cfg, enc_g, toks.cuda()),
+                  W.decode_train(m_cpu, cfg, enc_c, toks))
+        c_gpu = W.init_cache(m_gpu, cfg, audio.cuda(), 16)
+        c_cpu = W.init_cache(m_cpu, cfg, audio, 16)
+        for i in range(16):
+            b, c_gpu = W.decode_step(m_gpu, cfg, c_gpu, toks[:, i:i + 1].cuda())
+            a, c_cpu = W.decode_step(m_cpu, cfg, c_cpu, toks[:, i:i + 1])
+            check("decode step logits", b, a)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    red = get_arch(WHISPER_ARCH, reduced=True)
+    small = red.init_params(torch.Generator().manual_seed(0), "cuda")
+    try:
+        W.encode(small, red.whisper, torch.zeros(1, red.whisper.n_audio_frames,
+                                                 red.whisper.d_model, device="cuda"))
+    except ValueError as e:
+        if "head_dim" not in str(e):
+            raise
+        refused = str(e)
+    else:
+        fail(f"{phase}: the reduced Whisper (head_dim {red.whisper.head_dim}) ran on the card; "
+             "the flash kernel's wrapper must refuse it")
+    out = {"phase": phase, "arch": full.arch_id, "dtype": "float32", "audio": list(audio.shape),
+           "tokens": list(toks.shape), "decode_steps": 16, "max_abs_diff": diffs,
+           "rtol": LM_RTOL, "atol": LM_ATOL, "reduced_refused": refused}
+    emit(out)
+    return out
+
+
+def lm_vlm(torch, np, fa_mod):
+    """``lm_vlm``: Qwen2-VL-7B at full width and depth (28 layers, 28 heads
+    over 4 KV heads at hd 128, bf16; weights drawn on the card from seed
+    0): ``lm_prefill`` (B 4 x S 2,048 with the 1,024-patch span after BOS,
+    28 ``flash_attention`` launches a forward), ``BatchedServer`` twice on
+    text (``lm_serving``), text-only prefill vs decode on 4 prompts of 256
+    tokens (``lm_consistency``, the f32 side on the model turned f32 in
+    place), the reduced model card vs CPU with patches (``lm_card_vs_cpu``);
+    then training at full width cut to ``VLM_TRAIN_LAYERS`` layers
+    (``lm_train_phase``, 2 microbatches a step) and the reduced model's
+    conformance. Returns the serving and the training records."""
+    out = lm_prefill(torch, np, fa_mod, VLM_ARCH, LM_BATCH, LM_SEQ, "lm_vlm prefill",
+                     draw_on_device=True)
+    spec, model, toks = out.pop("spec"), out.pop("model"), out.pop("toks")
+    out.pop("batch_inputs"), out.pop("first_moe")
+    out["serving"] = lm_serving(torch, np, spec, model, "lm_vlm serving")
+    out["consistency"] = lm_consistency(torch, np, spec, model, toks[:, :256].contiguous(),
+                                        "lm_vlm consistency", in_place_f32=True)
+    del model, spec, toks
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["card_vs_cpu"] = lm_card_vs_cpu(torch, np, VLM_ARCH, "lm_vlm card vs cpu")
+    train = lm_train_phase(torch, np, fa_mod, VLM_ARCH, VLM_TRAIN_STEPS, "lm_vlm training",
+                           layers=VLM_TRAIN_LAYERS, profile_required=False)
+    train["conformance"] = _lm_conformance(torch, np, VLM_ARCH, LM_BLOCKS_CONF_LR)
+    emit({"phase": "lm_vlm training conformance", **train["conformance"]})
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out, train
+
+
+def lm_whisper(torch, np, fa_mod):
+    """``lm_whisper``: Whisper-tiny at full width and depth (4 + 4 layers,
+    6 heads of hd 64, bf16; weights drawn on the CPU from seed 0):
+    ``lm_prefill`` (B 8 x 1,500 frames and 448 tokens, 8 ``flash_attention``
+    launches a forward: 4 non-causal in the encoder, 4 causal in the
+    decoder; the encoder's and decoder's device time), teacher forcing vs 64
+    decode steps (``whisper_consistency``), greedy serving twice
+    (``whisper_serving``), full width in f32 card vs CPU and the reduced
+    config refused on the card (``whisper_card_vs_cpu``); then training, B 8
+    x 448 tokens over 1,500 frames, ``WHISPER_TRAIN_STEPS`` steps
+    (``lm_train_phase``). Its host-paced forward and step launch hundreds of
+    small kernels, and CUPTI has lost flash records in their profiles on
+    the H100 (one full run in two, each phase): both profiles report the
+    records they kept instead of failing the run. Returns the serving and
+    the training records."""
+    out = lm_prefill(torch, np, fa_mod, WHISPER_ARCH, WHISPER_BATCH, WHISPER_SEQ,
+                     "lm_whisper prefill", profile_required=False)
+    spec, model, toks = out.pop("spec"), out.pop("model"), out.pop("toks")
+    audio = out.pop("batch_inputs")["audio_embeds"]
+    out.pop("first_moe")
+    out["consistency"] = whisper_consistency(torch, np, spec, model, audio[:4],
+                                             toks[:4, :WHISPER_DECODE].contiguous(),
+                                             "lm_whisper consistency")
+    out["serving"] = whisper_serving(torch, np, spec, model, "lm_whisper serving")
+    del model, spec, toks, audio
+    out["card_vs_cpu"] = whisper_card_vs_cpu(torch, np, "lm_whisper card vs cpu")
+    train = lm_train_phase(torch, np, fa_mod, WHISPER_ARCH, WHISPER_TRAIN_STEPS,
+                           "lm_whisper training", batch=WHISPER_BATCH, seq=WHISPER_SEQ,
+                           profile_required=False)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out, train
+
+
+def vlm_whisper_summary(lvlm: dict, lvt: dict, lwh: dict, lwt: dict) -> dict:
+    """The Qwen2-VL and Whisper phases' end-to-end numbers for the summary."""
+    prefill_keys = ("arch", "layers", "batch", "seq", "params", "prefill_tokens_per_s",
+                    "forward_device_ms", "forward_host_ms", "paced_by", "flash_share",
+                    "launches", "encoder_device_ms", "decoder_device_ms", "encoder_share",
+                    "profile_flash_records_kept")
+    train_keys = ("arch", "layers", "tokens_per_s", "f32_tokens_per_s", "bf16_step_s",
+                  "f32_step_s_median", "profiled_step", "launches", "launches_per_step",
+                  "peak_allocated_gib", "first_batch_loss_after")
+    out = {}
+    for name, r, t in (("lm_vlm", lvlm, lvt), ("lm_whisper", lwh, lwt)):
+        c = r["consistency"]
+        out[name] = {k: r[k] for k in prefill_keys if k in r}
+        out[name]["consistency"] = {k: v for k, v in c.items() if k.startswith(("f32_", "bf16_"))
+                                    and not k.endswith("_bound")}
+        out[name].update({k: r["serving"][k] for k in ("decode_tokens_per_s",
+                                                       "generated_tokens_per_s")})
+        out[name]["card_vs_cpu_max_abs_diff"] = r["card_vs_cpu"]["max_abs_diff"]
+        out[f"{name}_training"] = {k: t[k] for k in train_keys}
+        out[f"{name}_training"].update(loss_first=t["losses"][0], loss_last=t["losses"][-1])
+    out["lm_vlm_training"]["conformance"] = {k: lvt["conformance"][k] for k in (
         "loss_max_abs_diff", "param_max_abs_diff", "card_runs_identical")}
     return out
 
@@ -3345,7 +3693,7 @@ def _flash_bwd_record(torch, np, ref, fa_mod, q, k, v, o, lse, do, causal, windo
             fail(f"flash_attention_bwd {tuple(q.shape)} ({source}) disagrees with the "
                  f"emulation of its arithmetic: {emulated}")
         del emu
-    del got, want, again
+    del got, again
     bf16 = q.dtype == torch.bfloat16
     pairs = _band_pairs(np, Sq, Skv, causal, window)
     flops = 10.0 * hd * pairs * B * H
@@ -3368,6 +3716,11 @@ def _flash_bwd_record(torch, np, ref, fa_mod, q, k, v, o, lse, do, causal, windo
             band &= j <= i
         lib_out = F.scaled_dot_product_attention(*leaves, attn_mask=band, enable_gqa=True)
     g_out = do.transpose(1, 2)
+    # the library's own distance to the plain version (not gated): what a
+    # tensor-core backward that rounds its operands reads on these inputs
+    lib_rel = {n: _row_rel(g.transpose(1, 2), w, FLASH_BWD_ROW_FLOOR) for n, g, w in zip(
+        "qkv", torch.autograd.grad(lib_out, leaves, g_out, retain_graph=True), want)}
+    del want
     lib = measure(lambda: torch.autograd.grad(lib_out, leaves, g_out, retain_graph=True),
                   5 if big else 20, floor_ms=max(t_bytes, t_ops))
     del lib_out, leaves
@@ -3377,7 +3730,8 @@ def _flash_bwd_record(torch, np, ref, fa_mod, q, k, v, o, lse, do, causal, windo
            "dtype": dtype, "causal": causal, "window": window,
            "max_abs_err": max(errs.values()), "max_abs_err_by_grad": errs,
            "plan": fa_mod.bwd_plan(q.dtype, B, Sq, Skv, H, K, hd),
-           "row_rel_err": rels, **emulated, "do_abs_max": do.abs().max().item(),
+           "row_rel_err": rels, **emulated, "library_row_rel_err": lib_rel,
+           "do_abs_max": do.abs().max().item(),
            "rerun_bitwise": True,
            "o_max_abs_err": fwd["max_abs_err"], "o_row_rel_err": fwd["row_rel_err"],
            "lse_max_abs_err": lse_err,
@@ -3483,6 +3837,8 @@ def main() -> None:
     lssm = lm_ssm(torch, np, fa_mod)
     lhyb = lm_hybrid(torch, np, fa_mod)
     lmt = lm_moe_training(torch, np, fa_mod)
+    lvlm, lvt = lm_vlm(torch, np, fa_mod)
+    lwh, lwt = lm_whisper(torch, np, fa_mod)
     lred = lm_reduced(torch, np)
     gc.collect()
     torch.cuda.empty_cache()  # the IVF phases' blocks: leave the card's memory free
@@ -3505,11 +3861,13 @@ def main() -> None:
                     {"ivf serving": iv["calls"]["ivf serving"],
                      "ivf exhaustive": iv["calls"]["ivf exhaustive"], "1M arm": m1["calls"]})
     prefill_calls = {"lm prefill path": lm["calls"], "lm_moe prefill path": lmoe["calls"],
-                     "lm_hybrid prefill path": lhyb["calls"]}
+                     "lm_hybrid prefill path": lhyb["calls"], "lm_vlm prefill path": lvlm["calls"],
+                     "lm_whisper prefill path": lwh["calls"]}
     flash, flash_others = flash_phase(torch, np, ref, fa_mod.flash_attention_cuda, prefill_calls)
     flash_bwd, flash_bwd_others, flash_train = flash_bwd_phase(
         torch, np, ref, fa_mod,
-        {"lm training path": lt["bwd_calls"], "lm_moe_training path": lmt["bwd_calls"]},
+        {"lm training path": lt["bwd_calls"], "lm_moe_training path": lmt["bwd_calls"],
+         "lm_vlm training path": lvt["bwd_calls"], "lm_whisper training path": lwt["bwd_calls"]},
         {_flash_key(c) for calls in prefill_calls.values() for c in calls})
 
     def timing(rec):
@@ -3595,7 +3953,8 @@ def main() -> None:
               "loss_first": lt["losses"][0], "loss_last": lt["losses"][-1],
               "conformance": {k: lt["conformance"][k] for k in (
                   "loss_max_abs_diff", "param_max_abs_diff", "card_runs_identical")}},
-          **lm_blocks_summary(lmoe, lssm, lhyb, lmt, lred)})
+          **lm_blocks_summary(lmoe, lssm, lhyb, lmt, lred),
+          **vlm_whisper_summary(lvlm, lvt, lwh, lwt)})
     print(json.dumps({"kernels": [
         entry("seg_aggr", seg, "src/repro_torch/kernels/csrc/seg_aggr.cu",
               "src/repro/kernels/seg_aggr.py:45",
@@ -3629,12 +3988,18 @@ def main() -> None:
                "lm_moe prefill": lmoe["launches"]["flash_attention"],
                "lm_ssm prefill": lssm["launches"]["flash_attention"],
                "lm_hybrid prefill": lhyb["launches"]["flash_attention"],
-               "lm_moe_training": lmt["launches"]["flash_attention"]},
+               "lm_moe_training": lmt["launches"]["flash_attention"],
+               "vlm prefill": lvlm["launches"]["flash_attention"],
+               "vlm training": lvt["launches"]["flash_attention"],
+               "whisper prefill": lwh["launches"]["flash_attention"],
+               "whisper training": lwt["launches"]["flash_attention"]},
               flash_others + flash_train),
         entry("flash_attention_bwd", flash_bwd, "src/repro_torch/kernels/csrc/flash_attn_bwd.cu",
               "src/repro/kernels/ops.py:139 (no VJP); src/repro/models/layers.py:205",
               {"lm training": lt["launches"]["flash_attention_bwd"],
-               "lm_moe_training": lmt["launches"]["flash_attention_bwd"]}, flash_bwd_others),
+               "lm_moe_training": lmt["launches"]["flash_attention_bwd"],
+               "vlm training": lvt["launches"]["flash_attention_bwd"],
+               "whisper training": lwt["launches"]["flash_attention_bwd"]}, flash_bwd_others),
     ]}), flush=True)
     print(smi, flush=True)  # the card's name and power limit, as nvidia-smi gives them
     print(json.dumps({"ok": True, "device": {

@@ -1,33 +1,35 @@
 """Architecture and shape specs of the LM substrate: the counterpart of
-``repro/configs/base.py``, limited to ``kind == "lm"``.
+``repro/configs/base.py``.
 
 Every arch module provides ``full()`` (the published config) and
 ``reduced()`` (a smoke variant: two layers, or Jamba's one 8-layer period),
-each an ``ArchSpec``. The spec builds parameters (``init_params``), the
+each an ``ArchSpec`` of one of three kinds: ``lm`` (``models/transformer.py``),
+``vlm`` (Qwen2-VL: the transformer on merged patch embeddings at M-RoPE
+positions, ``models/qwen2_vl.py``) and ``whisper`` (the encoder-decoder,
+``models/whisper.py``). The spec builds parameters (``init_params``), the
 serve-step cache (``init_cache``: KV caches and Mamba2 states, layer by
-layer) and the step functions: the loss, the training step (loss,
-gradients and an optimizer step), prefill (the full-sequence forward,
-last-position logits) and the one-token serve step. ``with_layers`` cuts
-the depth to whole periods of the block pattern, for a card that cannot
-hold the whole model. ``repro``'s abstract shapes, sharding
+layer; Whisper's encodes zero audio, as ``repro``'s does) and the step
+functions: the loss, the training step (loss, gradients and an optimizer
+step), prefill (the full-sequence forward, last-position logits) and the
+one-token serve step. ``with_layers`` cuts the depth to whole periods of
+the block pattern (Whisper: n encoder and n decoder layers), for a card
+that cannot hold the whole model. ``repro``'s abstract shapes, sharding
 specs, depth probes and support table serve its TPU dry-run (ROADMAP Queue
-1 item 8f) and are left out, with the VLM and Whisper fields. A ``vlm`` or
-``whisper`` spec raises (items 8d, 8e).
+1 item 8f) and are left out.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, Optional
+from typing import Callable, Dict, Optional, Tuple, Union
 
 import torch
 
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.models import qwen2_vl as VLM
 from repro_torch.models import transformer as T
+from repro_torch.models import whisper as W
 
-_UNPORTED_KIND = {
-    "vlm": "Qwen2-VL is not ported yet (ROADMAP Queue 1 item 8d)",
-    "whisper": "Whisper is not ported yet (ROADMAP Queue 1 item 8e)",
-}
+KINDS = ("lm", "vlm", "whisper")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -54,48 +56,87 @@ def resolve_shape(shape) -> ShapeSpec:
 @dataclasses.dataclass(frozen=True)
 class ArchSpec:
     arch_id: str
-    kind: str  # "lm" here; "vlm" and "whisper" raise
+    kind: str  # "lm" | "vlm" | "whisper"
     family: str  # dense | moe | ssm | hybrid | vlm | audio
     citation: str
     lm: Optional[T.LMConfig] = None
+    whisper: Optional[W.WhisperConfig] = None
+    # vlm extras
+    n_patches: int = 0
+    grid_hw: Tuple[int, int] = (0, 0)
     sub_quadratic: bool = False  # may run long_500k
     microbatches: int = 1  # repro's train_4k gradient accumulation
     notes: str = ""
 
-    def _lm(self) -> T.LMConfig:
-        if self.kind != "lm":
-            raise NotImplementedError(_UNPORTED_KIND.get(self.kind, f"kind {self.kind!r}"))
-        return self.lm
+    def __post_init__(self):
+        if self.kind not in KINDS:
+            raise ValueError(f"arch kind {self.kind!r}: one of {KINDS}")
+
+    @property
+    def d_model(self) -> int:
+        return self.whisper.d_model if self.kind == "whisper" else self.lm.d_model
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return T.torch_dtype(self.whisper.dtype if self.kind == "whisper" else self.lm.dtype)
 
     def with_layers(self, n_layers: int) -> "ArchSpec":
         """The same arch at full width with its first ``n_layers`` layers,
-        a whole number of periods of the block pattern."""
-        cfg = self._lm()
-        p = cfg.period()
+        a whole number of periods of the block pattern (Whisper: that many
+        encoder and decoder layers)."""
+        cfg = self.whisper if self.kind == "whisper" else self.lm
+        p = 1 if self.kind == "whisper" else cfg.period()
         if not 0 < n_layers <= cfg.n_layers or n_layers % p:
             raise ValueError(f"{n_layers} layers: a multiple of the period {p} "
                              f"up to {cfg.n_layers}")
+        if self.kind == "whisper":
+            return dataclasses.replace(self, whisper=dataclasses.replace(cfg, n_layers=n_layers))
         lm = dataclasses.replace(cfg, n_layers=n_layers,
                                  blocks=cfg.blocks[:n_layers] if cfg.blocks else ())
         return dataclasses.replace(self, lm=lm)
 
     # ----------------------------------------------------------- parameters
-    def init_params(self, generator: torch.Generator, device: DeviceLike = None) -> T.LM:
-        """Fresh weights from ``generator`` (``T.init_lm``) on ``device``
-        (None means CUDA)."""
-        return T.init_lm(generator, self._lm(), resolve_device(device))
+    def init_params(self, generator: torch.Generator,
+                    device: DeviceLike = None) -> Union[T.LM, W.Whisper]:
+        """Fresh weights from ``generator`` (``T.init_lm`` or
+        ``W.init_whisper``) on ``device`` (None means CUDA)."""
+        if self.kind == "whisper":
+            return W.init_whisper(generator, self.whisper, resolve_device(device))
+        return T.init_lm(generator, self.lm, resolve_device(device))
 
-    def init_cache(self, params: T.LM, shape) -> dict:
-        """The serve-step cache of ``shape`` on the parameters' device."""
+    def init_cache(self, params, shape) -> dict:
+        """The serve-step cache of ``shape`` on the parameters' device.
+        Whisper's encodes zero audio of ``n_audio_frames``, as ``repro``'s."""
         s = resolve_shape(shape)
-        return T.init_cache(self._lm(), s.global_batch, s.seq_len, params.embed.device)
+        dev = params.embed.device
+        if self.kind == "whisper":
+            cfg = self.whisper
+            audio = torch.zeros((s.global_batch, cfg.n_audio_frames, cfg.d_model),
+                                dtype=self.dtype, device=dev)
+            return W.init_cache(params, cfg, audio, s.seq_len)
+        return T.init_cache(self.lm, s.global_batch, s.seq_len, dev)
 
     # ------------------------------------------------------- step functions
     def make_train_loss(self) -> Callable:
-        cfg = self._lm()
+        if self.kind == "lm":
+            cfg = self.lm
+
+            def loss(params, batch):
+                return T.lm_loss(params, cfg, batch["tokens"], batch["labels"])
+
+            return loss
+        if self.kind == "vlm":
+            cfg, grid = self.lm, self.grid_hw
+
+            def loss(params, batch):
+                return VLM.vlm_loss(params, cfg, batch["tokens"], batch["labels"],
+                                    batch["patch_embeds"], grid)
+
+            return loss
+        cfg = self.whisper
 
         def loss(params, batch):
-            return T.lm_loss(params, cfg, batch["tokens"], batch["labels"])
+            return W.loss(params, cfg, batch["audio_embeds"], batch["tokens"], batch["labels"])
 
         return loss
 
@@ -157,18 +198,43 @@ class ArchSpec:
         """Prefill: the full-sequence forward, last-position logits
         (B, vocab_padded). The head multiplies only the last position's
         hidden state; ``repro`` computes every position's logits and keeps
-        the last row, the same values."""
-        cfg = self._lm()
+        the last row, the same values. ``vlm`` feeds the merged patch
+        embeddings at M-RoPE positions, ``whisper`` encodes the audio and
+        decodes the tokens over it."""
+        if self.kind == "whisper":
+            wcfg = self.whisper
+
+            @torch.no_grad()
+            def prefill(params, batch):
+                enc = W.encode(params, wcfg, batch["audio_embeds"])
+                x = W.decode_hidden(params, wcfg, enc, batch["tokens"])
+                return W.tied_logits(params, wcfg, x[:, -1, :])
+
+            return prefill
+        cfg = self.lm
+        grid = self.grid_hw
 
         @torch.no_grad()
         def prefill(params, batch):
-            x, _ = T.hidden_states(params, cfg, batch["tokens"])
+            if self.kind == "vlm":
+                x, pos = VLM.vlm_forward_inputs(params, cfg, batch["tokens"],
+                                                batch["patch_embeds"], grid)
+                x, _ = T.hidden_states(params, cfg, inputs_embeds=x, positions=pos)
+            else:
+                x, _ = T.hidden_states(params, cfg, batch["tokens"])
             return T._mask_padded_vocab(cfg, x[:, -1, :] @ params.head())
 
         return prefill
 
     def make_serve_step(self) -> Callable:
-        cfg = self._lm()
+        if self.kind == "whisper":
+            wcfg = self.whisper
+
+            def serve_step(params, cache, batch):
+                return W.decode_step(params, wcfg, cache, batch["token"])
+
+            return serve_step
+        cfg = self.lm
 
         def serve_step(params, cache, batch):
             return T.decode_step(params, cfg, cache, batch["token"])

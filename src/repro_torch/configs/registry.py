@@ -1,9 +1,8 @@
 """Architecture registry: ``--arch <id>`` resolution.
 
-``ARCH_IDS`` lists all ten of ``repro``'s archs in its order; the eight
-``kind == "lm"`` ones are ported (dense attention, MoE, Mamba2 and the
-Jamba hybrid), and ``get_arch`` of Qwen2-VL or Whisper raises
-``NotImplementedError`` naming its ROADMAP item.
+``ARCH_IDS`` lists all ten of ``repro``'s archs in its order: the eight
+``kind == "lm"`` ones (dense attention, MoE, Mamba2 and the Jamba hybrid),
+Qwen2-VL (``vlm``) and Whisper (``whisper``).
 """
 from __future__ import annotations
 
@@ -16,14 +15,16 @@ from repro_torch.configs import (
     mixtral_8x22b,
     olmoe_1b_7b,
     qwen2_0_5b,
+    qwen2_vl_7b,
     smollm_135m,
     starcoder2_7b,
+    whisper_tiny,
 )
 from repro_torch.configs.base import ArchSpec
 
-_ARCHS = {
-    "qwen2-vl-7b": "ROADMAP Queue 1 item 8d, Qwen2-VL",
-    "whisper-tiny": "ROADMAP Queue 1 item 8e, Whisper",
+_MODULES = {
+    "qwen2-vl-7b": qwen2_vl_7b,
+    "whisper-tiny": whisper_tiny,
     "mixtral-8x22b": mixtral_8x22b,
     "qwen2-0.5b": qwen2_0_5b,
     "smollm-135m": smollm_135m,
@@ -34,14 +35,11 @@ _ARCHS = {
     "mamba2-1.3b": mamba2_1_3b,
 }
 
-ARCH_IDS: List[str] = list(_ARCHS)
-PORTED_ARCH_IDS: List[str] = [a for a, m in _ARCHS.items() if not isinstance(m, str)]
+ARCH_IDS: List[str] = list(_MODULES)
 
 
 def get_arch(arch_id: str, reduced: bool = False) -> ArchSpec:
-    if arch_id not in _ARCHS:
+    if arch_id not in _MODULES:
         raise KeyError(f"unknown arch {arch_id!r}; known: {ARCH_IDS}")
-    mod = _ARCHS[arch_id]
-    if isinstance(mod, str):
-        raise NotImplementedError(f"arch {arch_id!r} is not ported yet ({mod})")
+    mod = _MODULES[arch_id]
     return mod.reduced() if reduced else mod.full()

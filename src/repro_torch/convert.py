@@ -24,7 +24,11 @@ any (mixer, ffn) kind, and ``lm_model_to_numpy`` stacks them back. bf16
 arrives as an ``ml_dtypes`` array; it is recognised by its dtype's name and
 moved as its 16 bits, so the round trip is bitwise. Each leaf must be in
 ``cfg.dtype``, except ``transformer.F32_LEAVES`` (MoE routers, Mamba2's
-``A_log``, ``D``, ``dt_bias``), which must be f32.
+``A_log``, ``D``, ``dt_bias``), which must be f32. Qwen2-VL's tree is an
+LM tree and goes the same way. Whisper's (``whisper_params_from_numpy`` /
+``whisper_model_to_numpy``) stacks each layer kind on a leading axis of
+``n_layers`` (``enc_layers``, ``dec_layers``), which the port unstacks into
+one module a layer; every leaf is in ``cfg.dtype``.
 
 Optimizer states cross the same way: ``state_to_numpy`` turns the trainer's
 state (``RowAdagradState.accum``, ``AdamState`` step/mu/nu, nested in
@@ -47,6 +51,7 @@ from repro_torch.models import layers as L
 from repro_torch.models import mamba2 as M
 from repro_torch.models import moe as MOE
 from repro_torch.models import transformer as T
+from repro_torch.models import whisper as W
 from repro_torch.retrieval.ivf import IVFConfig, IVFIndex
 
 
@@ -259,6 +264,94 @@ def lm_model_to_numpy(model: T.LM) -> Dict[str, Any]:
     if model.lm_head is not None:
         tree["lm_head"] = _lm_array(model.lm_head)
     return tree
+
+
+def whisper_param_shapes(cfg: W.WhisperConfig) -> Dict[str, tuple]:
+    """Every parameter of ``cfg``'s ``Whisper`` (``state_dict`` names) with its shape."""
+    d, H, K, hd, ff = cfg.d_model, cfg.n_heads, cfg.n_kv, cfg.head_dim, cfg.d_ff
+    norm = {"scale": (d,), "bias": (d,)}
+    attn = {"wq": (d, H * hd), "wk": (d, K * hd), "wv": (d, K * hd), "wo": (H * hd, d),
+            "bq": (H * hd,), "bk": (K * hd,), "bv": (K * hd,)}
+    mlp = {"wu": (d, ff), "bu": (ff,), "wd": (ff, d), "bd": (d,)}
+    groups = {"norm1": norm, "attn": attn, "self_attn": attn, "cross_attn": attn,
+              "norm_x": norm, "norm2": norm, "mlp": mlp}
+    out = {"enc_pos": (cfg.n_audio_frames, d), "dec_pos": (cfg.max_target_positions, d),
+           "embed": (cfg.vocab_padded, d)}
+    for stack, names in (("enc_layers", W.ENC_GROUPS), ("dec_layers", W.DEC_GROUPS)):
+        for i in range(cfg.n_layers):
+            for g in names:
+                out.update({f"{stack}.{i}.{g}.{k}": s for k, s in groups[g].items()})
+    for n in ("enc_norm", "dec_norm"):
+        out.update({f"{n}.{k}": s for k, s in norm.items()})
+    return out
+
+
+def whisper_params_from_numpy(cfg: W.WhisperConfig, tree: Mapping[str, Any],
+                              device: DeviceLike = None) -> W.Whisper:
+    """``repro``'s Whisper parameter tree (numpy leaves, each layer kind
+    stacked on a leading axis) -> a ``Whisper`` on ``device``. Every name,
+    shape and dtype is checked against ``cfg``."""
+    dev = resolve_device(device)
+    acfg = {"attn": cfg.attn_cfg(False), "self_attn": cfg.attn_cfg(True),
+            "cross_attn": cfg.attn_cfg(False)}
+
+    def layer(stacked: Mapping[str, Any], names, i: int) -> list:
+        if set(stacked) != set(names):
+            raise KeyError(f"layer groups {sorted(stacked)}, want {sorted(names)}")
+        out = []
+        for g in names:
+            leaves = {k: _lm_tensor(np.asarray(v)[i]) for k, v in stacked[g].items()}
+            if g in acfg:
+                out.append(L.Attention(acfg[g], leaves))
+            elif g == "mlp":
+                out.append(L.MLP("gelu", leaves))
+            else:
+                out.append(L.Norm(cfg.norm, leaves["scale"], leaves.get("bias")))
+        return out
+
+    def norm(g):
+        return L.Norm(cfg.norm, *(_lm_tensor(g[k]) for k in ("scale", "bias")))
+
+    enc = [W.EncoderLayer(*layer(tree["enc_layers"], W.ENC_GROUPS, i))
+           for i in range(cfg.n_layers)]
+    dec = [W.DecoderLayer(*layer(tree["dec_layers"], W.DEC_GROUPS, i))
+           for i in range(cfg.n_layers)]
+    model = W.Whisper(cfg, _lm_tensor(tree["enc_pos"]), _lm_tensor(tree["dec_pos"]),
+                      _lm_tensor(tree["embed"]), enc, dec, norm(tree["enc_norm"]),
+                      norm(tree["dec_norm"]))
+    got = {k: tuple(v.shape) for k, v in model.state_dict().items()}
+    want = whisper_param_shapes(cfg)
+    if got != want:
+        bad = sorted(set(got.items()) ^ set(want.items()))
+        raise ValueError(f"Whisper params do not match the config: {bad[:8]}")
+    for stack in ("enc_layers", "dec_layers"):
+        for gname, group in tree[stack].items():
+            for leaf, a in group.items():
+                if np.shape(a)[0] != cfg.n_layers:
+                    raise ValueError(f"{stack}.{gname}.{leaf}: leading dim {np.shape(a)[0]}, "
+                                     f"want {cfg.n_layers} layers")
+    dtype = T.torch_dtype(cfg.dtype)
+    wrong = sorted(f"{k} {v.dtype}" for k, v in model.state_dict().items() if v.dtype != dtype)
+    if wrong:
+        raise TypeError(f"Whisper params not in {dtype}: {wrong[:8]}")
+    return model.to(dev)
+
+
+def whisper_model_to_numpy(model: W.Whisper) -> Dict[str, Any]:
+    """The inverse of ``whisper_params_from_numpy``: ``repro``'s tree, each
+    layer kind stacked on a leading axis, as host arrays."""
+    def leaves(m):
+        return {k: _lm_array(v) for k, v in m.named_parameters(recurse=False)}
+
+    def stacked(layers, names):
+        per = [{g: leaves(getattr(lp, g)) for g in names} for lp in layers]
+        return {g: {k: np.stack([p[g][k] for p in per]) for k in per[0][g]} for g in names}
+
+    return {"enc_pos": _lm_array(model.enc_pos), "dec_pos": _lm_array(model.dec_pos),
+            "embed": _lm_array(model.embed),
+            "enc_layers": stacked(model.enc_layers, W.ENC_GROUPS),
+            "dec_layers": stacked(model.dec_layers, W.DEC_GROUPS),
+            "enc_norm": leaves(model.enc_norm), "dec_norm": leaves(model.dec_norm)}
 
 
 # ------------------------------------------------------- optimizer states

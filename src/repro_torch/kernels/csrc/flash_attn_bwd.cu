@@ -69,16 +69,28 @@
 //     layout). P^T = exp2(S^T scale log2 e - lse log2 e) and dS^T = P^T o
 //     (dP^T - D) are computed on the f32 accumulators, rounded to bf16 in
 //     place and fed as the register A operand of dV += P^T dO and dK += dS^T
-//     Q, with dO and Q MN-major there (the descriptor's transpose bit, as the
-//     forward's PV takes V): no shared-memory round trip for P or dS.
+//     Q (dS^T as two bf16 parts, below), with dO and Q MN-major there (the
+//     descriptor's transpose bit, as the forward's PV takes V): no
+//     shared-memory round trip for P or dS.
 //   - dQ: a block owns 128 query rows (64 a warpgroup); Q and dO come once,
 //     64-key K/V tiles through the ring. S = Q K^T and dP = dO V^T shared-
-//     shared, dS rounded in registers and fed to dQ += dS K, K MN-major.
+//     shared, dS split in registers and fed to dQ += dS K, K MN-major.
 //   - A warpgroup whose 64 keys (or rows) see none of a tile skips its
 //     products for it. Registers: at hd 128 a dK/dV thread holds 128 f32 of
 //     dK and dV and 64 of S^T and dP^T; chip_smoke.py fails on a spill.
-//   - P and dS are rounded to bf16 before their products (the plain version
-//     keeps them f32): tests/test_torch_flash.py emulates this arithmetic.
+//   - P is rounded to bf16 before its product (the plain version keeps it
+//     f32); dS goes in as hi = bf16(dS) and lo = bf16(dS - hi), two products
+//     into one accumulator, about 16 bits of it. A row of dQ sums dS K over
+//     keys where sum_j dS_ij = 0: keys that share a large common part (as
+//     Whisper's decoder's do, each position carrying much the same
+//     cross-attention output) cancel it exactly, and dS rounded once to 8
+//     bits left that part in at 2^-9 of each term, up to 3.9x chip_smoke.py's
+//     row-scaled bound on such rows; dK's rows likewise. The split costs a
+//     third product a tile in either kernel; in the dK/dV one the low part
+//     waits in shared memory (16 KB a block) while dV's and the high part's
+//     products run, since at hd 128 all three fragment sets beside the 128
+//     accumulators spilled. tests/test_torch_flash.py and
+//     chip_smoke.py emulate this arithmetic (bwd_kernel_emulation).
 //
 // f32: flash_bwd_tiles_f32 (dkdv_f32 and dq_f32), on the CUDA cores (bound:
 // the band's FLOP over 67 TFLOP/s), f32 FMAs only (no TF32: the f32 contract,
@@ -653,7 +665,10 @@ struct BwdWgmma {
   static constexpr int DKDV_DO = DKDV_Q + kStages * QT_BYTES;
   static constexpr int DKDV_ROWS = DKDV_DO + kStages * QT_BYTES;
   static constexpr int DKDV_BAR = DKDV_ROWS + kStages * 2 * ROW_BYTES;
-  static constexpr int DKDV_SMEM = 1024 + DKDV_BAR + 8 * (1 + 2 * kStages);
+  // each consumer thread's 16 words of dS^T's low bf16 parts, parked while
+  // the tile's first products run (word i of thread t at i * kConsumers + t)
+  static constexpr int DKDV_LO = (DKDV_BAR + 8 * (1 + 2 * kStages) + 15) / 16 * 16;
+  static constexpr int DKDV_SMEM = 1024 + DKDV_LO + 16 * 4 * kConsumers;
   // dQ: Q, dO (128 rows), kStages x K, kStages x V (64 rows), barriers (q,
   // full[kStages], empty[kStages])
   static constexpr int RQ_PANEL = kWRows * kRowBytes;
@@ -700,6 +715,22 @@ __device__ __forceinline__ void pack_frags(uint32_t (&f)[4][4], const float* x) 
     for (int i = 0; i < 4; ++i) f[t][i] = pack_bf16(x[8 * t + 2 * i], x[8 * t + 2 * i + 1]);
 }
 
+// ``x`` as two bf16 fragment sets, hi = bf16(x) and lo = bf16(x - hi): a
+// product over hi and then lo sees x to about 16 bits
+__device__ __forceinline__ void pack_split_frags(uint32_t (&hi)[4][4], uint32_t (&lo)[4][4],
+                                                 const float* x) {
+#pragma unroll
+  for (int t = 0; t < 4; ++t)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float a = x[8 * t + 2 * i], b = x[8 * t + 2 * i + 1];
+      const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
+      const float2 hf = __bfloat1622float2(h);
+      hi[t][i] = *reinterpret_cast<const uint32_t*>(&h);
+      lo[t][i] = pack_bf16(a - hf.x, b - hf.y);
+    }
+}
+
 // D (64 x 64 NP) += A (64 x 64, four register fragments) . B (64 rows at
 // ``b``, MN-major, panels ``pb`` bytes apart)
 template <int HD>
@@ -726,6 +757,7 @@ __device__ __forceinline__ void dkdv_wgmma(const CUtensorMap& tq, const CUtensor
   const uint32_t bar_kv = base + W::DKDV_BAR, bar_full = bar_kv + 8,
                  bar_empty = bar_full + 8 * kStages;
   const float* rows_f = reinterpret_cast<const float*>(smem_raw + (s_rows - raw));
+  uint32_t* lo_park = reinterpret_cast<uint32_t*>(smem_raw + (base + W::DKDV_LO - raw));
 
   const int h = blockIdx.x, b = blockIdx.y;
   const int kh = h / a.group, g = h - kh * a.group;
@@ -816,9 +848,18 @@ __device__ __forceinline__ void dkdv_wgmma(const CUtensorMap& tq, const CUtensor
           st[4 * j + e] = p;
           dpt[4 * j + e] = p * (dpt[4 * j + e] - dd[col]);
         }
+      // dV += P^T dO and dK += hi(dS^T) Q first, then dK += lo(dS^T) Q: at hd
+      // 128 the 128 accumulators, three fragment sets and the descriptors of
+      // one group overflow the consumers' registers, so lo waits in shared
+      // memory (each thread its own words: no barrier)
       uint32_t fp[4][4], fds[4][4];
-      pack_frags(fp, st);
-      pack_frags(fds, dpt);
+      {
+        uint32_t fdl[4][4];
+        pack_frags(fp, st);
+        pack_split_frags(fds, fdl, dpt);
+#pragma unroll
+        for (int w = 0; w < 16; ++w) lo_park[w * kConsumers + tid] = (&fdl[0][0])[w];
+      }
       fence_regs<16>(&fp[0][0]);
       fence_regs<16>(&fds[0][0]);
       fence_regs<NA>(dv);
@@ -831,6 +872,16 @@ __device__ __forceinline__ void dkdv_wgmma(const CUtensorMap& tq, const CUtensor
       fence_regs<16>(&fp[0][0]);
       fence_regs<16>(&fds[0][0]);
       fence_regs<NA>(dv);
+      fence_regs<NA>(dk);
+      uint32_t fdl[4][4];
+#pragma unroll
+      for (int w = 0; w < 16; ++w) (&fdl[0][0])[w] = lo_park[w * kConsumers + tid];
+      fence_regs<16>(&fdl[0][0]);
+      wgmma_fence();
+      rs_tile<HD>(dk, fdl, qt, W::QT_PANEL);
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs<16>(&fdl[0][0]);
       fence_regs<NA>(dk);
     }
     mbar_arrive(bar_empty + 8 * s);  // this thread is done with the stage
@@ -963,15 +1014,18 @@ __device__ __forceinline__ void dq_wgmma(const CUtensorMap& tq, const CUtensorMa
           if (edge && !visible(a, r0 + 8 * (e >> 1), k0 + 8 * j + c0 + (e & 1))) p = 0.f;
           dp[4 * j + e] = p * (dp[4 * j + e] - dd[e >> 1]);
         }
-      uint32_t fds[4][4];
-      pack_frags(fds, dp);
+      uint32_t fds[4][4], fdl[4][4];
+      pack_split_frags(fds, fdl, dp);
       fence_regs<16>(&fds[0][0]);
+      fence_regs<16>(&fdl[0][0]);
       fence_regs<NA>(dq);
       wgmma_fence();
       rs_tile<HD>(dq, fds, kt, W::KT_PANEL);
+      rs_tile<HD>(dq, fdl, kt, W::KT_PANEL);
       wgmma_commit();
       wgmma_wait_all();
       fence_regs<16>(&fds[0][0]);
+      fence_regs<16>(&fdl[0][0]);
       fence_regs<NA>(dq);
     }
     mbar_arrive(bar_empty + 8 * s);

@@ -5,10 +5,15 @@
         --steps 20 --batch 4 --seq 2048
     PYTHONPATH=src python -m repro_torch.launch.train --arch olmoe-1b-7b \\
         --layers 2 --steps 10 --batch 4 --seq 2048
+    PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-vl-7b \\
+        --layers 2 --steps 10 --batch 4 --seq 2048
+    PYTHONPATH=src python -m repro_torch.launch.train --arch whisper-tiny \\
+        --steps 20 --batch 8 --seq 448
     PYTHONPATH=src python -m repro_torch.launch.train --device cpu --reduced
 
-Trains an LM arch on synthetic token streams (``synth_batch``: the same
-numpy stream as ``repro``'s, so tokens and labels are bitwise its own)
+Trains any of the ten archs on synthetic token streams (``synth_batch``:
+the same numpy stream as ``repro``'s, so tokens, labels and Qwen2-VL's patch
+or Whisper's frame embeddings are bitwise its own)
 with ``ArchSpec.make_train_step(adam(lr))``, from the port's seeded init
 (``--seed``; ``repro`` draws from ``jax.random``, so the weights differ).
 ``--reduced`` takes the smoke config and turns microbatching off, as
@@ -28,7 +33,7 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
-from repro_torch.configs import PORTED_ARCH_IDS, get_arch
+from repro_torch.configs import ARCH_IDS, get_arch
 from repro_torch.configs.base import ArchSpec
 from repro_torch.device import resolve_device
 from repro_torch.train import optimizer as opt_lib
@@ -38,20 +43,31 @@ def synth_batch(rng: np.random.Generator, spec: ArchSpec, batch: int, seq: int,
                 device=None) -> dict:
     """A markov-ish stream (the next token correlated with the current),
     labels the tokens shifted left with -1 at the last position:
-    ``{"tokens", "labels"}``, (batch, seq) int64 on ``device``."""
-    vocab = spec.lm.vocab
+    ``{"tokens", "labels"}``, (batch, seq) int64 on ``device``; then, drawn
+    after them from ``rng``, N(0, 0.02^2) ``patch_embeds`` (batch,
+    n_patches, d) for ``vlm`` or ``audio_embeds`` (batch, n_audio_frames,
+    d) for ``whisper``, in the spec's dtype (rounded from the f64 draw to
+    f32 first)."""
+    vocab = spec.whisper.vocab if spec.kind == "whisper" else spec.lm.vocab
     base = rng.integers(0, vocab, size=(batch, seq + 1))
     drift = (base[:, :-1] + rng.integers(0, 7, size=(batch, seq))) % vocab
     tokens = np.where(rng.random((batch, seq)) < 0.7, drift, base[:, :-1])
     labels = np.roll(tokens, -1, axis=1).copy()
     labels[:, -1] = -1  # no target for the last position
-    return {"tokens": torch.from_numpy(tokens.astype(np.int64)).to(device),
-            "labels": torch.from_numpy(labels.astype(np.int64)).to(device)}
+    out = {"tokens": torch.from_numpy(tokens.astype(np.int64)).to(device),
+           "labels": torch.from_numpy(labels.astype(np.int64)).to(device)}
+    if spec.kind == "lm":
+        return out
+    name, n = (("patch_embeds", spec.n_patches) if spec.kind == "vlm"
+               else ("audio_embeds", spec.whisper.n_audio_frames))
+    x = rng.normal(size=(batch, n, spec.d_model)) * 0.02
+    out[name] = torch.from_numpy(x.astype(np.float32)).to(device=device, dtype=spec.dtype)
+    return out
 
 
 def parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--arch", default="smollm-135m", choices=PORTED_ARCH_IDS)
+    ap.add_argument("--arch", default="smollm-135m", choices=ARCH_IDS)
     ap.add_argument("--reduced", action="store_true", help="the smoke config")
     ap.add_argument("--layers", type=int, default=0,
                     help="keep the first n layers, whole periods (0: all)")

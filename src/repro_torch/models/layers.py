@@ -16,8 +16,9 @@ stands in for ``repro``'s three branches (the Pallas kernel, the chunked XLA
 scan and the naive einsum), which compute the same function. The sharding
 knobs of ``AttnConfig`` (``block_q``, ``chunk_unroll``, ``shard_cache_seq``,
 ``pad_heads`` apart from the head count it implies) are kept so configs
-stay interchangeable and select nothing. Cross-attention (Whisper's) is
-not ported.
+stay interchangeable and select nothing. Cross-attention (Whisper's
+decoder over the encoded audio) is ``gqa_attention``, the einsum path, as
+in ``repro``: no kernel.
 """
 from __future__ import annotations
 
@@ -334,6 +335,39 @@ def attn_decode_step(
     mask = torch.where(valid, 0.0, NEG_INF).float()[None, None, None, :]
     out = gqa_attention(q, k_heads, v_heads, mask)  # (B, 1, H, hd)
     return out.reshape(B, 1, -1) @ p.wo, cache
+
+
+# ----------------------------------------------------------- cross-attention
+def init_cross_attn(gen: torch.Generator, cfg: AttnConfig, dtype, device=None) -> Attention:
+    return init_attn(gen, cfg, dtype, device)
+
+
+def cross_attn_forward(
+    p: Attention,
+    cfg: AttnConfig,
+    x: torch.Tensor,  # (B, Sq, d) decoder states
+    enc_kv: Tuple[torch.Tensor, torch.Tensor],  # precomputed (B, Se, K, hd) k, v
+) -> torch.Tensor:
+    """The decoder's queries against the encoder's keys and values, no
+    mask (every query sees every frame)."""
+    B, Sq, _ = x.shape
+    q = x @ p.wq
+    if p.bq is not None:
+        q = q + p.bq
+    k, v = enc_kv
+    out = gqa_attention(q.reshape(B, Sq, cfg.n_heads, cfg.head_dim), k, v, None)
+    return out.reshape(B, Sq, -1) @ p.wo
+
+
+def encode_cross_kv(p: Attention, cfg: AttnConfig,
+                    enc: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The cross-attention's keys and values of the encoder states ``enc``
+    (B, Se, d) -> two (B, Se, K, hd)."""
+    B, Se, _ = enc.shape
+    k, v = enc @ p.wk, enc @ p.wv
+    if p.bk is not None:
+        k, v = k + p.bk, v + p.bv
+    return (k.reshape(B, Se, cfg.n_kv, cfg.head_dim), v.reshape(B, Se, cfg.n_kv, cfg.head_dim))
 
 
 # --------------------------------------------------------------------- MLPs

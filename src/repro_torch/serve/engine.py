@@ -5,7 +5,9 @@ Static batching: requests go in fixed-size batches, one ``decode_step`` per
 token across the whole batch. Prompts are left-aligned and stepped through
 the cache (prefill-by-decode: a short prompt repeats its last token, and the
 extra steps are overwritten by the first sampled token); rows that emitted
-``eos_id`` stop. No kernel runs on this path: the decode step's attention
+``eos_id`` stop. It serves the LM family: ``lm`` archs and Qwen2-VL
+(``vlm``) on text, whose decode positions are (t, t, t); a Whisper spec is
+refused, as ``repro``'s server refuses it. No kernel runs on this path: the decode step's attention
 is one query against the cache, the einsum path, as in ``repro``.
 
 Greedy decoding (``temperature <= 0``) is the conformance mode: the argmax
@@ -47,9 +49,8 @@ class ServeConfig:
 
 class BatchedServer:
     def __init__(self, spec: ArchSpec, params: T.LM, cfg: ServeConfig, telemetry=None):
-        if spec.kind != "lm":
-            raise NotImplementedError(f"serving {spec.kind!r} archs is not ported yet "
-                                      "(ROADMAP Queue 1 items 8d, 8e)")
+        if spec.kind not in ("lm", "vlm"):
+            raise ValueError("LM-family archs only")
         self.spec = spec
         self.lm = spec.lm
         self.params = params

@@ -28,8 +28,9 @@ causal and not, windows, G 1/3/7, hd 32/64/128 and S 200; in bf16 to
 error scales with them) against the
 f32 gradients of the same values and ``repro``'s bf16 oracle; the plain
 LSE against ``torch.logsumexp``. A plain-torch emulation of the bf16
-backward kernels' arithmetic (P and dS rounded to bf16 before the
-products, each query head's dK and dV summed over G in order) within
+backward kernels' arithmetic (P rounded to bf16 and dS split into two bf16
+parts before the products, each query head's dK and dV summed over G in
+order) within
 ``chip_smoke.py``'s row-scaled bound (2^-6) of the plain version and 3e-2
 of ``jax.vjp`` of ``repro``'s oracle, at the backward cases and smollm's
 training layout at S 512; that bound failing the emulation with a
@@ -469,8 +470,9 @@ def test_backward_bf16_matches_f32_and_repro(S, K, G, hd, window):
 
 def bwd_kernel_emulation(cs, q, k, v, o, lse, do, causal=True, window=None, fault=None):
     """``chip_smoke.bwd_kernel_emulation`` (of module ``cs``), the bf16
-    backward kernel's arithmetic: P and dS rounded to bf16 before the
-    products, each query head's dK and dV summed over G in order.
+    backward kernel's arithmetic: P rounded to bf16 and dS split into two
+    bf16 parts before the products, each query head's dK and dV summed over
+    G in order.
 
     ``fault`` breaks the band where a window cuts a dQ block's (128 rows)
     band, as a kernel's bug could: ``"drop_edge_tile"`` loses the band's
@@ -857,8 +859,8 @@ class TestOnCard:
                                                    (2, 130, 2, 1, 32, None)])
     def test_backward_kernel_matches_its_emulation_bf16(self, cuda, chip_smoke, B, S, K, G, hd,
                                                         window):
-        """The card against the CPU emulation of its arithmetic (P and dS
-        rounded to bf16 before the products): the same roundings, other
+        """The card against the CPU emulation of its arithmetic (P rounded
+        to bf16, dS split into two bf16 parts): the same roundings, other
         summation orders and exp2 implementations."""
         q, k, v, do = (_t(a, torch.bfloat16) for a in _qkvd(S + 7, B, S, K, G, hd))
         o, lse = flash_attention_cuda(q.to(cuda), k.to(cuda), v.to(cuda), True, window,

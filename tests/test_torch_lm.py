@@ -30,7 +30,7 @@ from repro.models import transformer as JT
 from repro.serve import BatchedServer as JaxServer
 from repro.serve import ServeConfig as JaxServeConfig
 from repro_torch import convert
-from repro_torch.configs import ARCH_IDS, PORTED_ARCH_IDS, ShapeSpec, get_arch
+from repro_torch.configs import ARCH_IDS, ShapeSpec, get_arch
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
 from repro_torch.serve import BatchedServer, ServeConfig
@@ -61,35 +61,54 @@ def _close(got: torch.Tensor, want, rtol=RTOL, atol=ATOL):
 
 
 # --------------------------------------------------------------- configs
-@pytest.mark.parametrize("arch", PORTED_ARCH_IDS)
+@pytest.mark.parametrize("arch", ARCH_IDS)
 @pytest.mark.parametrize("reduced", [False, True])
 def test_configs_equal_repro(arch, reduced):
-    mine, ref = get_arch(arch, reduced).lm, jax_get_arch(arch, reduced).lm
+    mine, ref = get_arch(arch, reduced), jax_get_arch(arch, reduced)
+    for f in ("arch_id", "kind", "family", "citation", "n_patches", "grid_hw",
+              "sub_quadratic", "microbatches"):
+        assert getattr(mine, f) == getattr(ref, f), f
+    if mine.kind == "whisper":
+        assert mine.lm is None and ref.lm is None
+        assert dataclasses.asdict(mine.whisper) == dataclasses.asdict(ref.whisper)
+        w, rw = mine.whisper, ref.whisper
+        assert (w.vocab_padded, w.head_dim) == (rw.vocab_padded, rw.head_dim)
+        for causal in (True, False):
+            assert dataclasses.asdict(w.attn_cfg(causal)) == dataclasses.asdict(
+                rw.attn_cfg(causal))
+        return
+    mine, ref = mine.lm, ref.lm
     assert dataclasses.asdict(mine) == dataclasses.asdict(ref)
     assert mine.vocab_padded == ref.vocab_padded and mine.period() == ref.period()
     assert dataclasses.asdict(mine.attn_cfg()) == dataclasses.asdict(ref.attn_cfg())
 
 
 def test_unported_archs_raise():
-    """Qwen2-VL (8d) and Whisper (8e) are the two archs left; a block kind
-    outside (attn | mamba, dense | moe | none) is refused."""
-    assert ARCH_IDS == JAX_ARCH_IDS
-    unported = [a for a in ARCH_IDS if a not in PORTED_ARCH_IDS]
-    assert unported == ["qwen2-vl-7b", "whisper-tiny"] and len(PORTED_ARCH_IDS) == 8
-    for arch, item in zip(unported, ("8d", "8e")):
-        with pytest.raises(NotImplementedError, match=f"ROADMAP Queue 1 item {item}"):
-            get_arch(arch)
+    """No arch is left unported: all ten of ``repro``'s resolve, full and
+    reduced, with ``repro``'s kinds. What still raises: an unknown arch id,
+    an unknown spec kind, a block kind outside (attn | mamba, dense | moe |
+    none), and ``BatchedServer`` on a Whisper spec (``repro``'s refuses it
+    too: LM-family archs only)."""
+    assert ARCH_IDS == JAX_ARCH_IDS and len(ARCH_IDS) == 10
+    for arch in ARCH_IDS:
+        for reduced in (False, True):
+            assert get_arch(arch, reduced).kind == jax_get_arch(arch, reduced).kind
+    assert {a: get_arch(a).kind for a in ("qwen2-vl-7b", "whisper-tiny")} == {
+        "qwen2-vl-7b": "vlm", "whisper-tiny": "whisper"}
     with pytest.raises(KeyError):
         get_arch("no-such-arch")
     spec = get_arch("smollm-135m", reduced=True)
+    with pytest.raises(ValueError, match="arch kind"):
+        dataclasses.replace(spec, kind="speech")
     for bad in (("conv", "dense"), ("attn", "sparse")):
         with pytest.raises(ValueError, match="mixer in"):
             T.init_lm(torch.Generator().manual_seed(0),
                       dataclasses.replace(spec.lm, blocks=(bad,) * 2))
-    with pytest.raises(NotImplementedError, match="item 8d"):
-        dataclasses.replace(spec, kind="vlm").make_prefill()
-    with pytest.raises(NotImplementedError, match="items 8d, 8e"):  # telemetry is ported
-        BatchedServer(dataclasses.replace(spec, kind="whisper"), _pair("smollm-135m", 1)[3],
+    whisper = get_arch("whisper-tiny", reduced=True)
+    with pytest.raises(AssertionError, match="LM-family archs only"):
+        JaxServer(jax_get_arch("whisper-tiny", reduced=True), None, JaxServeConfig())
+    with pytest.raises(ValueError, match="LM-family archs only"):  # telemetry is ported
+        BatchedServer(whisper, whisper.init_params(torch.Generator().manual_seed(0), "cpu"),
                       ServeConfig())
 
 

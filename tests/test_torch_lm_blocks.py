@@ -73,10 +73,16 @@ def _bits(a) -> np.ndarray:
 
 # ------------------------------------------------------------ the registry
 def test_eight_lm_archs_are_ported():
-    from repro_torch.configs import ARCH_IDS, PORTED_ARCH_IDS
+    """The eight ``lm`` archs, with Qwen2-VL (``vlm``) and Whisper
+    (``whisper``) beside them: the ten of ``repro``, each of its kind."""
+    from repro.configs import ARCH_IDS as JAX_ARCH_IDS
+    from repro_torch.configs import ARCH_IDS
 
-    assert len(PORTED_ARCH_IDS) == 8 and set(ARCH_IDS) - set(PORTED_ARCH_IDS) == {
-        "qwen2-vl-7b", "whisper-tiny"}
+    kinds = {a: get_arch(a).kind for a in ARCH_IDS}
+    assert ARCH_IDS == JAX_ARCH_IDS
+    assert sorted(a for a, k in kinds.items() if k == "lm") == sorted(
+        set(ARCH_IDS) - {"qwen2-vl-7b", "whisper-tiny"})
+    assert (kinds["qwen2-vl-7b"], kinds["whisper-tiny"]) == ("vlm", "whisper")
     jamba = get_arch("jamba-v0.1-52b")
     assert jamba.lm.period() == 8 and jamba.lm.block_list()[4] == ("attn", "dense")
     assert set(jamba.lm.block_list()) == {("mamba", "dense"), ("mamba", "moe"),
