@@ -183,6 +183,25 @@ nothing of JAX or of the JAX package ``repro``. Phases, each failing loudly:
    decoder logits, 16 decode steps to 1e-4); the reduced config (hd 24)
    refused by the flash wrapper on the card; training B 8 x 448 tokens, 20
    steps as 6c, ``enc_pos`` a bf16 parameter before step 1 and f32 after;
+6f. ``lm_dryrun``, the launch tools' dry run (``repro_torch.launch.dryrun``)
+   grounded on the card: (a) every (arch x shape) row of the full configs
+   counted on fake CUDA tensors (nothing allocated, nothing launched), in
+   four subprocesses at the lowest CPU priority, started here, after every
+   phase whose host time is measured, and awaited after the kernel phases
+   of 7, which time the card (the trace is host work, about 12 minutes of
+   it, three of them the Mamba2-1.3B prefill's: run apart it would not fit
+   the time this phase may add), one compact line a row, any ``error``
+   failing; (b) smollm-135m's prefill (B 4 x S 2,048, bf16) counted by the
+   dry run's ``StepCounter`` on fake CUDA tensors and then run for real on
+   the card under the same counter: FLOPs equal exactly, the flash custom
+   op counted once a layer in both, 30 flash launches in the real run and
+   none in the fake one, the fake trace's peak live bytes within 10 % of
+   the real step's (``max_memory_allocated`` after
+   ``reset_peak_memory_stats``, less what was allocated before, plus the
+   arguments), the compute and memory terms beside the measured device ms;
+   (c) one training step of it at the dtype the real step sees after step
+   1 (f32, ROADMAP C6), the same checks (60 flash forwards with remat, 30
+   backward calls);
 7. the launch floor: the time ``measure`` reports for an empty kernel of
    the same library, one block and one wave of blocks, on a line of its own;
    then kernel phases: each kernel against its plain PyTorch version on the
@@ -3366,6 +3385,225 @@ def vlm_whisper_summary(lvlm: dict, lvt: dict, lwh: dict, lwt: dict) -> dict:
     return out
 
 
+# ------------------------------------------------------------------ dry run
+# the rows whose fake trace takes longest (seconds on the card's host, PR
+# 27: the Mamba2 and Jamba rows trace the SSD chunk by chunk); the rest are
+# taken as DRYRUN_OTHER_S each when the rows are shared out
+DRYRUN_TRACE_S = {("mamba2-1.3b", "prefill_32k"): 190, ("jamba-v0.1-52b", "train_4k"): 126,
+                  ("jamba-v0.1-52b", "prefill_32k"): 125, ("mamba2-1.3b", "train_4k"): 101,
+                  ("mixtral-8x22b", "train_4k"): 65, ("deepseek-coder-33b", "train_4k"): 33}
+DRYRUN_OTHER_S = 5
+DRYRUN_PROCS = 4
+DRYRUN_WAIT_S = 600  # the sweep's processes, awaited after the kernel phases
+DRYRUN_PEAK_TOL = 0.10  # the fake trace's peak live bytes vs the real step's
+
+
+def start_dryrun_sweep() -> dict:
+    """Start ``python -m repro_torch.launch.dryrun`` over every (arch x
+    shape) in ``DRYRUN_PROCS`` processes at the lowest CPU priority
+    (``os.nice(19)``), the rows shared out longest first to the least
+    loaded process; rows and logs under ``build/chip_smoke/``. It starts
+    after the phases whose host time is measured and runs beside the
+    grounding and the kernel phases, which time the card. Any process still
+    running at exit is killed."""
+    import atexit
+
+    from repro_torch.configs.base import SHAPES
+    from repro_torch.configs.registry import ARCH_IDS
+
+    rows = sorted(((a, s) for a in ARCH_IDS for s in SHAPES),
+                  key=lambda r: -DRYRUN_TRACE_S.get(r, DRYRUN_OTHER_S))
+    bins = [[0.0, []] for _ in range(DRYRUN_PROCS)]
+    for r in rows:
+        b = min(bins, key=lambda b: b[0])
+        b[0] += DRYRUN_TRACE_S.get(r, DRYRUN_OTHER_S)
+        b[1].append(r)
+    out_dir = os.path.join(ROOT, "build", "chip_smoke")
+    os.makedirs(out_dir, exist_ok=True)
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    procs = []
+    for i, (_, group) in enumerate(bins):
+        out = os.path.join(out_dir, f"dryrun_{i}.json")
+        if os.path.exists(out):  # the CLI merges into an existing file
+            os.remove(out)
+        log = open(os.path.join(out_dir, f"dryrun_{i}.log"), "w")
+        cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--rows",
+               ",".join(f"{a}:{s}" for a, s in group), "--out", out]
+        procs.append((subprocess.Popen(cmd, cwd=ROOT, env=env, stdout=log,
+                                       stderr=subprocess.STDOUT,
+                                       preexec_fn=lambda: os.nice(19)), out, log))
+
+    def stop():
+        for p, _, log in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+            log.close()
+
+    atexit.register(stop)
+    return {"procs": procs, "t0": time.perf_counter()}
+
+
+def _ground(torch, fa_mod, spec, shape, model, batch, what: str) -> dict:
+    """One step of ``shape`` counted by the dry run's ``StepCounter`` on fake
+    CUDA tensors (the abstract model and inputs: nothing launched), then on
+    ``model`` and ``batch`` on the card, after one uncounted warm-up step:
+    the FLOPs equal exactly, the custom ops' calls equal, the fake trace's
+    peak within ``DRYRUN_PEAK_TOL`` of the real step's (its peak allocation
+    over what was allocated once its arguments existed, plus their bytes)."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from repro_torch.launch import dryrun
+
+    card = torch.device("cuda", 0)
+    launched = (fa_mod.launches, fa_mod.bwd_launches)
+    with FakeTensorMode():
+        fake = dryrun.count_step(spec, shape, spec.abstract_params(card),
+                                 spec.input_specs(shape, card))
+    if (fa_mod.launches, fa_mod.bwd_launches) != launched:
+        fail(f"lm_dryrun {what}: the fake trace launched a flash kernel")
+    dryrun.count_step(spec, shape, model, batch)  # warm-up: cuBLAS, the RoPE table
+    torch.cuda.synchronize()
+    gc.collect()
+    at_ready = {}
+
+    def ready():
+        torch.cuda.synchronize()
+        at_ready["bytes"] = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+
+    fa_mod.launches = fa_mod.bwd_launches = 0
+    real = dryrun.count_step(spec, shape, model, batch, on_ready=ready)
+    torch.cuda.synchronize()
+    launches = {"flash_attention": fa_mod.launches, "flash_attention_bwd": fa_mod.bwd_launches}
+    real_peak = torch.cuda.max_memory_allocated() - at_ready["bytes"] + real["arg_bytes"]
+    fc, rc = fake["counter"], real["counter"]
+    flash = {k: v for k, v in rc.calls.items() if k.startswith("g4r.")}
+    if fc.total_flops != rc.total_flops or dict(fc.flops) != dict(rc.flops):
+        fail(f"lm_dryrun {what}: counted FLOPs differ, fake {dict(fc.flops)} vs real "
+             f"{dict(rc.flops)}")
+    if flash != {k: v for k, v in fc.calls.items() if k.startswith("g4r.")}:
+        fail(f"lm_dryrun {what}: flash calls differ, fake {fc.calls} vs real {flash}")
+    ratio = fc.peak_bytes / real_peak
+    if abs(ratio - 1.0) > DRYRUN_PEAK_TOL:
+        fail(f"lm_dryrun {what}: the fake trace's peak {fc.peak_bytes} bytes is {ratio} of "
+             f"the real step's {real_peak}")
+    return {"flops": fc.total_flops, "flops_by_dtype": dict(fc.flops),
+            "compute_s": fc.compute_s(), "memory_s": fc.memory_s(),
+            "bytes_accessed_fake": fc.bytes_accessed, "bytes_accessed_real": rc.bytes_accessed,
+            "flash_calls": flash, "launches": launches, "peak_bytes_fake": fc.peak_bytes,
+            "peak_bytes_real": real_peak, "peak_ratio": ratio,
+            "arg_bytes": real["arg_bytes"],
+            "max_memory_allocated": torch.cuda.max_memory_allocated()}
+
+
+def lm_dryrun(torch, np, fa_mod) -> dict:
+    """(b) and (c): the counter grounded on smollm-135m's prefill and
+    training step (module docstring, 6f)."""
+    t_phase = time.perf_counter()
+    pre, tr = dryrun_grounding(torch, np, fa_mod)
+    rec = {"phase": "lm_dryrun", "prefill": pre, "training": tr, "peak_tol": DRYRUN_PEAK_TOL,
+           "phase_s": time.perf_counter() - t_phase}
+    emit(rec)
+    return rec
+
+
+def finish_dryrun_sweep(sweep: dict) -> dict:
+    """(a): the sweep's rows, one compact line each; a row missing, in
+    ``error``, skipped where ``supports`` runs it (or the reverse) or traced
+    on another device than a fake card fails the run."""
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.base import SHAPES
+    from repro_torch.configs.registry import ARCH_IDS
+
+    t_wait = time.perf_counter()
+    rows = []
+    for p, out, log in sweep["procs"]:
+        try:
+            rc = p.wait(timeout=DRYRUN_WAIT_S)
+        except subprocess.TimeoutExpired:
+            fail(f"lm_dryrun: the dry run writing {out} ran past {DRYRUN_WAIT_S} s")
+        log.close()
+        if rc:
+            fail(f"lm_dryrun: the dry run writing {out} exited {rc}; its log is beside it")
+        with open(out) as f:
+            rows += json.load(f)
+    waited_s = time.perf_counter() - t_wait
+    want = {(a, s) for a in ARCH_IDS for s in SHAPES}
+    if {(r["arch"], r["shape"]) for r in rows} != want or len(rows) != len(want):
+        fail(f"lm_dryrun: {len(rows)} rows for {len(want)} (arch, shape) pairs")
+    for r in sorted(rows, key=lambda r: (r["arch"], list(SHAPES).index(r["shape"]))):
+        if r["status"] == "error":
+            fail(f"lm_dryrun: {r['arch']} {r['shape']}: {r['error']}")
+        ok = get_arch(r["arch"]).supports(r["shape"])[0]
+        if (r["status"] == "ok") != ok:
+            fail(f"lm_dryrun: {r['arch']} {r['shape']} is {r['status']}, supports says {ok}")
+        if r["status"] == "ok":
+            if r["traced_device"] != "fake cuda:0":
+                fail(f"lm_dryrun: {r['arch']} {r['shape']} traced on {r['traced_device']}")
+            print(json.dumps({"dryrun": [r["arch"], r["shape"]], "compute_s": r["compute_s"],
+                              "memory_s": r["memory_s"],
+                              "peak_gb": r["memory"]["peak_bytes"] / 1e9,
+                              "fits": r["fits_one_card"], "dominant": r["dominant"],
+                              "useful": r["useful_ratio"], "dtype": r["traced_dtype"],
+                              "trace_s": r["compile_s"]}), flush=True)
+        else:
+            print(json.dumps({"dryrun": [r["arch"], r["shape"]], "status": r["status"]}),
+                  flush=True)
+    rec = {"phase": "lm_dryrun sweep", "rows": len(rows),
+           "ok": sum(r["status"] == "ok" for r in rows),
+           "skipped": sum(r["status"] == "skipped" for r in rows),
+           "sweep_wall_s": time.perf_counter() - sweep["t0"], "waited_s": waited_s,
+           "trace_s_sum": sum(r.get("compile_s", 0.0) for r in rows)}
+    emit(rec)
+    return rec
+
+
+def dryrun_grounding(torch, np, fa_mod):
+    """(b) and (c): smollm-135m's prefill in bf16 and its training step in
+    f32 through ``_ground``, each beside its device ms; their flash calls
+    and launches checked."""
+    import dataclasses as dc
+
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.train import optimizer as opt_lib
+
+    spec = get_arch(LM_ARCH)
+    gen = torch.Generator().manual_seed(0)
+    rng = np.random.default_rng(0)
+    tokens = torch.from_numpy(rng.integers(0, spec.lm.vocab, (LM_BATCH, LM_SEQ))).cuda()
+    # (b) the prefill, bf16, as lm_prefill runs it
+    model = spec.init_params(gen, device="cuda")
+    shape = ShapeSpec("lm_prefill", LM_SEQ, LM_BATCH, "prefill")
+    pre = _ground(torch, fa_mod, spec, shape, model, {"tokens": tokens}, "prefill")
+    prefill = spec.make_prefill()
+    pre["device_ms"] = measure(lambda: prefill(model, {"tokens": tokens}), 5)
+    del model
+    # (c) one training step at the dtype the real step sees from step 2: f32
+    spec32 = dc.replace(spec, lm=dc.replace(spec.lm, dtype="float32"))
+    model = spec32.init_params(gen, device="cuda")
+    shape = ShapeSpec("lm_training", LM_SEQ, LM_BATCH, "train")
+    batch = {"tokens": tokens, "labels": torch.roll(tokens, -1, dims=1)}
+    tr = _ground(torch, fa_mod, spec32, shape, model, batch, "training")
+    opt = opt_lib.adam(1e-3, weight_decay=0.01)
+    state = opt.init(dict(model.named_parameters()))
+    step = spec32.make_train_step(opt)
+    tr["device_ms"] = measure(lambda: step(model, state, batch), 3, warmup=1)
+    del model, state
+    gc.collect()
+    torch.cuda.empty_cache()
+    L = spec.lm.n_layers
+    if pre["flash_calls"] != {"g4r.flash_attention": L} or pre["launches"] != {
+            "flash_attention": L, "flash_attention_bwd": 0}:
+        fail(f"lm_dryrun prefill: flash calls {pre['flash_calls']}, launches {pre['launches']}")
+    if (tr["flash_calls"] != {"g4r.flash_attention_lse": 2 * L, "g4r.flash_attention_bwd": L}
+            or tr["launches"]["flash_attention"] != 2 * L
+            or not tr["launches"]["flash_attention_bwd"]):
+        fail(f"lm_dryrun training: flash calls {tr['flash_calls']}, launches {tr['launches']}")
+    return pre, tr
+
+
 def flash_build_phase(torch, build, fa_mod, lib) -> None:
     """The flash kernel as built: each instantiation's registers, local
     memory bytes (spills and stack) and dynamic shared memory, and whether
@@ -3840,6 +4078,8 @@ def main() -> None:
     lvlm, lvt = lm_vlm(torch, np, fa_mod)
     lwh, lwt = lm_whisper(torch, np, fa_mod)
     lred = lm_reduced(torch, np)
+    sweep = start_dryrun_sweep()
+    ldr = lm_dryrun(torch, np, fa_mod)
     gc.collect()
     torch.cuda.empty_cache()  # the IVF phases' blocks: leave the card's memory free
     emit({"phase": "clocks", "before_kernel_phases": sm_clocks(),
@@ -3869,6 +4109,8 @@ def main() -> None:
         {"lm training path": lt["bwd_calls"], "lm_moe_training path": lmt["bwd_calls"],
          "lm_vlm training path": lvt["bwd_calls"], "lm_whisper training path": lwt["bwd_calls"]},
         {_flash_key(c) for calls in prefill_calls.values() for c in calls})
+
+    ldr["sweep"] = finish_dryrun_sweep(sweep)
 
     def timing(rec):
         return {"max_abs_err": rec["max_abs_err"], "ms": rec["kernel_ms"],
@@ -3953,6 +4195,11 @@ def main() -> None:
               "loss_first": lt["losses"][0], "loss_last": lt["losses"][-1],
               "conformance": {k: lt["conformance"][k] for k in (
                   "loss_max_abs_diff", "param_max_abs_diff", "card_runs_identical")}},
+          "lm_dryrun": {"phase_s": ldr["phase_s"], "sweep": ldr["sweep"]} | {
+              part: {k: ldr[part][k] for k in ("flops", "compute_s", "memory_s", "device_ms",
+                                               "peak_bytes_fake", "peak_bytes_real",
+                                               "peak_ratio")}
+              for part in ("prefill", "training")},
           **lm_blocks_summary(lmoe, lssm, lhyb, lmt, lred),
           **vlm_whisper_summary(lvlm, lvt, lwh, lwt)})
     print(json.dumps({"kernels": [
@@ -3992,14 +4239,18 @@ def main() -> None:
                "vlm prefill": lvlm["launches"]["flash_attention"],
                "vlm training": lvt["launches"]["flash_attention"],
                "whisper prefill": lwh["launches"]["flash_attention"],
-               "whisper training": lwt["launches"]["flash_attention"]},
+               "whisper training": lwt["launches"]["flash_attention"],
+               "lm_dryrun prefill": ldr["prefill"]["launches"]["flash_attention"],
+               "lm_dryrun training": ldr["training"]["launches"]["flash_attention"]},
               flash_others + flash_train),
         entry("flash_attention_bwd", flash_bwd, "src/repro_torch/kernels/csrc/flash_attn_bwd.cu",
               "src/repro/kernels/ops.py:139 (no VJP); src/repro/models/layers.py:205",
               {"lm training": lt["launches"]["flash_attention_bwd"],
                "lm_moe_training": lmt["launches"]["flash_attention_bwd"],
                "vlm training": lvt["launches"]["flash_attention_bwd"],
-               "whisper training": lwt["launches"]["flash_attention_bwd"]}, flash_bwd_others),
+               "whisper training": lwt["launches"]["flash_attention_bwd"],
+               "lm_dryrun training": ldr["training"]["launches"]["flash_attention_bwd"]},
+              flash_bwd_others),
     ]}), flush=True)
     print(smi, flush=True)  # the card's name and power limit, as nvidia-smi gives them
     print(json.dumps({"ok": True, "device": {

@@ -13,9 +13,17 @@ functions: the loss, the training step (loss, gradients and an optimizer
 step), prefill (the full-sequence forward, last-position logits) and the
 one-token serve step. ``with_layers`` cuts the depth to whole periods of
 the block pattern (Whisper: n encoder and n decoder layers), for a card
-that cannot hold the whole model. ``repro``'s abstract shapes, sharding
-specs, depth probes and support table serve its TPU dry-run (ROADMAP Queue
-1 item 8f) and are left out.
+that cannot hold the whole model.
+
+For the launch tools (``launch/dryrun.py``) the spec also gives what
+``repro``'s does for its dry run: the parameters, inputs and cache with
+nothing allocated and nothing drawn (``abstract_params``, ``input_specs``,
+``abstract_cache``: empty tensors on the meta device, or fake ones when
+built under ``FakeTensorMode``), each tensor's mesh-axis tuple under the
+current sharding rules (``param_pspecs``, ``input_pspecs``,
+``cache_pspecs``), the support table (``supports``) and the depth terms
+(``depth_reps``, ``period_layers``). ``unrolled`` selects nothing: the
+layers are a Python loop already, so a trace counts every layer.
 """
 from __future__ import annotations
 
@@ -95,6 +103,29 @@ class ArchSpec:
                                  blocks=cfg.blocks[:n_layers] if cfg.blocks else ())
         return dataclasses.replace(self, lm=lm)
 
+    def unrolled(self) -> "ArchSpec":
+        """The spec itself: ``repro`` unrolls its scanned layers so that XLA
+        counts every one; the port's layers are a Python loop."""
+        return self
+
+    @property
+    def depth_reps(self) -> int:
+        """Repeating periods of the block pattern in the full depth."""
+        if self.kind == "whisper":
+            return self.whisper.n_layers
+        return self.lm.n_layers // self.lm.period()
+
+    @property
+    def period_layers(self) -> int:
+        return 1 if self.kind == "whisper" else self.lm.period()
+
+    def supports(self, shape: str) -> Tuple[bool, str]:
+        """``repro``'s table: long_500k only for sub-quadratic archs."""
+        s = SHAPES[shape]
+        if s.name == "long_500k" and not self.sub_quadratic:
+            return False, "full-attention arch: long_500k skipped (see DESIGN.md)"
+        return True, ""
+
     # ----------------------------------------------------------- parameters
     def init_params(self, generator: torch.Generator,
                     device: DeviceLike = None) -> Union[T.LM, W.Whisper]:
@@ -103,6 +134,76 @@ class ArchSpec:
         if self.kind == "whisper":
             return W.init_whisper(generator, self.whisper, resolve_device(device))
         return T.init_lm(generator, self.lm, resolve_device(device))
+
+    def abstract_params(self, device: DeviceLike = "meta") -> Union[T.LM, W.Whisper]:
+        """The model with every parameter empty on ``device`` and nothing
+        drawn: on ``meta`` (the default) no memory is taken; under
+        ``FakeTensorMode`` with a CUDA device, fake CUDA tensors (the dry
+        run). The parameters' shapes, dtypes and names are ``init_params``'s."""
+        dev = torch.device(device)
+        if self.kind == "whisper":
+            return W.init_whisper(None, self.whisper, dev)
+        return T.init_lm(None, self.lm, dev)
+
+    def param_pspecs(self) -> Dict[str, tuple]:
+        """Each parameter's mesh-axis tuple under the current rules, by name."""
+        if self.kind == "whisper":
+            return W.param_pspecs(self.whisper)
+        return T.param_pspecs(self.lm)
+
+    # --------------------------------------------------------------- inputs
+    def input_specs(self, shape, device: DeviceLike = "meta") -> Dict[str, torch.Tensor]:
+        """Empty stand-ins of every model input of ``shape`` on ``device``:
+        ``repro``'s shapes, the token ids int64 (the port's embeddings and
+        launchers take int64 ids; ``repro``'s are int32). Decode takes one
+        new token against the cache of ``seq_len``."""
+        s = resolve_shape(shape)
+        B, S = s.global_batch, s.seq_len
+        dev = torch.device(device)
+
+        def ids(*shp):
+            return torch.empty(shp, dtype=torch.int64, device=dev)
+
+        if s.kind == "decode":
+            return {"token": ids(B, 1)}
+        out = {"tokens": ids(B, S), "labels": ids(B, S)}
+        if self.kind == "vlm":
+            out["patch_embeds"] = torch.empty((B, self.n_patches, self.d_model),
+                                              dtype=self.dtype, device=dev)
+        elif self.kind == "whisper":
+            out = {"audio_embeds": torch.empty((B, self.whisper.n_audio_frames, self.d_model),
+                                               dtype=self.dtype, device=dev), **out}
+        return out
+
+    def input_pspecs(self, shape) -> Dict[str, tuple]:
+        from repro_torch.models.sharding import spec as SP
+
+        s = resolve_shape(shape)
+        if s.kind == "decode":
+            return {"token": SP("batch", None)}
+        out = {"tokens": SP("batch", None), "labels": SP("batch", None)}
+        if self.kind == "vlm":
+            out["patch_embeds"] = SP("batch", None, None)
+        elif self.kind == "whisper":
+            out = {"audio_embeds": SP("batch", None, None), **out}
+        return out
+
+    # ---------------------------------------------------------------- cache
+    def abstract_cache(self, shape, device: DeviceLike = "meta") -> dict:
+        """``init_cache``'s tree for a decode ``shape``, empty on ``device``
+        (Whisper's cross K/V built from their shapes: nothing encoded)."""
+        s = resolve_shape(shape)
+        if s.kind != "decode":
+            raise ValueError(f"abstract_cache: {s.name} is not a decode shape")
+        dev = torch.device(device)
+        if self.kind == "whisper":
+            return W.abstract_cache(self.whisper, s.global_batch, s.seq_len, dev)
+        return T.init_cache(self.lm, s.global_batch, s.seq_len, dev)
+
+    def cache_pspecs(self) -> dict:
+        if self.kind == "whisper":
+            return W.cache_pspecs(self.whisper)
+        return T.cache_pspecs(self.lm)
 
     def init_cache(self, params, shape) -> dict:
         """The serve-step cache of ``shape`` on the parameters' device.

@@ -64,6 +64,16 @@ def init_params(generator: torch.Generator, cfg: EmbeddingConfig) -> Dict[str, t
     return params
 
 
+def param_specs(cfg: EmbeddingConfig, model_axis: str = "model") -> Dict[str, tuple]:
+    """The parameter-server sharding: every table's rows over ``model_axis``,
+    its dim replicated (``repro``'s ``PartitionSpec(model_axis, None)`` as a
+    tuple)."""
+    specs = {"node": (model_axis, None)}
+    for slot in cfg.slots:
+        specs[f"slot:{slot.name}"] = (model_axis, None)
+    return specs
+
+
 # ----------------------------------------------------------------- lookups
 def lookup(table: torch.Tensor, ids: torch.Tensor, pad_id: int = -1) -> torch.Tensor:
     """Masked gather: PAD (negative) ids give zero rows.
@@ -77,6 +87,56 @@ def lookup(table: torch.Tensor, ids: torch.Tensor, pad_id: int = -1) -> torch.Te
     rows = F.embedding(torch.where(valid, ids, torch.zeros_like(ids)), table)
     return torch.where(valid[..., None], rows, torch.zeros((), dtype=rows.dtype,
                                                            device=rows.device))
+
+
+class _SumOverShards(torch.autograd.Function):
+    """Sum of each rank's ``x`` over ``group``. The sum is replicated and every
+    rank computes the same loss of it, so each rank's cotangent is already
+    the whole one: the backward passes it through, and the owner shard's
+    masked gather turns it into the push."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        import torch.distributed as dist
+
+        out = x.clone()
+        dist.all_reduce(out, op=dist.ReduceOp.SUM, group=group)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def ps_lookup(table_shard: torch.Tensor, ids: torch.Tensor, group=None,
+              pad_id: int = -1) -> torch.Tensor:
+    """The parameter server's pull over a ``torch.distributed`` group: the
+    counterpart of ``repro``'s ``ps_lookup`` under ``shard_map``.
+
+    ``table_shard`` is this rank's rows, ``[rank * rows_per, (rank + 1) *
+    rows_per)`` of the table; ``ids`` is the same on every rank. Each rank
+    gathers the rows it owns (zeros elsewhere), a sum over the group
+    assembles the full rows, and PAD (negative) ids give zero rows. Its
+    gradient is the push: each row's cotangent scatter-added onto the shard
+    that owns it, and only there. Without an initialised process group it
+    runs as the one rank of one (the single-card case), with no collective.
+    """
+    import torch.distributed as dist
+
+    if dist.is_available() and dist.is_initialized():
+        world, rank = dist.get_world_size(group), dist.get_rank(group)
+    else:
+        world, rank = 1, 0
+    rows_per = table_shard.shape[0]
+    safe = torch.where(ids >= 0, ids, torch.zeros_like(ids))
+    lo = rank * rows_per
+    owned = (safe >= lo) & (safe < lo + rows_per)
+    local = F.embedding(torch.clamp(safe - lo, 0, rows_per - 1), table_shard)
+    out = torch.where(owned[..., None], local, torch.zeros((), dtype=local.dtype,
+                                                          device=local.device))
+    if world > 1:
+        out = _SumOverShards.apply(out, group)
+    return out * (ids >= 0)[..., None].to(out.dtype)
 
 
 def embed_nodes(

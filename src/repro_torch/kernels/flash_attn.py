@@ -27,6 +27,7 @@ import ctypes
 import math
 from typing import Optional, Tuple, Union
 
+import numpy as np
 import torch
 
 from repro_torch.kernels import build
@@ -50,6 +51,15 @@ bwd_launches = 0
 # f32 operands the wrappers copied because their base or strides are off 16
 # bytes (the model's own calls take none; chip_smoke.py checks that)
 copies = 0
+
+
+def band_pairs(Sq: int, Skv: int, causal: bool, window: Optional[int]) -> int:
+    """(query, key) pairs inside the causal / window band, query i against
+    keys j <= i (causal) and j > i - window: the work the kernels do."""
+    i = np.arange(Sq, dtype=np.int64)
+    hi = np.minimum(i, Skv - 1) if causal else np.full(Sq, Skv - 1, np.int64)
+    lo = np.maximum(0, i - window + 1) if window is not None else np.zeros(Sq, np.int64)
+    return int(np.maximum(hi - lo + 1, 0).sum())
 
 
 def bwd_plan(dtype: torch.dtype, B: int, Sq: int, Skv: int, H: int, K: int, hd: int) -> dict:

@@ -7,8 +7,9 @@ run the plain version instead. A CPU
 tensor runs the plain PyTorch version in ``kernels/ref``, which is what the
 CPU tests exercise. Any other device raises.
 
-``seg_aggr``, ``inbatch_loss`` and ``flash_attention`` are
-``torch.autograd.Function``s on both devices, so the CPU tests drive the very functions the card runs. The
+``seg_aggr`` and ``inbatch_loss`` are ``torch.autograd.Function``s on both
+devices, and ``flash_attention`` a custom operator with its autograd
+registered, so the CPU tests drive the very functions the card runs. The
 backwards of ``seg_aggr`` and ``flash_attention`` are kernels (the latter
 from the forward's output and row log-sum-exp, which its forward saves on
 both devices when an input needs a gradient, and skips otherwise, as in
@@ -27,10 +28,13 @@ from __future__ import annotations
 from typing import Optional, Tuple
 
 import torch
+from torch._subclasses.fake_tensor import FakeTensor
 from torch.autograd.function import once_differentiable
+from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch.kernels import ref
-from repro_torch.kernels.flash_attn import flash_attention_bwd_cuda, flash_attention_cuda
+from repro_torch.kernels.flash_attn import (band_pairs, flash_attention_bwd_cuda,
+                                            flash_attention_cuda)
 from repro_torch.kernels.inbatch_loss import inbatch_loss_rows_cuda
 from repro_torch.kernels.ivf import ivf_list_topk_cuda
 from repro_torch.kernels.row_adagrad import row_adagrad_scatter_cuda
@@ -187,35 +191,37 @@ def window_pair_ids(paths: torch.Tensor,
 
 
 # ----------------------------------------------------------------- attention
-class _FlashAttention(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, q, k, v, causal, window):
-        # the row LSE only where a backward will follow: the prefill stores none
-        if not any(ctx.needs_input_grad[:3]):
-            if _route(q, "flash_attention"):
-                return flash_attention_cuda(q, k, v, causal, window)
-            return ref.attention_ref(q, k, v, causal, window)
-        if _route(q, "flash_attention"):
-            out, lse = flash_attention_cuda(q, k, v, causal, window, with_lse=True)
-        else:
-            out, lse = ref.attention_fwd_ref(q, k, v, causal, window)
-        ctx.causal, ctx.window = causal, window
-        ctx.save_for_backward(q, k, v, out, lse)
-        return out
-
-    @staticmethod
-    @once_differentiable
-    def backward(ctx, g):
-        q, k, v, out, lse = ctx.saved_tensors
-        dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, g, ctx.causal, ctx.window)
-        return dq, dk, dv, None, None
+# The attention's forward (without and with the row LSE) and its backward
+# are custom operators of the ``g4r`` namespace. One implementation serves
+# real tensors of either device and routes by it, as every kernel here does:
+# a CUDA tensor launches the kernel through this module's
+# ``flash_attention_cuda`` / ``flash_attention_bwd_cuda``, looked up at the
+# call, a CPU tensor runs the plain version. A fake tensor never reaches it:
+# it takes the shape function (``register_fake``), which launches nothing,
+# so a model traces on fake CUDA tensors (the launch tools' dry run); a
+# plain meta tensor raises there, as it did before. The FLOP formulas
+# (``register_flop_formula``) count the band's (query, key) pairs, 4 hd
+# each forward and 10 hd backward.
+@torch.library.custom_op("g4r::flash_attention", mutates_args=())
+def _flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
+               window: Optional[int]) -> torch.Tensor:
+    if _route(q, "flash_attention"):
+        return flash_attention_cuda(q, k, v, causal, window)
+    return ref.attention_ref(q, k, v, causal, window)
 
 
-def flash_attention_bwd(q, k, v, o, lse, do, causal=True, window=None):
-    """The attention's gradient from the forward's inputs, output and row
-    log-sum-exp -> (dq, dk, dv): the backward kernel on CUDA (``do`` made
-    contiguous only where its head_dim is not), ``attention_bwd_ref`` on
-    the CPU."""
+@torch.library.custom_op("g4r::flash_attention_lse", mutates_args=())
+def _flash_fwd_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
+                   window: Optional[int]) -> Tuple[torch.Tensor, torch.Tensor]:
+    if _route(q, "flash_attention"):
+        return flash_attention_cuda(q, k, v, causal, window, with_lse=True)
+    return ref.attention_fwd_ref(q, k, v, causal, window)
+
+
+@torch.library.custom_op("g4r::flash_attention_bwd", mutates_args=())
+def _flash_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor,
+               lse: torch.Tensor, do: torch.Tensor, causal: bool,
+               window: Optional[int]) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     if _route(q, "flash_attention backward"):
         if do.stride(-1) != 1:
             do = do.contiguous()
@@ -223,10 +229,79 @@ def flash_attention_bwd(q, k, v, o, lse, do, causal=True, window=None):
     return ref.attention_bwd_ref(q, k, v, o, lse, do, causal, window)
 
 
+def _one_device(what: str, *ts: torch.Tensor) -> None:
+    """The shape function's checks: fake tensors (a plain meta tensor has
+    no kernel or plain version, as before) on one device."""
+    if not isinstance(ts[0], FakeTensor):
+        _route(ts[0], what)
+    if any(t.device != ts[0].device for t in ts):
+        raise ValueError(f"{what}: tensors on one device, got {[str(t.device) for t in ts]}")
+
+
+@_flash_fwd.register_fake
+def _(q, k, v, causal, window):
+    _one_device("flash_attention", q, k, v)
+    return q.new_empty(q.shape)
+
+
+@_flash_fwd_lse.register_fake
+def _(q, k, v, causal, window):
+    _one_device("flash_attention", q, k, v)
+    B, Sq, H, _ = q.shape
+    return q.new_empty(q.shape), q.new_empty((B, H, Sq), dtype=torch.float32)
+
+
+@_flash_bwd.register_fake
+def _(q, k, v, o, lse, do, causal, window):
+    _one_device("flash_attention backward", q, k, v, o, lse, do)
+    return q.new_empty(q.shape), k.new_empty(k.shape), k.new_empty(k.shape)
+
+
+def _flash_save(ctx, inputs, output):
+    q, k, v, causal, window = inputs
+    ctx.causal, ctx.window = causal, window
+    ctx.save_for_backward(q, k, v, *output)
+
+
+def _flash_grad(ctx, g, g_lse):
+    q, k, v, out, lse = ctx.saved_tensors
+    # through the module attribute, so that a wrapper set on it sees the call
+    dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, g, ctx.causal, ctx.window)
+    return dq, dk, dv, None, None
+
+
+_flash_fwd_lse.register_autograd(_flash_grad, setup_context=_flash_save)
+
+
+@register_flop_formula([torch.ops.g4r.flash_attention, torch.ops.g4r.flash_attention_lse])
+def _flash_fwd_flops(q_shape, k_shape, v_shape, causal, window, *args, **kwargs) -> int:
+    B, Sq, H, hd = q_shape
+    return 4 * hd * B * H * band_pairs(Sq, k_shape[1], causal, window)
+
+
+@register_flop_formula(torch.ops.g4r.flash_attention_bwd)
+def _flash_bwd_flops(q_shape, k_shape, v_shape, o_shape, lse_shape, do_shape, causal, window,
+                     *args, **kwargs) -> int:
+    B, Sq, H, hd = q_shape
+    return 10 * hd * B * H * band_pairs(Sq, k_shape[1], causal, window)
+
+
+def flash_attention_bwd(q, k, v, o, lse, do, causal=True, window=None):
+    """The attention's gradient from the forward's inputs, output and row
+    log-sum-exp -> (dq, dk, dv): the backward kernel on CUDA (``do`` made
+    contiguous only where its head_dim is not), ``attention_bwd_ref`` on
+    the CPU."""
+    return _flash_bwd(q, k, v, o, lse, do, bool(causal), window)
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool = True, window: Optional[int] = None) -> torch.Tensor:
     """GQA attention in the model's layout: (B, Sq, H, hd) queries against
     (B, Skv, K, hd) keys and values -> (B, Sq, H, hd), causal and/or with a
     sliding window, f32 softmax. Any Sq, Skv (``repro``'s Pallas kernel
-    asserts ``Sq % block_q == 0``; that is a TPU tiling limit)."""
-    return _FlashAttention.apply(q, k, v, bool(causal), window)
+    asserts ``Sq % block_q == 0``; that is a TPU tiling limit). The row LSE
+    is computed (and saved, with the inputs and output, for the backward)
+    only where a gradient will follow: the prefill stores none."""
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        return _flash_fwd_lse(q, k, v, bool(causal), window)[0]
+    return _flash_fwd(q, k, v, bool(causal), window)

@@ -31,6 +31,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch._subclasses.fake_tensor import FakeTensor
 
 from repro_torch.kernels import ops
 
@@ -42,9 +43,14 @@ def _params(names: Mapping[str, Optional[torch.Tensor]], module: nn.Module) -> N
         module.register_parameter(name, None if t is None else nn.Parameter(t))
 
 
-def init_normal(gen: torch.Generator, shape, scale: float, dtype, device) -> torch.Tensor:
+def init_normal(gen: Optional[torch.Generator], shape, scale: float, dtype,
+                device) -> torch.Tensor:
     """``(normal(shape) * scale).astype(dtype)``, drawn in f32 on the
-    generator's device, as ``repro``'s inits draw in f32 and cast."""
+    generator's device, as ``repro``'s inits draw in f32 and cast. With no
+    generator nothing is drawn: an empty tensor of the shape and dtype (the
+    abstract parameters, on the meta device or under fake mode)."""
+    if gen is None:
+        return torch.empty(shape, dtype=dtype, device=device)
     x = torch.randn(shape, generator=gen, device=gen.device) * scale
     return x.to(device=device, dtype=dtype)
 
@@ -118,7 +124,10 @@ def rope_cos_sin(
     id; identical coordinates reduce it to plain RoPE.
     """
     half = head_dim // 2
-    inv_freq = _inv_freq(half, float(theta), positions.device)
+    if isinstance(positions, FakeTensor):  # a trace: no values, nothing to cache
+        inv_freq = torch.empty((half,), dtype=torch.float32, device=positions.device)
+    else:
+        inv_freq = _inv_freq(half, float(theta), positions.device)
     if mrope_sections is None:
         if positions.dim() != 2:
             raise ValueError(f"RoPE positions must be (B, S); got {tuple(positions.shape)}")

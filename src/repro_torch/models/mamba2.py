@@ -83,9 +83,13 @@ def init_mamba2(gen: torch.Generator, cfg: Mamba2Config, dtype, device=None) -> 
                              ("wC", (d, N)), ("wdt", (d, H)))}
     p["wo"] = init_normal(gen, (di, d), 1.0 / np.sqrt(di), dtype, device)
     p["conv"] = init_normal(gen, (cfg.conv_width, di + 2 * N), 0.1, dtype, device)
-    u = torch.rand((H,), generator=gen, device=gen.device)
-    dt = torch.exp(u * (np.log(cfg.dt_max) - np.log(cfg.dt_min)) + np.log(cfg.dt_min))
-    p["dt_bias"] = (dt + torch.log(-torch.expm1(-dt))).to(device=device, dtype=torch.float32)
+    if gen is None:  # abstract parameters: nothing drawn
+        p["dt_bias"] = torch.empty((H,), dtype=torch.float32, device=device)
+    else:
+        u = torch.rand((H,), generator=gen, device=gen.device)
+        dt = torch.exp(u * (np.log(cfg.dt_max) - np.log(cfg.dt_min)) + np.log(cfg.dt_min))
+        p["dt_bias"] = (dt + torch.log(-torch.expm1(-dt))).to(device=device,
+                                                               dtype=torch.float32)
     p["A_log"] = torch.log(torch.arange(1, H + 1, dtype=torch.float32, device=device))
     p["D"] = torch.ones((H,), dtype=torch.float32, device=device)
     p["norm_scale"] = torch.ones((di,), dtype=dtype, device=device)

@@ -224,6 +224,80 @@ def init_lm(gen: torch.Generator, cfg: LMConfig, device=None) -> LM:
     return LM(cfg, embed, L.init_norm(cfg.norm, cfg.d_model, dtype, device), layers, head)
 
 
+# --------------------------------------------------------------- param specs
+def _flat(prefix: str, tree: Dict[str, Any], out: Dict[str, Any]) -> Dict[str, Any]:
+    for name, v in tree.items():
+        if isinstance(v, dict):
+            _flat(f"{prefix}{name}.", v, out)
+        else:
+            out[prefix + name] = v
+    return out
+
+
+def norm_pspecs(kind: str) -> Dict[str, Any]:
+    from repro_torch.models.sharding import spec as S
+
+    return {"scale": S(None)} if kind == "rms" else {"scale": S(None), "bias": S(None)}
+
+
+def attn_pspecs(qkv_bias: bool) -> Dict[str, Any]:
+    from repro_torch.models.sharding import spec as S
+
+    d = {"wq": S("fsdp", "heads"), "wk": S("fsdp", "kv_heads"),
+         "wv": S("fsdp", "kv_heads"), "wo": S("heads", "fsdp")}
+    if qkv_bias:
+        d.update({"bq": S("heads"), "bk": S("kv_heads"), "bv": S("kv_heads")})
+    return d
+
+
+def mlp_pspecs(kind: str) -> Dict[str, Any]:
+    from repro_torch.models.sharding import spec as S
+
+    if kind == "swiglu":
+        return {"wg": S("fsdp", "ffn"), "wu": S("fsdp", "ffn"), "wd": S("ffn", "fsdp")}
+    return {"wu": S("fsdp", "ffn"), "bu": S("ffn"), "wd": S("ffn", "fsdp"), "bd": S(None)}
+
+
+def param_pspecs(cfg: LMConfig) -> Dict[str, Any]:
+    """Each parameter's mesh-axis tuple (``sharding.spec``) under the current
+    rules, keyed by its name in ``named_parameters()``: ``repro``'s
+    ``param_pspecs`` less its stacked leading (scan) axis, layer by layer."""
+    from repro_torch.models.sharding import spec as S
+
+    def moe_specs(m: MOE.MoEConfig):
+        if m.shard == "ep":  # experts over model, dims over fsdp
+            d = {"router": S(None, None), "wu": S("experts", "fsdp", None),
+                 "wd": S("experts", None, "fsdp")}
+            if m.mlp_kind == "swiglu":
+                d["wg"] = S("experts", "fsdp", None)
+        else:  # tp: each expert's ffn dim over model
+            d = {"router": S(None, None), "wu": S(None, "fsdp", "ffn"),
+                 "wd": S(None, "ffn", "fsdp")}
+            if m.mlp_kind == "swiglu":
+                d["wg"] = S(None, "fsdp", "ffn")
+        return d
+
+    mamba = {"wz": S("fsdp", "mamba_heads"), "wx": S("fsdp", "mamba_heads"),
+             "wB": S("fsdp", None), "wC": S("fsdp", None), "wdt": S("fsdp", None),
+             "wo": S("mamba_heads", "fsdp"), "conv": S(None, None), "A_log": S(None),
+             "D": S(None), "dt_bias": S(None), "norm_scale": S(None)}
+    out = {"embed": S("vocab", "fsdp")}
+    for i, (mixer, ffn) in enumerate(cfg.block_list()):
+        d: Dict[str, Any] = {"norm1": norm_pspecs(cfg.norm)}
+        d[mixer] = attn_pspecs(cfg.qkv_bias) if mixer == "attn" else dict(mamba)
+        if ffn != "none":
+            d["norm2"] = norm_pspecs(cfg.norm)
+        if ffn == "dense":
+            d["mlp"] = mlp_pspecs(cfg.mlp_kind)
+        elif ffn == "moe":
+            d["moe"] = moe_specs(cfg.moe)
+        _flat(f"layers.{i}.", d, out)
+    _flat("final_norm.", norm_pspecs(cfg.norm), out)
+    if not cfg.tie_embeddings:
+        out["lm_head"] = S("fsdp", "vocab")
+    return out
+
+
 # ------------------------------------------------------------------- forward
 def embed_tokens(model: LM, cfg: LMConfig, tokens: torch.Tensor) -> torch.Tensor:
     return torch.nn.functional.embedding(tokens, model.embed)
@@ -326,6 +400,24 @@ def init_cache(cfg: LMConfig, batch: int, cache_len: int, device=None) -> Dict[s
             L.KVCacheSpec(batch, s_max, cfg.n_kv, cfg.head_dim,
                           ring=cfg.sliding_window is not None), dtype, device))
     return {"layers": caches, "t": 0}
+
+
+def cache_pspecs(cfg: LMConfig) -> Dict[str, Any]:
+    """``init_cache``'s tree with each tensor's mesh-axis tuple under the
+    current rules (``repro``'s less its stacked leading axis, layer by
+    layer); ``t``, a host int, has the empty tuple."""
+    from repro_torch.models.sharding import spec as S
+
+    out = []
+    for mixer, _ in cfg.block_list():
+        if mixer == "attn":  # the flattened (B, S, n_kv * head_dim) layout
+            seq_ax = "cache_seq" if cfg.shard_cache_seq else None
+            kv_ax = None if cfg.shard_cache_seq else "kv_heads"
+            out.append({"k": S("batch", seq_ax, kv_ax), "v": S("batch", seq_ax, kv_ax)})
+        else:  # the conv channels mix x, B and C: replicated on the channel dim
+            out.append({"ssm": S("batch", "mamba_heads", None, None),
+                        "conv": S("batch", None, None)})
+    return {"layers": out, "t": ()}
 
 
 @torch.no_grad()

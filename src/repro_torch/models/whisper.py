@@ -136,10 +136,33 @@ def init_whisper(gen: torch.Generator, cfg: WhisperConfig, device=None) -> Whisp
     dec = [DecoderLayer(norm(), L.init_attn(gen, cfg.attn_cfg(True), dtype, device), norm(),
                         L.init_cross_attn(gen, cfg.attn_cfg(False), dtype, device), norm(),
                         mlp()) for _ in range(cfg.n_layers)]
-    enc_pos = torch.from_numpy(_sinusoids(cfg.n_audio_frames, d)).to(device=device, dtype=dtype)
+    enc_pos = (torch.empty((cfg.n_audio_frames, d), dtype=dtype, device=device) if gen is None
+               else torch.from_numpy(_sinusoids(cfg.n_audio_frames, d)).to(device=device,
+                                                                           dtype=dtype))
     dec_pos = L.init_normal(gen, (cfg.max_target_positions, d), 0.01, dtype, device)
     embed = L.init_normal(gen, (cfg.vocab_padded, d), 1.0 / np.sqrt(d), dtype, device)
     return Whisper(cfg, enc_pos, dec_pos, embed, enc, dec, norm(), norm())
+
+
+def param_pspecs(cfg: WhisperConfig) -> Dict[str, Any]:
+    """Each parameter's mesh-axis tuple under the current rules, keyed by
+    its name in ``named_parameters()`` (``repro``'s less the stacked
+    leading axis of its layers)."""
+    from repro_torch.models.sharding import spec as S
+    from repro_torch.models.transformer import _flat, attn_pspecs, mlp_pspecs, norm_pspecs
+
+    out = {"enc_pos": S(None, None), "dec_pos": S(None, None), "embed": S("vocab", "fsdp")}
+    enc = {"norm1": norm_pspecs("ln"), "attn": attn_pspecs(True), "norm2": norm_pspecs("ln"),
+           "mlp": mlp_pspecs("gelu")}
+    dec = {"norm1": norm_pspecs("ln"), "self_attn": attn_pspecs(True),
+           "norm_x": norm_pspecs("ln"), "cross_attn": attn_pspecs(True),
+           "norm2": norm_pspecs("ln"), "mlp": mlp_pspecs("gelu")}
+    for i in range(cfg.n_layers):
+        _flat(f"enc_layers.{i}.", enc, out)
+        _flat(f"dec_layers.{i}.", dec, out)
+    _flat("enc_norm.", norm_pspecs("ln"), out)
+    _flat("dec_norm.", norm_pspecs("ln"), out)
+    return out
 
 
 # ------------------------------------------------------------------- encode
@@ -229,6 +252,32 @@ def init_cache(model: Whisper, cfg: WhisperConfig, audio_embeds: torch.Tensor,
     return {"self": [L.init_kv_cache(spec, torch_dtype(cfg.dtype), enc.device)
                      for _ in range(cfg.n_layers)],
             "cross_k": [k for k, _ in cross], "cross_v": [v for _, v in cross], "t": 0}
+
+
+def abstract_cache(cfg: WhisperConfig, batch: int, cache_len: int, device) -> Dict[str, Any]:
+    """``init_cache``'s tree, empty, on ``device`` (meta, or fake under fake
+    mode): built from the shapes, so nothing is encoded."""
+    dtype = torch_dtype(cfg.dtype)
+    spec = L.KVCacheSpec(batch, cache_len, cfg.n_kv, cfg.head_dim, ring=False)
+    cross = (batch, cfg.n_audio_frames, cfg.n_kv, cfg.head_dim)
+    n = cfg.n_layers
+    return {"self": [L.init_kv_cache(spec, dtype, device) for _ in range(n)],
+            "cross_k": [torch.empty(cross, dtype=dtype, device=device) for _ in range(n)],
+            "cross_v": [torch.empty(cross, dtype=dtype, device=device) for _ in range(n)],
+            "t": 0}
+
+
+def cache_pspecs(cfg: WhisperConfig) -> Dict[str, Any]:
+    """``init_cache``'s tree with each tensor's mesh-axis tuple: the self
+    cache flattened (B, S, n_kv * head_dim), the cross K/V in head layout
+    with heads replicated, as ``repro``'s (less its stacked leading axis)."""
+    from repro_torch.models.sharding import spec as S
+
+    n = cfg.n_layers
+    kv = S("batch", None, "kv_heads")
+    cross = S("batch", None, None, None)
+    return {"self": [{"k": kv, "v": kv} for _ in range(n)], "cross_k": [cross] * n,
+            "cross_v": [cross] * n, "t": ()}
 
 
 @torch.no_grad()
