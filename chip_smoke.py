@@ -116,7 +116,7 @@ nothing of JAX or of the JAX package ``repro``. Phases, each failing loudly:
    before, read after, 30 a forward; the first call of each shape
    recorded) and the flash kernel's share of one profiled forward's device
    time, beside the forward's host wall (which of the two sets the pace);
-   prefill vs decode on 4 prompts of 256 tokens (relative max), held
+   prefill vs decode on 4 prompts of 64 tokens (relative max), held
    to 3e-2 in bf16 and to 1e-4 with the same weights in f32, beside each
    bf16 path's distance to f32; ``BatchedServer`` (batch 8, 32 new tokens,
    cache 256) twice on 8 requests of 8-64 tokens, greedy outputs equal,
@@ -146,14 +146,14 @@ nothing of JAX or of the JAX package ``repro``. Phases, each failing loudly:
    and bf16, and card vs CPU in f32 on one group (rows routed alike to
    1e-4, or 3e-2 of each row's largest value in bf16; rows routed apart
    only at near-ties of the K-th and (K+1)-th router probabilities,
-   within 1e-5); prefill vs decode on 4 x 256 tokens at capacity factor 8,
+   within 1e-5); prefill vs decode on 4 x 64 tokens at capacity factor 8,
    every (layer, token) routing difference counted, the first layer's
    held to near-ties (1e-5 in f32; in bf16 a log-ratio of the two
    probabilities within 2^-4), the error gated at 1e-4 / 3e-2 only where
    none differs; ``BatchedServer`` twice, equal;
    ``lm_ssm``, Mamba2-1.3B at full width and depth (48 layers): the same
    prefill (no flash launch), in f32 the SSD in chunks of 256 against one
-   chunk of 512 to 1e-4, prefill vs decode on 4 x 256 tokens and serving; ``lm_hybrid``, one full-width 8-layer period of
+   chunk of 512 to 1e-4, prefill vs decode on 4 x 64 tokens and serving; ``lm_hybrid``, one full-width 8-layer period of
    Jamba-v0.1-52B (B 1 x S 2,048, one flash launch a forward; prefill vs
    decode as OLMoE's, its f32 side on the model turned f32 in place);
    ``lm_moe_training``, OLMoE at full width cut to 2 layers, 10 steps as
@@ -168,7 +168,7 @@ nothing of JAX or of the JAX package ``repro``. Phases, each failing loudly:
    prefill (B 4 x S 2,048, the 1,024 patch embeddings over the span after
    BOS, 28 ``flash_attention`` launches a forward) with the flash share of
    a profiled forward; ``BatchedServer`` twice on text, equal; text-only
-   prefill vs decode on 4 x 256 tokens (M-RoPE ids (t, t, t)), 1e-4 in f32
+   prefill vs decode on 4 x 64 tokens (M-RoPE ids (t, t, t)), 1e-4 in f32
    (the model turned f32 in place) and 3e-2 in bf16; the reduced model in
    f32 card vs CPU, forward with patches at 3-D ids and 16 decode steps;
    training at full width cut to 2 layers, 10 steps as 6c (2 microbatches
@@ -202,6 +202,20 @@ nothing of JAX or of the JAX package ``repro``. Phases, each failing loudly:
    (c) one training step of it at the dtype the real step sees after step
    1 (f32, ROADMAP C6), the same checks (60 flash forwards with remat, 30
    backward calls);
+6g. ``lm_sharded``, the multi-card slice on the one card there is: an NCCL
+   group of one rank started in-process and a (1, 1) ``cuda`` DeviceMesh;
+   smollm-135m at full width placed by ``SINGLE_POD_RULES`` (parameters,
+   batch and Adam's state DTensors, ``constrain`` at ``repro``'s sites);
+   its bf16 prefill (B 4 x S 2,048) and two f32 training steps held
+   bitwise against the same runs unsharded (logits, losses, every updated
+   parameter), the flash forward and backward launches of the sharded runs
+   equal to the unsharded ones (the flash ops' DTensor sharding strategies
+   launch the same kernels on each rank's shards); ``ps_lookup`` over the
+   mesh's ``model`` group against ``lookup``, pull and push equal; and one
+   dry-run row on the 2 x 16 x 16 mesh (smollm-135m train_4k, a ``cuda``
+   mesh over a fake group of 512 ranks, fake CUDA tensors) in a process
+   started beside the sweep, read after the kernel phases: status ok,
+   per device, a positive collective term;
 7. the launch floor: the time ``measure`` reports for an empty kernel of
    the same library, one block and one wave of blocks, on a line of its own;
    then kernel phases: each kernel against its plain PyTorch version on the
@@ -271,13 +285,16 @@ FP32_FLOP_PER_S = 67e12  # H100 SXM data sheet, non-tensor-core f32
 RTOL, ATOL = 1e-5, 1e-6  # kernel vs plain version: the two sum in other orders
 TOPK_TIE_TOL = 1e-5  # ids may differ only inside score near-ties this wide
 RECALL_TOL = 1e-3  # device (and IVF at nprobe == nlist) vs brute-force recall, every metric
+RECALL_USERS = 2000  # recall_torch.py --max-users: UB's ICF/UCF votes on the host take 47-58 s for all 8,000
 IVF_RTOL, IVF_ATOL = 2e-5, 1e-4  # ivf_list_topk vs plain: repro's own kernel tolerance
 TRAJ_RTOL, TRAJ_ATOL = 1e-4, 1e-4  # card vs CPU: 12 steps of f32 updates, other orders
 KEEP_CALLS = 3  # training calls recorded per kernel and shape
 WARM_S = 0.05  # seconds of back-to-back calls before each timing
 T0 = time.perf_counter()
 EVENT_MS = 0.05  # measure(): device spans this long per call stand; shorter ones go to CUPTI
-CUPTI_TRIES = 3  # profiles taken before the records CUPTI lost fail the run
+EVENT_TRIES = 3  # measure(): sleeps, each SLEEP_GROWTH times the last, to outlast the host's queueing
+SLEEP_GROWTH = 4
+CUPTI_TRIES = 5  # profiles taken before the records CUPTI lost fail the run
 
 
 def fail(msg: str) -> None:
@@ -300,16 +317,23 @@ def measure(fn, iters: int, warmup: int = 2, floor_ms: float = 0.0) -> dict:
     host queues every call, so CUDA events bracket the calls' device work
     back to back, whatever the host's speed. That span stands when the card
     was still asleep once every call was queued and it is ``EVENT_MS`` or
-    more a call. Else (a call that waits on the card, a loop whose launches
-    fill the queue, a call so short that the microsecond or so between two
-    launches would count) the device time of every kernel and copy in the
-    loop comes from ``torch.profiler`` (CUPTI). CUPTI drops some of a
+    more a call; a loop the card caught up with though its first call did
+    not wait for the card (the host stalled) is run again behind a sleep
+    ``SLEEP_GROWTH`` times longer, ``EVENT_TRIES`` sleeps in all. Else (a
+    call that waits on the card, a loop whose launches fill the queue, a
+    call so short that the microsecond or so between two launches would
+    count) the device time of every kernel and copy in the loop comes from
+    ``torch.profiler`` (CUPTI). CUPTI drops some of a
     loop's kernel records (on an H100, 1 to 7 of 200 in most profiles, half
     in a few), so the call's device time is each kernel's mean over the
     records kept, times its launches per call. A profile that kept fewer
     than half of some kernel's records, or whose time is under ``floor_ms``
-    (a bound the card cannot beat), is taken again with twice the calls,
-    and after ``CUPTI_TRIES`` such the run fails. (The f32 forward's small
+    (a bound the card cannot beat), is taken again with twice the calls.
+    After ``CUPTI_TRIES`` such, a call of ``EVENT_MS`` or more reports its
+    shortest host-paced span, an upper bound on its device time, as
+    ``cuda events, host-paced`` (an H100 profile once kept none of 5 and 10
+    records of a 0.54 ms call, and 7 of 20); a shorter one fails the run.
+    (The f32 forward's small
     synthetic calls, 50 calls of 0.03 ms, keep 21 of their records in a
     first profile on an H100 again and again, and the first of them once
     did in all three; a longer loop outweighs a loss of a fixed count,
@@ -335,16 +359,26 @@ def measure(fn, iters: int, warmup: int = 2, floor_ms: float = 0.0) -> dict:
     stop.record()
     torch.cuda.synchronize()
     call_ms = start.elapsed_time(stop) / iters
-    torch.cuda._sleep(int(_sleep_cycles_per_ms() * (1.25 * iters * call_ms + 1.0)))
-    start.record()
-    for _ in range(iters):
+    host_paced = []  # spans of loops the card caught up with before they were queued
+    for attempt in range(EVENT_TRIES):
+        sleep_ms = (1.25 * iters * call_ms + 1.0) * SLEEP_GROWTH ** attempt
+        torch.cuda._sleep(int(_sleep_cycles_per_ms() * sleep_ms))
+        start.record()
         fn()
-    stop.record()
-    queued = not start.query()  # the card had not yet reached the first call
-    torch.cuda.synchronize()
-    span_ms = start.elapsed_time(stop) / iters
-    if queued and span_ms >= EVENT_MS:
-        return {"call_ms": call_ms, "device_ms": span_ms, "ms_from": "cuda events"}
+        waits = start.query()  # the first call waited out the sleep: it syncs with the card
+        for _ in range(iters - 1):
+            fn()
+        stop.record()
+        queued = not start.query()  # the card had not yet reached the first call
+        torch.cuda.synchronize()
+        span_ms = start.elapsed_time(stop) / iters
+        if span_ms < EVENT_MS:
+            break
+        if queued:
+            return {"call_ms": call_ms, "device_ms": span_ms, "ms_from": "cuda events"}
+        host_paced.append(span_ms)
+        if waits:  # a longer sleep would only be waited out too
+            break
     for attempt in range(CUPTI_TRIES):
         calls = iters << attempt
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -361,6 +395,12 @@ def measure(fn, iters: int, warmup: int = 2, floor_ms: float = 0.0) -> dict:
         print(f"chip_smoke: profile {attempt + 1} of {calls} calls kept "
               f"{[e.count for e in dev]} kernel records, {dev_ms} ms a call "
               f"(floor {floor_ms} ms)", file=sys.stderr, flush=True)
+    if host_paced:
+        # an upper bound on the device time: the card waited on the host in it
+        print(f"chip_smoke: no profile kept the records of a {call_ms} ms call: its "
+              f"host-paced CUDA event span stands", file=sys.stderr, flush=True)
+        return {"call_ms": call_ms, "device_ms": min(host_paced),
+                "ms_from": "cuda events, host-paced"}
     fail(f"torch.profiler lost the device records of a {call_ms} ms call {CUPTI_TRIES} times")
 
 
@@ -610,7 +650,7 @@ def main_path(torch, np, modules) -> dict:
 
     args = recall_torch.parser().parse_args(
         ["--dataset", "ub", "--model", "lightgcn", "--dim", "64", "--side-info",
-         "--seed", "0", "--batch-size", "1024"])
+         "--seed", "0", "--batch-size", "1024", "--max-users", str(RECALL_USERS)])
     calls = {"seg_aggr": [], "topk": []}
     with recording(ops, "seg_aggr", calls["seg_aggr"]), \
             recording(ops, "streaming_topk", calls["topk"]):
@@ -758,7 +798,8 @@ def ivf_serving_path(torch, np, modules, mp) -> dict:
 
     args = recall_torch.parser().parse_args(
         ["--dataset", "ub", "--model", "lightgcn", "--dim", "64", "--side-info",
-         "--seed", "0", "--batch-size", "1024", "--method", "ivf"])
+         "--seed", "0", "--batch-size", "1024", "--method", "ivf",
+         "--max-users", str(RECALL_USERS)])
     calls = {"ivf serving": [], "ivf exhaustive": []}
     with recording(ops, "ivf_list_topk", calls["ivf serving"]):
         _zero(modules)
@@ -2096,6 +2137,7 @@ LM_ARCH, LM_BATCH, LM_SEQ = "smollm-135m", 4, 2048  # the prefill: full width, B
 # for repro in bf16 at full width: its flash path reads 2.76e-2 on these weights and
 # prompts on the CPU (tests/lm_bf16_consistency.py)
 LM_F32_REL, LM_BF16_REL = 1e-4, 3e-2
+LM_CONSIST_SEQ = 64  # prefill vs decode: prompt tokens, each decoded in bf16 and in f32
 LM_RTOL, LM_ATOL = 1e-4, 1e-4  # card vs CPU, reduced f32: other summation orders
 # the MoE, SSM and hybrid paths: OLMoE-1B-7B at full width and depth (6.92 B parameters,
 # 13.8 GB in bf16), Mamba2-1.3B at full width and depth, one full-width 8-layer period
@@ -2563,12 +2605,12 @@ def lm_prefill(torch, np, fa_mod, arch: str, batch: int, seq: int, phase: str,
     return out
 
 
-def lm_serving(torch, np, spec, model, phase: str, requests: int = 16) -> dict:
+def lm_serving(torch, np, spec, model, phase: str, requests: int = 8) -> dict:
     """``BatchedServer`` (batch 8, 32 new tokens, cache 256) twice on
     ``requests`` requests of 8-64 tokens from ``default_rng(0)``: greedy
     outputs equal across the runs, and the tokens the requests hold per
-    second. (The smollm, OLMoE and Mamba2 paths serve 8, one batch, since the
-    Qwen2-VL and Whisper phases took the run near its time limit.)"""
+    second. (Every path serves 8, one batch, to keep the run well inside
+    its time limit.)"""
     from repro_torch.serve import BatchedServer, ServeConfig
 
     cfg = spec.lm
@@ -2658,14 +2700,14 @@ def lm_path(torch, np, fa_mod) -> dict:
     """The LM substrate's serving side on smollm-135m at full width (random
     weights from the port's init, seed 0): ``lm_prefill`` (B 4 x S 2,048,
     30 ``flash_attention`` launches a forward), prefill vs decode on
-    256-token prompts (bf16 and the same weights in f32), ``BatchedServer``
+    64-token prompts (bf16 and the same weights in f32), ``BatchedServer``
     twice on 8 requests, and the reduced model in f32 on the card vs the
     CPU."""
     out = lm_prefill(torch, np, fa_mod, LM_ARCH, LM_BATCH, LM_SEQ, "lm prefill")
     spec, model, toks = out.pop("spec"), out.pop("model"), out.pop("toks")
     out.pop("first_moe")
-    cons = lm_consistency(torch, np, spec, model, toks[:, :256].contiguous(), "lm consistency")
-    serve = lm_serving(torch, np, spec, model, "lm serving", requests=8)
+    cons = lm_consistency(torch, np, spec, model, toks[:, :LM_CONSIST_SEQ].contiguous(), "lm consistency")
+    serve = lm_serving(torch, np, spec, model, "lm serving")
     conf = lm_card_vs_cpu(torch, np, LM_ARCH, "lm card vs cpu")
     out.update(consistency=cons, serving=serve, card_vs_cpu=conf)
     del model, spec
@@ -2999,7 +3041,7 @@ def lm_moe(torch, np, fa_mod) -> dict:
     experts top-8, bf16; weights drawn on the card from seed 0):
     ``lm_prefill`` (B 4 x S 2,048, 16 ``flash_attention`` launches a
     forward, the MoE share, the capacity's drop share), layer 0 alone
-    (``moe_layer_checks``), prefill vs decode on 4 prompts of 256 tokens
+    (``moe_layer_checks``), prefill vs decode on 4 prompts of 64 tokens
     (``lm_consistency``) and ``BatchedServer`` twice (``lm_serving``)."""
     out = lm_prefill(torch, np, fa_mod, MOE_ARCH, LM_BATCH, LM_SEQ, "lm_moe prefill",
                      draw_on_device=True)
@@ -3007,9 +3049,9 @@ def lm_moe(torch, np, fa_mod) -> dict:
     p0, cfg0, x0 = out.pop("first_moe")
     out["layer"] = moe_layer_checks(torch, np, p0, cfg0, x0, "lm_moe layer")
     del x0
-    out["consistency"] = lm_consistency(torch, np, spec, model, toks[:, :256].contiguous(),
+    out["consistency"] = lm_consistency(torch, np, spec, model, toks[:, :LM_CONSIST_SEQ].contiguous(),
                                         "lm_moe consistency")
-    out["serving"] = lm_serving(torch, np, spec, model, "lm_moe serving", requests=8)
+    out["serving"] = lm_serving(torch, np, spec, model, "lm_moe serving")
     del model, spec, p0
     gc.collect()
     torch.cuda.empty_cache()
@@ -3021,7 +3063,7 @@ def ssm_chunks(torch, np, spec, model, prompts, phase: str) -> dict:
     of the weights): every position's final hidden state with chunks of 256
     against one chunk of ``prompts``' length, held to ``LM_F32_REL``
     (``repro``'s tests/test_models.py TestMamba2.test_chunk_boundaries_invisible;
-    prefill vs decode runs 256 tokens, one chunk)."""
+    prefill vs decode runs 64 tokens, in one chunk)."""
     import copy
 
     from repro_torch.models import transformer as T
@@ -3046,16 +3088,16 @@ def lm_ssm(torch, np, fa_mod) -> dict:
     weights drawn on the CPU from seed 0, so a CPU can rebuild them):
     ``lm_prefill`` (B 4 x S 2,048, no flash launch), chunks against one
     chunk on 4 x ``SSM_CHUNKS_SEQ`` tokens (``ssm_chunks``), prefill vs
-    decode on 4 prompts of 256 tokens (f32 gated, bf16 printed beside each
+    decode on 4 prompts of 64 tokens (f32 gated, bf16 printed beside each
     path's distance to f32) and ``BatchedServer`` twice."""
     out = lm_prefill(torch, np, fa_mod, SSM_ARCH, LM_BATCH, LM_SEQ, "lm_ssm prefill")
     spec, model, toks = out.pop("spec"), out.pop("model"), out.pop("toks")
     out.pop("first_moe")
     out["chunks"] = ssm_chunks(torch, np, spec, model, toks[:, :SSM_CHUNKS_SEQ].contiguous(),
                                "lm_ssm chunks")
-    out["consistency"] = lm_consistency(torch, np, spec, model, toks[:, :256].contiguous(),
+    out["consistency"] = lm_consistency(torch, np, spec, model, toks[:, :LM_CONSIST_SEQ].contiguous(),
                                         "lm_ssm consistency", gate_bf16=False)
-    out["serving"] = lm_serving(torch, np, spec, model, "lm_ssm serving", requests=8)
+    out["serving"] = lm_serving(torch, np, spec, model, "lm_ssm serving")
     del model, spec
     gc.collect()
     torch.cuda.empty_cache()
@@ -3068,14 +3110,14 @@ def lm_hybrid(torch, np, fa_mod) -> dict:
     ffns; the whole model's 104 GB of bf16 weights do not fit one card;
     weights drawn on the card from seed 0): ``lm_prefill`` (B 1 x S 2,048,
     one ``flash_attention`` launch a forward), then prefill vs decode on 4
-    prompts of 256 tokens, the f32 side on the model itself turned f32 (a
+    prompts of 64 tokens, the f32 side on the model itself turned f32 (a
     53 GB f32 copy beside the bf16 one would not fit)."""
     out = lm_prefill(torch, np, fa_mod, HYBRID_ARCH, 1, LM_SEQ, "lm_hybrid prefill",
                      layers=HYBRID_LAYERS, draw_on_device=True)
     spec, model = out.pop("spec"), out.pop("model")
     out.pop("toks"), out.pop("first_moe")
     prompts = torch.from_numpy(np.random.default_rng(1).integers(
-        0, spec.lm.vocab, size=(4, 256))).to("cuda")
+        0, spec.lm.vocab, size=(4, LM_CONSIST_SEQ))).to("cuda")
     out["consistency"] = lm_consistency(torch, np, spec, model, prompts, "lm_hybrid consistency",
                                         in_place_f32=True)
     del model, spec
@@ -3300,7 +3342,7 @@ def lm_vlm(torch, np, fa_mod):
     over 4 KV heads at hd 128, bf16; weights drawn on the card from seed
     0): ``lm_prefill`` (B 4 x S 2,048 with the 1,024-patch span after BOS,
     28 ``flash_attention`` launches a forward), ``BatchedServer`` twice on
-    text (``lm_serving``), text-only prefill vs decode on 4 prompts of 256
+    text (``lm_serving``), text-only prefill vs decode on 4 prompts of 128
     tokens (``lm_consistency``, the f32 side on the model turned f32 in
     place), the reduced model card vs CPU with patches (``lm_card_vs_cpu``);
     then training at full width cut to ``VLM_TRAIN_LAYERS`` layers
@@ -3311,7 +3353,7 @@ def lm_vlm(torch, np, fa_mod):
     spec, model, toks = out.pop("spec"), out.pop("model"), out.pop("toks")
     out.pop("batch_inputs"), out.pop("first_moe")
     out["serving"] = lm_serving(torch, np, spec, model, "lm_vlm serving")
-    out["consistency"] = lm_consistency(torch, np, spec, model, toks[:, :256].contiguous(),
+    out["consistency"] = lm_consistency(torch, np, spec, model, toks[:, :LM_CONSIST_SEQ].contiguous(),
                                         "lm_vlm consistency", in_place_f32=True)
     del model, spec, toks
     gc.collect()
@@ -3602,6 +3644,214 @@ def dryrun_grounding(torch, np, fa_mod):
             or not tr["launches"]["flash_attention_bwd"]):
         fail(f"lm_dryrun training: flash calls {tr['flash_calls']}, launches {tr['launches']}")
     return pre, tr
+
+
+# --------------------------------------------------------------- lm_sharded
+SHARDED_ROW = ("smollm-135m", "train_4k")  # the pod-mesh dry-run row traced on fake CUDA tensors
+SHARDED_ROW_WAIT_S = 900  # its process, awaited after the kernel phases
+SHARDED_TRAIN_STEPS = 2
+PS_ROWS, PS_DIM = 4096, 64  # the ps_lookup table inside the NCCL group
+
+
+def start_sharded_row() -> dict:
+    """Start ``python -m repro_torch.launch.dryrun --mesh multi`` on
+    ``SHARDED_ROW``: the 2 x 16 x 16 mesh as a ``cuda`` DeviceMesh over a
+    fake group of 512 ranks, its tensors fake CUDA ones, in a process of its
+    own at the lowest CPU priority, beside the kernel phases (as the sweep);
+    killed at exit if still running."""
+    import atexit
+
+    out_dir = os.path.join(ROOT, "build", "chip_smoke")
+    os.makedirs(out_dir, exist_ok=True)
+    out = os.path.join(out_dir, "sharded_row.json")
+    if os.path.exists(out):
+        os.remove(out)
+    log = open(os.path.join(out_dir, "sharded_row.log"), "w")
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--mesh", "multi",
+           "--rows", ":".join(SHARDED_ROW), "--out", out]
+    p = subprocess.Popen(cmd, cwd=ROOT, env=env, stdout=log, stderr=subprocess.STDOUT,
+                         preexec_fn=lambda: os.nice(19))
+
+    def stop():
+        if p.poll() is None:
+            p.kill()
+            p.wait()
+        log.close()
+
+    atexit.register(stop)
+    return {"proc": p, "out": out, "log": log, "t0": time.perf_counter()}
+
+
+def finish_sharded_row(row: dict) -> dict:
+    """The pod-mesh row: status ok, per device on 512 chips, traced on fake
+    CUDA tensors over a ``cuda`` mesh, a positive collective term."""
+    t_wait = time.perf_counter()
+    try:
+        rc = row["proc"].wait(timeout=SHARDED_ROW_WAIT_S)
+    except subprocess.TimeoutExpired:
+        fail(f"lm_sharded: the 2x16x16 dry-run row ran past {SHARDED_ROW_WAIT_S} s")
+    row["log"].close()
+    if rc:
+        fail(f"lm_sharded: the 2x16x16 dry-run row exited {rc}; its log is beside "
+             f"{row['out']}")
+    with open(row["out"]) as f:
+        (r,) = json.load(f)
+    if r["status"] != "ok":
+        fail(f"lm_sharded: {SHARDED_ROW} on 2x16x16: {r.get('error', r['status'])}")
+    if (r["mesh"], r["chips"]) != ("2x16x16", 512) or "cuda" not in r["traced_device"] \
+            or not r["collective_s"] > 0:
+        fail(f"lm_sharded: the 2x16x16 row: mesh {r['mesh']}, {r['chips']} chips, traced on "
+             f"{r['traced_device']}, collective term {r['collective_s']}")
+    rec = {"phase": "lm_sharded row", "arch": r["arch"], "shape": r["shape"],
+           "mesh": r["mesh"], "chips": r["chips"], "traced_device": r["traced_device"],
+           "trace_s": r["compile_s"], "flops_per_device": r["flops_per_device"],
+           "peak_gb_per_device": r["memory"]["peak_bytes"] / 1e9,
+           "fits_one_card": r["fits_one_card"], "compute_s": r["compute_s"],
+           "memory_s": r["memory_s"], "collective_s": r["collective_s"],
+           "collective_breakdown": r["collective_breakdown"], "dominant": r["dominant"],
+           "row_wall_s": time.perf_counter() - row["t0"], "waited_s": time.perf_counter() - t_wait}
+    emit(rec)
+    return rec
+
+
+def _full(t):
+    """A DTensor's whole value (``full_tensor``); any other tensor itself."""
+    return t.full_tensor() if hasattr(t, "full_tensor") else t
+
+
+def _sharded_compare(torch, want, got, what: str) -> dict:
+    """Bitwise, or fail naming the largest difference."""
+    got = _full(got)
+    if not torch.equal(want, got):
+        d = (want.float() - got.float()).abs().max().item()
+        fail(f"lm_sharded {what}: the sharded run differs from the unsharded one by {d}")
+    return {"bitwise": True, "shape": list(want.shape), "dtype": str(want.dtype)[6:]}
+
+
+def lm_sharded(torch, np, fa_mod) -> dict:
+    """smollm-135m at full width placed by ``SINGLE_POD_RULES`` on a (1, 1)
+    ``cuda`` DeviceMesh over an NCCL group of one rank started here (the
+    machine has one card; NCCL takes no two ranks on one device): its bf16
+    prefill (B 4 x S 2,048, as ``lm_prefill``) and ``SHARDED_TRAIN_STEPS``
+    f32 training steps (Adam, remat) held bitwise against the same runs
+    unsharded on the card, logits, losses and every updated parameter; the
+    flash forward and backward launches of the sharded runs equal to the
+    unsharded ones (the DTensor sharding strategies run the same kernels on
+    each rank's shards); ``ps_lookup`` over the group's ``model`` dim
+    against ``lookup``, its pull and push equal."""
+    import dataclasses as dc
+
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_arch
+    from repro_torch.embedding.table import lookup, ps_lookup
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import sharding as SH
+    from repro_torch.train import optimizer as opt_lib
+
+    t_phase = time.perf_counter()
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{free_port()}", rank=0,
+                            world_size=1, device_id=torch.device("cuda", 0))
+    try:
+        mesh = make_mesh((1, 1), ("data", "model"), "cuda")
+        spec = get_arch(LM_ARCH)
+        rng = np.random.default_rng(0)
+        tokens = torch.from_numpy(rng.integers(0, spec.lm.vocab, (LM_BATCH, LM_SEQ))).cuda()
+        batch = {"tokens": tokens, "labels": torch.roll(tokens, -1, dims=1)}
+        out = {"phase": "lm_sharded", "arch": LM_ARCH, "mesh": [1, 1],
+               "backend": dist.get_backend(), "rules": "SINGLE_POD_RULES"}
+
+        def run(fn):
+            fa_mod.launches = fa_mod.bwd_launches = 0
+            res = fn()
+            torch.cuda.synchronize()
+            return res, {"flash_attention": fa_mod.launches,
+                         "flash_attention_bwd": fa_mod.bwd_launches}
+
+        # the bf16 prefill
+        model = spec.init_params(torch.Generator().manual_seed(0), device="cuda")
+        prefill = spec.make_prefill()
+        want, plain_l = run(lambda: prefill(model, {"tokens": tokens}))
+        with SH.use_rules(SH.SINGLE_POD_RULES):
+            SH.place_model(model, mesh, spec.param_pspecs())
+            pb = SH.place_tree({"tokens": tokens}, mesh, spec.input_pspecs("prefill_32k"))
+            got, sharded_l = run(lambda: prefill(model, pb))
+        out["prefill"] = {**_sharded_compare(torch, want, got, "prefill logits"),
+                          "launches_unsharded": plain_l, "launches_sharded": sharded_l,
+                          "placements": str(got.placements)}
+        if plain_l != sharded_l or not plain_l["flash_attention"]:
+            fail(f"lm_sharded prefill: flash launches {sharded_l} sharded, {plain_l} not")
+        del model, want, got
+        # f32 training steps
+        spec32 = dc.replace(spec, lm=dc.replace(spec.lm, dtype="float32"))
+        runs = {}
+        for name in ("unsharded", "sharded"):
+            model = spec32.init_params(torch.Generator().manual_seed(1), device="cuda")
+            opt = opt_lib.adam(LM_TRAIN_LR, weight_decay=0.01)
+            with SH.use_rules(SH.SINGLE_POD_RULES if name == "sharded" else SH.CPU_RULES):
+                b = batch
+                if name == "sharded":
+                    SH.place_model(model, mesh, spec32.param_pspecs())
+                    b = SH.place_tree(batch, mesh, spec32.input_pspecs("train_4k"))
+                state = opt.init(dict(model.named_parameters()))
+                step = spec32.make_train_step(opt)
+                losses, launches = [], []
+                for _ in range(SHARDED_TRAIN_STEPS):
+                    (model, state, loss), n = run(lambda: step(model, state, b))
+                    losses.append(_full(loss))
+                    launches.append(n)
+            runs[name] = {"model": model, "losses": losses, "launches": launches}
+        u, s = runs["unsharded"], runs["sharded"]
+        for i, (lu, ls) in enumerate(zip(u["losses"], s["losses"])):
+            _sharded_compare(torch, lu, ls, f"training loss {i + 1}")
+        ps = dict(s["model"].named_parameters())
+        for name, p in u["model"].named_parameters():
+            _sharded_compare(torch, p.detach(), ps[name].detach(), f"parameter {name}")
+        if u["launches"] != s["launches"] or not all(n["flash_attention_bwd"]
+                                                    for n in u["launches"]):
+            fail(f"lm_sharded training: flash launches {s['launches']} sharded, "
+                 f"{u['launches']} not")
+        out["training"] = {"steps": SHARDED_TRAIN_STEPS,
+                           "losses": [float(x) for x in u["losses"]],
+                           "params_bitwise": len(ps), "launches_unsharded": u["launches"],
+                           "launches_sharded": s["launches"]}
+        out["launches"] = {
+            "flash_attention": sharded_l["flash_attention"] + sum(
+                n["flash_attention"] for n in s["launches"]),
+            "flash_attention_bwd": sum(n["flash_attention_bwd"] for n in s["launches"])}
+        del runs, u, s, ps
+        # ps_lookup over the group's model dim
+        g = torch.Generator(device="cuda").manual_seed(2)
+        table = torch.randn((PS_ROWS, PS_DIM), generator=g, device="cuda")
+        ids = torch.randint(-1, PS_ROWS, (LM_BATCH, 512), generator=g, device="cuda")
+        shard = table.clone().requires_grad_()
+        pulled = ps_lookup(shard, ids, mesh=mesh)
+        w = torch.randn(pulled.shape, generator=g, device="cuda")
+        (pulled * w).sum().backward()
+        full = table.clone().requires_grad_()
+        (lookup(full, ids) * w).sum().backward()
+        if not (torch.equal(pulled.detach(), lookup(table, ids))
+                and torch.equal(shard.grad, full.grad)):
+            fail("lm_sharded: ps_lookup over the NCCL group differs from lookup")
+        out["ps_lookup"] = {"rows": PS_ROWS, "dim": PS_DIM, "ids": list(ids.shape),
+                            "group": "model", "pull_equal": True, "push_equal": True}
+    finally:
+        dist.destroy_process_group()
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["phase_s"] = time.perf_counter() - t_phase
+    emit(out)
+    return out
+
+
+def free_port() -> int:
+    """A free localhost TCP port (its socket closed before it is used)."""
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
 
 
 def flash_build_phase(torch, build, fa_mod, lib) -> None:
@@ -4079,7 +4329,9 @@ def main() -> None:
     lwh, lwt = lm_whisper(torch, np, fa_mod)
     lred = lm_reduced(torch, np)
     sweep = start_dryrun_sweep()
+    srow = start_sharded_row()
     ldr = lm_dryrun(torch, np, fa_mod)
+    lsh = lm_sharded(torch, np, fa_mod)
     gc.collect()
     torch.cuda.empty_cache()  # the IVF phases' blocks: leave the card's memory free
     emit({"phase": "clocks", "before_kernel_phases": sm_clocks(),
@@ -4111,6 +4363,7 @@ def main() -> None:
         {_flash_key(c) for calls in prefill_calls.values() for c in calls})
 
     ldr["sweep"] = finish_dryrun_sweep(sweep)
+    lsh["row"] = finish_sharded_row(srow)
 
     def timing(rec):
         return {"max_abs_err": rec["max_abs_err"], "ms": rec["kernel_ms"],
@@ -4200,6 +4453,15 @@ def main() -> None:
                                                "peak_bytes_fake", "peak_bytes_real",
                                                "peak_ratio")}
               for part in ("prefill", "training")},
+          "lm_sharded": {k: lsh[k] for k in ("mesh", "backend", "launches", "ps_lookup",
+                                             "phase_s")} | {
+              "prefill_bitwise": lsh["prefill"]["bitwise"],
+              "training_losses": lsh["training"]["losses"],
+              "params_bitwise": lsh["training"]["params_bitwise"],
+              "row": {k: lsh["row"][k] for k in ("mesh", "chips", "traced_device", "trace_s",
+                                                 "flops_per_device", "peak_gb_per_device",
+                                                 "compute_s", "memory_s", "collective_s",
+                                                 "dominant")}},
           **lm_blocks_summary(lmoe, lssm, lhyb, lmt, lred),
           **vlm_whisper_summary(lvlm, lvt, lwh, lwt)})
     print(json.dumps({"kernels": [
@@ -4241,7 +4503,8 @@ def main() -> None:
                "whisper prefill": lwh["launches"]["flash_attention"],
                "whisper training": lwt["launches"]["flash_attention"],
                "lm_dryrun prefill": ldr["prefill"]["launches"]["flash_attention"],
-               "lm_dryrun training": ldr["training"]["launches"]["flash_attention"]},
+               "lm_dryrun training": ldr["training"]["launches"]["flash_attention"],
+               "lm_sharded": lsh["launches"]["flash_attention"]},
               flash_others + flash_train),
         entry("flash_attention_bwd", flash_bwd, "src/repro_torch/kernels/csrc/flash_attn_bwd.cu",
               "src/repro/kernels/ops.py:139 (no VJP); src/repro/models/layers.py:205",
@@ -4249,7 +4512,8 @@ def main() -> None:
                "lm_moe_training": lmt["launches"]["flash_attention_bwd"],
                "vlm training": lvt["launches"]["flash_attention_bwd"],
                "whisper training": lwt["launches"]["flash_attention_bwd"],
-               "lm_dryrun training": ldr["training"]["launches"]["flash_attention_bwd"]},
+               "lm_dryrun training": ldr["training"]["launches"]["flash_attention_bwd"],
+               "lm_sharded": lsh["launches"]["flash_attention_bwd"]},
               flash_bwd_others),
     ]}), flush=True)
     print(smi, flush=True)  # the card's name and power limit, as nvidia-smi gives them

@@ -75,6 +75,8 @@ def parser() -> argparse.ArgumentParser:
                     help="retrieval implementation (see repro_torch/core/recall.py)")
     ap.add_argument("--ivf-nlist", type=int, default=64)
     ap.add_argument("--ivf-nprobe", type=int, default=8)
+    ap.add_argument("--max-users", type=int, default=0,
+                    help="evaluate a sample of this many held-out users (0: all)")
     ap.add_argument("--device", default=None, help="cuda (default) or cpu")
     return ap
 
@@ -102,7 +104,8 @@ def run(args: argparse.Namespace) -> dict:
     t0 = time.perf_counter()
     ivf = IVFConfig(nlist=args.ivf_nlist, nprobe=args.ivf_nprobe, seed=args.seed)
     recall = evaluate_recall(user_emb, item_emb, train_pairs(ds), ds.test_pairs,
-                             top_k=args.top_k, method=args.method, device=dev, ivf=ivf)
+                             top_k=args.top_k, method=args.method, device=dev, ivf=ivf,
+                             max_users=args.max_users, seed=args.seed)
     recall_s = time.perf_counter() - t0
     return {"dataset": ds, "config": cfg, "embeddings": emb, "recall": recall,
             "embed_s": embed_s, "recall_s": recall_s, "device": str(dev), "ivf": ivf}

@@ -36,6 +36,7 @@ from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import qwen2_vl as VLM
 from repro_torch.models import transformer as T
 from repro_torch.models import whisper as W
+from repro_torch.models.sharding import constrain, like, place_as, split_dim
 
 KINDS = ("lm", "vlm", "whisper")
 
@@ -253,6 +254,10 @@ class ArchSpec:
         whose losses and gradients are summed from zeros, in order, and
         divided by k, as ``repro`` does.
 
+        On a device mesh (DTensor parameters) each gradient is placed as its
+        parameter is (the reduce-scatter of sharded data parallelism), so the
+        optimizer state and the update follow the parameters' placements.
+
         The parameters are updated IN PLACE and the same model is returned
         (``repro`` returns a new tree): each parameter takes its new value
         by a copy, or, where the update changed its dtype (``adam`` turns a
@@ -269,15 +274,20 @@ class ArchSpec:
             leaves = list(params.values())
             if k == 1:
                 loss = loss_fn(model, batch)
-                grads = torch.autograd.grad(loss, leaves)
+                grads = place_as(torch.autograd.grad(loss, leaves), leaves)
             else:  # gradient accumulation over k microbatches (batch dim split)
-                loss = torch.zeros((), dtype=torch.float32, device=leaves[0].device)
+                loss = like(torch.zeros((), dtype=torch.float32, device=leaves[0].device),
+                            leaves[0])
                 grads = [torch.zeros_like(p) for p in leaves]
+                # (k, B / k, ...): on a mesh DTensor gathers the batch where its
+                # shards do not hold whole microbatches, and each microbatch is
+                # placed back on the batch axes (GSPMD reshards it likewise)
+                split = {n: split_dim(x, 0, k).unbind(0) for n, x in batch.items()}
                 for i in range(k):
-                    mb = {n: x.reshape((k, x.shape[0] // k) + x.shape[1:])[i]
-                          for n, x in batch.items()}
+                    mb = {n: constrain(x[i], "batch", *[None] * (x[i].dim() - 1))
+                          for n, x in split.items()}
                     lk = loss_fn(model, mb)
-                    gk = torch.autograd.grad(lk, leaves)
+                    gk = place_as(torch.autograd.grad(lk, leaves), leaves)
                     loss = loss + lk.detach()
                     grads = [g + d for g, d in zip(grads, gk)]
                 loss = loss / k
@@ -309,7 +319,7 @@ class ArchSpec:
             def prefill(params, batch):
                 enc = W.encode(params, wcfg, batch["audio_embeds"])
                 x = W.decode_hidden(params, wcfg, enc, batch["tokens"])
-                return W.tied_logits(params, wcfg, x[:, -1, :])
+                return constrain(W.tied_logits(params, wcfg, x[:, -1, :]), "batch", "vocab")
 
             return prefill
         cfg = self.lm
@@ -323,7 +333,8 @@ class ArchSpec:
                 x, _ = T.hidden_states(params, cfg, inputs_embeds=x, positions=pos)
             else:
                 x, _ = T.hidden_states(params, cfg, batch["tokens"])
-            return T._mask_padded_vocab(cfg, x[:, -1, :] @ params.head())
+            return constrain(T._mask_padded_vocab(cfg, x[:, -1, :] @ T.head(params, cfg)),
+                             "batch", "vocab")
 
         return prefill
 

@@ -109,7 +109,7 @@ class _SumOverShards(torch.autograd.Function):
 
 
 def ps_lookup(table_shard: torch.Tensor, ids: torch.Tensor, group=None,
-              pad_id: int = -1) -> torch.Tensor:
+              pad_id: int = -1, *, mesh=None, model_axis: str = "model") -> torch.Tensor:
     """The parameter server's pull over a ``torch.distributed`` group: the
     counterpart of ``repro``'s ``ps_lookup`` under ``shard_map``.
 
@@ -120,8 +120,14 @@ def ps_lookup(table_shard: torch.Tensor, ids: torch.Tensor, group=None,
     gradient is the push: each row's cotangent scatter-added onto the shard
     that owns it, and only there. Without an initialised process group it
     runs as the one rank of one (the single-card case), with no collective.
+    Given a device ``mesh`` (``launch/mesh.py``), the group is its
+    ``model_axis`` dim's, as ``repro``'s table is row-sharded over
+    ``model``: NCCL on a CUDA mesh, gloo on a CPU one.
     """
     import torch.distributed as dist
+
+    if mesh is not None:
+        group = mesh.get_group(model_axis)
 
     if dist.is_available() and dist.is_initialized():
         world, rank = dist.get_world_size(group), dist.get_rank(group)

@@ -25,6 +25,7 @@ they select nothing here.
 """
 from __future__ import annotations
 
+import sys
 from typing import Optional, Tuple
 
 import torch
@@ -207,7 +208,8 @@ def _flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
                window: Optional[int]) -> torch.Tensor:
     if _route(q, "flash_attention"):
         return flash_attention_cuda(q, k, v, causal, window)
-    return ref.attention_ref(q, k, v, causal, window)
+    # contiguous, as the shape function (and so DTensor) lays the output out
+    return ref.attention_ref(q, k, v, causal, window).contiguous()
 
 
 @torch.library.custom_op("g4r::flash_attention_lse", mutates_args=())
@@ -215,7 +217,7 @@ def _flash_fwd_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bo
                    window: Optional[int]) -> Tuple[torch.Tensor, torch.Tensor]:
     if _route(q, "flash_attention"):
         return flash_attention_cuda(q, k, v, causal, window, with_lse=True)
-    return ref.attention_fwd_ref(q, k, v, causal, window)
+    return tuple(t.contiguous() for t in ref.attention_fwd_ref(q, k, v, causal, window))
 
 
 @torch.library.custom_op("g4r::flash_attention_bwd", mutates_args=())
@@ -226,7 +228,8 @@ def _flash_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tenso
         if do.stride(-1) != 1:
             do = do.contiguous()
         return flash_attention_bwd_cuda(q, k, v, o, lse, do, causal, window)
-    return ref.attention_bwd_ref(q, k, v, o, lse, do, causal, window)
+    return tuple(t.contiguous() for t in ref.attention_bwd_ref(q, k, v, o, lse, do, causal,
+                                                               window))
 
 
 def _one_device(what: str, *ts: torch.Tensor) -> None:
@@ -286,11 +289,96 @@ def _flash_bwd_flops(q_shape, k_shape, v_shape, o_shape, lse_shape, do_shape, ca
     return 10 * hd * B * H * band_pairs(Sq, k_shape[1], causal, window)
 
 
+# DTensor sharding strategies of the three ops (a mesh of several devices,
+# ``models/sharding.py``): each rank runs the op on its local shards, so a
+# CUDA shard launches the same kernel through ``flash_attention_cuda`` /
+# ``flash_attention_bwd_cuda`` above. Legal on each mesh dim: every tensor
+# replicated; the batch (dim 0 of q, k, v, o, dO and the LSE) sharded; the
+# heads (dim 2, the LSE's dim 1) sharded where H and K both divide by the
+# product of the mesh dims that shard them, so each rank's query heads keep
+# their own KV heads. A sequence shard is not legal (the kernel takes the
+# whole sequence of each row): DTensor gathers it before the call.
+_SHARDING = {"registered": False}
+
+
+def _heads_divide(q_shape, k_shape, mesh, placements) -> bool:
+    n = 1
+    for i, p in enumerate(placements):
+        if p.is_shard(2):
+            n *= mesh.size(i)
+    return q_shape[2] % n == 0 and k_shape[2] % n == 0
+
+
+def register_flash_sharding() -> None:
+    """Register the strategies with DTensor (once; at the first DTensor
+    that reaches a flash op, so that importing this module does not import
+    ``torch.distributed``)."""
+    if _SHARDING["registered"]:
+        return
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    from torch.distributed.tensor.experimental import register_sharding
+
+    R, B, H, L = Replicate(), Shard(0), Shard(2), Shard(1)
+
+    def heads_ok(q, k) -> bool:
+        return all(q.shape[2] % n == 0 and k.shape[2] % n == 0 for n in q.mesh.shape)
+
+    def fwd(q, k, v, causal, window):
+        out = [([R], [R, R, R, None, None]), ([B], [B, B, B, None, None])]
+        if heads_ok(q, k):
+            out.append(([H], [H, H, H, None, None]))
+        return out
+
+    def fwd_lse(q, k, v, causal, window):
+        out = [([R, R], [R, R, R, None, None]), ([B, B], [B, B, B, None, None])]
+        if heads_ok(q, k):
+            out.append(([H, L], [H, H, H, None, None]))
+        return out
+
+    def bwd(q, k, v, o, lse, do, causal, window):
+        out = [([R] * 3, [R] * 6 + [None, None]), ([B] * 3, [B] * 6 + [None, None])]
+        if heads_ok(q, k):
+            out.append(([H] * 3, [H, H, H, H, L, H, None, None]))
+        return out
+
+    ops_ = {torch.ops.g4r.flash_attention.default: fwd,
+            torch.ops.g4r.flash_attention_lse.default: fwd_lse,
+            torch.ops.g4r.flash_attention_bwd.default: bwd}
+    prop = DTensor._op_dispatcher.sharding_propagator
+    for op, fn in ops_.items():
+        register_sharding(op)(fn)
+        # the strategies are expanded over every combination of mesh dims;
+        # keep the combinations whose head shards hold whole KV groups
+        funcs = getattr(prop, "op_strategy_funcs", None)
+        if funcs is None or op not in funcs:
+            continue
+
+        def whole_groups(op_schema, expand=funcs[op]):
+            st = expand(op_schema)
+            q_shape = op_schema.args_schema[0].shape
+            k_shape = op_schema.args_schema[1].shape
+            st.strategies = [s for s in st.strategies if _heads_divide(
+                q_shape, k_shape, s.input_specs[0].mesh, s.input_specs[0].placements)]
+            return st
+
+        funcs[op] = whole_groups
+    _SHARDING["registered"] = True
+
+
+def _on_mesh(*ts: torch.Tensor) -> None:
+    """Register the sharding strategies where a DTensor reaches a flash op."""
+    if not _SHARDING["registered"]:
+        mod = sys.modules.get("torch.distributed.tensor")
+        if mod is not None and any(isinstance(t, mod.DTensor) for t in ts):
+            register_flash_sharding()
+
+
 def flash_attention_bwd(q, k, v, o, lse, do, causal=True, window=None):
     """The attention's gradient from the forward's inputs, output and row
     log-sum-exp -> (dq, dk, dv): the backward kernel on CUDA (``do`` made
     contiguous only where its head_dim is not), ``attention_bwd_ref`` on
-    the CPU."""
+    the CPU; on DTensors each rank's shards by the sharding strategies."""
+    _on_mesh(q)
     return _flash_bwd(q, k, v, o, lse, do, bool(causal), window)
 
 
@@ -301,7 +389,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     sliding window, f32 softmax. Any Sq, Skv (``repro``'s Pallas kernel
     asserts ``Sq % block_q == 0``; that is a TPU tiling limit). The row LSE
     is computed (and saved, with the inputs and output, for the backward)
-    only where a gradient will follow: the prefill stores none."""
+    only where a gradient will follow: the prefill stores none. On DTensors
+    each rank runs it on its shards (the sharding strategies above)."""
+    _on_mesh(q)
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
         return _flash_fwd_lse(q, k, v, bool(causal), window)[0]
     return _flash_fwd(q, k, v, bool(causal), window)

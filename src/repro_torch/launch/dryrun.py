@@ -1,10 +1,29 @@
-"""Dry run on one H100: count every (arch x shape) step at full size on fake
-CUDA tensors and emit roofline terms. The counterpart of
-``repro/launch/dryrun.py``.
+"""Dry run on H100 meshes: count every (arch x shape x mesh) step at full
+size on fake tensors and emit roofline terms per device. The counterpart
+of ``repro/launch/dryrun.py``.
 
 ``repro`` lowers and compiles each (arch x shape x mesh) for 512
 placeholder CPU devices and divides XLA's cost analysis by TPU v5e figures.
-Here each step is traced eagerly under ``FakeTensorMode`` with the card as
+The port traces for ``repro``'s two pod meshes, 16 x 16 and 2 x 16 x 16,
+on H100s (``--mesh single|multi|both``), and for one H100 (``--mesh card``,
+the default). On a pod mesh the process starts a fake process group of
+256 or 512 ranks (``launch/mesh.py``: ``fake_group``, this process rank 0),
+installs ``repro``'s rules (``SINGLE_POD_RULES`` / ``MULTI_POD_RULES``,
+``decode_rules`` for long_500k) and places the fake model, Adam's state,
+the batch and the cache as DTensors by ``param_pspecs`` / ``input_pspecs``
+/ ``cache_pspecs`` (``models/sharding.py``); the step's ``constrain``s
+redistribute, the flash ops run on each rank's shards by their sharding
+strategies, and ``StepCounter`` counts rank 0's local ops and the
+collectives the redistributions issue, so every row is per device:
+FLOPs, bytes, memory (``fits_one_card`` against one card's 80 GB) and the
+collective term over the link each group crosses (a 16-rank group spans
+two 8-card nodes, so every pod collective crosses the network). The mesh
+is a ``cuda`` mesh of fake CUDA tensors where a CUDA runtime is present,
+a ``cpu`` mesh of fake CPU tensors where not; both count the same
+(``roofline.fake_trace_placement``). Nothing moves between ranks and
+nothing is measured.
+
+On the one-card mesh each step is traced eagerly under ``FakeTensorMode`` with the card as
 its device (``trace_device``; ``meta`` where no CUDA runtime is present, as
 in a CPU-only build, since indexing a fake CUDA tensor needs one): the
 model (``ArchSpec.abstract_params``), the batch (``input_specs``), Adam's
@@ -25,17 +44,18 @@ dtype was traced.
 
 ``repro`` compiles two depth probes (and three sequence probes) of each
 step because XLA counts a loop body once; the eager trace counts every
-layer, so ``--no-probes`` selects nothing. The one-card mesh ``1xH100`` is
-the only mesh: the pod meshes need several cards (ROADMAP Queue 1).
+layer, so ``--no-probes`` selects nothing.
 
 Usage (no card needed):
     PYTHONPATH=src python -m repro_torch.launch.dryrun --arch all --shape all \\
-        --out build/dryrun/dryrun.json
+        --mesh both --out build/dryrun/dryrun.json
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
+import math
 import os
 import time
 import traceback
@@ -47,7 +67,9 @@ from torch._subclasses.fake_tensor import FakeTensorMode
 from repro_torch.configs.base import SHAPES, resolve_shape
 from repro_torch.configs.registry import ARCH_IDS, get_arch
 from repro_torch.launch import roofline as RL
-from repro_torch.launch.mesh import make_card_mesh
+from repro_torch.launch.mesh import (POD_SHAPES, fake_group, make_card_mesh,
+                                     make_production_mesh, mesh_device_type, pod_name)
+from repro_torch.models import sharding as SH
 from repro_torch.train import optimizer as opt_lib
 from repro_torch.utils import get_logger
 from repro_torch.utils.pytree import tree_leaves, tree_num_params
@@ -68,7 +90,10 @@ def trace_device() -> torch.device:
 
 COUNTED_ON = ("counted on fake tensors against H100 SXM5 80GB HBM3 data sheet figures "
               f"({RL.BF16_FLOPS / 1e12:.0f} TFLOP/s bf16, {RL.F32_FLOPS / 1e12:.0f} TFLOP/s "
-              f"f32, {RL.HBM_BW / 1e12:.2f} TB/s); nothing ran on a card, nothing was measured")
+              f"f32, {RL.HBM_BW / 1e12:.2f} TB/s; links {RL.LINK_BW / 1e9:.0f} GB/s NVLink 4 "
+              f"within an 8-card node, {RL.NET_BW / 1e9:.0f} GB/s ConnectX-7 NDR across "
+              "nodes); nothing ran on a card, nothing was measured")
+MESHES = {"card": [None], "single": [False], "multi": [True], "both": [False, True]}
 
 
 # ----------------------------------------------------------------- counting
@@ -86,16 +111,18 @@ def count_active(spec, model) -> float:
 
 
 def count_step(spec, shape, model, batch, cache=None,
-               on_ready: Optional[Callable[[], None]] = None) -> Dict[str, Any]:
+               on_ready: Optional[Callable[[], None]] = None, mesh=None) -> Dict[str, Any]:
     """Run one step of ``shape`` (train, prefill or decode) on ``model`` and
     ``batch`` (and ``cache`` for decode) under a ``StepCounter``: fake
     tensors for the dry run, real ones on the card. Returns the counter,
     the bytes of the step's arguments and of its new outputs, and the
     output. A training step builds Adam's state first and counts it as an
     argument. ``on_ready`` is called once every argument exists, just
-    before the step (a caller on the card reads the allocator there)."""
+    before the step (a caller on the card reads the allocator there).
+    On DTensors (``mesh``, the device mesh they are placed on) every count
+    is this rank's."""
     s = resolve_shape(shape)
-    counter = RL.StepCounter()
+    counter = RL.StepCounter(mesh)
     if s.kind == "train":
         opt = opt_lib.adam(1e-3, weight_decay=0.01)
         state = opt.init(dict(model.named_parameters()))
@@ -106,27 +133,48 @@ def count_step(spec, shape, model, batch, cache=None,
     else:
         args, fn = (model, cache, batch), spec.make_serve_step()
     arg_bytes = counter.track(args)
-    before = {id(t.untyped_storage()) for t in tree_leaves(args) if isinstance(t, torch.Tensor)}
+    before = {id(RL._local(t).untyped_storage()) for t in tree_leaves(args)
+              if isinstance(t, torch.Tensor)}
     if on_ready is not None:
         on_ready()
     with counter:
         out = fn(*args)
-    new = {id(t.untyped_storage()): t.untyped_storage().nbytes() for t in tree_leaves(out)
-           if isinstance(t, torch.Tensor) and id(t.untyped_storage()) not in before}
+    outs = [RL._local(t).untyped_storage() for t in tree_leaves(out)
+            if isinstance(t, torch.Tensor)]
+    new = {id(st): st.nbytes() for st in outs if id(st) not in before}
     return {"counter": counter, "arg_bytes": arg_bytes, "output_bytes": sum(new.values()),
             "out": out}
 
 
-def _fake_step(spec, shape) -> Dict[str, Any]:
-    """``count_step`` on fake tensors of ``trace_device()``: the abstract
-    model, inputs and cache of ``shape``."""
+def pod_rules(shape, multi_pod: bool) -> Dict[str, Any]:
+    """``repro``'s rules for ``shape`` on a pod mesh: ``MULTI_POD_RULES`` or
+    ``SINGLE_POD_RULES``, under ``decode_rules`` for long_500k."""
+    rules = SH.MULTI_POD_RULES if multi_pod else SH.SINGLE_POD_RULES
+    return SH.decode_rules(rules) if resolve_shape(shape).name == "long_500k" else rules
+
+
+def _fake_step(spec, shape, mesh=None, rules=None) -> Dict[str, Any]:
+    """``count_step`` on fake tensors: the abstract model, inputs and cache
+    of ``shape``, on ``trace_device()``; with a device ``mesh``, on its
+    device type and placed on it by ``rules``."""
     s = resolve_shape(shape)
-    dev = trace_device()
-    with FakeTensorMode():
-        model = spec.abstract_params(dev)
-        batch = spec.input_specs(s, dev)
-        cache = spec.abstract_cache(s, dev) if s.kind == "decode" else None
-        return {**count_step(spec, s, model, batch, cache), "device": str(dev)}
+    if mesh is None:
+        dev = trace_device()
+        with FakeTensorMode():
+            model = spec.abstract_params(dev)
+            batch = spec.input_specs(s, dev)
+            cache = spec.abstract_cache(s, dev) if s.kind == "decode" else None
+            return {**count_step(spec, s, model, batch, cache), "device": str(dev)}
+    dev = FAKE_CARD if mesh.device_type == "cuda" else torch.device(mesh.device_type)
+    # DTensor's bookkeeping puts small host tensors beside the fake shards
+    with SH.use_rules(rules), FakeTensorMode(allow_non_fake_inputs=True), \
+            RL.fake_trace_placement():
+        model = SH.place_model(spec.abstract_params(dev), mesh, spec.param_pspecs())
+        batch = SH.place_tree(spec.input_specs(s, dev), mesh, spec.input_pspecs(s))
+        cache = (SH.place_tree(spec.abstract_cache(s, dev), mesh, spec.cache_pspecs())
+                 if s.kind == "decode" else None)
+        return {**count_step(spec, s, model, batch, cache, mesh=mesh),
+                "device": f"{dev} on a {mesh.device_type} mesh"}
 
 
 def row_of(spec, arch_id: str, shape, res: Dict[str, Any], trace_s: float,
@@ -152,7 +200,8 @@ def row_of(spec, arch_id: str, shape, res: Dict[str, Any], trace_s: float,
         "collective_bytes_per_device": rl.collective_bytes_per_device,
         "collective_breakdown": rl.collective_breakdown,
         "raw_scan_counts": {"flops": rl.flops_per_device, "bytes": rl.bytes_per_device,
-                            "coll": 0.0},
+                            "coll": rl.collective_bytes_per_device},
+        "collectives": c.collective_table(),
         "compute_s": rl.compute_s, "memory_s": rl.memory_s, "collective_s": rl.collective_s,
         "dominant": rl.dominant, "model_flops": model_flops, "useful_ratio": rl.useful_ratio,
         "fits_one_card": c.peak_bytes <= RL.CARD_BYTES, "traced_dtype": str(spec.dtype)[6:],
@@ -162,13 +211,18 @@ def row_of(spec, arch_id: str, shape, res: Dict[str, Any], trace_s: float,
     }
 
 
-def run_one(arch_id: str, shape: str, multi_pod: bool = False, reduced: bool = False,
-            probes: bool = True, spec=None) -> Dict[str, Any]:
-    """One row of the dry run on ``1xH100``. ``multi_pod`` and ``probes``
-    are ``repro``'s arguments and select nothing here (one card; the trace
-    counts every layer)."""
-    mesh = make_card_mesh()
-    base = {"arch": arch_id, "shape": shape, "mesh": mesh.name}
+def run_one(arch_id: str, shape: str, multi_pod: Optional[bool] = None,
+            reduced: bool = False, probes: bool = True, spec=None) -> Dict[str, Any]:
+    """One row of the dry run: on ``1xH100`` (``multi_pod`` None), on 16 x 16
+    (False) or on 2 x 16 x 16 (True), per device. A pod row starts a fake
+    group of the mesh's size for itself unless the caller runs one of that
+    size already. ``probes`` is ``repro``'s argument and selects nothing
+    (the trace counts every layer)."""
+    if multi_pod is None:
+        mesh_name, chips = make_card_mesh().name, 1
+    else:
+        mesh_name, chips = pod_name(multi_pod), math.prod(POD_SHAPES[multi_pod][0])
+    base = {"arch": arch_id, "shape": shape, "mesh": mesh_name}
     try:
         spec = spec if spec is not None else get_arch(arch_id, reduced=reduced)
         ok, reason = spec.supports(shape)
@@ -178,21 +232,36 @@ def run_one(arch_id: str, shape: str, multi_pod: bool = False, reduced: bool = F
         n_params, n_active = float(tree_num_params(meta)), count_active(spec, meta)
         del meta
         t0 = time.perf_counter()
-        res = _fake_step(spec, shape)
+        if multi_pod is None:
+            res = _fake_step(spec, shape)
+        else:
+            with _pod_group(chips):
+                mesh = make_production_mesh(multi_pod=multi_pod, device_type=mesh_device_type())
+                res = _fake_step(spec, shape, mesh, pod_rules(shape, multi_pod))
         out = row_of(spec, arch_id, shape, res, time.perf_counter() - t0, n_params, n_active,
-                     mesh.name, mesh.size)
+                     mesh_name, chips)
         log.info(
             "OK %-20s %-12s %-8s compile=%5.1fs mem=%7.2fGB "
             "comp=%.2es mem=%.2es coll=%.2es dom=%-10s useful=%.2f",
-            arch_id, shape, mesh.name, out["compile_s"], out["memory"]["total_gb"],
+            arch_id, shape, mesh_name, out["compile_s"], out["memory"]["total_gb"],
             out["compute_s"], out["memory_s"], out["collective_s"], out["dominant"],
             out["useful_ratio"],
         )
         return out
     except Exception as e:
-        log.error("FAIL %s %s %s: %s", arch_id, shape, mesh.name, e)
+        log.error("FAIL %s %s %s: %s", arch_id, shape, mesh_name, e)
         return {**base, "status": "error", "error": f"{type(e).__name__}: {e}",
                 "trace": traceback.format_exc()[-2000:]}
+
+
+def _pod_group(chips: int):
+    """The caller's process group where it has ``chips`` ranks, else a fake
+    group of ``chips`` ranks for the block."""
+    import torch.distributed as dist
+
+    if dist.is_available() and dist.is_initialized() and dist.get_world_size() == chips:
+        return contextlib.nullcontext()
+    return fake_group(chips)
 
 
 def main(argv: Optional[list] = None) -> None:
@@ -201,6 +270,8 @@ def main(argv: Optional[list] = None) -> None:
     ap.add_argument("--shape", default="all")
     ap.add_argument("--rows", default="",
                     help="arch:shape pairs, comma-separated, in place of --arch x --shape")
+    ap.add_argument("--mesh", default="card", choices=list(MESHES),
+                    help="16x16 (single), 2x16x16 (multi), both, or one H100 (card)")
     ap.add_argument("--reduced", action="store_true")
     ap.add_argument("--no-probes", action="store_true",
                     help="selects nothing: repro compiles depth probes because XLA counts a "
@@ -212,8 +283,10 @@ def main(argv: Optional[list] = None) -> None:
     shapes = list(SHAPES) if args.shape == "all" else args.shape.split(",")
     rows = ([tuple(r.split(":")) for r in args.rows.split(",")] if args.rows
             else [(a, s) for a in archs for s in shapes])
-    print(f"dry run on 1xH100: {COUNTED_ON}", flush=True)
-    results = [run_one(a, s, reduced=args.reduced) for a, s in rows]
+    meshes = MESHES[args.mesh]
+    names = ", ".join(make_card_mesh().name if m is None else pod_name(m) for m in meshes)
+    print(f"dry run on {names}: {COUNTED_ON}", flush=True)
+    results = [run_one(a, s, m, reduced=args.reduced) for a, s in rows for m in meshes]
 
     os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
     existing: Dict[Tuple[str, str, str], Dict] = {}

@@ -4,16 +4,19 @@ figures of ``launch/roofline.py``.
 
 The dry run writes its JSON at the end; the per-row log lines carry every
 roofline field it prints. The compute term is rebuilt as bf16 FLOPs (the
-log line does not split it by dtype).
+log line does not split it by dtype); the chips come from the mesh's name
+(``1xH100``, ``16x16``, ``2x16x16``), and a pod mesh's collective term is
+rebuilt over the network link (every pod group spans nodes).
 """
 from __future__ import annotations
 
 import json
+import math
 import re
 import sys
 from typing import Dict, List
 
-from repro_torch.launch.roofline import BF16_FLOPS, HBM_BW, LINK_BW
+from repro_torch.launch.roofline import BF16_FLOPS, HBM_BW, LINK_BW, NET_BW
 
 LINE = re.compile(
     r"OK (\S+)\s+(\S+)\s+(\S+)\s+compile=\s*([\d.]+)s mem=\s*([\d.]+)GB "
@@ -29,7 +32,8 @@ def parse(path: str) -> List[Dict]:
                 continue
             arch, shape, mesh, comp_s, mem_gb, c, b, co, dom, useful = m.groups()
             compute_s, memory_s, collective_s = float(c), float(b), float(co)
-            chips = 1  # 1xH100: the port's dry run has one mesh
+            pod = mesh != "1xH100"
+            chips = math.prod(int(n) for n in mesh.split("x")) if pod else 1
             rows.append({
                 "arch": arch, "shape": shape, "mesh": mesh, "status": "ok",
                 "chips": chips, "compile_s": float(comp_s),
@@ -40,7 +44,7 @@ def parse(path: str) -> List[Dict]:
                 "useful_ratio": float(useful),
                 "flops_per_device": compute_s * BF16_FLOPS,
                 "bytes_per_device": memory_s * HBM_BW,
-                "collective_bytes_per_device": collective_s * LINK_BW,
+                "collective_bytes_per_device": collective_s * (NET_BW if pod else LINK_BW),
                 "model_flops": float(useful) * compute_s * BF16_FLOPS * chips,
                 "reconstructed_from_log": True,
             })

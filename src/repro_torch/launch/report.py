@@ -1,6 +1,8 @@
 """Render the dry run's JSON rows as markdown tables: a copy of
 ``repro/launch/report.py`` whose hints speak of the H100, with a table of
-the one-card rows (compute, memory, peak, fits, dominant).
+the one-card rows (compute, memory, peak, fits, dominant) and one of the
+pod-mesh rows (per device: dominant term, peak, the collective term's share
+and its wire bytes by kind).
 
     PYTHONPATH=src python -m repro_torch.launch.report build/dryrun/dryrun.json
 """
@@ -109,6 +111,35 @@ def card_table(rows: List[Dict]) -> str:
     return "\n".join(out)
 
 
+def _gb(x: float) -> str:
+    return f"{x / 1e9:.3g}"
+
+
+def pod_table(rows: List[Dict]) -> str:
+    """The 16 x 16 and 2 x 16 x 16 rows, per device: the dominant term, peak
+    live GB (✗ over one card's 80 GB), the collective term's share of the
+    three terms' sum and its wire GB by kind (all-gather, reduce-scatter,
+    all-reduce, all-to-all)."""
+    kinds = (("all-gather", "AG"), ("reduce-scatter", "RS"), ("all-reduce", "AR"),
+             ("all-to-all", "A2A"))
+    out = ["| arch | shape | mesh | dominant | peak GB | collective share | wire GB by kind |",
+           "|---|---|---|---|---|---|---|"]
+    pods = [r for r in rows if r["mesh"] in ("16x16", "2x16x16")]
+    for r in sorted(pods, key=lambda r: (r["arch"], ORDER.index(r["shape"]), r["mesh"])):
+        if r["status"] != "ok":
+            out.append(f"| {r['arch']} | {r['shape']} | {r['mesh']} | {r['status']} | — | — | — |")
+            continue
+        terms = r["compute_s"] + r["memory_s"] + r["collective_s"]
+        br = r["collective_breakdown"]
+        wire = " ".join(f"{k} {_gb(br[n])}" for n, k in kinds if br.get(n))
+        fits = "" if r["fits_one_card"] else " ✗"
+        out.append(
+            f"| {r['arch']} | {r['shape']} | {r['mesh']} | {r['dominant']} "
+            f"| {_gb(r['memory']['peak_bytes'])}{fits} | {r['collective_s'] / terms:.2f} "
+            f"| {wire or '—'} |")
+    return "\n".join(out)
+
+
 def main() -> None:
     with open(sys.argv[1]) as f:
         rows = json.load(f)
@@ -118,6 +149,9 @@ def main() -> None:
     print(card_table(rows))
     print("\n## Dry-run matrix\n")
     print(dryrun_table(rows))
+    if any(r["mesh"] in ("16x16", "2x16x16") for r in rows):
+        print("\n## Pod meshes, per device\n")
+        print(pod_table(rows))
 
 
 if __name__ == "__main__":

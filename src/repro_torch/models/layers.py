@@ -13,10 +13,13 @@ run in f32.
 Full-sequence attention always goes through ``kernels.ops.flash_attention``
 (the flash kernel on CUDA, its plain version on the CPU). That one call
 stands in for ``repro``'s three branches (the Pallas kernel, the chunked XLA
-scan and the naive einsum), which compute the same function. The sharding
-knobs of ``AttnConfig`` (``block_q``, ``chunk_unroll``, ``shard_cache_seq``,
-``pad_heads`` apart from the head count it implies) are kept so configs
-stay interchangeable and select nothing. Cross-attention (Whisper's
+scan and the naive einsum), which compute the same function. ``constrain``
+stands where ``repro``'s does, with its logical axes: on DTensors placed on
+a device mesh it redistributes them (``models/sharding.py``), elsewhere it
+is the identity. ``pad_heads`` selects the head-parallel layout there as in
+``repro``, and ``shard_cache_seq`` the decode cache's sequence sharding;
+``block_q`` and ``chunk_unroll`` are kept so configs stay interchangeable
+and select nothing. Cross-attention (Whisper's
 decoder over the encoded audio) is ``gqa_attention``, the einsum path, as
 in ``repro``: no kernel.
 """
@@ -31,9 +34,11 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
-from torch._subclasses.fake_tensor import FakeTensor
+from torch._subclasses.fake_tensor import is_fake
 
 from repro_torch.kernels import ops
+from repro_torch.models.sharding import (constrain, copy_into, follow, is_distributed, like,
+                                        merge_dims, split_dim)
 
 NEG_INF = -1e30
 
@@ -124,10 +129,11 @@ def rope_cos_sin(
     id; identical coordinates reduce it to plain RoPE.
     """
     half = head_dim // 2
-    if isinstance(positions, FakeTensor):  # a trace: no values, nothing to cache
+    if is_fake(positions):  # a trace (a DTensor's fake shards too): no values, nothing to cache
         inv_freq = torch.empty((half,), dtype=torch.float32, device=positions.device)
     else:
         inv_freq = _inv_freq(half, float(theta), positions.device)
+    inv_freq = like(inv_freq, positions)
     if mrope_sections is None:
         if positions.dim() != 2:
             raise ValueError(f"RoPE positions must be (B, S); got {tuple(positions.shape)}")
@@ -170,7 +176,7 @@ class AttnConfig:
     use_rope: bool = True
     block_q: int = 256  # repro's chunked-attention block; selects nothing here
     chunk_unroll: bool = False  # selects nothing here
-    shard_cache_seq: bool = False  # selects nothing here (one card)
+    shard_cache_seq: bool = False  # decode cache sharded on its sequence (a mesh)
     # pad query heads up to a multiple of 16 (repro's head-parallel layout);
     # here it only shapes the weights: padded heads have zero output rows
     pad_heads: bool = False
@@ -217,21 +223,18 @@ def init_attn(gen: torch.Generator, cfg: AttnConfig, dtype, device=None) -> Atte
 
 
 def _proj_qkv(p: Attention, cfg: AttnConfig, x: torch.Tensor):
-    B, S, _ = x.shape
-    q, k, v = x @ p.wq, x @ p.wk, x @ p.wv
+    q, k, v = follow(x @ p.wq), follow(x @ p.wk), follow(x @ p.wv)
     if p.bq is not None:
         q, k, v = q + p.bq, k + p.bk, v + p.bv
-    q = q.reshape(B, S, cfg.n_heads_padded, cfg.head_dim)
-    k = k.reshape(B, S, cfg.n_kv, cfg.head_dim)
-    v = v.reshape(B, S, cfg.n_kv, cfg.head_dim)
-    return q, k, v
+    q = split_dim(q, -1, cfg.n_heads_padded)
+    return q, split_dim(k, -1, cfg.n_kv), split_dim(v, -1, cfg.n_kv)
 
 
 def gqa_scores_mask(S_q: int, S_kv: int, causal: bool, window: Optional[int],
                     q_offset: int = 0, device=None) -> torch.Tensor:
     """(S_q, S_kv) f32 additive mask: 0 inside the causal / window band,
     ``NEG_INF`` outside."""
-    qi = torch.arange(S_q, device=device)[:, None] + q_offset
+    qi = torch.arange(S_q, device=device)[:, None] + q_offset  # plain: the mask is built once
     ki = torch.arange(S_kv, device=device)[None, :]
     ok = torch.ones((S_q, S_kv), dtype=torch.bool, device=device)
     if causal:
@@ -252,17 +255,15 @@ def gqa_attention(
     The mask is added in the logits' dtype: ``repro``'s mask is a weakly
     typed f32 array, which JAX adds to bf16 logits in bf16.
     """
-    B, Sq, H, hd = q.shape
-    K = k.shape[2]
-    G = H // K
-    qg = q.reshape(B, Sq, K, G, hd)
+    hd, K = q.shape[-1], k.shape[2]
+    qg = split_dim(q, 2, K)  # (B, Sq, K, G, hd)
     logits = torch.einsum("bqkgd,bskd->bkgqs", qg, k) / math.sqrt(hd)
     if mask is not None:
         mask = mask.to(logits.dtype)
         logits = logits + (mask[:, :, None, :, :] if mask.dim() == 4 else mask)
     att = torch.softmax(logits.float(), dim=-1).to(q.dtype)
     out = torch.einsum("bkgqs,bskd->bqkgd", att, v)
-    return out.reshape(B, Sq, H, hd)
+    return merge_dims(out, 2)  # (B, Sq, H, hd)
 
 
 def attn_forward(
@@ -277,12 +278,26 @@ def attn_forward(
     q, k, v = _proj_qkv(p, cfg, x)
     if cfg.use_rope:
         if positions is None:
-            positions = torch.arange(S, device=x.device)[None, :].expand(B, S)
+            positions = like(torch.arange(S, device=x.device)[None, :].expand(B, S), x)
         cos, sin = rope_cos_sin(positions, cfg.head_dim, cfg.rope_theta, cfg.mrope_sections)
         q = apply_rope(q, cos, sin)
         k = apply_rope(k, cos, sin)
+    # repro's layouts: context-parallel by default (K/V sharded on the
+    # sequence over `model`), head-parallel with pad_heads. The kernel takes
+    # no sequence shard (kernels/ops.py's sharding strategies), so DTensor
+    # gathers K/V on the sequence before the call where GSPMD all-reduces
+    # the softmax statistics of each K/V chunk.
+    if cfg.pad_heads:
+        q = constrain(q, "batch", None, "heads", None)
+        k = constrain(k, "batch", None, None, None)
+        v = constrain(v, "batch", None, None, None)
+    else:
+        q = constrain(q, "batch", None, None, None)
+        k = constrain(k, "batch", "seq", None, None)
+        v = constrain(v, "batch", "seq", None, None)
     out = ops.flash_attention(q, k, v, causal=cfg.causal, window=cfg.sliding_window)
-    return out.reshape(B, S, -1) @ p.wo
+    out = constrain(out, "batch", None, None, None)
+    return follow(merge_dims(out, 2) @ p.wo)
 
 
 # ------------------------------------------------------------------ caches
@@ -326,24 +341,41 @@ def attn_decode_step(
     q, k_new, v_new = _proj_qkv(p, cfg, x)
     if cfg.use_rope:
         shape = (B, 1) if cfg.mrope_sections is None else (B, 1, len(cfg.mrope_sections))
-        pos = torch.full(shape, t, dtype=torch.int32, device=x.device)
+        pos = like(torch.full(shape, t, dtype=torch.int32, device=x.device), x)
         cos, sin = rope_cos_sin(pos, cfg.head_dim, cfg.rope_theta, cfg.mrope_sections)
         q = apply_rope(q, cos, sin)
         k_new = apply_rope(k_new, cos, sin)
     slot = t % S_max if ring else min(t, S_max - 1)
     kv_flat = cfg.n_kv * cfg.head_dim
-    cache["k"][:, slot] = k_new.reshape(B, kv_flat)
-    cache["v"][:, slot] = v_new.reshape(B, kv_flat)
-    k_heads = cache["k"].view(B, S_max, cfg.n_kv, cfg.head_dim)
-    v_heads = cache["v"].view(B, S_max, cfg.n_kv, cfg.head_dim)
-    s_idx = torch.arange(S_max, device=x.device)
+    s_idx = like(torch.arange(S_max, device=x.device), x)
+    if is_distributed(cache["k"]):
+        # On a mesh the slot is written by a select over the whole cache,
+        # as GSPMD writes repro's dynamic_update_slice: each rank keeps its
+        # shard and no collective is issued (a read and a write of the
+        # shard). Indexing a sequence-sharded cache (`cache[:, slot] = ...`)
+        # would make DTensor all-gather the whole cache to every rank and
+        # write the slot into that gathered copy.
+        at = (s_idx == slot)[None, :, None]
+        for name, new in (("k", k_new), ("v", v_new)):
+            copy_into(cache[name], torch.where(at, new.reshape(B, 1, kv_flat), cache[name]))
+    else:
+        cache["k"][:, slot] = k_new.reshape(B, kv_flat)
+        cache["v"][:, slot] = v_new.reshape(B, kv_flat)
+    if cfg.shard_cache_seq:
+        # context-parallel decode: the cache stays sharded on its sequence
+        k, v = constrain(cache["k"], "batch", "cache_seq", None), constrain(
+            cache["v"], "batch", "cache_seq", None)
+    else:
+        k, v = constrain(cache["k"], "batch", None, "kv_heads"), constrain(
+            cache["v"], "batch", None, "kv_heads")
+    k_heads, v_heads = split_dim(k, 2, cfg.n_kv), split_dim(v, 2, cfg.n_kv)
     if ring:
         valid = (slot - s_idx) % S_max <= min(t, S_max - 1)  # age 0 = newest
     else:
         valid = s_idx <= t
     mask = torch.where(valid, 0.0, NEG_INF).float()[None, None, None, :]
     out = gqa_attention(q, k_heads, v_heads, mask)  # (B, 1, H, hd)
-    return out.reshape(B, 1, -1) @ p.wo, cache
+    return merge_dims(out, 2) @ p.wo, cache
 
 
 # ----------------------------------------------------------- cross-attention
@@ -359,24 +391,22 @@ def cross_attn_forward(
 ) -> torch.Tensor:
     """The decoder's queries against the encoder's keys and values, no
     mask (every query sees every frame)."""
-    B, Sq, _ = x.shape
-    q = x @ p.wq
+    q = follow(x @ p.wq)
     if p.bq is not None:
         q = q + p.bq
     k, v = enc_kv
-    out = gqa_attention(q.reshape(B, Sq, cfg.n_heads, cfg.head_dim), k, v, None)
-    return out.reshape(B, Sq, -1) @ p.wo
+    out = gqa_attention(split_dim(q, 2, cfg.n_heads), k, v, None)
+    return follow(merge_dims(out, 2) @ p.wo)
 
 
 def encode_cross_kv(p: Attention, cfg: AttnConfig,
                     enc: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """The cross-attention's keys and values of the encoder states ``enc``
     (B, Se, d) -> two (B, Se, K, hd)."""
-    B, Se, _ = enc.shape
-    k, v = enc @ p.wk, enc @ p.wv
+    k, v = follow(enc @ p.wk), follow(enc @ p.wv)
     if p.bk is not None:
         k, v = k + p.bk, v + p.bv
-    return (k.reshape(B, Se, cfg.n_kv, cfg.head_dim), v.reshape(B, Se, cfg.n_kv, cfg.head_dim))
+    return split_dim(k, 2, cfg.n_kv), split_dim(v, 2, cfg.n_kv)
 
 
 # --------------------------------------------------------------------- MLPs
@@ -420,6 +450,8 @@ def init_mlp(gen: torch.Generator, kind: str, d_model: int, d_ff: int, dtype,
 
 def mlp_forward(p: MLP, kind: str, x: torch.Tensor) -> torch.Tensor:
     if kind == "swiglu":
-        return (F.silu(x @ p.wg) * (x @ p.wu)) @ p.wd
+        h = constrain(F.silu(follow(x @ p.wg)) * follow(x @ p.wu), "batch", None, "ffn")
+        return follow(h @ p.wd)
     # jax.nn.gelu's default is the tanh approximation
-    return F.gelu(x @ p.wu + p.bu, approximate="tanh") @ p.wd + p.bd
+    h = constrain(F.gelu(follow(x @ p.wu) + p.bu, approximate="tanh"), "batch", None, "ffn")
+    return follow(h @ p.wd) + p.bd

@@ -29,6 +29,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.models.layers import _params, init_normal
+from repro_torch.models.sharding import (constrain, copy_into, follow, like, merge_dims,
+                                        reshape, split_dim)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -98,9 +100,9 @@ def init_mamba2(gen: torch.Generator, cfg: Mamba2Config, dtype, device=None) -> 
 
 def _proj_xbcdt(p: Mamba2, u: torch.Tensor):
     """u (B, S, d) -> z, xbc (before the conv), dt_raw (f32)."""
-    z = u @ p.wz
-    xbc = torch.cat([u @ p.wx, u @ p.wB, u @ p.wC], dim=-1)
-    return z, xbc, (u @ p.wdt).float()
+    z = follow(u @ p.wz)
+    xbc = torch.cat([follow(u @ p.wx), follow(u @ p.wB), follow(u @ p.wC)], dim=-1)
+    return z, xbc, follow(u @ p.wdt).float()
 
 
 def _causal_depthwise_conv(w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
@@ -158,25 +160,28 @@ def mamba2_forward(p: Mamba2, cfg: Mamba2Config, u: torch.Tensor) -> torch.Tenso
     z, xbc, dt_raw = _proj_xbcdt(p, u)
     xbc = _causal_depthwise_conv(p.conv, xbc)
     x, Bm, Cm = _split_xbc(cfg, xbc)
-    x = x.reshape(B, S, H, P)
+    x = constrain(split_dim(x, 2, H), "batch", None, "mamba_heads", None)
 
     dt = F.softplus(dt_raw + p.dt_bias)  # (B, S, H) f32
     A = -torch.exp(p.A_log)  # (H,) negative
-    dA = (dt * A).reshape(B, Nc, Q, H)
-    dtc = dt.reshape(B, Nc, Q, H)
-    xc = x.reshape(B, Nc, Q, H, P)
-    Bc = Bm.reshape(B, Nc, Q, N).float()
-    Cc = Cm.reshape(B, Nc, Q, N).float()
-    causal = torch.ones((Q, Q), dtype=torch.bool, device=u.device).tril()
+    dA = reshape(dt * A, (B, Nc, Q, H))
+    dtc = reshape(dt, (B, Nc, Q, H))
+    xc = reshape(x, (B, Nc, Q, H, P))
+    Bc = reshape(Bm, (B, Nc, Q, N)).float()
+    Cc = reshape(Cm, (B, Nc, Q, N)).float()
+    causal = like(torch.ones((Q, Q), dtype=torch.bool, device=u.device).tril(), u)
 
-    h = torch.zeros((B, H, P, N), dtype=x.dtype, device=u.device)
+    h = like(torch.zeros((B, H, P, N), dtype=x.dtype, device=u.device), u)
     ys = []
-    for c in range(Nc):
-        h, y_c = _chunk_step(h, dA[:, c], dtc[:, c], xc[:, c], Bc[:, c], Cc[:, c], causal)
+    # each chunk's slices in one op a tensor (a DTensor op a chunk index
+    # would be placed anew for every index)
+    chunks = zip(*(t.unbind(1) for t in (dA, dtc, xc, Bc, Cc)))
+    for da_c, dt_c, x_c, b_c, c_c in chunks:
+        h, y_c = _chunk_step(h, da_c, dt_c, x_c, b_c, c_c, causal)
         ys.append(y_c)
-    y = torch.stack(ys, dim=1).reshape(B, S, H, P)
+    y = reshape(torch.stack(ys, dim=1), (B, S, H, P))
     y = y + x * p.D[None, None, :, None].to(x.dtype)
-    return _gated_norm(p, y.reshape(B, S, cfg.d_inner), z) @ p.wo
+    return follow(_gated_norm(p, merge_dims(y, 2), z) @ p.wo)
 
 
 # ------------------------------------------------------------------- decode
@@ -193,19 +198,18 @@ def mamba2_decode_step(p: Mamba2, cfg: Mamba2Config, cache: Dict[str, torch.Tens
                        u: torch.Tensor) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """One token, u (B, 1, d_model): the state and the conv history are
     updated IN PLACE in ``cache``, which is returned."""
-    B = u.shape[0]
-    H, P = cfg.n_heads, cfg.headdim
+    H = cfg.n_heads
     z, xbc, dt_raw = _proj_xbcdt(p, u)
     hist = torch.cat([cache["conv"], xbc], dim=1)  # (B, W, Ch)
     conv_out = F.silu((hist * p.conv[None]).sum(dim=1, keepdim=True))
     x, Bm, Cm = _split_xbc(cfg, conv_out)
-    x = x.reshape(B, H, P)
+    x = split_dim(x[:, 0], 1, H)  # (B, H, P)
     dt = F.softplus(dt_raw[:, 0] + p.dt_bias)  # (B, H) f32
     a = torch.exp(dt * -torch.exp(p.A_log))
     dBx = dt.to(x.dtype)[:, :, None, None] * x[..., None] * Bm[:, 0][:, None, None, :]
     h = cache["ssm"] * a[..., None, None].to(x.dtype) + dBx
     y = torch.einsum("bn,bhpn->bhp", Cm[:, 0], h) + x * p.D[None, :, None].to(x.dtype)
-    out = _gated_norm(p, y.reshape(B, 1, cfg.d_inner), z) @ p.wo
-    cache["ssm"].copy_(h)
-    cache["conv"].copy_(hist[:, 1:, :])
+    out = _gated_norm(p, merge_dims(y, 1)[:, None], z) @ p.wo
+    copy_into(cache["ssm"], h)
+    copy_into(cache["conv"], hist[:, 1:, :])
     return out, cache

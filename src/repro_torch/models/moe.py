@@ -19,9 +19,11 @@ picks experts ``0..K-1``). The chosen probabilities are read back through
 the one-hot of the chosen experts (one nonzero product a sum, so exactly
 the values), whose backward is elementwise.
 
-``shard`` and ``router_jitter`` are kept so configs stay interchangeable
-and select nothing: ``shard`` only places tensors on ``repro``'s mesh, and
-``repro`` never reads ``router_jitter``.
+``shard`` places the expert tensors on a device mesh as on ``repro``'s
+(``"ep"``: experts over ``model``; ``"tp"``: each expert's hidden dim),
+through ``constrain`` at ``repro``'s sites; off a mesh it selects nothing.
+``router_jitter`` is kept so configs stay interchangeable: ``repro`` never
+reads it.
 """
 from __future__ import annotations
 
@@ -35,6 +37,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.models.layers import _params, init_normal
+from repro_torch.models.sharding import constrain, dense_local, follow, is_distributed, reshape
 
 
 @dataclasses.dataclass(frozen=True)
@@ -47,7 +50,7 @@ class MoEConfig:
     group_size: int = 1024  # tokens per routing group
     mlp_kind: str = "swiglu"
     router_jitter: float = 0.0  # selects nothing (repro never reads it)
-    shard: str = "ep"  # selects nothing (repro's mesh placement)
+    shard: str = "ep"  # the expert placement on a mesh: "ep" or "tp"
 
 
 _MOE_NAMES = {"swiglu": ("router", "wg", "wu", "wd"), "gelu": ("router", "wu", "wd")}
@@ -117,7 +120,7 @@ def route(p: MoE, cfg: MoEConfig, xt: torch.Tensor) -> Routing:
     G, g, _ = xt.shape
     E, K = cfg.num_experts, cfg.top_k
     C = capacity(cfg, g)
-    probs = torch.softmax(xt.float() @ p.router, dim=-1)  # (G, g, E)
+    probs = torch.softmax(follow(xt.float() @ p.router), dim=-1)  # (G, g, E)
     top_idx = torch.sort(probs.detach(), dim=-1, descending=True, stable=True).indices[..., :K]
     chosen = F.one_hot(top_idx, E)  # (G, g, K, E) int
     top_vals = (chosen.to(probs.dtype) * probs[:, :, None, :]).sum(-1)
@@ -130,13 +133,20 @@ def route(p: MoE, cfg: MoEConfig, xt: torch.Tensor) -> Routing:
     return Routing(probs, top_idx, top_vals, pos, pos < C, C)
 
 
+def _einsum(eq: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``torch.einsum``; on DTensors with each shard laid out contiguously
+    first and the gradient placed as the product (``dense_local``,
+    ``follow``): the einsum's own views run on the shards."""
+    return follow(torch.einsum(eq, dense_local(a), dense_local(b)))
+
+
 def moe_forward(p: MoE, cfg: MoEConfig, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """x (B, S, d) -> (y (B, S, d) in x's dtype, aux loss f32)."""
     B, S, d = x.shape
     g = group_size(cfg, S)
     G = B * (S // g)
     E = cfg.num_experts
-    xt = x.reshape(G, g, d)
+    xt = constrain(reshape(x, (G, g, d)), "expert_group", None, None)
     r = route(p, cfg, xt)
     C = r.capacity
     chosen = F.one_hot(r.top_idx, E).to(x.dtype) * r.kept[..., None].to(x.dtype)  # (G,g,K,E)
@@ -146,18 +156,39 @@ def moe_forward(p: MoE, cfg: MoEConfig, x: torch.Tensor) -> Tuple[torch.Tensor, 
     # in x.dtype (an f32 combine would upcast the residual stream)
     weighted = chosen * r.top_vals.to(x.dtype)[..., None]
     combine = torch.einsum("gske,gskc->gsec", weighted, slot)
+    # on a mesh the slot tensors keep the experts whole on each rank: the
+    # einsums' own views cannot flatten an expert shard that is not their
+    # leading dim
+    dispatch = constrain(dispatch, "expert_group", None, None, None)
+    combine = constrain(combine, "expert_group", None, None, None)
 
-    xe = torch.einsum("gsec,gsd->egcd", dispatch, xt)  # (E, G, C, d)
+    xe = _einsum("gsec,gsd->egcd", dispatch, xt)  # (E, G, C, d)
+    if cfg.shard == "ep":
+        # experts on `model`, token groups on `data`: on a mesh the
+        # redistribution here is the all-to-all that moves tokens to experts
+        xe = constrain(xe, "experts", "expert_group", None, None)
     if cfg.mlp_kind == "swiglu":
-        h = F.silu(torch.einsum("egcd,edf->egcf", xe, p.wg)) * torch.einsum(
-            "egcd,edf->egcf", xe, p.wu)
+        h = F.silu(_einsum("egcd,edf->egcf", xe, p.wg)) * _einsum("egcd,edf->egcf", xe, p.wu)
     else:  # jax.nn.gelu's default is the tanh approximation
-        h = F.gelu(torch.einsum("egcd,edf->egcf", xe, p.wu), approximate="tanh")
-    ye = torch.einsum("egcf,efd->egcd", h, p.wd)
-    y = torch.einsum("gsec,egcd->gsd", combine, ye)
+        h = F.gelu(_einsum("egcd,edf->egcf", xe, p.wu), approximate="tanh")
+    if cfg.shard == "ep":
+        h = constrain(h, "experts", "expert_group", None, None)
+    else:  # tp: each expert's hidden dim on `model`
+        h = constrain(h, None, "expert_group", None, "ffn")
+    ye = _einsum("egcf,efd->egcd", h, p.wd)
+    if cfg.shard == "ep":
+        ye = constrain(ye, "experts", "expert_group", None, None)
+        if is_distributed(ye):
+            # the experts' outputs gathered for the combine, where GSPMD
+            # sends each token's back by an all-to-all
+            ye = constrain(ye, None, "expert_group", None, None)
+    else:
+        ye = constrain(ye, None, "expert_group", None, None)
+    y = _einsum("gsec,egcd->gsd", combine, ye)
+    y = constrain(y, "expert_group", None, None)
 
     # Switch aux loss: f_e, the share of a group's tokens kept in expert e
     f_e = ((F.one_hot(r.top_idx, E) * r.kept[..., None]).sum(2) > 0).float().mean(dim=1)
     P_e = r.probs.mean(dim=1)
     aux = (E * (f_e * P_e).sum(-1)).mean()
-    return y.reshape(B, S, d), aux
+    return reshape(y, (B, S, d)), aux

@@ -20,6 +20,7 @@ from typing import Tuple
 import torch
 
 from repro_torch.models import transformer as T
+from repro_torch.models.sharding import constrain, like
 
 
 def merge_vision_embeds(
@@ -39,7 +40,8 @@ def merge_vision_embeds(
         raise ValueError(f"patch embeddings {tuple(patch_embeds.shape)} do not fit into "
                          f"token embeddings {tuple(x.shape)}")
     start = min(max(image_start, 0), S - Np)
-    return torch.cat([x[:, :start], patch_embeds.to(x.dtype), x[:, start + Np:]], dim=1)
+    x = torch.cat([x[:, :start], patch_embeds.to(x.dtype), x[:, start + Np:]], dim=1)
+    return constrain(x, "batch", None, None)
 
 
 def mrope_positions(
@@ -83,7 +85,7 @@ def vlm_forward_inputs(model: T.LM, cfg: T.LMConfig, tokens: torch.Tensor,
     B, S = tokens.shape
     x = merge_vision_embeds(model, cfg, tokens, patch_embeds, image_start)
     pos = mrope_positions(B, S, patch_embeds.shape[1], grid_hw, image_start, tokens.device)
-    return x, pos
+    return x, like(pos, x)
 
 
 def vlm_loss(

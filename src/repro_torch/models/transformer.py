@@ -17,11 +17,13 @@ sums then summed, as ``repro`` sums its scan's outputs. ``remat`` runs
 each block, of any kind, under ``torch.utils.checkpoint`` when gradients
 are recorded, as ``repro`` wraps each period of its scan in
 ``jax.checkpoint``: the block's activations are recomputed in the backward
-(its flash forward launches again), and no value changes. ``LMConfig``'s
-other compiler and mesh knobs (``remat_policy``, ``scan_layers``,
-``use_flash``, ``block_q``, ``gather_head``, ``shard_cache_seq``,
-``pad_heads`` beyond the head count) are kept so configs stay
-interchangeable, and select nothing: the full-sequence attention is the
+(its flash forward launches again), and no value changes. ``constrain``
+stands at ``repro``'s sites (the embeddings, each block's output, the head
+and the logits) with its logical axes, and places DTensors on a device mesh
+(``models/sharding.py``); ``gather_head``, ``shard_cache_seq`` and
+``pad_heads`` select there what they select in ``repro``. ``LMConfig``'s
+other compiler knobs (``remat_policy``, ``scan_layers``, ``use_flash``,
+``block_q``) are kept so configs stay interchangeable, and select nothing: the full-sequence attention is the
 flash kernel on CUDA whatever they say, and ``remat_policy="dots"``
 (``repro`` saves the matmul outputs) recomputes the whole block here too,
 which changes no value either.
@@ -50,6 +52,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.models import layers as L
 from repro_torch.models import mamba2 as M
 from repro_torch.models import moe as MOE
+from repro_torch.models.sharding import constrain, follow, like
 
 BlockSpec = Tuple[str, str]  # (mixer, ffn)
 
@@ -91,9 +94,9 @@ class LMConfig:
     scan_layers: bool = True  # selects nothing (layers are a Python loop)
     block_q: int = 256  # selects nothing
     remat_policy: str = "full"  # selects nothing ("dots" recomputes in full too)
-    gather_head: bool = False  # selects nothing (one card)
-    shard_cache_seq: bool = False  # selects nothing (one card)
-    pad_heads: bool = False  # only shapes the weights (AttnConfig.n_heads_padded)
+    gather_head: bool = False  # the head gathered to (d, vocab on model) first (a mesh)
+    shard_cache_seq: bool = False  # the decode cache sharded on its sequence (a mesh)
+    pad_heads: bool = False  # padded query heads, head-parallel attention on a mesh
 
     @property
     def vocab_padded(self) -> int:
@@ -300,7 +303,37 @@ def param_pspecs(cfg: LMConfig) -> Dict[str, Any]:
 
 # ------------------------------------------------------------------- forward
 def embed_tokens(model: LM, cfg: LMConfig, tokens: torch.Tensor) -> torch.Tensor:
-    return torch.nn.functional.embedding(tokens, model.embed)
+    """The parameter server's pull (paper §3.6): a gather from the
+    vocab-sharded table, which on a mesh DTensor computes as a masked
+    partial sum over the vocab shards (``ps_lookup``'s pull)."""
+    # on a mesh the table's fsdp shards are gathered first (as sharded data
+    # parallelism gathers a weight before its use): DTensor's masked partial
+    # sum keeps the mask of the ids it was given, which an id gather on the
+    # same mesh dim would outdate
+    x = torch.nn.functional.embedding(tokens, constrain(model.embed, "vocab", None))
+    if tokens.shape[1] > 1:  # decode steps keep S = 1 replicated
+        return follow(constrain(x, "batch", "seq", None))
+    return follow(constrain(x, "batch", None, None))
+
+
+def _gather_seq(h: torch.Tensor) -> torch.Tensor:
+    """A block's normed input with the sequence gathered, as ``repro``'s
+    mixers gather it on entry from the sequence-parallel residual stream.
+    On a mesh this is the all-gather GSPMD places there; DTensor would
+    otherwise flatten (batch, seq) sharded on two mesh axes into one
+    strided shard, whose redistributions it plans by a search over every
+    placement of every mesh dim."""
+    return constrain(h, "batch", None, None)
+
+
+def _to_residual(y: torch.Tensor) -> torch.Tensor:
+    """A mixer's or ffn's output placed as the sequence-parallel residual
+    stream before the add (the reduce-scatter of its partial sums GSPMD
+    places there). Explicit, so that autograd carries its gradient back
+    through the redistribution: an add DTensor reshards inside would hand
+    the output's sequence shards to the product's backward, whose view
+    DTensor cannot flatten."""
+    return constrain(y, "batch", "seq", None)
 
 
 def _block_apply(cfg: LMConfig, spec: BlockSpec, bp: Block, x: torch.Tensor,
@@ -308,18 +341,22 @@ def _block_apply(cfg: LMConfig, spec: BlockSpec, bp: Block, x: torch.Tensor,
                  acfg: Optional[L.AttnConfig] = None) -> Tuple[torch.Tensor, torch.Tensor]:
     """One block -> (x, its MoE aux loss, 0 without a MoE)."""
     mixer, ffn = spec
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    h = L.apply_norm(cfg.norm, bp.norm1, x)
+    aux = like(torch.zeros((), dtype=torch.float32, device=x.device), x)
+    h = _gather_seq(L.apply_norm(cfg.norm, bp.norm1, x))
     if mixer == "attn":
-        x = x + L.attn_forward(bp.attn, acfg or cfg.attn_cfg(), h, positions, cfg.use_flash)
+        y = L.attn_forward(bp.attn, acfg or cfg.attn_cfg(), h, positions, cfg.use_flash)
     else:
-        x = x + M.mamba2_forward(bp.mamba, cfg.mamba_cfg(), h)
+        y = M.mamba2_forward(bp.mamba, cfg.mamba_cfg(), h)
+    x = x + _to_residual(y)
     if ffn == "dense":
-        x = x + L.mlp_forward(bp.mlp, cfg.mlp_kind, L.apply_norm(cfg.norm, bp.norm2, x))
+        y = L.mlp_forward(bp.mlp, cfg.mlp_kind, _gather_seq(L.apply_norm(cfg.norm, bp.norm2, x)))
+        x = x + _to_residual(y)
     elif ffn == "moe":
-        y, aux = MOE.moe_forward(bp.moe, cfg.moe, L.apply_norm(cfg.norm, bp.norm2, x))
-        x = x + y
-    return x, aux
+        y, aux = MOE.moe_forward(bp.moe, cfg.moe,
+                                 _gather_seq(L.apply_norm(cfg.norm, bp.norm2, x)))
+        x = x + _to_residual(y)
+    # the sequence-parallel residual stream: seq sharded over the model axis
+    return constrain(x, "batch", "seq", None), aux
 
 
 def hidden_states(model: LM, cfg: LMConfig, tokens: Optional[torch.Tensor] = None,
@@ -330,7 +367,7 @@ def hidden_states(model: LM, cfg: LMConfig, tokens: Optional[torch.Tensor] = Non
     aux loss sums each period's blocks from zero, then the period sums."""
     x = inputs_embeds if inputs_embeds is not None else embed_tokens(model, cfg, tokens)
     acfg = cfg.attn_cfg()
-    zero = torch.zeros((), dtype=torch.float32, device=x.device)
+    zero = like(torch.zeros((), dtype=torch.float32, device=x.device), x)
     period = cfg.period()
     remat = cfg.remat and torch.is_grad_enabled()
     period_aux = []
@@ -343,7 +380,7 @@ def hidden_states(model: LM, cfg: LMConfig, tokens: Optional[torch.Tensor] = Non
         else:
             x, a = _block_apply(cfg, spec, bp, x, positions, acfg)
         period_aux[-1] = period_aux[-1] + a
-    return L.apply_norm(cfg.norm, model.final_norm, x), torch.stack(period_aux).sum()
+    return _gather_seq(L.apply_norm(cfg.norm, model.final_norm, x)), torch.stack(period_aux).sum()
 
 
 def forward(model: LM, cfg: LMConfig, tokens: Optional[torch.Tensor] = None,
@@ -351,19 +388,28 @@ def forward(model: LM, cfg: LMConfig, tokens: Optional[torch.Tensor] = None,
             positions: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Full-sequence forward -> (logits (B, S, vocab_padded), aux_loss)."""
     x, aux = hidden_states(model, cfg, tokens, inputs_embeds, positions)
-    return _mask_padded_vocab(cfg, x @ model.head()), aux
+    logits = _mask_padded_vocab(cfg, follow(x @ head(model, cfg)))
+    return constrain(logits, "batch", None, "vocab"), aux
+
+
+def head(model: LM, cfg: LMConfig) -> torch.Tensor:
+    """The (d, vocab_padded) head; with ``gather_head`` pulled to (d
+    replicated, vocab on model) before the product, as ``repro`` does: one
+    weight all-gather in place of the logits' all-reduce."""
+    w = model.head()
+    return constrain(w, None, "vocab") if cfg.gather_head else w
 
 
 def _mask_padded_vocab(cfg: LMConfig, logits: torch.Tensor) -> torch.Tensor:
     if cfg.vocab_padded == cfg.vocab:
         return logits
-    pad = torch.arange(logits.shape[-1], device=logits.device) >= cfg.vocab
+    pad = like(torch.arange(logits.shape[-1], device=logits.device) >= cfg.vocab, logits)
     return logits.masked_fill(pad, -1e30)
 
 
 def gold_logit(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     """The label's logit, as ``repro``'s compare-select-reduce form."""
-    hit = torch.arange(logits.shape[-1], device=logits.device) == labels[..., None]
+    hit = like(torch.arange(logits.shape[-1], device=logits.device), logits) == labels[..., None]
     return torch.where(hit, logits, 0.0).sum(dim=-1)
 
 
@@ -445,6 +491,6 @@ def decode_step(model: LM, cfg: LMConfig, cache: Dict[str, Any],
         elif ffn == "moe":
             x = x + MOE.moe_forward(bp.moe, cfg.moe, L.apply_norm(cfg.norm, bp.norm2, x))[0]
     x = L.apply_norm(cfg.norm, model.final_norm, x)
-    logits = _mask_padded_vocab(cfg, x @ model.head())[:, 0, :]
+    logits = _mask_padded_vocab(cfg, x @ head(model, cfg))[:, 0, :]
     cache["t"] = t + 1
-    return logits, cache
+    return constrain(logits, "batch", "vocab"), cache

@@ -34,6 +34,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import layers as L
+from repro_torch.models.sharding import constrain, follow, like
 from repro_torch.models.transformer import gold_logit, torch_dtype
 
 
@@ -169,7 +170,8 @@ def param_pspecs(cfg: WhisperConfig) -> Dict[str, Any]:
 def _enc_layer(cfg: WhisperConfig, lp: EncoderLayer, x: torch.Tensor) -> torch.Tensor:
     h = L.apply_norm(cfg.norm, lp.norm1, x)
     x = x + L.attn_forward(lp.attn, cfg.attn_cfg(False), h)
-    return x + L.mlp_forward(lp.mlp, "gelu", L.apply_norm(cfg.norm, lp.norm2, x))
+    x = x + L.mlp_forward(lp.mlp, "gelu", L.apply_norm(cfg.norm, lp.norm2, x))
+    return constrain(x, "batch", None, None)
 
 
 def _dec_layer(cfg: WhisperConfig, lp: DecoderLayer, x: torch.Tensor,
@@ -180,7 +182,8 @@ def _dec_layer(cfg: WhisperConfig, lp: DecoderLayer, x: torch.Tensor,
     kv = L.encode_cross_kv(lp.cross_attn, acfg_x, enc)
     h = L.apply_norm(cfg.norm, lp.norm_x, x)
     x = x + L.cross_attn_forward(lp.cross_attn, acfg_x, h, kv)
-    return x + L.mlp_forward(lp.mlp, "gelu", L.apply_norm(cfg.norm, lp.norm2, x))
+    x = x + L.mlp_forward(lp.mlp, "gelu", L.apply_norm(cfg.norm, lp.norm2, x))
+    return constrain(x, "batch", None, None)
 
 
 def _layers(cfg: WhisperConfig, fn, layers, x: torch.Tensor, *args) -> torch.Tensor:
@@ -196,16 +199,16 @@ def _layers(cfg: WhisperConfig, fn, layers, x: torch.Tensor, *args) -> torch.Ten
 
 def encode(model: Whisper, cfg: WhisperConfig, audio_embeds: torch.Tensor) -> torch.Tensor:
     """(B, n_frames, d) frame embeddings -> the encoder states."""
-    x = audio_embeds + model.enc_pos[None, :audio_embeds.shape[1]]
+    x = constrain(audio_embeds + model.enc_pos[None, :audio_embeds.shape[1]], "batch", None, None)
     x = _layers(cfg, _enc_layer, model.enc_layers, x)
     return L.apply_norm(cfg.norm, model.enc_norm, x)
 
 
 def tied_logits(model: Whisper, cfg: WhisperConfig, x: torch.Tensor) -> torch.Tensor:
-    logits = x @ model.embed.t()
+    logits = follow(x @ model.embed.t())
     if cfg.vocab_padded == cfg.vocab:
         return logits
-    pad = torch.arange(logits.shape[-1], device=logits.device) >= cfg.vocab
+    pad = like(torch.arange(logits.shape[-1], device=logits.device) >= cfg.vocab, logits)
     return logits.masked_fill(pad, -1e30)
 
 
@@ -214,7 +217,10 @@ def decode_hidden(model: Whisper, cfg: WhisperConfig, enc: torch.Tensor,
     """The decoder's final-normed states (B, S, d) of ``tokens`` over ``enc``."""
     S = tokens.shape[1]
     pos = torch.clamp(torch.arange(S, device=tokens.device), max=cfg.max_target_positions - 1)
-    x = torch.nn.functional.embedding(tokens, model.embed) + model.dec_pos[pos][None]
+    # the gather's partial sums reduced first (a vocab-sharded table on a mesh)
+    table = constrain(model.embed, "vocab", None)  # fsdp shards gathered, as embed_tokens
+    x = follow(constrain(torch.nn.functional.embedding(tokens, table), "batch", None, None))
+    x = constrain(x + model.dec_pos[like(pos, tokens)][None], "batch", None, None)
     x = _layers(cfg, _dec_layer, model.dec_layers, x, enc)
     return L.apply_norm(cfg.norm, model.dec_norm, x)
 
@@ -230,7 +236,7 @@ def loss(model: Whisper, cfg: WhisperConfig, audio_embeds: torch.Tensor,
          tokens: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     """Mean next-token cross-entropy over labels >= 0, on f32 logits."""
     enc = encode(model, cfg, audio_embeds)
-    logits = decode_train(model, cfg, enc, tokens).float()
+    logits = constrain(decode_train(model, cfg, enc, tokens).float(), "batch", None, "vocab")
     logz = torch.logsumexp(logits, dim=-1)
     gold = gold_logit(logits, labels)
     mask = (labels >= 0).float()
@@ -287,7 +293,9 @@ def decode_step(model: Whisper, cfg: WhisperConfig, cache: Dict[str, Any],
     advanced); each layer's self-attention slot written in place."""
     t = int(cache["t"])
     pos = min(t, cfg.max_target_positions - 1)
-    x = torch.nn.functional.embedding(token, model.embed) + model.dec_pos[pos][None, None]
+    x = constrain(torch.nn.functional.embedding(token, constrain(model.embed, "vocab", None)),
+                  "batch", None, None)
+    x = x + model.dec_pos[pos][None, None]
     acfg_self, acfg_x = cfg.attn_cfg(True), cfg.attn_cfg(False)
     for lp, sc, ck, cv in zip(model.dec_layers, cache["self"], cache["cross_k"],
                               cache["cross_v"]):
@@ -298,4 +306,4 @@ def decode_step(model: Whisper, cfg: WhisperConfig, cache: Dict[str, Any],
         x = x + L.mlp_forward(lp.mlp, "gelu", L.apply_norm(cfg.norm, lp.norm2, x))
     x = L.apply_norm(cfg.norm, model.dec_norm, x)
     cache["t"] = t + 1
-    return tied_logits(model, cfg, x)[:, 0, :], cache
+    return constrain(tied_logits(model, cfg, x)[:, 0, :], "batch", "vocab"), cache
