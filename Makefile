@@ -1,6 +1,6 @@
 PYTHONPATH := src$(if $(PYTHONPATH),:$(PYTHONPATH))
 
-.PHONY: test test-fast lint bench-throughput bench-step bench-engine bench-recall bench-recall-full bench-walk bench-sanitize bench-attr bench-trace bench-check
+.PHONY: test test-fast lint lint-torch bench-throughput bench-step bench-engine bench-recall bench-recall-full bench-walk bench-sanitize bench-attr bench-trace bench-check
 
 test:
 	PYTHONPATH=$(PYTHONPATH) python -m pytest -x -q
@@ -10,6 +10,10 @@ test-fast:
 
 lint:
 	PYTHONPATH=$(PYTHONPATH) python -m repro.lint
+
+# the PyTorch port's contract checker (docs/lint_torch.md)
+lint-torch:
+	PYTHONPATH=$(PYTHONPATH) python -m repro_torch.lint
 
 bench-throughput:
 	PYTHONPATH=$(PYTHONPATH) python benchmarks/bench_throughput.py --quick

@@ -280,6 +280,7 @@ import sys
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
+SEED = 0  # every torch generator here is seeded SEED plus its phase's offset
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 FP32_FLOP_PER_S = 67e12  # H100 SXM data sheet, non-tensor-core f32
 RTOL, ATOL = 1e-5, 1e-6  # kernel vs plain version: the two sum in other orders
@@ -516,7 +517,7 @@ def seg_aggr_phase(torch, ref, seg_aggr_cuda, paths: dict) -> dict:
                      calls, lambda c: (tuple(c[0][0].shape), c[0][2]))]
     main = max(recs, key=lambda r: r["shape"][0] * r["shape"][1])
 
-    gen = torch.Generator(device="cuda").manual_seed(0)
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
     for (n, f, d) in ((8192, 3, 64), (1024, 4, 64), (262144, 3, 64)):
         x = torch.randn(n, f, d, device="cuda", generator=gen)
         mask = torch.rand(n, f, device="cuda", generator=gen) < 0.7
@@ -605,7 +606,7 @@ def topk_phase(torch, ref, topk_mod, paths: dict) -> dict:
         fail("topk: two runs of the U2I call differ")
     emit({"phase": "kernel", "name": "topk", "case": "U2I call run twice", "bitwise": True})
 
-    gen = torch.Generator(device="cuda").manual_seed(1)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
     for Q, I, d, k, E in ((1024, 20000, 64, 100, 32), (1024, 1_000_000, 64, 100, 32),
                           (512, 20000, 64, 1, 19), (512, 20000, 64, topk_mod.MAX_K, 19),
                           (512, 20000, 64, 100, 3 * topk_mod.EXCLUDE_CAP // 2)):
@@ -694,7 +695,7 @@ def main_path(torch, np, modules) -> dict:
         "toy_card_vs_cpu_max_diff": float(np.abs(e_gpu - e_cpu).max()),
     }
     emit(out)
-    return dict(out, calls=calls, embeddings=emb, bruteforce=bf)
+    return dict(out, calls=calls, embeddings=emb, bruteforce=bf, dataset=ds)
 
 
 # -------------------------------------------------------------- IVF serving
@@ -865,6 +866,130 @@ def ivf_serving_path(torch, np, modules, mp) -> dict:
     return dict(out, calls=calls)
 
 
+SANITIZED_K = 100  # the U2I searches' k, as evaluate_recall's
+SANITIZED_NPROBE = 8  # the IVF search's probes (recall_torch.py's default)
+
+
+def _bitwise(a, b) -> bool:
+    return a.dtype == b.dtype and a.shape == b.shape and a.tobytes() == b.tobytes()
+
+
+def sanitized_serving(torch, np, modules, mp) -> dict:
+    """The serving paths inside ``transfer_sanitizer(True)`` (the sync debug
+    mode "error", process-wide) on UB with the main path's model:
+    ``infer.embed`` over every node (``seg_aggr``), the exact U2I search
+    (``chunked_topk``, ``topk``) and the U2I IVF search at nprobe 8
+    (``ivf_list_topk``). The guarded embeddings must be bitwise the main
+    path's, and each guarded search bitwise the same search run unguarded
+    on those embeddings; a ``.item()`` planted inside the guard must raise;
+    which waits the guard lets through is recorded. The three kernels'
+    launches in the guarded runs join the ``kernels`` line as "sanitized
+    serving"."""
+    import recall_torch
+    from repro_torch import convert
+    from repro_torch.graph import DistributedGraphEngine
+    from repro_torch.infer import embed_all_nodes
+    from repro_torch.lint.sanitizer import host_array, transfer_sanitizer
+    from repro_torch.retrieval import IVFConfig, IVFIndex, chunked_topk
+
+    t_phase = time.perf_counter()
+    ds, emb_ref = mp["dataset"], mp["embeddings"]
+    cfg = recall_torch.model_config(ds.graph, "lightgcn", 64, side_info=True)
+    model = convert.init_params(cfg, seed=0, device="cuda")  # recall_torch.run's
+    engine = DistributedGraphEngine(ds.graph, num_partitions=4)
+    users, seen = _u2i_queries(np, ds, recall_torch.train_pairs(ds))
+    ue, ie = emb_ref[: ds.num_users][users], emb_ref[ds.num_users : ds.num_users + ds.num_items]
+    index = IVFIndex.build(ie, IVFConfig(nlist=64, nprobe=SANITIZED_NPROBE, seed=0),
+                           device="cuda")
+    exact_ref = chunked_topk(ue, ie, SANITIZED_K, exclude=seen, device="cuda")
+    ivf_ref = index.search(ue, SANITIZED_K, exclude=seen)
+    torch.cuda.synchronize()
+
+    seg_mod, topk_mod, ivf_mod = (modules[n] for n in ("seg_aggr", "topk", "ivf_list_topk"))
+    seg_mod.launches = topk_mod.launches = ivf_mod.launches = 0
+    guarded_s = {}
+    with transfer_sanitizer(True):
+        t0 = time.perf_counter()
+        emb = embed_all_nodes(model, engine, ds.graph, batch_size=1024, seed=0,
+                              device="cuda")
+        guarded_s["embed"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        exact = chunked_topk(ue, ie, SANITIZED_K, exclude=seen, device="cuda")
+        guarded_s["exact_u2i"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        ivf = index.search(ue, SANITIZED_K, exclude=seen)
+        guarded_s["ivf_u2i"] = time.perf_counter() - t0
+    launches = {"seg_aggr": seg_mod.launches, "topk": topk_mod.launches,
+                "ivf_list_topk": ivf_mod.launches}
+    for name, n in launches.items():
+        if n == 0:
+            fail(f"sanitized_serving: the guarded paths launched no {name} kernel")
+    bitwise = {"embeddings": _bitwise(emb, emb_ref),
+               "exact_u2i": all(_bitwise(a, b) for a, b in zip(exact, exact_ref)),
+               "ivf_u2i": all(_bitwise(a, b) for a, b in zip(ivf, ivf_ref))}
+    if not all(bitwise.values()):
+        fail(f"sanitized_serving: guarded results differ from the unguarded ones: {bitwise}")
+
+    # the negative control, and which waits the process-wide mode lets through
+    x = torch.arange(1, 5, dtype=torch.float32, device="cuda")
+    host = np.ones(4, np.float32)
+    event = torch.cuda.Event()
+    event.record()
+    probes = {
+        "planted .item()": lambda: x.sum().item(),
+        "event.synchronize": event.synchronize,
+        "stream.synchronize": lambda: torch.cuda.current_stream().synchronize(),
+        "torch.cuda.synchronize": torch.cuda.synchronize,
+        "host_array (pinned copy + event)": lambda: host_array(x),
+        ".cpu()": lambda: x.cpu(),
+        "H2D .to(cuda)": lambda: torch.from_numpy(host).to("cuda"),
+        "H2D .to(cuda, non_blocking=True)":
+            lambda: torch.from_numpy(host).to("cuda", non_blocking=True),
+        "boolean-mask index": lambda: x[x > 2],
+        "nonzero": lambda: torch.nonzero(x),
+    }
+    waits = {}
+    for name, fn in probes.items():
+        with transfer_sanitizer(True):
+            try:
+                fn()
+                waits[name] = "passes"
+            except RuntimeError:
+                waits[name] = "raises"
+    if waits["planted .item()"] != "raises":
+        fail("sanitized_serving: a .item() inside transfer_sanitizer(True) did not raise: "
+             "the guard is not live")
+    for name in ("event.synchronize", "host_array (pinned copy + event)",
+                 "H2D .to(cuda, non_blocking=True)"):
+        if waits[name] != "passes":
+            fail(f"sanitized_serving: the guard refuses {name}, which the drains rely on")
+    out = {"phase": "sanitized_serving", "dataset": "ub", "model": "lightgcn", "dim": 64,
+           "nodes": int(emb.shape[0]), "u2i_queries": len(users), "k": SANITIZED_K,
+           "nprobe": SANITIZED_NPROBE, "bitwise": bitwise, "launches": launches,
+           "guarded_s": guarded_s, "waits_under_guard": waits,
+           "phase_s": time.perf_counter() - t_phase}
+    emit(out)
+    return out
+
+
+def lint_phase() -> dict:
+    """``python -m repro_torch.lint`` on this machine's Python: the port's
+    tree must lint clean against the empty baseline."""
+    t0 = time.perf_counter()
+    res = subprocess.run([sys.executable, "-m", "repro_torch.lint"], cwd=ROOT,
+                         env=dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src")),
+                         capture_output=True, text=True, timeout=300)
+    seconds = time.perf_counter() - t0
+    m = re.search(r"repro_torch\.lint: (\d+) finding\(s\), (\d+) new", res.stdout)
+    if res.returncode != 0 or m is None or m.group(1) != "0":
+        fail(f"lint: python -m repro_torch.lint exited {res.returncode}:\n"
+             f"{res.stdout[-4000:]}{res.stderr[-2000:]}")
+    out = {"phase": "lint", "findings": int(m.group(1)), "seconds": seconds,
+           "python": sys.version.split()[0]}
+    emit(out)
+    return out
+
+
 def million_arm(torch, np, modules, I: int = 1_000_000, Q: int = 512) -> dict:
     """``benchmarks/bench_recall.py``'s 1M-item IVF arm on the card: 512
     clustered queries, k 100, 16 exclusions each; Recall@100 against the
@@ -1016,7 +1141,7 @@ def _ivf_forced_plans(torch, ref, ivf_mod, q, codes, scales, starts, lens, lpad:
 def _ivf_global_call(torch):
     """A synthetic call past a cluster's shared memory (P 64, lpad 4,000,
     d 64): the kernel's global path, with its (2, Q, S) workspace."""
-    gen = torch.Generator(device="cuda").manual_seed(0)
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
     Q, P, d, lpad, rows = 16, 64, 64, 4000, 200_000
     codes = torch.randint(-127, 128, (rows + lpad, d), dtype=torch.int8, device="cuda",
                           generator=gen)
@@ -1377,7 +1502,7 @@ def fused_conformance(torch, np) -> dict:
     p_cpu = cpu.init_params()
     p_card = card.init_params({k: v.numpy() for k, v in p_cpu.items()})
     s_cpu, s_card = cpu.opt.init(p_cpu), card.opt.init(p_card)
-    gen = torch.Generator().manual_seed(3)
+    gen = torch.Generator().manual_seed(SEED + 3)
     losses_cpu, losses_card = [], []
     for _ in range(12):
         draws = cpu._fused_sampler.draw(gen)
@@ -2007,7 +2132,7 @@ def inbatch_phase(torch, ref, inbatch_mod, kept: list) -> dict:
     s, d, t = kept[0]
     rec = _inbatch_record(torch, ref, inbatch_mod, s, d, t, "training path")
     rec["calls"] = len(kept)
-    gen = torch.Generator(device="cuda").manual_seed(2)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
     for P, dim in ((2048, 64), (8192, 64), (8192, 256)):
         s = 0.5 * torch.randn(P, dim, device="cuda", generator=gen)
         d = 0.5 * torch.randn(P, dim, device="cuda", generator=gen)
@@ -2114,7 +2239,7 @@ def window_pairs_phase(torch, ref, window_pair_ids_cuda, calls: list) -> dict:
     main = _wp_record(torch, ref, window_pair_ids_cuda, paths.to(torch.int32).contiguous(), pos,
                       "fused training path", 200)
 
-    gen = torch.Generator(device="cuda").manual_seed(2)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
     for B, L, win, all_pad in ((1000, 6, 2, False), (1000, 6, 2, True), (4096, 32, 5, False),
                                (65536, 6, 2, False)):
         paths = torch.randint(0, 1 << 20, (B, L), device="cuda", generator=gen,
@@ -2657,7 +2782,7 @@ def lm_card_vs_cpu(torch, np, arch: str, phase: str) -> dict:
     from repro_torch.models import transformer as T
 
     red = get_arch(arch, reduced=True)
-    m_cpu = red.init_params(torch.Generator().manual_seed(0), "cpu")
+    m_cpu = red.init_params(torch.Generator().manual_seed(SEED), "cpu")
     m_gpu = copy.deepcopy(m_cpu).to("cuda")
     rng = np.random.default_rng(1)
     t_cpu = torch.from_numpy(rng.integers(0, red.lm.vocab, size=(2, 64)))
@@ -3290,7 +3415,7 @@ def whisper_card_vs_cpu(torch, np, phase: str) -> dict:
 
     full = get_arch(WHISPER_ARCH)
     cfg = dataclasses.replace(full.whisper, dtype="float32")
-    m_cpu = W.init_whisper(torch.Generator().manual_seed(0), cfg, "cpu")
+    m_cpu = W.init_whisper(torch.Generator().manual_seed(SEED), cfg, "cpu")
     m_gpu = copy.deepcopy(m_cpu).to("cuda")
     rng = np.random.default_rng(2)
     audio = torch.from_numpy((rng.normal(size=(2, cfg.n_audio_frames, cfg.d_model)) * 0.02)
@@ -3319,7 +3444,7 @@ def whisper_card_vs_cpu(torch, np, phase: str) -> dict:
     finally:
         torch.use_deterministic_algorithms(False)
     red = get_arch(WHISPER_ARCH, reduced=True)
-    small = red.init_params(torch.Generator().manual_seed(0), "cuda")
+    small = red.init_params(torch.Generator().manual_seed(SEED), "cuda")
     try:
         W.encode(small, red.whisper, torch.zeros(1, red.whisper.n_audio_frames,
                                                  red.whisper.d_model, device="cuda"))
@@ -3438,6 +3563,19 @@ DRYRUN_OTHER_S = 5
 DRYRUN_PROCS = 4
 DRYRUN_WAIT_S = 600  # the sweep's processes, awaited after the kernel phases
 DRYRUN_PEAK_TOL = 0.10  # the fake trace's peak live bytes vs the real step's
+# the SSD rows on the 16 x 16 mesh over fake groups, cut in depth: Mamba2 at
+# 2 layers and one Jamba period (8 layers), each arch in a process of its own
+SSD_ROWS = {"mamba2-1.3b": 2, "jamba-v0.1-52b": 8}
+SSD_SHAPES = ("train_4k", "prefill_32k")
+# the same rows counted on torch 2.13.0+cpu (meta fake tensors, ``python -m
+# repro_torch.launch.dryrun --mesh single --layers n``): flops_per_device,
+# bytes_per_device, peak_bytes; printed beside this machine's torch's counts
+SSD_ROWS_TORCH_213 = {
+    ("mamba2-1.3b", "train_4k"): (4263291912192.0, 349807382494.0, 40864656896),
+    ("mamba2-1.3b", "prefill_32k"): (466029772800.0, 55079104618.0, 3176153088),
+    ("jamba-v0.1-52b", "train_4k"): (161249648181248.0, 2874014725112.0, 27324608512),
+    ("jamba-v0.1-52b", "prefill_32k"): (55123824869376.0, 643384936014.0, 12880371712),
+}
 
 
 def start_dryrun_sweep() -> dict:
@@ -3475,15 +3613,28 @@ def start_dryrun_sweep() -> dict:
                                        stderr=subprocess.STDOUT,
                                        preexec_fn=lambda: os.nice(19)), out, log))
 
+    ssd = []
+    for arch, layers in SSD_ROWS.items():
+        out = os.path.join(out_dir, f"ssd_{arch}.json")
+        if os.path.exists(out):
+            os.remove(out)
+        log = open(os.path.join(out_dir, f"ssd_{arch}.log"), "w")
+        cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--mesh", "single",
+               "--layers", str(layers), "--rows", ",".join(f"{arch}:{s}" for s in SSD_SHAPES),
+               "--out", out]
+        ssd.append((subprocess.Popen(cmd, cwd=ROOT, env=env, stdout=log,
+                                     stderr=subprocess.STDOUT,
+                                     preexec_fn=lambda: os.nice(19)), out, log))
+
     def stop():
-        for p, _, log in procs:
+        for p, _, log in procs + ssd:
             if p.poll() is None:
                 p.kill()
                 p.wait()
             log.close()
 
     atexit.register(stop)
-    return {"procs": procs, "t0": time.perf_counter()}
+    return {"procs": procs, "ssd": ssd, "t0": time.perf_counter()}
 
 
 def _ground(torch, fa_mod, spec, shape, model, batch, what: str) -> dict:
@@ -3601,6 +3752,56 @@ def finish_dryrun_sweep(sweep: dict) -> dict:
     return rec
 
 
+def finish_ssd_rows(sweep: dict) -> dict:
+    """The SSD rows on 16 x 16 (``SSD_ROWS``): each must trace on fake CUDA
+    tensors under this machine's torch; a refusal, an error or a missing row
+    fails the run. Each row's per-device FLOPs, bytes and peak are printed
+    beside the same row's counts on torch 2.13 (``SSD_ROWS_TORCH_213``)."""
+    import torch
+
+    t_wait = time.perf_counter()
+    rows = []
+    for p, out, log in sweep["ssd"]:
+        try:
+            rc = p.wait(timeout=DRYRUN_WAIT_S)
+        except subprocess.TimeoutExpired:
+            fail(f"lm_sharded ssd rows: the dry run writing {out} ran past {DRYRUN_WAIT_S} s")
+        log.close()
+        with open(out) as f:
+            got = json.load(f)
+        for r in got:
+            if r["status"] != "ok":
+                fail(f"lm_sharded ssd rows: {r['arch']} {r['shape']} on 16x16: "
+                     f"{r.get('error', r['status'])}")
+        if rc:
+            fail(f"lm_sharded ssd rows: the dry run writing {out} exited {rc}")
+        rows += got
+    want = {(a, s) for a in SSD_ROWS for s in SSD_SHAPES}
+    if {(r["arch"], r["shape"]) for r in rows} != want or len(rows) != len(want):
+        fail(f"lm_sharded ssd rows: {len(rows)} rows for {len(want)}")
+    out_rows = []
+    for r in sorted(rows, key=lambda r: (r["arch"], r["shape"])):
+        if (r["mesh"], r["chips"], r["layers"]) != ("16x16", 256, SSD_ROWS[r["arch"]]) or \
+                "cuda" not in r["traced_device"]:
+            fail(f"lm_sharded ssd rows: {r['arch']} {r['shape']}: mesh {r['mesh']}, "
+                 f"{r['chips']} chips, {r.get('layers')} layers, {r['traced_device']}")
+        counts = {"flops_per_device": r["flops_per_device"],
+                  "bytes_per_device": r["bytes_per_device"],
+                  "peak_bytes": r["memory"]["peak_bytes"]}
+        ref = SSD_ROWS_TORCH_213.get((r["arch"], r["shape"]))
+        row = {"arch": r["arch"], "shape": r["shape"], "layers": r["layers"], **counts,
+               "collective_bytes_per_device": r["collective_bytes_per_device"],
+               "dominant": r["dominant"], "trace_s": r["compile_s"]}
+        if ref is not None:
+            row["equal_to_torch_213"] = {k: counts[k] == v for k, v in zip(counts, ref)}
+            row["torch_213"] = dict(zip(counts, ref))
+        out_rows.append(row)
+    rec = {"phase": "lm_sharded ssd rows", "torch": torch.__version__, "rows": out_rows,
+           "waited_s": time.perf_counter() - t_wait}
+    emit(rec)
+    return rec
+
+
 def dryrun_grounding(torch, np, fa_mod):
     """(b) and (c): smollm-135m's prefill in bf16 and its training step in
     f32 through ``_ground``, each beside its device ms; their flash calls
@@ -3612,7 +3813,7 @@ def dryrun_grounding(torch, np, fa_mod):
     from repro_torch.train import optimizer as opt_lib
 
     spec = get_arch(LM_ARCH)
-    gen = torch.Generator().manual_seed(0)
+    gen = torch.Generator().manual_seed(SEED)
     rng = np.random.default_rng(0)
     tokens = torch.from_numpy(rng.integers(0, spec.lm.vocab, (LM_BATCH, LM_SEQ))).cuda()
     # (b) the prefill, bf16, as lm_prefill runs it
@@ -3770,7 +3971,7 @@ def lm_sharded(torch, np, fa_mod) -> dict:
                          "flash_attention_bwd": fa_mod.bwd_launches}
 
         # the bf16 prefill
-        model = spec.init_params(torch.Generator().manual_seed(0), device="cuda")
+        model = spec.init_params(torch.Generator().manual_seed(SEED), device="cuda")
         prefill = spec.make_prefill()
         want, plain_l = run(lambda: prefill(model, {"tokens": tokens}))
         with SH.use_rules(SH.SINGLE_POD_RULES):
@@ -3787,7 +3988,7 @@ def lm_sharded(torch, np, fa_mod) -> dict:
         spec32 = dc.replace(spec, lm=dc.replace(spec.lm, dtype="float32"))
         runs = {}
         for name in ("unsharded", "sharded"):
-            model = spec32.init_params(torch.Generator().manual_seed(1), device="cuda")
+            model = spec32.init_params(torch.Generator().manual_seed(SEED + 1), device="cuda")
             opt = opt_lib.adam(LM_TRAIN_LR, weight_decay=0.01)
             with SH.use_rules(SH.SINGLE_POD_RULES if name == "sharded" else SH.CPU_RULES):
                 b = batch
@@ -3822,7 +4023,7 @@ def lm_sharded(torch, np, fa_mod) -> dict:
             "flash_attention_bwd": sum(n["flash_attention_bwd"] for n in s["launches"])}
         del runs, u, s, ps
         # ps_lookup over the group's model dim
-        g = torch.Generator(device="cuda").manual_seed(2)
+        g = torch.Generator(device="cuda").manual_seed(SEED + 2)
         table = torch.randn((PS_ROWS, PS_DIM), generator=g, device="cuda")
         ids = torch.randint(-1, PS_ROWS, (LM_BATCH, 512), generator=g, device="cuda")
         shard = table.clone().requires_grad_()
@@ -3920,13 +4121,13 @@ def launch_floor_phase(torch, build) -> dict:
     (``g4r_empty``, one launch a call; in no kernel count): one block of 32
     threads, and one wave of 256-thread blocks (the card's SMs x 8). The
     kernels' times and bounds are read against it."""
-    lib = build.library()
+    empty = build.empty_kernel()
     stream = torch.cuda.current_stream().cuda_stream
     waves = torch.cuda.get_device_properties(0).multi_processor_count * 8
     out = {"phase": "launch floor"}
     for name, blocks, threads in (("one_block", 1, 32), ("one_wave", waves, 256)):
-        build.check(lib.g4r_empty(blocks, threads, stream), "empty kernel")
-        m = measure(lambda: lib.g4r_empty(blocks, threads, stream), 200)
+        build.check(empty(blocks, threads, stream), "empty kernel")
+        m = measure(lambda: empty(blocks, threads, stream), 200)
         out[name] = {"blocks": blocks, "threads": threads, "ms": m["device_ms"],
                      "call_ms": m["call_ms"], "ms_from": m["ms_from"]}
     emit(out)
@@ -4116,7 +4317,7 @@ def flash_phase(torch, np, ref, fa_cuda, paths: dict):
     first, *rest = recs.values()
     main = max(first, key=lambda r: r["flop"])
     others = [r for rs in rest for r in rs]
-    gen = torch.Generator(device="cuda").manual_seed(3)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
     for (B, S, H, K, hd), dtype, causal, window in FLASH_SYNTHETIC:
         dtype = getattr(torch, dtype)
         q = torch.randn(B, S, H, hd, device="cuda", generator=gen).to(dtype)
@@ -4251,7 +4452,7 @@ def flash_bwd_phase(torch, np, ref, fa_mod, paths: dict, prefill_keys: set):
     first, *rest = recs.values()
     main = max(first, key=lambda r: (r["dtype"] == "float32", r["flop"]))
     others = [r for rs in rest for r in rs]
-    gen = torch.Generator(device="cuda").manual_seed(4)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 4)
     for (B, S, H, K, hd), dtype, causal, window in FLASH_SYNTHETIC:
         dtype = getattr(torch, dtype)
         q = torch.randn(B, S, H, hd, device="cuda", generator=gen).to(dtype)
@@ -4309,6 +4510,8 @@ def main() -> None:
                "row_adagrad": adagrad_mod, "window_pairs": wp_mod, "ivf_list_topk": ivf_mod}
     mp = main_path(torch, np, modules)
     iv = ivf_serving_path(torch, np, modules, mp)
+    ss = sanitized_serving(torch, np, modules, mp)
+    lint = lint_phase()
     m1 = million_arm(torch, np, modules)
     tr = training_path(torch, np, modules, mp["recall"]["u2i"])
     fu = fused_training_path(torch, np, modules, mp["recall"]["u2i"])
@@ -4364,6 +4567,7 @@ def main() -> None:
 
     ldr["sweep"] = finish_dryrun_sweep(sweep)
     lsh["row"] = finish_sharded_row(srow)
+    lsh["ssd_rows"] = finish_ssd_rows(sweep)
 
     def timing(rec):
         return {"max_abs_err": rec["max_abs_err"], "ms": rec["kernel_ms"],
@@ -4401,6 +4605,9 @@ def main() -> None:
               "u2i_search_ivf_over_exact_time", "u2i_search_split", "item_index",
               "user_index", "launches")},
           "ivf_exhaustive": iv["exhaustive"],
+          "sanitized_serving": {k: ss[k] for k in ("bitwise", "launches", "guarded_s",
+                                                   "waits_under_guard", "phase_s")},
+          "lint": {k: lint[k] for k in ("findings", "seconds")},
           "ivf_1m": {k: m1[k] for k in ("build_s", "lpad", "spilled_items", "shortlist",
                                         "recall_at_100", "queries_per_s",
                                         "exact_over_ivf_time", "search_split",
@@ -4461,17 +4668,20 @@ def main() -> None:
               "row": {k: lsh["row"][k] for k in ("mesh", "chips", "traced_device", "trace_s",
                                                  "flops_per_device", "peak_gb_per_device",
                                                  "compute_s", "memory_s", "collective_s",
-                                                 "dominant")}},
+                                                 "dominant")},
+              "ssd_rows": lsh["ssd_rows"]["rows"]},
           **lm_blocks_summary(lmoe, lssm, lhyb, lmt, lred),
           **vlm_whisper_summary(lvlm, lvt, lwh, lwt)})
     print(json.dumps({"kernels": [
         entry("seg_aggr", seg, "src/repro_torch/kernels/csrc/seg_aggr.cu",
               "src/repro/kernels/seg_aggr.py:45",
               {"serving": mp["launches"]["seg_aggr"], "training": tl["seg_aggr"],
-               "mp training": ml["seg_aggr"], "fused training": fl["seg_aggr"]}),
+               "mp training": ml["seg_aggr"], "fused training": fl["seg_aggr"],
+               "sanitized serving": ss["launches"]["seg_aggr"]}),
         entry("topk", topk, "src/repro_torch/kernels/csrc/topk.cu",
               "src/repro/kernels/topk.py:77",
-              {"serving": mp["launches"]["topk"], "1M arm": m1["topk_launches"]}),
+              {"serving": mp["launches"]["topk"], "1M arm": m1["topk_launches"],
+               "sanitized serving": ss["launches"]["topk"]}),
         entry("seg_aggr_bwd", seg_bwd, "src/repro_torch/kernels/csrc/seg_aggr.cu",
               "src/repro/kernels/seg_aggr.py:45",
               {"training": tl["seg_aggr_bwd"], "mp training": ml["seg_aggr_bwd"],
@@ -4489,7 +4699,8 @@ def main() -> None:
         entry("ivf_list_topk", ivf, "src/repro_torch/kernels/csrc/ivf.cu",
               "src/repro/kernels/ivf.py:97",
               {"ivf serving": iv["launches"]["ivf_list_topk"],
-               "ivf exhaustive": iv["exhaustive"]["launches"], "1M arm": m1["launches"]}),
+               "ivf exhaustive": iv["exhaustive"]["launches"], "1M arm": m1["launches"],
+               "sanitized serving": ss["launches"]["ivf_list_topk"]}),
         entry("flash_attention", flash, "src/repro_torch/kernels/csrc/flash_attn.cu",
               "src/repro/kernels/flash_attn.py:81",
               {"lm prefill": lm["launches"]["flash_attention"],

@@ -222,12 +222,11 @@ def slot_count_arrays(graph, cfg: Graph4RecConfig, device) -> Dict[str, torch.Te
     key = (specs, str(device))
     if key not in per_graph:
         per_graph[key] = {
-            spec.name: torch.from_numpy(
+            spec.name: to_device(
                 emb.slot_count_matrix(
                     graph.slots[spec.name].indptr, graph.slots[spec.name].values,
                     graph.num_nodes, spec.vocab_size, spec.max_values,
-                )
-            ).to(device)
+                ), device)
             for spec in specs
         }
     return per_graph[key]

@@ -25,6 +25,7 @@ import torch
 from repro_torch import convert
 from repro_torch.core import model as model_lib
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.lint.sanitizer import host_array
 from repro_torch.sampling.ego import EgoConfig, sample_ego_batch
 
 PAD = -1
@@ -76,7 +77,7 @@ def embed_all_nodes(
         if out is None:
             out = torch.empty((N, h.shape[-1]), dtype=torch.float32, device=dev)
         out[lo : lo + n_real] = h[:n_real]
-    return out.cpu().numpy()
+    return host_array(out)
 
 
 # ------------------------------------------------------------------- export
@@ -87,7 +88,7 @@ def export_embeddings(path: str, emb: np.ndarray, num_shards: int = 1,
     Shards are contiguous row ranges (``np.array_split``), the unit a
     serving replica loads. Returns the normalized path.
     """
-    emb = np.asarray(emb)
+    emb = host_array(emb)
     num_shards = max(1, min(int(num_shards), emb.shape[0] or 1))
     tree = {
         "meta": {
@@ -110,10 +111,10 @@ def load_embeddings(path: str) -> np.ndarray:
     shards = tree["shards"]
     emb = np.concatenate([shards[k] for k in sorted(shards)], axis=0)
     meta = tree["meta"]
-    if int(meta["num_nodes"]) != emb.shape[0] or int(meta["dim"]) != emb.shape[1]:
+    n, d = int(host_array(meta["num_nodes"])), int(host_array(meta["dim"]))
+    if (n, d) != emb.shape:
         raise ValueError(
-            f"embedding checkpoint corrupt: meta says "
-            f"({int(meta['num_nodes'])}, {int(meta['dim'])}), shards sum to "
+            f"embedding checkpoint corrupt: meta says ({n}, {d}), shards sum to "
             f"{emb.shape}"
         )
     return emb

@@ -143,6 +143,13 @@ def library() -> ctypes.CDLL:
         return _lib
 
 
+def empty_kernel():
+    """The library's empty kernel, ``(blocks, threads, stream) -> cudaError_t``:
+    the launch floor the kernels' times are read against (no wrapper and
+    no launch count: it computes nothing)."""
+    return library().g4r_empty
+
+
 def check(err: int, what: str) -> None:
     """Raise on a non-zero cudaError_t returned by a C entry point."""
     if err != 0:

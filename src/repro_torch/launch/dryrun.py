@@ -212,12 +212,15 @@ def row_of(spec, arch_id: str, shape, res: Dict[str, Any], trace_s: float,
 
 
 def run_one(arch_id: str, shape: str, multi_pod: Optional[bool] = None,
-            reduced: bool = False, probes: bool = True, spec=None) -> Dict[str, Any]:
+            reduced: bool = False, probes: bool = True, spec=None,
+            layers: Optional[int] = None) -> Dict[str, Any]:
     """One row of the dry run: on ``1xH100`` (``multi_pod`` None), on 16 x 16
     (False) or on 2 x 16 x 16 (True), per device. A pod row starts a fake
     group of the mesh's size for itself unless the caller runs one of that
     size already. ``probes`` is ``repro``'s argument and selects nothing
-    (the trace counts every layer)."""
+    (the trace counts every layer). ``layers`` cuts the depth to that many
+    layers, whole periods of the block pattern (``ArchSpec.with_layers``);
+    the row then says so in ``layers``."""
     if multi_pod is None:
         mesh_name, chips = make_card_mesh().name, 1
     else:
@@ -225,6 +228,9 @@ def run_one(arch_id: str, shape: str, multi_pod: Optional[bool] = None,
     base = {"arch": arch_id, "shape": shape, "mesh": mesh_name}
     try:
         spec = spec if spec is not None else get_arch(arch_id, reduced=reduced)
+        if layers is not None:
+            spec = spec.with_layers(layers)
+            base["layers"] = layers
         ok, reason = spec.supports(shape)
         if not ok:
             return {**base, "status": "skipped", "reason": reason}
@@ -238,8 +244,8 @@ def run_one(arch_id: str, shape: str, multi_pod: Optional[bool] = None,
             with _pod_group(chips):
                 mesh = make_production_mesh(multi_pod=multi_pod, device_type=mesh_device_type())
                 res = _fake_step(spec, shape, mesh, pod_rules(shape, multi_pod))
-        out = row_of(spec, arch_id, shape, res, time.perf_counter() - t0, n_params, n_active,
-                     mesh_name, chips)
+        out = {**row_of(spec, arch_id, shape, res, time.perf_counter() - t0, n_params,
+                        n_active, mesh_name, chips), **base}
         log.info(
             "OK %-20s %-12s %-8s compile=%5.1fs mem=%7.2fGB "
             "comp=%.2es mem=%.2es coll=%.2es dom=%-10s useful=%.2f",
@@ -273,6 +279,9 @@ def main(argv: Optional[list] = None) -> None:
     ap.add_argument("--mesh", default="card", choices=list(MESHES),
                     help="16x16 (single), 2x16x16 (multi), both, or one H100 (card)")
     ap.add_argument("--reduced", action="store_true")
+    ap.add_argument("--layers", type=int, default=None,
+                    help="cut every row to this many layers (whole periods of the block "
+                         "pattern), at full width")
     ap.add_argument("--no-probes", action="store_true",
                     help="selects nothing: repro compiles depth probes because XLA counts a "
                          "loop body once; the eager trace counts every layer")
@@ -286,7 +295,8 @@ def main(argv: Optional[list] = None) -> None:
     meshes = MESHES[args.mesh]
     names = ", ".join(make_card_mesh().name if m is None else pod_name(m) for m in meshes)
     print(f"dry run on {names}: {COUNTED_ON}", flush=True)
-    results = [run_one(a, s, m, reduced=args.reduced) for a, s in rows for m in meshes]
+    results = [run_one(a, s, m, reduced=args.reduced, layers=args.layers)
+               for a, s in rows for m in meshes]
 
     os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
     existing: Dict[Tuple[str, str, str], Dict] = {}

@@ -29,8 +29,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.models.layers import _params, init_normal
-from repro_torch.models.sharding import (constrain, copy_into, follow, like, merge_dims,
-                                        reshape, split_dim)
+from repro_torch.models.sharding import (constrain, copy_into, follow, like, local_apply,
+                                        merge_dims, reshape, split_dim)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -109,7 +109,10 @@ def _causal_depthwise_conv(w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     """w (W, Ch), x (B, S, Ch) -> silu of the causal depthwise conv, the
     W products summed in order."""
     W, S = w.shape[0], x.shape[1]
-    pads = F.pad(x, (0, 0, W - 1, 0))
+    # the W - 1 zeros joined in front, not ``F.pad``: on torch 2.11 DTensor's
+    # strategy for ``constant_pad_nd`` gives a 2-d mesh a spec of one placement
+    zeros = like(torch.zeros((x.shape[0], W - 1, x.shape[2]), dtype=x.dtype, device=x.device), x)
+    pads = torch.cat([zeros, x], dim=1)
     out = pads[:, 0:S, :] * w[0]
     for i in range(1, W):
         out = out + pads[:, i:i + S, :] * w[i]
@@ -149,6 +152,27 @@ def _chunk_step(h_prev, da, dt_q, xq, bq, cq, causal):
     return h, y_diag + y_off
 
 
+_HEADS4 = ("batch", None, None, "mamba_heads")
+_SCAN_IN = (_HEADS4, _HEADS4, _HEADS4 + (None,), ("batch", None, None, None),
+            ("batch", None, None, None))
+_SCAN_OUT = _HEADS4 + (None,)
+
+
+def _ssd_scan(dA, dtc, xc, Bc, Cc):
+    """The chunk loop: (B, Nc, Q, H) decay logs and dts (f32), xc (B, Nc, Q,
+    H, P), Bc / Cc (B, Nc, Q, N) f32 -> y (B, Nc, Q, H, P), the state
+    starting at zero in ``xc``'s dtype."""
+    B, _, Q, H, P = xc.shape
+    causal = torch.ones((Q, Q), dtype=torch.bool, device=xc.device).tril()
+    h = torch.zeros((B, H, P, Bc.shape[-1]), dtype=xc.dtype, device=xc.device)
+    ys = []
+    # each chunk's slices in one op a tensor
+    for da_c, dt_c, x_c, b_c, c_c in zip(*(t.unbind(1) for t in (dA, dtc, xc, Bc, Cc))):
+        h, y_c = _chunk_step(h, da_c, dt_c, x_c, b_c, c_c, causal)
+        ys.append(y_c)
+    return torch.stack(ys, dim=1)
+
+
 def mamba2_forward(p: Mamba2, cfg: Mamba2Config, u: torch.Tensor) -> torch.Tensor:
     """Full-sequence chunked SSD: u (B, S, d_model) -> (B, S, d_model)."""
     B, S, _ = u.shape
@@ -169,17 +193,10 @@ def mamba2_forward(p: Mamba2, cfg: Mamba2Config, u: torch.Tensor) -> torch.Tenso
     xc = reshape(x, (B, Nc, Q, H, P))
     Bc = reshape(Bm, (B, Nc, Q, N)).float()
     Cc = reshape(Cm, (B, Nc, Q, N)).float()
-    causal = like(torch.ones((Q, Q), dtype=torch.bool, device=u.device).tril(), u)
-
-    h = like(torch.zeros((B, H, P, N), dtype=x.dtype, device=u.device), u)
-    ys = []
-    # each chunk's slices in one op a tensor (a DTensor op a chunk index
-    # would be placed anew for every index)
-    chunks = zip(*(t.unbind(1) for t in (dA, dtc, xc, Bc, Cc)))
-    for da_c, dt_c, x_c, b_c, c_c in chunks:
-        h, y_c = _chunk_step(h, da_c, dt_c, x_c, b_c, c_c, causal)
-        ys.append(y_c)
-    y = reshape(torch.stack(ys, dim=1), (B, S, H, P))
+    # batch and heads are the scan's only sharded axes: on a mesh each rank
+    # scans its own shards
+    yc = local_apply(_ssd_scan, _SCAN_OUT, (dA, dtc, xc, Bc, Cc), _SCAN_IN)
+    y = reshape(yc, (B, S, H, P))
     y = y + x * p.D[None, None, :, None].to(x.dtype)
     return follow(_gated_norm(p, merge_dims(y, 2), z) @ p.wo)
 

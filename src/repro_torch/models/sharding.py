@@ -312,6 +312,50 @@ def merge_dims(x: torch.Tensor, dim: int) -> torch.Tensor:
     return reshape(whole_units(x, dim, sh[dim]), sh[:dim] + [sh[dim] * sh[dim + 1]] + sh[dim + 2:])
 
 
+def local_apply(fn, out_axes: Sequence[Optional[str]], args: Sequence[torch.Tensor],
+                in_axes: Sequence[Sequence[Optional[str]]]):
+    """``fn(*args)``; where the arguments are DTensors, ``fn`` runs on each
+    rank's shards (``local_map``), each argument first redistributed to the
+    placements of its logical axes under the current rules, and the output
+    placed by ``out_axes``. For a function whose sharded axes are batch axes
+    only (no sum runs over them), so that each rank's shards make its shard
+    of the output. DTensor then never places ``fn``'s inner ops: the SSD's
+    einsums flatten a batch and a head dim that are both sharded, which
+    torch 2.11 refuses as a view. A logical axis that some argument's shards
+    would not split evenly is replicated for the call (``local_map`` infers
+    the output's global shape from even shards). Plain tensors run ``fn``
+    as they are."""
+    if not any(is_distributed(a) for a in args):
+        return fn(*args)
+    from torch.distributed.tensor import Partial
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh = next(a for a in args if is_distributed(a)).device_mesh
+    uneven = set()
+    for a, axes in zip(args, in_axes):
+        pl = placements(mesh, spec(*axes))
+        for d, name in enumerate(axes):
+            n = 1
+            for i, p in enumerate(pl):
+                if p.is_shard(d):
+                    n *= mesh.size(i)
+            if a.shape[d] % n:
+                uneven.add(name)
+    in_axes = [tuple(None if n in uneven else n for n in axes) for axes in in_axes]
+    out_axes = tuple(None if n in uneven else n for n in out_axes)
+    ins = [placements(mesh, spec(*axes)) for axes in in_axes]
+    out = placements(mesh, spec(*out_axes))
+    args = [a if tuple(a.placements) == tuple(pl) else redistribute(a, mesh, pl)
+            for a, pl in zip(args, ins)]
+    # an argument replicated over a mesh dim that shards the output (the
+    # SSD's B and C over the heads' dim) meets only this rank's share of
+    # the output there: its gradient is this rank's share of a sum
+    grads = tuple([Partial() if p.is_replicate() and o.is_shard() else p
+                   for p, o in zip(pl, out)] for pl in ins)
+    return local_map(fn, out_placements=out, in_placements=tuple(ins),
+                     in_grad_placements=grads, device_mesh=mesh)(*args)
+
+
 def _place(t: torch.Tensor, mesh, entries: Sequence[Axis]) -> torch.Tensor:
     """``t`` (the whole tensor, the same on every rank) as a DTensor on
     ``mesh``: ``distribute_tensor`` on real tensors, ``DTensor.from_local``

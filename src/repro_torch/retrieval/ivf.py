@@ -41,7 +41,8 @@ import torch
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import desc_order
-from repro_torch.retrieval.topk import _deterministic_topk_rows
+from repro_torch.lint.sanitizer import host_array
+from repro_torch.retrieval.topk import _deterministic_topk_rows, to_device
 
 _INT32_MAX = np.iinfo(np.int32).max
 # auto assignment mode switches to hierarchical above this many
@@ -251,12 +252,6 @@ def _spill_hot_cells(
 
 
 # ------------------------------------------------------------ search program
-def to_device(a: np.ndarray, device: torch.device) -> torch.Tensor:
-    """The one host -> device copy of this module: the index's arrays once,
-    at construction, and each search's queries and exclusions."""
-    return torch.from_numpy(np.ascontiguousarray(a)).to(device)
-
-
 def _probe(q, centroids, offsets, nprobe: int):
     """The ``nprobe`` cells nearest each query -> their lists' (Q, nprobe)
     starts and lengths. Row-wise sums, not a matrix product: a query's
@@ -368,7 +363,7 @@ class IVFIndex:
     def build(cls, items: np.ndarray, config: IVFConfig = IVFConfig(),
               device: DeviceLike = None) -> "IVFIndex":
         config.validate()
-        it = np.asarray(items, dtype=np.float32)
+        it = host_array(items, dtype=np.float32)
         I, d = it.shape
         nlist = min(config.nlist, I)
         rng = np.random.default_rng(config.seed)
@@ -402,7 +397,7 @@ class IVFIndex:
             cap = max(1, int(np.ceil(config.balance_factor * I / nlist)))
             before = assign
             assign = _spill_hot_cells(norm, cent, assign, cap)
-            spilled = int((assign != before).sum())
+            spilled = int(np.count_nonzero(assign != before))
         order = np.argsort(assign, kind="stable").astype(np.int32)
         counts = np.bincount(assign, minlength=nlist)
         offsets = np.zeros(nlist + 1, np.int32)
@@ -488,29 +483,30 @@ class IVFIndex:
         shortlist); with ``nprobe >= nlist`` the result equals the
         exhaustive oracle's.
         """
-        q = np.asarray(queries, dtype=np.float32)
+        q = host_array(queries, dtype=np.float32)
         Q = q.shape[0]
         if exclude is None:
             ex = np.full((Q, 1), -1, np.int32)
         else:
-            ex = np.asarray(exclude, dtype=np.int32)
+            ex = host_array(exclude, dtype=np.int32)
         plan = self.plan(k, Q, ex.shape[1], nprobe)
         kk = plan["k"]
         out_s = np.empty((Q, kk), np.float32)
         out_i = np.empty((Q, kk), np.int32)
-        n_scored = 0
+        scored = []  # each block's count, on the device until the end
         for lo in range(0, Q, plan["block"]):
             hi = min(lo + plan["block"], Q)
             a, b, n = self.dispatch(to_device(q[lo:hi], self.device),
                                     to_device(ex[lo:hi], self.device), plan)
             if self.config.keep_exact_device:
-                out_s[lo:hi], out_i[lo:hi] = a.cpu().numpy(), b.cpu().numpy()
+                out_s[lo:hi], out_i[lo:hi] = host_array(a), host_array(b)
             else:
                 out_s[lo:hi], out_i[lo:hi] = _rerank_exact_host(
-                    q[lo:hi], a.cpu().numpy(), b.cpu().numpy(), self.items, kk)
-            n_scored += int(n.item())
+                    q[lo:hi], host_array(a), host_array(b), self.items, kk)
+            scored.append(n)
         self.last_cells_probed = Q * plan["nprobe"]
-        self.last_candidates_scored = n_scored
+        self.last_candidates_scored = (int(host_array(torch.stack(scored)).sum())
+                                       if scored else 0)
         if kk < k:
             out_s = np.pad(out_s, ((0, 0), (0, k - kk)), constant_values=-np.inf)
             out_i = np.pad(out_i, ((0, 0), (0, k - kk)), constant_values=-1)

@@ -24,6 +24,7 @@ import torch
 
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.kernels import ops
+from repro_torch.lint.sanitizer import host_array
 
 NEG_INF = np.float32(-np.inf)
 
@@ -36,12 +37,20 @@ _DEVICE_TABLE_CACHE: dict = {}
 _DEVICE_TABLE_CACHE_MAX = 8
 
 
+def to_device(a: np.ndarray, device: torch.device) -> torch.Tensor:
+    """The retrieval modules' one host -> device copy: a contiguous host
+    array copied with ``non_blocking=True``, which the sync debug mode lets
+    through (from pageable memory the copy has taken the source once it
+    returns)."""
+    return torch.from_numpy(np.ascontiguousarray(a)).to(device, non_blocking=True)
+
+
 def _cached_device_table(arr: np.ndarray, device: torch.device) -> torch.Tensor:
     key = (id(arr), arr.shape, arr.dtype.str, str(device))
     hit = _DEVICE_TABLE_CACHE.get(key)
     if hit is not None:
         return hit[1]
-    dev = torch.from_numpy(np.ascontiguousarray(arr)).to(device)
+    dev = to_device(arr, device)
     ref = weakref.ref(arr, lambda _, k=key: _DEVICE_TABLE_CACHE.pop(k, None))
     _DEVICE_TABLE_CACHE[key] = (ref, dev)
     while len(_DEVICE_TABLE_CACHE) > _DEVICE_TABLE_CACHE_MAX:
@@ -80,13 +89,13 @@ def brute_force_topk(
     Returns ((Q, k) float32 scores, (Q, k) int32 ids), (-inf, -1) where k
     exceeds the non-excluded count.
     """
-    q = np.asarray(queries, dtype=np.float32)
-    it = np.asarray(items, dtype=np.float32)
+    q = host_array(queries, dtype=np.float32)
+    it = host_array(items, dtype=np.float32)
     if not 0 < k <= it.shape[0]:
         raise ValueError(f"k={k} must be in [1, num_items={it.shape[0]}]")
     scores = q @ it.T
     if exclude is not None:
-        ex = np.asarray(exclude)
+        ex = host_array(exclude)
         rows = np.repeat(np.arange(ex.shape[0]), ex.shape[1])
         cols = ex.reshape(-1)
         valid = cols >= 0
@@ -113,7 +122,7 @@ def chunked_topk(
     """
     dev = resolve_device(device)
     q = np.ascontiguousarray(queries, dtype=np.float32)  # the kernel's layout
-    it = np.asarray(items, dtype=np.float32)
+    it = host_array(items, dtype=np.float32)
     Q, I = q.shape[0], it.shape[0]
     if not 0 < k <= I:
         raise ValueError(f"k={k} must be in [1, num_items={I}]")
@@ -122,16 +131,16 @@ def chunked_topk(
             f"query_chunk must be >= 0 (0 disables query chunking), got {query_chunk}"
         )
     if exclude is not None:
-        exclude = np.asarray(exclude, dtype=np.int32)
+        exclude = host_array(exclude, dtype=np.int32)
     dit = _cached_device_table(it, dev)  # `it` is `items` itself when f32
     step = query_chunk if query_chunk and Q > query_chunk else max(Q, 1)
     out_s = np.empty((Q, k), np.float32)
     out_i = np.empty((Q, k), np.int32)
     for lo in range(0, Q, step):
         hi = min(lo + step, Q)
-        dq = torch.from_numpy(q[lo:hi]).to(dev)
-        dex = None if exclude is None else torch.from_numpy(exclude[lo:hi]).to(dev)
+        dq = to_device(q[lo:hi], dev)
+        dex = None if exclude is None else to_device(exclude[lo:hi], dev)
         s, i = ops.streaming_topk(dq, dit, k, exclude=dex)
-        out_s[lo:hi] = s.cpu().numpy()
-        out_i[lo:hi] = i.cpu().numpy()
+        out_s[lo:hi] = host_array(s)
+        out_i[lo:hi] = host_array(i)
     return out_s, np.where(np.isneginf(out_s), -1, out_i).astype(np.int32)

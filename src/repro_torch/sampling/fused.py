@@ -43,6 +43,7 @@ import numpy as np
 import torch
 
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.core.model import to_device
 from repro_torch.embedding import table as emb
 from repro_torch.graph.hetero_graph import HeteroGraph, Relation
 from repro_torch.kernels import ops as kernel_ops
@@ -149,8 +150,9 @@ def fused_eligibility(
             graph, config, value_slots, bag_slots, max_degree=fused.max_degree
         )
         kind = "estimated"
-    budget = int(fused.budget_mb * (1 << 20))
-    if need > budget:
+    # ``need`` is a whole number of bytes, so it exceeds the budget exactly
+    # when it exceeds the budget's whole bytes
+    if need > fused.budget_mb * (1 << 20):
         return False, (
             f"padded device tables need {need / (1 << 20):.1f} MiB "
             f"({kind}) > budget {fused.budget_mb:.1f} MiB"
@@ -191,7 +193,7 @@ class FusedSampler:
         self.seed = seed
 
         def put(a: np.ndarray) -> torch.Tensor:
-            return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
+            return to_device(np.ascontiguousarray(a), self.device)
 
         # ---------------- relation tables: one stacked padded adjacency
         self._rel_names = _union_relations(config)

@@ -18,11 +18,12 @@ The port of ``repro.train.trainer``, for both sampling backends:
   weights and row-wise AdaGrad to the touched rows IN PLACE through the
   ``row_adagrad`` kernel. O(unique ids) per step. Both steps are the same
   rule: ``tests/test_torch_train.py`` holds them equal.
-- Every step dispatch runs under ``torch.cuda.set_sync_debug_mode("error")``
-  (``sanitize_transfers``), the counterpart of ``jax.transfer_guard``: a
-  host sync inside the step raises. Losses stay on the device and are read
-  back in windows by asynchronous copies into pinned memory, resolved a
-  window later.
+- Every step dispatch runs under ``lint.sanitizer.transfer_sanitizer``
+  (``torch.cuda.set_sync_debug_mode("error")``; ``sanitize_transfers``),
+  the counterpart of ``jax.transfer_guard``: a host sync inside the step
+  raises. Losses stay on the device and are read back in windows by
+  ``host_floats_async`` (an asynchronous copy into pinned memory), resolved
+  a window later.
 - **Fused step** (``sampling_backend="fused"``): the batch is sampled on
   the device inside the step (``sampling.fused.FusedSampler``: walk, the
   ``window_pairs`` kernel, ego gathers) from draws of one device
@@ -67,7 +68,6 @@ always run.
 """
 from __future__ import annotations
 
-import contextlib
 import dataclasses
 import logging
 import os
@@ -88,6 +88,8 @@ from repro_torch.embedding import table as emb
 from repro_torch.graph.generator import RecsysDataset
 from repro_torch.graph.service import GraphClient
 from repro_torch.infer import embed_all_nodes
+from repro_torch.lint.sanitizer import (AsyncFloats, device_barrier, host_floats_async,
+                                        host_scalar, transfer_sanitizer)
 from repro_torch.obs.health import HealthMonitor
 from repro_torch.obs.memory import MemoryAccountant
 from repro_torch.obs.trace import span_scope
@@ -169,42 +171,6 @@ def _check_config(cfg: TrainerConfig) -> None:
         raise ValueError(f"unknown sampling_backend {cfg.sampling_backend!r}")
     if cfg.eval_method not in ("device", "ivf", "bruteforce"):
         raise ValueError(f"unknown eval_method {cfg.eval_method!r}")
-
-
-@contextlib.contextmanager
-def _sync_guard(device: torch.device, enabled: bool):
-    """A host<->device sync inside the block raises (CUDA only)."""
-    if not (enabled and device.type == "cuda"):
-        yield
-        return
-    prev = torch.cuda.get_sync_debug_mode()
-    torch.cuda.set_sync_debug_mode("error")
-    try:
-        yield
-    finally:
-        torch.cuda.set_sync_debug_mode(prev)
-
-
-class _LossWindow:
-    """An asynchronous readback of a window of on-device losses: one stack,
-    one copy into fresh pinned memory, one event; ``resolve`` waits on the
-    event only."""
-
-    def __init__(self, losses: List[torch.Tensor]):
-        vals = torch.stack(losses)
-        self._event = None
-        if vals.is_cuda:
-            self._host = torch.empty(vals.shape, dtype=vals.dtype, pin_memory=True)
-            self._host.copy_(vals, non_blocking=True)
-            self._event = torch.cuda.Event()
-            self._event.record()
-        else:
-            self._host = vals
-
-    def resolve(self) -> List[float]:
-        if self._event is not None:
-            self._event.synchronize()
-        return self._host.tolist()
 
 
 _DONE = object()
@@ -593,8 +559,7 @@ class Graph4RecTrainer:
             yield self._fused_sampler.draw(gen), npairs
 
     def _barrier(self) -> None:
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+        device_barrier(device=self.device)
 
     # ------------------------------------------------------------- planning
     def _calibrate(self, params: Params) -> Dict:
@@ -831,7 +796,7 @@ class Graph4RecTrainer:
             step_fn = self._step_fn()
         loss_hist: List[torch.Tensor] = []  # in-flight on-device tail
         losses: List[float] = []
-        pending: List[_LossWindow] = []  # started readbacks, FIFO
+        pending: List[AsyncFloats] = []  # started readbacks, FIFO
         depth = plan["prefetch"]
         drain_tail = max(1, depth + 1)
         evals: List[Dict[str, float]] = []
@@ -866,7 +831,7 @@ class Graph4RecTrainer:
         try:
             for step, (dev, npairs) in enumerate(batch_iter):
                 with phase_scope(timer, "dispatch"), device_span_scope(timer), \
-                        _sync_guard(self.device, cfg.sanitize_transfers):
+                        transfer_sanitizer(cfg.sanitize_transfers, self.device):
                     params, opt_state, loss = step_fn(params, opt_state, dev)
                 loss_hist.append(loss)
                 pairs_seen += npairs
@@ -886,9 +851,9 @@ class Graph4RecTrainer:
                             losses.extend(drained)
                             if monitor is not None:
                                 monitor.observe_losses(drained)
-                        pending.append(_LossWindow(done))
+                        pending.append(host_floats_async(done))
                 if cfg.log_every and (step + 1) % cfg.log_every == 0:
-                    log.info("step %d loss %.4f", step + 1, float(loss))
+                    log.info("step %d loss %.4f", step + 1, host_scalar(loss))
                 if cfg.eval_every and (step + 1) % cfg.eval_every == 0:
                     evals.append(self.evaluate(params))
         finally:
@@ -902,7 +867,7 @@ class Graph4RecTrainer:
         for window in pending:
             losses.extend(window.resolve())
         if loss_hist:
-            losses.extend(_LossWindow(loss_hist).resolve())
+            losses.extend(host_floats_async(loss_hist).resolve())
         if monitor is not None:
             # the tail never went through a mid-run window: a run that
             # diverged in its last steps still fails loudly

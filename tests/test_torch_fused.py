@@ -523,13 +523,21 @@ def _paced_plan(ds, producer_wait) -> dict:
     """The plan of an "auto" trainer whose costs are all set by sleeps: each
     host batch (one real batch, repeated) ``producer_wait``s 50 ms in the
     prefetch thread, each host step holds the GIL for 50 ms, each fused
-    step for 70 ms (the steps compute nothing, so the machine's load shifts
-    no comparison). Pipelined host steps then take about 50 ms if the
-    producer's wait lets go of the GIL, 100 ms if it holds it."""
+    step for 70 ms (the steps compute nothing, and the fused step's draws
+    are made once beforehand, so the machine's load shifts no comparison).
+    Pipelined host steps then take about 50 ms if the producer's wait lets
+    go of the GIL, 100 ms if it holds it. The calibration times 9 of each
+    (3 by default), so that the medians of the step times are taken over 8
+    samples, not 2: a scheduling stall in one sample of two moved their
+    mean by half its length, enough to reorder 50, 70 and 100 ms under a
+    loaded machine."""
     tr = _port_trainer(ds, "auto", 64, calibrate_min_steps=2, auto_backend=True,
-                       prefetch_batches=None)
+                       prefetch_batches=None, calibrate_batches=9)
     pipe = make_train_sampler(tr.engine, tr.pipe_cfg, backend="host", seed=0)
     item = next(tr._host_batches(pipe, 1))
+    assert tr._build_fused()[0]
+    draws = tr._fused_sampler.draw(torch.Generator().manual_seed(0))
+    tr._fused_sampler.draw = lambda gen: draws
 
     def batches(pipeline, num):
         for _ in range(num):
@@ -553,7 +561,7 @@ def test_auto_plan_picks_fused_when_the_gil_slows_pipelined_steps(both):
     host steps take about 100 ms. The plan measures that and says fused."""
     plan = _paced_plan(both[1], _hold_gil)
     m = plan["measurements"]
-    assert max(m["host_batch_s"], m["step_s"]) < m["fused_step_s"] < m["pipelined_step_s"]
+    assert max(m["host_batch_s"], m["step_s"]) < m["fused_step_s"] < m["pipelined_step_s"], m
     assert plan["sampling"] == "fused" and plan["prefetch"] == 0, plan
 
 
@@ -563,7 +571,7 @@ def test_auto_plan_keeps_the_host_when_pipelined_steps_win(both):
     fused step (70 ms); serial steps (100 ms) would not."""
     plan = _paced_plan(both[1], time.sleep)
     m = plan["measurements"]
-    assert m["pipelined_step_s"] < m["fused_step_s"] < m["host_batch_s"] + m["step_s"]
+    assert m["pipelined_step_s"] < m["fused_step_s"] < m["host_batch_s"] + m["step_s"], m
     assert plan["sampling"] == "host" and plan["prefetch"] == 2, plan
 
 

@@ -4,7 +4,8 @@
   ``examples/recall_torch.py``, ``examples/train_torch.py``,
   ``examples/serve_lm_torch.py``, ``examples/eval_torch.py`` or
   ``examples/warm_start_torch.py``, imports ``jax`` or ``repro[.*]``.
-- Importing the port's entry modules in a fresh interpreter loads neither.
+- Importing the port's entry modules in a fresh interpreter loads neither;
+  the static pass of ``repro_torch.lint`` loads no torch either.
 - ``device=None`` means CUDA: without a card the entry points raise before
   any work, and ``chip_smoke.py`` exits non-zero at its device check.
 """
@@ -124,6 +125,29 @@ def test_lm_modules_load_no_jax():
     )
     env = dict(os.environ, PYTHONPATH=os.pathsep.join(
         [str(REPO / "src"), str(REPO / "examples")]))
+    res = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True,
+                         text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+
+
+def test_lint_modules_load_no_jax():
+    """The port's contract checker stands alone: its static pass (the CLI,
+    ``core`` and every rule module) loads neither jax, ``repro`` nor torch,
+    and its runtime sanitizer loads torch but neither jax nor ``repro``."""
+    code = (
+        "import sys\n"
+        "import repro_torch.lint, repro_torch.lint.__main__\n"
+        "from repro_torch.lint import rules_determinism, rules_hostsync, rules_kernels\n"
+        "from repro_torch.lint import rules_lifecycle, rules_obs\n"
+        "repro_torch.lint.all_rules()\n"
+        "bad = sorted(m for m in sys.modules\n"
+        "             if m.split('.')[0] in ('jax', 'jaxlib', 'repro', 'torch'))\n"
+        "assert not bad, bad\n"
+        "import repro_torch.lint.sanitizer\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
+        "assert not bad and 'torch' in sys.modules, bad\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
     res = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True,
                          text=True, timeout=120)
     assert res.returncode == 0, res.stderr

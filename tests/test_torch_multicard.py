@@ -256,7 +256,8 @@ WORKER = textwrap.dedent("""
     out = {}
     meshes = {"single": ((2, 2), ("data", "model"), SH.SINGLE_POD_RULES),
               "multi": ((2, 1, 2), ("pod", "data", "model"), SH.MULTI_POD_RULES)}
-    for mname, (shape, axes, rules) in meshes.items():
+    for mname in d["meshes"]:
+        shape, axes, rules = meshes[mname]
         mesh = make_mesh(shape, axes, "cpu")
         for arch in d["archs"]:
             spec = get_arch(arch, reduced=True)
@@ -352,13 +353,16 @@ def _repro(jspec, jparams, batch):
             "step_loss": np.asarray(step_loss), "params": new}
 
 
-@pytest.mark.mp
-def test_four_gloo_ranks_match_the_port_and_repro(tmp_path):
+def _four_gloo_ranks(tmp_path, archs, meshes):
+    """``WORKER`` on four gloo ranks over each of ``meshes``, for each arch of
+    ``archs`` (reduced, f32): its logits, losses, gradients and one Adam
+    step held against the single-process port and ``repro``. Returns the
+    workers' results."""
     torch.use_deterministic_algorithms(True)
     try:
-        data, want_port, want_repro = {"archs": GLOO_ARCHS, "lr": LR, "params": {},
-                                       "batch": {}}, {}, {}
-        for i, arch in enumerate(GLOO_ARCHS):
+        data, want_port, want_repro = {"archs": archs, "meshes": meshes, "lr": LR,
+                                       "params": {}, "batch": {}}, {}, {}
+        for i, arch in enumerate(archs):
             spec = _f32(get_arch(arch, reduced=True))
             jspec, jparams, tree = _repro_params(arch, seed=11 + i)
             batch = _batch(spec, seed=21 + i)
@@ -387,8 +391,8 @@ def test_four_gloo_ranks_match_the_port_and_repro(tmp_path):
         assert p.returncode == 0, err[-3000:]
     with open(out, "rb") as f:
         got = pickle.load(f)
-    for mname in ("single", "multi"):
-        for arch in GLOO_ARCHS:
+    for mname in meshes:
+        for arch in archs:
             g, port = got[f"{mname}/{arch}"], want_port[arch]
             (rep, spec) = want_repro[arch]
             for key in ("logits", "loss", "step_loss"):
@@ -414,6 +418,12 @@ def test_four_gloo_ranks_match_the_port_and_repro(tmp_path):
             for n, p in model.named_parameters():
                 np.testing.assert_allclose(g["params"][n], p.detach().numpy(), rtol=1e-4,
                                            atol=1e-4, err_msg=f"{mname} {arch} {n} vs repro")
+    return got
+
+
+@pytest.mark.mp
+def test_four_gloo_ranks_match_the_port_and_repro(tmp_path):
+    got = _four_gloo_ranks(tmp_path, GLOO_ARCHS, ["single", "multi"])
     from torch.distributed.tensor import Replicate, Shard
 
     flash = got["flash"]
@@ -425,3 +435,13 @@ def test_four_gloo_ranks_match_the_port_and_repro(tmp_path):
         (Shard(0), Replicate()))
     assert flash["heads"]["gathers"] == [] and flash["batch"]["gathers"] == []
     assert flash["seq"]["gathers"] == ["all-gather"]
+
+
+@pytest.mark.mp
+def test_four_gloo_ranks_scan_the_ssd_on_their_shards(tmp_path):
+    """Mamba2's chunk scan runs on each rank's batch and head shards
+    (``sharding.local_apply``); B and C, replicated over the heads' mesh
+    dim, take their gradients as a sum over it. On a (2, 2) mesh the
+    logits, losses, every gradient and an Adam step match the port on one
+    process and ``repro``."""
+    _four_gloo_ranks(tmp_path, ["mamba2-1.3b"], ["single"])

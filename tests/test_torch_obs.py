@@ -286,9 +286,9 @@ def test_hooks_leave_losses_bitwise(both, case, deterministic, tmp_path):
         assert tel.metrics.summary()["gauges"]["prefetch.queue_depth"]["max"] >= 1
 
 
-def test_attribution_off_by_default_and_mp_still_raises(both, tmp_path):
-    """Attribution is off by default; the mp engine (which no longer raises)
-    runs with all three hooks: the monitor holds the client, the host
+def test_attribution_off_by_default_and_mp_runs_every_hook(both, tmp_path):
+    """Attribution is off by default; the mp engine runs with all three
+    hooks: the monitor holds the client, the host
     phases are attributed and the workers' serve spans reach the tracer."""
     assert _trainer("port", both[1], True, steps=3).train().attribution is None
     hooks = _all_hooks(tmp_path)

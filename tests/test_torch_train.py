@@ -297,7 +297,7 @@ def test_checkpoint_loads_in_repro(both, tmp_path):
     dict(engine_backend="mp", health=HealthConfig()),
     dict(engine_backend="mp", attribution=True),
 ], ids=["mp", "mp-telemetry", "mp-health", "mp-attribution"])
-def test_unported_options_raise(both, override):
+def test_mp_engine_trains_with_each_option_bitwise(both, override):
     """No trainer option is left unported: the mp graph service trains with
     and without each observability hook, to the in-process run's losses
     bitwise, and reaps its workers on exit; an unknown backend raises."""

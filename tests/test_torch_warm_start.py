@@ -210,9 +210,8 @@ def test_recall_report_equals_repro(exported):
     assert res["markdown"] == jrender(res["payload"]["results"])
 
 
-def test_sweep_mp_raises(examples):
-    """``--engine-backend mp`` (which no longer raises) gives the in-process
-    sweep's report: the same batches, so the same embeddings and metrics."""
+def test_sweep_mp_equals_inproc(examples):
+    """``--engine-backend mp`` gives the in-process sweep's report: the same batches, so the same embeddings and metrics."""
     et = examples["eval_torch"]
     flags = ["--steps", "4", "--models", "lightgcn", "--strategies", "u2i"]
     inproc, mp = (et.run(et.parser().parse_args(flags + ["--engine-backend", b]),
