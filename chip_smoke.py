@@ -222,6 +222,13 @@ nothing of JAX or of the JAX package ``repro``. Phases, each failing loudly:
    card, on the recorded inputs of the main paths (``seg_aggr``: of all
    three, bitwise; ``seg_aggr_bwd``: every kept call of both training paths,
    bitwise, with each shape's zero-gradient and mask-count shares;
+   ``seg_aggr_max_bwd``: the ``max`` backward, which no path of the zoo
+   takes, through one autograd step of ``ops.seg_aggr`` (launches zeroed
+   before and read after, the gradient bitwise), then at (8,192, 3, 64),
+   (1,024, 4, 64) and (262,144, 3, 64) on integer-valued x (ties), rows
+   with no valid entry, a valid -1e30 and a valid -inf beside masked
+   slots, bitwise with signed zeros and on a re-run, timed beside the
+   plain version and its bytes bound (no single library call computes it);
    ``row_adagrad``: every kept
    call to 1e-5, untouched rows and a re-run bitwise, each (table, bucket)
    shape timed with its real ids; ``window_pairs``: every call, exactly;
@@ -1227,11 +1234,11 @@ class TrainRecorder:
                 self.kept["seg_aggr"].append(((x.detach(), mask, mode), {}))
             return out
 
-        def seg_aggr_bwd(g, mask, mode="mean"):
+        def seg_aggr_bwd(g, mask, mode="mean", x=None):  # x: max only, which no path takes
             self.calls["seg_aggr_bwd"] += 1
             if self._keep("seg_aggr_bwd", (tuple(mask.shape), mode)):
                 self.kept["seg_aggr_bwd"].append((g.clone(), mask, mode))
-            return real["seg_aggr_bwd"](g, mask, mode)
+            return real["seg_aggr_bwd"](g, mask, mode, x)
 
         def inbatch_loss_rows(h_src, h_dst, temperature=1.0):
             self.calls["inbatch_loss"] += 1
@@ -2086,6 +2093,82 @@ def seg_aggr_bwd_phase(torch, ref, seg_mod, paths: dict) -> dict:
     emit({"phase": "kernel", "name": "seg_aggr_bwd", "source": "training paths, kept calls",
           "calls": calls, "max_abs_err": 0.0, "bitwise": True})
     return max(recs, key=lambda r: r["shape"][0] * r["shape"][1])
+
+
+MAX_BWD_SHAPES = ((8192, 3, 64), (1024, 4, 64), (262144, 3, 64))
+
+
+def _max_bwd_inputs(torch, gen, n: int, f: int, d: int):
+    """x, mask and g for the ``max`` backward: x drawn from 4 integers (2-
+    to F-way ties at every row), the mask at 0.7; planted every 7 rows a
+    row with no valid entry, a valid -1e30 beside masked slots (its
+    gradient shared with them) and a valid -inf beside them (no
+    gradient)."""
+    x = torch.randint(-2, 2, (n, f, d), device="cuda", generator=gen).float()
+    mask = torch.rand(n, f, device="cuda", generator=gen) < 0.7
+    g = torch.randn(n, d, device="cuda", generator=gen)
+    mask[::7] = False
+    for r, v in ((1, -1e30), (2, float("-inf"))):
+        mask[r::7] = False
+        mask[r::7, 0] = True
+        x[r::7, 0] = v
+    return x, mask, g
+
+
+def _bitwise_f32(a, b) -> bool:
+    """Equal bits, signed zeros told apart."""
+    import torch
+
+    return torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+def seg_aggr_max_bwd_phase(torch, ref, seg_mod, ops) -> dict:
+    """The ``max`` backward (no path of the zoo takes it). First one
+    autograd step, ``ops.seg_aggr(x, mask, "max")`` then ``backward``, on
+    the first synthetic shape: launch counts zeroed just before and read
+    just after, the gradient bitwise the plain version's. Then the kernel
+    against the plain version at each of ``MAX_BWD_SHAPES``, bitwise with
+    signed zeros and on a re-run, timed beside the plain version and the
+    bound (x, mask and g read once, dx written once). No single PyTorch
+    call computes it: the library time is null."""
+    fn = seg_mod.seg_aggr_bwd_cuda
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
+    x, mask, g = _max_bwd_inputs(torch, gen, *MAX_BWD_SHAPES[0])
+    x.requires_grad_(True)
+    seg_mod.launches = seg_mod.bwd_launches = 0
+    ops.seg_aggr(x, mask, "max").backward(g)
+    torch.cuda.synchronize()
+    launches = {"seg_aggr": seg_mod.launches, "seg_aggr_bwd": seg_mod.bwd_launches}
+    if launches != {"seg_aggr": 1, "seg_aggr_bwd": 1}:
+        fail(f"seg_aggr max autograd step launched {launches}, not one forward and one backward")
+    if not _bitwise_f32(x.grad, ref.seg_aggr_bwd_ref(g, mask, "max", x=x.detach())):
+        fail("seg_aggr max: the autograd gradient is not bitwise the plain version's")
+    emit({"phase": "seg_aggr_max_bwd", "step": "autograd", "shape": list(x.shape),
+          "launches": launches, "bitwise": True})
+    recs = []
+    for n, f, d in MAX_BWD_SHAPES:
+        x, mask, g = _max_bwd_inputs(torch, gen, n, f, d)
+        got, want = fn(g, mask, "max", x=x), ref.seg_aggr_bwd_ref(g, mask, "max", x=x)
+        torch.cuda.synchronize()
+        if not (_bitwise_f32(got, want) and _bitwise_f32(fn(g, mask, "max", x=x), got)):
+            fail(f"seg_aggr max backward {(n, f, d)} is not bitwise its plain version "
+                 "or its re-run")
+        iters = 20 if n > 100000 else 200
+        kern = measure(lambda: fn(g, mask, "max", x=x), iters)
+        plain = measure(lambda: ref.seg_aggr_bwd_ref(g, mask, "max", x=x), iters)
+        rec = {"phase": "seg_aggr_max_bwd", "name": "seg_aggr_bwd", "source": "synthetic, max",
+               "mode": "max", "shape": [n, f, d], "dtype": "float32", "max_abs_err": 0.0,
+               "bitwise": True, "rerun_bitwise": True,
+               "valid_share": mask.float().mean().item(),
+               "tie_share": (got != 0).sum(1).gt(1).float().mean().item(),
+               **times(kernel=kern, plain=plain, library=None),
+               "library": "none: no one PyTorch call routes a max's gradient to its ties"}
+        # max and tie count, the product a stored entry, one division a column
+        rec["bound_ms"], rec["bound_by"] = bound_ms(
+            n * f * d * 4 * 2 + n * f + n * d * 4, 3 * n * f * d + n * d)
+        emit(rec)
+        recs.append(rec)
+    return {"launches": launches, "records": recs}
 
 
 def _inbatch_record(torch, ref, inbatch_mod, s, d, t, source: str) -> dict:
@@ -4162,7 +4245,9 @@ def kernel_build_phase(topk_mod, inbatch_mod, seg_mod, ivf_mod, adagrad_mod) -> 
            "seg_aggr": {"16-byte": seg_mod.kernel_attrs(True),
                         "4-byte": seg_mod.kernel_attrs(False)},
            "seg_aggr_bwd": {"16-byte": seg_mod.kernel_attrs(True, backward=True),
-                            "4-byte": seg_mod.kernel_attrs(False, backward=True)},
+                            "4-byte": seg_mod.kernel_attrs(False, backward=True),
+                            "max 16-byte": seg_mod.kernel_attrs(True, True, max_mode=True),
+                            "max 4-byte": seg_mod.kernel_attrs(False, True, max_mode=True)},
            "row_adagrad": {"16-byte": adagrad_mod.kernel_attrs(True),
                            "4-byte": adagrad_mod.kernel_attrs(False)},
            "ivf_list_topk": ivf}
@@ -4489,7 +4574,7 @@ def main() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    from repro_torch.kernels import build, ref
+    from repro_torch.kernels import build, ops, ref
     from repro_torch.kernels import flash_attn as fa_mod
     from repro_torch.kernels import inbatch_loss as inbatch_mod
     from repro_torch.kernels import ivf as ivf_mod
@@ -4548,6 +4633,7 @@ def main() -> None:
     seg_bwd = seg_aggr_bwd_phase(torch, ref, seg_mod,
                                  {"training": tr["kept"]["seg_aggr_bwd"],
                                   "fused training": fu["kept"]["seg_aggr_bwd"]})
+    smax = seg_aggr_max_bwd_phase(torch, ref, seg_mod, ops)
     inbatch = inbatch_phase(torch, ref, inbatch_mod, tr["kept"]["inbatch_loss"])
     adagrad = row_adagrad_phase(torch, ref, adagrad_mod.row_adagrad_scatter_cuda,
                                 tr["kept"]["row_adagrad"])
@@ -4685,7 +4771,9 @@ def main() -> None:
         entry("seg_aggr_bwd", seg_bwd, "src/repro_torch/kernels/csrc/seg_aggr.cu",
               "src/repro/kernels/seg_aggr.py:45",
               {"training": tl["seg_aggr_bwd"], "mp training": ml["seg_aggr_bwd"],
-               "fused training": fl["seg_aggr_bwd"]}),
+               "fused training": fl["seg_aggr_bwd"],
+               "max (synthetic)": smax["launches"]["seg_aggr_bwd"]},
+              smax["records"]),
         entry("inbatch_loss", inbatch, "src/repro_torch/kernels/csrc/inbatch_loss.cu",
               "src/repro/kernels/inbatch_loss.py:41",
               {"training": tl["inbatch_loss"], "mp training": ml["inbatch_loss"],

@@ -6,7 +6,7 @@ Qwen2-VL (``vlm``) and Whisper (``whisper``).
 """
 from __future__ import annotations
 
-from typing import List
+from typing import List, Tuple
 
 from repro_torch.configs import (
     deepseek_coder_33b,
@@ -20,7 +20,7 @@ from repro_torch.configs import (
     starcoder2_7b,
     whisper_tiny,
 )
-from repro_torch.configs.base import ArchSpec
+from repro_torch.configs.base import SHAPES, ArchSpec
 
 _MODULES = {
     "qwen2-vl-7b": qwen2_vl_7b,
@@ -43,3 +43,14 @@ def get_arch(arch_id: str, reduced: bool = False) -> ArchSpec:
         raise KeyError(f"unknown arch {arch_id!r}; known: {ARCH_IDS}")
     mod = _MODULES[arch_id]
     return mod.reduced() if reduced else mod.full()
+
+
+def all_pairs() -> List[Tuple[str, str, bool, str]]:
+    """Every (arch, shape) with its support verdict."""
+    out = []
+    for aid in ARCH_IDS:
+        spec = get_arch(aid)
+        for shape in SHAPES:
+            ok, reason = spec.supports(shape)
+            out.append((aid, shape, ok, reason))
+    return out

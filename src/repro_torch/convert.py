@@ -361,7 +361,7 @@ def state_to_numpy(tree: Any) -> Any:
     """An optimizer state (NamedTuples, tuples, dicts of tensors) -> the
     same structure of host numpy arrays."""
     if isinstance(tree, torch.Tensor):
-        return tree.detach().cpu().numpy()
+        return _lm_array(tree)  # bf16 moments as their bits (an LM's, sgd's, adagrad's)
     if isinstance(tree, dict):
         return {k: state_to_numpy(v) for k, v in tree.items()}
     if isinstance(tree, tuple) and hasattr(tree, "_fields"):
@@ -386,7 +386,7 @@ def state_from_numpy(tree: Any, device: DeviceLike = None) -> Any:
 
     def conv(t):
         if isinstance(t, (np.ndarray, np.generic)):
-            return torch.from_numpy(np.array(t)).to(dev)
+            return _lm_tensor(t).to(dev)
         if isinstance(t, dict):
             return {k: conv(v) for k, v in t.items()}
         if isinstance(t, tuple) and hasattr(t, "_fields"):

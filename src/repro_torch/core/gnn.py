@@ -17,7 +17,9 @@ level up in core/hetero.py.
 
 ``masked_mean`` and ``masked_sum`` go through ``kernels.ops.seg_aggr``: the
 CUDA kernel for tensors on the card, its plain version on the CPU. The
-``use_kernel`` argument of ``repro`` is gone; the device decides.
+``use_kernel`` argument of ``repro`` is gone; the device decides, and
+``use_kernel_aggregation``, ``repro``'s legacy process-wide switch, records
+its flag and selects nothing.
 Parameters are plain dicts of tensors under ``repro``'s names.
 """
 from __future__ import annotations
@@ -32,6 +34,17 @@ from repro_torch.kernels import ops
 Params = Dict[str, torch.Tensor]
 
 GNN_TYPES = ("gcn", "sage-mean", "sage-sum", "gat", "gin", "lightgcn", "ngcf")
+
+# ``repro``'s process-wide default for its Pallas aggregation; kept so that
+# callers of ``use_kernel_aggregation`` run unchanged. Nothing reads it.
+_USE_KERNEL_AGGR = False
+
+
+def use_kernel_aggregation(flag: bool) -> None:
+    """``repro``'s legacy switch: records ``flag`` and selects nothing (on
+    CUDA the ``seg_aggr`` kernel always runs, on the CPU its plain version)."""
+    global _USE_KERNEL_AGGR
+    _USE_KERNEL_AGGR = bool(flag)
 
 
 def _aggr(h_nbr: torch.Tensor, mask: torch.Tensor, mode: str) -> torch.Tensor:

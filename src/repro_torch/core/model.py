@@ -12,7 +12,9 @@ The training half: ``loss_fn`` scores a batch of pairs under the configured
 objective, and ``host_batch`` / ``sparse_host_batch`` turn a pipeline
 ``TrainBatch`` into a host numpy pytree (the sparse form remapped onto
 gathered sub-tables, with each table's touched ids under ``uniq``);
-``pin`` and ``to_device`` move it to the card.
+``pin`` and ``to_device`` move it to the card, and ``device_batch`` /
+``sparse_device_batch`` do both steps at once. ``encode_all_nodes`` embeds
+every node through ``repro_torch.infer``.
 
 ``Graph4RecConfig`` is ``repro``'s, field for field; ``use_kernel_loss`` is
 kept for that and selects nothing here (the device decides the path).
@@ -31,6 +33,7 @@ from torch import nn
 
 from repro_torch.core import loss as loss_lib
 from repro_torch.core.hetero import HeteroGNNConfig, hetero_forward, init_hetero_params
+from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.embedding import table as emb
 from repro_torch.sampling.ego import EgoBatch
 from repro_torch.sampling.pipeline import TrainBatch
@@ -288,6 +291,24 @@ def host_batch(
     return out
 
 
+def stage(host: Dict, device: torch.device) -> Dict:
+    """The one H2D copy of a host pytree: fresh pinned buffers on CUDA,
+    then ``to_device``'s ``non_blocking`` copies."""
+    return to_device(pin(host) if device.type == "cuda" else host, device)
+
+
+def device_batch(
+    graph,
+    batch: TrainBatch,
+    cfg: Graph4RecConfig,
+    slot_counts: Optional[Mapping[str, torch.Tensor]] = None,
+    device: DeviceLike = None,
+) -> Dict:
+    """``host_batch`` + one H2D transfer of the whole pytree to ``device``
+    (None is CUDA)."""
+    return stage(host_batch(graph, batch, cfg, slot_counts), resolve_device(device))
+
+
 def sparse_host_batch(
     graph,
     batch: TrainBatch,
@@ -398,6 +419,40 @@ def sparse_host_batch(
 
     out["uniq"] = dict(uniq)
     return out
+
+
+def sparse_device_batch(
+    graph,
+    batch: TrainBatch,
+    cfg: Graph4RecConfig,
+    buckets: Optional[Dict[str, int]] = None,
+    device: DeviceLike = None,
+) -> Dict:
+    """``sparse_host_batch`` + one H2D transfer of the pytree to ``device``
+    (None is CUDA)."""
+    return stage(sparse_host_batch(graph, batch, cfg, buckets), resolve_device(device))
+
+
+# ------------------------------------------------------------- full inference
+def encode_all_nodes(
+    params: Params,
+    cfg: Graph4RecConfig,
+    engine,
+    rng: np.random.Generator,
+    graph,
+    batch_size: int = 1024,
+    device: DeviceLike = None,
+) -> np.ndarray:
+    """Embed every node for recall evaluation (paper §4.2) -> (num_nodes,
+    dim) float32 on the host.
+
+    A wrapper around ``repro_torch.infer.embed_all_nodes``, as ``repro``'s
+    is, drawing the ego samples from ``rng``. ``device`` None is CUDA.
+    Imported lazily: ``infer`` imports this module."""
+    from repro_torch.infer import embed_all_nodes
+
+    return embed_all_nodes(Graph4RecModel(cfg, params), engine, graph,
+                           batch_size=batch_size, rng=rng, device=device)
 
 
 def _map_tree(fn, tree):

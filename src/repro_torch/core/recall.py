@@ -259,3 +259,10 @@ def evaluate_recall(
     if want_ucf:
         add("ucf", rec_ucf)
     return out
+
+
+def evaluate_recall_bruteforce(*args, **kwargs) -> Dict[str, float]:
+    """The numpy full-matrix oracle (``method="bruteforce"``): the device
+    and IVF paths are held against it."""
+    kwargs["method"] = "bruteforce"
+    return evaluate_recall(*args, **kwargs)

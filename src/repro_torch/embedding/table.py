@@ -26,6 +26,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from repro_torch.device import DeviceLike
 from repro_torch.utils.ragged import ragged_row_offsets
 
 
@@ -62,6 +63,19 @@ def init_params(generator: torch.Generator, cfg: EmbeddingConfig) -> Dict[str, t
     for slot in cfg.slots:
         params[f"slot:{slot.name}"] = normal(slot.vocab_size)
     return params
+
+
+def abstract_params(cfg: EmbeddingConfig, device: DeviceLike = "meta") -> Dict[str, torch.Tensor]:
+    """``init_params``'s tables empty on ``device``, nothing drawn: on
+    ``meta`` (the default) no memory is taken, as
+    ``ArchSpec.abstract_params`` does for the LM."""
+    dev = torch.device(device)
+    dtype = getattr(torch, cfg.dtype)
+    out = {"node": torch.empty((cfg.num_nodes, cfg.dim), dtype=dtype, device=dev)}
+    for slot in cfg.slots:
+        out[f"slot:{slot.name}"] = torch.empty((slot.vocab_size, cfg.dim), dtype=dtype,
+                                               device=dev)
+    return out
 
 
 def param_specs(cfg: EmbeddingConfig, model_axis: str = "model") -> Dict[str, tuple]:

@@ -88,6 +88,12 @@ class RecsysDataset:
     def num_items(self) -> int:
         return self.spec.num_items
 
+    def user_global(self, u: np.ndarray) -> np.ndarray:
+        return np.asarray(u)  # users occupy [0, num_users)
+
+    def item_global(self, i: np.ndarray) -> np.ndarray:
+        return np.asarray(i) + self.spec.num_users
+
 
 def generate(spec: DatasetSpec, seed: int = 0) -> RecsysDataset:
     rng = np.random.default_rng(seed)

@@ -86,6 +86,9 @@ class SlotFeature:
     values: np.ndarray  # int32 (total_values,) — ids into the slot's vocab
     vocab_size: int
 
+    def values_of(self, node: int) -> np.ndarray:
+        return self.values[self.indptr[node] : self.indptr[node + 1]]
+
 
 class HeteroGraph:
     """In-memory heterogeneous graph with per-relation CSR adjacency."""
@@ -159,6 +162,16 @@ class HeteroGraph:
         return HeteroGraph(ranges, rels, slots=slots)
 
     # ----------------------------------------------------------------- access
+    def node_type_of(self, node: int) -> str:
+        for ntype, (start, count) in self.node_type_ranges.items():
+            if start <= node < start + count:
+                return ntype
+        raise KeyError(node)
+
+    def nodes_of_type(self, ntype: str) -> np.ndarray:
+        start, count = self.node_type_ranges[ntype]
+        return np.arange(start, start + count, dtype=np.int64)
+
     def relation_names(self) -> List[str]:
         return list(self.relations)
 

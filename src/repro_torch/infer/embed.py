@@ -39,13 +39,16 @@ def embed_all_nodes(
     batch_size: int = 1024,
     seed: int = 0,
     device: DeviceLike = None,
+    rng: Optional[np.random.Generator] = None,
 ) -> np.ndarray:
     """Embed every node of ``graph`` -> (num_nodes, dim) float32 on the host.
 
     ``engine`` is anything ``engine_sample_many`` accepts (HeteroGraph or
     DistributedGraphEngine); walk-based models never touch it. ``seed``
-    seeds the ego sampling stream. ``device=None`` is CUDA and raises
-    without one; the model is moved there.
+    seeds the ego sampling stream; ``rng`` overrides it for callers that
+    thread their own stream (``core.model.encode_all_nodes``).
+    ``device=None`` is CUDA and raises without one; the model is moved
+    there.
     """
     dev = resolve_device(device)
     model = model.to(dev)
@@ -55,7 +58,7 @@ def embed_all_nodes(
     if batch_size <= 0:
         raise ValueError(f"batch_size must be positive, got {batch_size}")
     batch_size = min(batch_size, N)
-    rng = np.random.default_rng(seed)
+    rng = rng if rng is not None else np.random.default_rng(seed)
     bspecs, vspecs = model_lib._split_slot_specs(cfg)
     slot_counts = model_lib.slot_count_arrays(graph, cfg, dev) if bspecs else None
     if not cfg.is_walk_based:

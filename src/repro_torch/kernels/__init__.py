@@ -4,3 +4,4 @@
 tensors run the plain version in ``ref``. Kernels build at first use
 (``build``), never at import.
 """
+from repro_torch.kernels import ref  # noqa: F401

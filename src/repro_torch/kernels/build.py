@@ -44,6 +44,8 @@ _SIGNATURES = {
     "g4r_seg_aggr_bwd_f32": (_P, _P, _P, _LL, _I, _I, _LL, _I, _P),
     "g4r_seg_aggr_attrs": (_I, _P),
     "g4r_seg_aggr_bwd_attrs": (_I, _P),
+    "g4r_seg_aggr_max_bwd_f32": (_P, _P, _P, _P, _LL, _I, _I, _LL, _LL, _P),
+    "g4r_seg_aggr_max_bwd_attrs": (_I, _P),
     "g4r_inbatch_rows_f32": (_P, _P, _P, _I, _I, _I, _I, _F, _P),
     "g4r_inbatch_attrs": (_I, _P),
     "g4r_row_adagrad_f32": (_P, _P, _P, _P, _LL, _LL, _I, _F, _F, _P),

@@ -36,8 +36,13 @@
 //     shape).
 // The TPU version padded N and D up to its (8, 256) tiles; here the ragged
 // edge is masked by bounds checks and nothing is padded.
+//
+// The backward comes in two kernels: sum and mean from g and the mask
+// alone (seg_aggr_bwd_kernel), and max, which also reads the forward's x to
+// find each column's maximum (seg_aggr_max_bwd_kernel).
 
 #include <cuda_runtime.h>
+#include <math.h>
 #include <stdint.h>
 
 namespace {
@@ -254,9 +259,100 @@ seg_aggr_bwd_kernel(const float* __restrict__ g, const uint8_t* __restrict__ mas
   }
 }
 
-// Resident blocks of `threads` threads of the backward instantiation, per
-// device and block size (64, 128 or 256), and the card's SMs.
+// V floats of one lane, addressable one by one.
+template <int V> union Frag {
+  typename Vec<V>::T v;
+  float s[V];
+};
+
+// Backward of max: the gradient jax.grad takes of repro's
+// seg_aggr_ref(x, mask, "max") (kernels/ref.py:seg_aggr_bwd_ref holds the
+// same rule in plain ops). With neg = where(mask, x, -1e30) and out[n, d]
+// the maximum of neg[n, :, d] over F:
+//   - cnt[n, d] counts the F entries of neg equal to out, masked entries
+//     included (a valid -1e30 beside masked slots shares its gradient with
+//     them; a valid -inf loses to them and gets none);
+//   - q = where(any valid, g, 0) / cnt, one IEEE division (div_nonzero:
+//     __fdiv_rn, zero dividends returned as they are);
+//   - dx[n, f, d] = mask ? q * (neg == out ? 1 : 0) : 0, the product
+//     rounded as the plain version's (a non-maximal valid entry of a
+//     negative q is -0, as in JAX).
+// Values are compared exactly; NaN inputs are out of scope. A lane owns 4
+// (or 1) consecutive columns of one row, as in the sum/mean backward, and
+// walks F twice: the maximum and its tie count first (a running count,
+// reset when a larger entry comes), then the F stores. The second pass
+// reads x again from the cache; F <= 4 on every recorded path.
 template <int V>
+__global__ void __launch_bounds__(kThreads)
+seg_aggr_max_bwd_kernel(const float* __restrict__ g, const float* __restrict__ x,
+                        const uint8_t* __restrict__ mask, float* __restrict__ dx,
+                        long long n, int f, int d, long long x_row_stride,
+                        long long m_row_stride) {
+  typedef Vec<V> W;
+  constexpr int kLanes = V == 4 ? 16 : 32;  // lanes a row
+  const int rows_block = blockDim.x / kLanes;
+  const int lane = threadIdx.x % kLanes;
+  const int dv = d / V;  // vectors a row
+  for (long long row = (long long)blockIdx.x * rows_block + threadIdx.x / kLanes; row < n;
+       row += (long long)gridDim.x * rows_block) {
+    const uint8_t* mr = mask + row * m_row_stride;
+    const float* xr = x + row * x_row_stride;
+    const float* gr = g + row * d;
+    float* o = dx + row * f * (long long)d;
+    bool any_valid = false;
+    for (int k = 0; k < f; ++k) any_valid |= mr[k] != 0;
+    for (int c = lane; c < dv; c += kLanes) {
+      const long long col = (long long)c * V;
+      float top[V], cnt[V];
+#pragma unroll
+      for (int i = 0; i < V; ++i) {
+        top[i] = -INFINITY;
+        cnt[i] = 0.0f;
+      }
+      for (int j = 0; j < f; ++j) {
+        const bool m = mr[j] != 0;
+        Frag<V> a;
+        a.v = W::load(xr + (long long)j * d + col);
+#pragma unroll
+        for (int i = 0; i < V; ++i) {
+          const float e = m ? a.s[i] : kNegInf;
+          if (e > top[i]) {
+            top[i] = e;
+            cnt[i] = 1.0f;
+          } else if (e == top[i]) {
+            cnt[i] += 1.0f;
+          }
+        }
+      }
+      Frag<V> gv;
+      gv.v = W::load(gr + col);
+      float q[V];
+#pragma unroll
+      for (int i = 0; i < V; ++i) q[i] = div_nonzero(any_valid ? gv.s[i] : 0.0f, cnt[i]);
+      for (int j = 0; j < f; ++j) {
+        const bool m = mr[j] != 0;
+        Frag<V> a, r;
+        a.v = W::load(xr + (long long)j * d + col);
+#pragma unroll
+        for (int i = 0; i < V; ++i) {
+          const float e = m ? a.s[i] : kNegInf;
+          r.s[i] = m ? __fmul_rn(q[i], e == top[i] ? 1.0f : 0.0f) : 0.0f;
+        }
+        W::store(o + (long long)j * d + col, r.v);
+      }
+    }
+  }
+}
+
+// The backward kernel of V-float lanes: sum/mean, or max (kMax).
+template <int V, bool kMax>
+const void* bwd_kernel() {
+  return kMax ? (const void*)seg_aggr_max_bwd_kernel<V> : (const void*)seg_aggr_bwd_kernel<V>;
+}
+
+// Resident blocks of `threads` threads of a backward instantiation, per
+// device and block size (64, 128 or 256), and the card's SMs.
+template <int V, bool kMax>
 int bwd_resident(int threads, int* sms_out) {
   static int cache[64][3] = {{0}};
   static int sms_cache[64] = {0};
@@ -265,7 +361,7 @@ int bwd_resident(int threads, int* sms_out) {
   const int slot = threads == 64 ? 0 : threads == 128 ? 1 : 2;
   if (cache[dev][slot] == 0) {
     int per_sm = 0, sms = 0;
-    if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, seg_aggr_bwd_kernel<V>, threads,
+    if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, bwd_kernel<V, kMax>(), threads,
                                                       0) != cudaSuccess ||
         cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
       return 0;
@@ -280,27 +376,67 @@ int bwd_resident(int threads, int* sms_out) {
 // cover every SM, so a launch-sized call spreads its stores over the card
 // (a 256-thread block a 16-row slice would leave 110 of 132 SMs idle at
 // the fused path's 342 rows); then at most one wave of resident blocks.
-template <int V>
-int launch_bwd(const float* g, const uint8_t* mask, float* dx, long long n, int f, int d,
-               long long ms, int mode, cudaStream_t st) {
+// Returns 0 or the error that kept the shape from being found.
+template <int V, bool kMax>
+int bwd_shape(long long n, int* threads_out, unsigned* grid_out) {
   constexpr int kLanes = V == 4 ? 16 : 32;
   int sms = 0;
-  if (bwd_resident<V>(kThreads, &sms) <= 0) {
+  if (bwd_resident<V, kMax>(kThreads, &sms) <= 0) {
     const cudaError_t err = cudaGetLastError();
     return (int)(err != cudaSuccess ? err : cudaErrorUnknown);
   }
   int threads = kThreads;
   while (threads > 64 && n * kLanes <= (long long)(threads / 2) * sms) threads /= 2;
-  const int resident = bwd_resident<V>(threads, nullptr);
+  const int resident = bwd_resident<V, kMax>(threads, nullptr);
   if (resident <= 0) {
     const cudaError_t err = cudaGetLastError();
     return (int)(err != cudaSuccess ? err : cudaErrorUnknown);
   }
   const long long per_block = threads / kLanes;
   const long long need = (n + per_block - 1) / per_block;
-  const unsigned grid = (unsigned)(need < resident ? need : resident);
+  *threads_out = threads;
+  *grid_out = (unsigned)(need < resident ? need : resident);
+  return 0;
+}
+
+template <int V>
+int launch_bwd(const float* g, const uint8_t* mask, float* dx, long long n, int f, int d,
+               long long ms, int mode, cudaStream_t st) {
+  int threads = 0;
+  unsigned grid = 0;
+  const int err = bwd_shape<V, false>(n, &threads, &grid);
+  if (err) return err;
   seg_aggr_bwd_kernel<V><<<grid, threads, 0, st>>>(g, mask, dx, n, f, d, ms, mode);
   return (int)cudaGetLastError();
+}
+
+template <int V>
+int launch_max_bwd(const float* g, const float* x, const uint8_t* mask, float* dx, long long n,
+                   int f, int d, long long xs, long long ms, cudaStream_t st) {
+  int threads = 0;
+  unsigned grid = 0;
+  const int err = bwd_shape<V, true>(n, &threads, &grid);
+  if (err) return err;
+  seg_aggr_max_bwd_kernel<V><<<grid, threads, 0, st>>>(g, x, mask, dx, n, f, d, xs, ms);
+  return (int)cudaGetLastError();
+}
+
+// out[0..4] of a backward instantiation, as g4r_seg_aggr_attrs reports the
+// forward's (residency at 256-thread blocks).
+template <int V, bool kMax>
+int bwd_attrs(int* out) {
+  cudaFuncAttributes a;
+  cudaError_t err = cudaFuncGetAttributes(&a, bwd_kernel<V, kMax>());
+  if (err != cudaSuccess) return (int)err;
+  int per_sm = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, bwd_kernel<V, kMax>(), kThreads, 0);
+  if (err != cudaSuccess) return (int)err;
+  out[0] = a.numRegs;
+  out[1] = (int)a.localSizeBytes;
+  out[2] = (int)a.sharedSizeBytes;
+  out[3] = per_sm;
+  out[4] = bwd_resident<V, kMax>(kThreads, nullptr);
+  return 0;
 }
 
 }  // namespace
@@ -342,8 +478,9 @@ extern "C" int g4r_seg_aggr_attrs(int vec, int* out) {
   return 0;
 }
 
-// Backward of mode 0 (sum) or 1 (mean); max has no backward kernel. g is
-// (N, D) contiguous, dx (N, F, D) contiguous; the mask takes a row stride.
+// Backward of mode 0 (sum) or 1 (mean); max has its own entry point below,
+// since it reads x. g is (N, D) contiguous, dx (N, F, D) contiguous; the
+// mask takes a row stride.
 // Takes the 16-byte path where D % 4 == 0 and g's base is 16-byte aligned
 // (dx is allocated by the wrapper), else the 4-byte one.
 extern "C" int g4r_seg_aggr_bwd_f32(const float* g, const uint8_t* mask, float* dx,
@@ -357,26 +494,34 @@ extern "C" int g4r_seg_aggr_bwd_f32(const float* g, const uint8_t* mask, float* 
   return launch_bwd<1>(g, mask, dx, n, f, d, m_row_stride, mode, st);
 }
 
-// The backward instantiation `vec` (1: 16-byte, 0: 4-byte), as
+// The sum/mean backward instantiation `vec` (1: 16-byte, 0: 4-byte), as
 // g4r_seg_aggr_attrs reports the forward's (residency at 256-thread
 // blocks).
 extern "C" int g4r_seg_aggr_bwd_attrs(int vec, int* out) {
-  cudaFuncAttributes a;
-  const void* fn = vec ? (const void*)seg_aggr_bwd_kernel<4> : (const void*)seg_aggr_bwd_kernel<1>;
-  cudaError_t err = cudaFuncGetAttributes(&a, fn);
-  if (err != cudaSuccess) return (int)err;
-  int per_sm = 0;
-  err = vec ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, seg_aggr_bwd_kernel<4>,
-                                                            kThreads, 0)
-            : cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, seg_aggr_bwd_kernel<1>,
-                                                            kThreads, 0);
-  if (err != cudaSuccess) return (int)err;
-  out[0] = a.numRegs;
-  out[1] = (int)a.localSizeBytes;
-  out[2] = (int)a.sharedSizeBytes;
-  out[3] = per_sm;
-  out[4] = vec ? bwd_resident<4>(kThreads, nullptr) : bwd_resident<1>(kThreads, nullptr);
-  return 0;
+  return vec ? bwd_attrs<4, false>(out) : bwd_attrs<1, false>(out);
+}
+
+// Backward of max (mode 2): g (N, D) contiguous, x (N, F, D) the forward's
+// input with a row stride (F and D dense), the mask with a row stride, dx
+// (N, F, D) contiguous. Takes the 16-byte path where D % 4 == 0, g's and
+// x's bases are 16-byte aligned and x's row stride is a multiple of 4
+// floats, else the 4-byte one.
+extern "C" int g4r_seg_aggr_max_bwd_f32(const float* g, const float* x, const uint8_t* mask,
+                                        float* dx, long long n, int f, int d,
+                                        long long x_row_stride, long long m_row_stride,
+                                        void* stream) {
+  if (f < 0 || d < 0) return (int)cudaErrorInvalidValue;
+  if (n <= 0 || f == 0 || d == 0) return (int)cudaGetLastError();
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (d % 4 == 0 && x_row_stride % 4 == 0 && (reinterpret_cast<uintptr_t>(g) & 15) == 0 &&
+      (reinterpret_cast<uintptr_t>(x) & 15) == 0)
+    return launch_max_bwd<4>(g, x, mask, dx, n, f, d, x_row_stride, m_row_stride, st);
+  return launch_max_bwd<1>(g, x, mask, dx, n, f, d, x_row_stride, m_row_stride, st);
+}
+
+// The max backward instantiation `vec`, as g4r_seg_aggr_bwd_attrs.
+extern "C" int g4r_seg_aggr_max_bwd_attrs(int vec, int* out) {
+  return vec ? bwd_attrs<4, true>(out) : bwd_attrs<1, true>(out);
 }
 
 // Text of a cudaError_t, for the Python wrappers' exceptions.

@@ -58,7 +58,8 @@ class _SegAggr(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, mask, mode):
         ctx.mode = mode
-        ctx.save_for_backward(mask)
+        # max routes the gradient by x's maxima; sum and mean need the mask only
+        ctx.save_for_backward(*((mask, x) if mode == "max" else (mask,)))
         if _route(x, "seg_aggr"):
             return seg_aggr_cuda(x, mask, mode)
         return ref.seg_aggr_ref(x, mask, mode)
@@ -66,28 +67,25 @@ class _SegAggr(torch.autograd.Function):
     @staticmethod
     @once_differentiable
     def backward(ctx, g):
-        (mask,) = ctx.saved_tensors
+        mask, *x = ctx.saved_tensors
         # a dense (N, F, D) gradient; autograd scatters it into the base of
         # a strided input view
-        return seg_aggr_bwd(g.contiguous(), mask, ctx.mode), None, None
+        return seg_aggr_bwd(g.contiguous(), mask, ctx.mode, *x), None, None
 
 
 def seg_aggr(x: torch.Tensor, mask: torch.Tensor, mode: str = "mean") -> torch.Tensor:
     """(N, F, D), (N, F) -> (N, D) masked segment aggregation, differentiable
-    in ``x`` for ``sum`` and ``mean``."""
+    in ``x``."""
     return _SegAggr.apply(x, mask, mode)
 
 
-def seg_aggr_bwd(g: torch.Tensor, mask: torch.Tensor, mode: str = "mean") -> torch.Tensor:
-    """(N, D) output gradient, (N, F) mask -> (N, F, D) input gradient."""
-    if mode == "max":
-        raise NotImplementedError(
-            "seg_aggr 'max' has no backward: nothing calls it in training "
-            "(ROADMAP Queue 2, B1 max backward)"
-        )
+def seg_aggr_bwd(g: torch.Tensor, mask: torch.Tensor, mode: str = "mean",
+                 x: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """(N, D) output gradient, (N, F) mask -> (N, F, D) input gradient;
+    ``max`` also takes the forward's input ``x``."""
     if _route(g, "seg_aggr backward"):
-        return seg_aggr_bwd_cuda(g, mask, mode)
-    return ref.seg_aggr_bwd_ref(g, mask, mode)
+        return seg_aggr_bwd_cuda(g, mask, mode, x)
+    return ref.seg_aggr_bwd_ref(g, mask, mode, x)
 
 
 # -------------------------------------------------------------- inbatch loss

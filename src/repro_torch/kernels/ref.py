@@ -45,12 +45,21 @@ def seg_aggr_bwd_ref(
     g: torch.Tensor,  # (N, D) gradient of the output
     mask: torch.Tensor,  # (N, F) bool validity
     mode: str = "mean",
+    x: Optional[torch.Tensor] = None,  # (N, F, D) the forward's input; max only
 ) -> torch.Tensor:
     """The input gradient of ``seg_aggr_ref`` -> dense (N, F, D).
 
     ``sum``: mask * g; ``mean``: (g / max(count, 1)) * mask, in the order
     autodiff of the forward multiplies. No gradient reaches the mask.
-    ``max`` has no backward (it has no caller; ROADMAP Queue 2, B1).
+
+    ``max`` needs the forward's ``x`` and gives what ``jax.grad`` takes of
+    ``repro``'s ``seg_aggr_ref(mode="max")``, in its order: with ``neg =
+    where(mask, x, -1e30)`` and ``out`` its maximum over F, ``cnt`` counts
+    the F entries of ``neg`` equal to ``out``, masked ones included;
+    ``where(any valid, g, 0) / cnt`` times (``neg == out``) is kept on the
+    valid entries, 0 on the masked ones. So a valid -1e30 beside masked
+    slots gets ``g / F``, a valid -inf beside them nothing, and rows with no
+    valid entry nothing. NaN inputs are out of scope.
     """
     m = mask[..., None].to(g.dtype)
     if mode == "sum":
@@ -59,14 +68,29 @@ def seg_aggr_bwd_ref(
         c = torch.clamp(m.sum(dim=1), min=1.0)  # (N, 1)
         return (g / c)[:, None, :] * m
     if mode == "max":
-        raise NotImplementedError(
-            "seg_aggr 'max' has no backward: nothing calls it in training "
-            "(ROADMAP Queue 2, B1 max backward)"
-        )
+        if x is None:
+            raise ValueError("seg_aggr 'max' backward needs the forward's input x")
+        if x.shape[1] == 0:
+            return torch.zeros_like(x)
+        neg = torch.where(mask[..., None], x, torch.full_like(x, NEG_INF))
+        top = (neg == neg.amax(dim=1, keepdim=True)).to(g.dtype)  # (N, F, D)
+        cnt = top.sum(dim=1)  # (N, D)
+        gm = torch.where(mask.any(dim=1, keepdim=True), g, torch.zeros_like(g))
+        return torch.where(mask[..., None], (gm / cnt)[:, None, :] * top, torch.zeros_like(x))
     raise ValueError(mode)
 
 
 # -------------------------------------------------------------- inbatch loss
+def inbatch_loss_ref(
+    h_src: torch.Tensor, h_dst: torch.Tensor, temperature: float = 1.0
+) -> torch.Tensor:
+    """In-batch softmax CE with diagonal positives -> scalar mean loss.
+
+    Mirrors ``repro/kernels/ref.py:inbatch_loss_ref``.
+    """
+    return inbatch_loss_rows_ref(h_src, h_dst, temperature).mean()
+
+
 def inbatch_loss_rows_ref(
     h_src: torch.Tensor, h_dst: torch.Tensor, temperature: float = 1.0
 ) -> torch.Tensor:
@@ -319,6 +343,10 @@ def attention_ref(
     divides by the f32 row sum last (in f32 it keeps them in f32).
     """
     return _attention(q, k, v, causal, window, q_offset)[0]
+
+
+# the same attention contract under the flash kernel's name, as in ``repro``
+flash_attention_ref = attention_ref
 
 
 def attention_bwd_ref(

@@ -37,6 +37,9 @@ from repro_torch.configs import ARCH_IDS, get_arch
 from repro_torch.configs.base import ArchSpec
 from repro_torch.device import resolve_device
 from repro_torch.train import optimizer as opt_lib
+from repro_torch.utils.log import get_logger
+
+log = get_logger("repro_torch.launch.train")
 
 
 def synth_batch(rng: np.random.Generator, spec: ArchSpec, batch: int, seq: int,
@@ -117,6 +120,8 @@ def run(args: argparse.Namespace,
         step_s.append(time.perf_counter() - t0)
         if after_step is not None:
             after_step(step, model, losses[-1])
+        if (step + 1) % 10 == 0:
+            log.info("step %d loss %.4f", step + 1, losses[-1])
     return {"arch": spec.arch_id, "device": str(dev), "spec": spec, "model": model,
             "opt_state": opt_state, "step_fn": step_fn, "rng": rng, "losses": losses,
             "step_s": step_s, "init_dtypes": init_dtypes,

@@ -1,3 +1,7 @@
 """The LM substrate: norms, attention and MLPs (``layers``), the MoE and
-Mamba2 block kinds (``moe``, ``mamba2``) and the decoder (``transformer``)."""
-from repro_torch.models import layers, mamba2, moe, transformer  # noqa: F401
+Mamba2 block kinds (``moe``, ``mamba2``), the decoder (``transformer``),
+Qwen2-VL and Whisper (``qwen2_vl``, ``whisper``) and the mesh placement
+rules (``sharding``)."""
+from repro_torch.models import (  # noqa: F401
+    layers, mamba2, moe, qwen2_vl, sharding, transformer, whisper,
+)

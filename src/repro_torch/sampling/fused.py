@@ -59,7 +59,8 @@ BITS_HIGH = 2**32  # draws are uniform integers in [0, 2**32), JAX's uint32 rang
 class FusedConfig:
     """Knobs of the fused device sampler (threaded from TrainerConfig).
 
-    ``repro``'s ``use_kernel_pairs`` is not here: the device decides (the
+    ``use_kernel_pairs`` is ``repro``'s flag, kept so configs are
+    interchangeable; it selects nothing: the device decides (the
     ``window_pairs`` kernel on the card, its plain version on the CPU)."""
 
     # Padded-adjacency width: rows wider than this are uniformly subsampled
@@ -67,6 +68,8 @@ class FusedConfig:
     max_degree: int = 32
     # Device-table budget for the eligibility check, in MiB.
     budget_mb: float = 256.0
+    # repro's switch between its Pallas pair gather and the jnp reference.
+    use_kernel_pairs: bool = True
     # Candidate pairs generated per emitted pair (safety factor against
     # PAD-invalidated candidates). Walks per batch =
     # ceil(oversample * batch_pairs / window_positions).

@@ -145,7 +145,7 @@ class TrainerConfig:
     fused_max_degree: int = 32
     fused_budget_mb: float = 256.0
     fused_oversample: float = 2.0
-    fused_use_kernel_pairs: bool = True  # kept for config parity; unused
+    fused_use_kernel_pairs: bool = True  # kept for config parity; selects nothing
     # every step dispatch under torch.cuda.set_sync_debug_mode("error")
     sanitize_transfers: bool = True
     attribution: bool = False  # PhaseTimer summary into TrainResult.attribution
@@ -279,9 +279,7 @@ class _Prefetcher:
 def _stage(item: Tuple[Dict, int], device: torch.device):
     """The one H2D copy of a host batch: fresh pinned buffers on CUDA."""
     host, npairs = item
-    if device.type == "cuda":
-        host = model_lib.pin(host)
-    return model_lib.to_device(host, device), npairs
+    return model_lib.stage(host, device), npairs
 
 
 def _staged_batches(it: Iterator, device: torch.device, timer: Optional[PhaseTimer] = None,
@@ -439,6 +437,7 @@ class Graph4RecTrainer:
             return True, "already built"
         cfg = self.cfg
         fused_cfg = FusedConfig(max_degree=cfg.fused_max_degree, budget_mb=cfg.fused_budget_mb,
+                                use_kernel_pairs=cfg.fused_use_kernel_pairs,
                                 oversample=cfg.fused_oversample)
         graph = self.dataset.graph
         bspecs = model_lib.bag_slot_specs(self.model_cfg)

@@ -2,8 +2,9 @@
 
 - No module under ``src/repro_torch/``, nor ``chip_smoke.py``,
   ``examples/recall_torch.py``, ``examples/train_torch.py``,
-  ``examples/serve_lm_torch.py``, ``examples/eval_torch.py`` or
-  ``examples/warm_start_torch.py``, imports ``jax`` or ``repro[.*]``.
+  ``examples/serve_lm_torch.py``, ``examples/eval_torch.py``,
+  ``examples/warm_start_torch.py`` or ``examples/quickstart_torch.py``,
+  imports ``jax`` or ``repro[.*]``.
 - Importing the port's entry modules in a fresh interpreter loads neither;
   the static pass of ``repro_torch.lint`` loads no torch either.
 - ``device=None`` means CUDA: without a card the entry points raise before
@@ -28,6 +29,7 @@ PORT_FILES = sorted((REPO / "src" / "repro_torch").rglob("*.py")) + [
     REPO / "chip_smoke.py", REPO / "examples" / "recall_torch.py",
     REPO / "examples" / "train_torch.py", REPO / "examples" / "serve_lm_torch.py",
     REPO / "examples" / "eval_torch.py", REPO / "examples" / "warm_start_torch.py",
+    REPO / "examples" / "quickstart_torch.py",
 ]
 
 

@@ -18,7 +18,7 @@ import pytest
 import torch
 
 from repro_torch.kernels import ops, ref
-from repro_torch.kernels.seg_aggr import seg_aggr_cuda
+from repro_torch.kernels.seg_aggr import seg_aggr_bwd_cuda, seg_aggr_cuda
 from repro_torch.kernels.topk import (CHUNK, EXCLUDE_CAP, MAX_CLUSTER, MAX_K, TILE_Q, plan_splits,
                                       streaming_topk_cuda, streaming_topk_planned)
 from repro_torch.retrieval import chunked_topk
@@ -35,6 +35,29 @@ def _seg_data(seed, N, F, D, p=0.6):
     mask = rng.random((N, F)) < p
     mask[::5] = False  # all-masked rows
     return x, mask
+
+
+def _max_bwd_data(seed, N, F, D, ties=False):
+    """x (N, F, D), mask (N, F) and g (N, D) for the max backward. With
+    ``ties`` x takes 4 integer values, so 2- to F-way ties are common.
+    Planted at F >= 2 (N >= 8): every fifth row all-masked, a valid -1e30
+    beside masked slots (row 1), a valid -inf beside them (row 2), a row of
+    valid -infs (row 3), and two valid -1e30s beside masked slots (row 4)."""
+    rng = np.random.default_rng(seed)
+    if ties:
+        x = rng.integers(-2, 2, size=(N, F, D)).astype(np.float32)
+    else:
+        x = rng.normal(size=(N, F, D)).astype(np.float32)
+    mask = rng.random((N, F)) < 0.7
+    g = rng.normal(size=(N, D)).astype(np.float32)
+    if F >= 2 and N >= 8:
+        mask[::5] = False
+        mask[1:3], mask[3:5] = False, True
+        mask[1:3, 0] = True
+        mask[4, 2:] = False
+        x[1, 0], x[2, 0], x[3], x[4, :2] = -1e30, -np.inf, -np.inf, -1e30
+        g[0] = 0.0  # a zero gradient row
+    return x, mask, g
 
 
 def _topk_data(seed=0, Q=29, I=501, d=16, E=6, int_valued=False):
@@ -110,6 +133,79 @@ class TestSegAggrRef:
         x, mask = _seg_data(4, 4, 2, 3)
         with pytest.raises(ValueError, match="CUDA"):
             seg_aggr_cuda(_t(x), _t(mask), "mean")
+
+
+class TestSegAggrMaxBackward:
+    """The ``max`` backward against ``jax.vjp`` of ``repro``'s oracle, bitwise
+    (signed zeros included): the same rule in the same order, one IEEE
+    division a column."""
+
+    CASES = [(13, 4, 24, False), (37, 3, 64, True), (40, 4, 8, True), (8, 1, 5, False),
+             (64, 6, 130, True), (9, 2, 3, False)]
+
+    @staticmethod
+    def _jax_vjp(jx, x, mask, g):
+        import jax
+
+        _, vjp = jax.vjp(lambda v: jx.ref.seg_aggr_ref(v, jx.jnp.asarray(mask), "max"),
+                         jx.jnp.asarray(x))
+        return np.asarray(vjp(jx.jnp.asarray(g))[0])
+
+    @staticmethod
+    def _bitwise(got, want):
+        assert got.shape == want.shape and got.dtype == want.dtype == np.float32
+        assert np.array_equal(got.view(np.uint32), want.view(np.uint32))
+
+    @pytest.mark.parametrize("N,F,D,ties", CASES)
+    def test_plain_version_matches_jax_vjp(self, jx, N, F, D, ties):
+        x, mask, g = _max_bwd_data(N * F + D, N, F, D, ties)
+        got = ref.seg_aggr_bwd_ref(_t(g), _t(mask), "max", x=_t(x)).numpy()
+        self._bitwise(got, self._jax_vjp(jx, x, mask, g))
+
+    @pytest.mark.parametrize("N,F,D,ties", CASES)
+    def test_autograd_matches_jax_vjp(self, jx, N, F, D, ties):
+        x, mask, g = _max_bwd_data(N * F + D, N, F, D, ties)
+        tx = _t(x).requires_grad_(True)
+        ops.seg_aggr(tx, _t(mask), "max").backward(_t(g))
+        self._bitwise(tx.grad.numpy(), self._jax_vjp(jx, x, mask, g))
+
+    def test_planted_rows(self):
+        """The quirks of JAX's rule: a valid -1e30 beside masked slots shares
+        its gradient with them (g / F), a valid -inf beside them gets none,
+        a row of valid -infs splits g over F, an all-masked row gets 0."""
+        x, mask, g = _max_bwd_data(7, 10, 3, 4)
+        dx = ref.seg_aggr_bwd_ref(_t(g), _t(mask), "max", x=_t(x)).numpy()
+        third = g / np.float32(3)
+        np.testing.assert_array_equal(dx[1, 0], third[1])
+        assert not dx[1, 1:].any() and not dx[2].any() and not dx[5].any()
+        np.testing.assert_array_equal(dx[3], np.broadcast_to(third[3], (3, 4)))
+        np.testing.assert_array_equal(dx[4, :2], np.broadcast_to(third[4], (2, 4)))
+        assert not dx[4, 2].any()
+
+    def test_strided_ego_view_gradient_lands_in_the_base(self, jx):
+        rng = np.random.default_rng(11)
+        full = rng.integers(-2, 2, size=(24, 2, 3, 8)).astype(np.float32)
+        m = rng.random((24, 2, 3)) < 0.6
+        g = rng.normal(size=(24, 8)).astype(np.float32)
+        base = _t(full).requires_grad_(True)
+        ops.seg_aggr(base[:, 1], _t(m)[:, 1], "max").backward(_t(g))
+        want = self._jax_vjp(jx, full[:, 1], m[:, 1], g)
+        self._bitwise(base.grad[:, 1].numpy(), want)
+        assert not base.grad[:, 0].any()
+
+    def test_needs_the_forward_input(self):
+        x, mask, g = _max_bwd_data(3, 8, 3, 4)
+        with pytest.raises(ValueError, match="x"):
+            ref.seg_aggr_bwd_ref(_t(g), _t(mask), "max")
+        with pytest.raises(ValueError, match="x"):
+            seg_aggr_bwd_cuda(_t(g), _t(mask), "max")
+        with pytest.raises(ValueError, match="x"):
+            seg_aggr_bwd_cuda(_t(g), _t(mask), "sum", x=_t(x))
+
+    def test_cuda_wrapper_refuses_cpu_tensors(self):
+        x, mask, g = _max_bwd_data(4, 8, 3, 4)
+        with pytest.raises(ValueError, match="CUDA"):
+            seg_aggr_bwd_cuda(_t(g), _t(mask), "max", x=_t(x))
 
 
 # ---------------------------------------------------------------------- topk
@@ -322,6 +418,44 @@ class TestOnCard:
         mask = torch.rand(300, 3, device=cuda) < 0.6
         for mode in MODES:
             _check_seg(seg_aggr_cuda(x, mask, mode), x, mask, mode)
+
+    @pytest.mark.parametrize("N,F,D,ties", [(8192, 3, 64, True), (1024, 4, 64, True),
+                                            (37, 6, 130, True), (40, 2, 3, False),
+                                            (1, 1, 5, False), (200_003, 3, 64, True)])
+    def test_seg_aggr_max_bwd_bitwise_plain(self, cuda, N, F, D, ties):
+        x, mask, g = (_t(a).to(cuda) for a in _max_bwd_data(N + F + D, N, F, D, ties))
+        got = seg_aggr_bwd_cuda(g, mask, "max", x=x)
+        want = ref.seg_aggr_bwd_ref(g, mask, "max", x=x)
+        torch.cuda.synchronize()
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+        assert torch.equal(seg_aggr_bwd_cuda(g, mask, "max", x=x), got)  # re-run
+
+    @pytest.mark.parametrize("where", ["base", "stride", "view"])
+    def test_seg_aggr_max_bwd_strided_and_misaligned_x(self, cuda, where):
+        # x 4 bytes past 16-byte alignment, a row stride of 4k + 1 floats
+        # (the 4-byte path), or the per-relation view of the ego layout
+        x0, mask, g = (_t(a).to(cuda) for a in _max_bwd_data(3, 300, 3, 64, True))
+        if where == "base":
+            x = torch.empty(300 * 3 * 64 + 1, device=cuda)[1:].view(300, 3, 64)
+        elif where == "stride":
+            x = torch.empty(300, 3 * 64 + 1, device=cuda)[:, : 3 * 64].view(300, 3, 64)
+        else:
+            x = torch.empty(300, 2, 3, 64, device=cuda)[:, 1]
+        x.copy_(x0)
+        got = seg_aggr_bwd_cuda(g, mask, "max", x=x)
+        want = ref.seg_aggr_bwd_ref(g, mask, "max", x=x0)
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+    def test_seg_aggr_max_bwd_through_autograd(self, cuda):
+        from repro_torch.kernels import seg_aggr as seg_mod
+
+        x, mask, g = (_t(a).to(cuda) for a in _max_bwd_data(9, 4096, 3, 64, True))
+        x.requires_grad_(True)
+        before = seg_mod.bwd_launches
+        ops.seg_aggr(x, mask, "max").backward(g)
+        assert seg_mod.bwd_launches == before + 1
+        want = ref.seg_aggr_bwd_ref(g, mask, "max", x=x.detach())
+        assert torch.equal(x.grad.view(torch.int32), want.view(torch.int32))
 
     def test_seg_aggr_refuses_non_dense_inner_axes(self, cuda):
         x = torch.randn(4, 8, 3, device=cuda).transpose(1, 2)

@@ -187,11 +187,18 @@ class TestSegAggrBackward:
             lambda v: (jfn(v, jx.jnp.asarray(mask)) * cot).sum())(jx.jnp.asarray(x)))
 
     def test_max_backward_raises(self):
+        """The max backward raises without the forward's input; through
+        autograd, which saves it, it runs (``test_torch_kernels.py`` holds
+        its values against ``jax.vjp``)."""
         h, mask, _ = _nbr_data(3)
         x = _t(h.reshape(-1, 3, 8)).requires_grad_(True)
-        out = ops.seg_aggr(x, _t(mask.reshape(-1, 3)), "max")  # forward only is fine
-        with pytest.raises(NotImplementedError, match="B1 max backward"):
-            out.sum().backward()
+        mk = _t(mask.reshape(-1, 3))
+        out = ops.seg_aggr(x, mk, "max")
+        with pytest.raises(ValueError, match="forward's input x"):
+            ops.seg_aggr_bwd(torch.ones_like(out), mk, "max")
+        out.sum().backward()
+        assert torch.equal(x.grad, ref.seg_aggr_bwd_ref(torch.ones_like(out), mk, "max",
+                                                        x=x.detach()))
 
     def test_cuda_wrapper_refuses_cpu_tensors(self):
         with pytest.raises(ValueError, match="CUDA"):
