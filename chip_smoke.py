@@ -60,11 +60,14 @@ nothing of JAX or of the JAX package ``repro``. Phases, each failing loudly:
 5. the fused training path, through the same ``run`` with
    ``--sampling-backend fused``: the same model and batch on UB for 200
    steps, walk -> pair -> ego sampled on the card inside each step (the
-   ``window_pairs`` kernel), dense update. It must plan ``fused`` (the
-   memory gate must not put it back on the host) and launch ``window_pairs``
-   once a step; the inputs of every ``window_pairs`` call are recorded. The
-   same numbers as phase 4, the device tables' bytes, and the trained U2I
-   recall; then a ``sampling_backend="auto"`` run prints its plan;
+   pair stage one ``window_pair_draw`` launch), dense update. It must plan
+   ``fused`` (the memory gate must not put it back on the host), launch
+   ``window_pair_draw`` once a step and the gather alone (``window_pairs``)
+   never; the inputs of every ``window_pair_draw`` call are recorded. The
+   same numbers as phase 4, the device tables' bytes, the trained U2I
+   recall, and a profiled 40-step run's launches and device time a step of
+   ``sample_from`` and of the pair stage, with the kernels of one
+   ``sample_from``; then a ``sampling_backend="auto"`` run prints its plan;
 6. conformance: under deterministic algorithms, TOY trained 12 steps (sparse
    and dense) on the card and on the CPU from the same initial weights, and
    twice on the card: losses and tables agree, the two card runs exactly;
@@ -96,7 +99,7 @@ nothing of JAX or of the JAX package ``repro``. Phases, each failing loudly:
    --engine-backend mp`` on TOY as a subprocess (the script imports torch,
    its workers must not: their start and resident sets);
    ``observed_fused``, the same for the fused path, 200 dense steps,
-   ``window_pairs`` once a step; ``observed_conformance``, TOY 12 steps
+   ``window_pair_draw`` once a step; ``observed_conformance``, TOY 12 steps
    under deterministic algorithms on the card, losses and parameters with
    the three hooks on bitwise equal to a run with them off (sparse and
    dense with prefetch 2, fused); ``warm_start``, the training phase's
@@ -231,7 +234,12 @@ nothing of JAX or of the JAX package ``repro``. Phases, each failing loudly:
    plain version and its bytes bound (no single library call computes it);
    ``row_adagrad``: every kept
    call to 1e-5, untouched rows and a re-run bitwise, each (table, bucket)
-   shape timed with its real ids; ``window_pairs``: every call, exactly;
+   shape timed with its real ids; ``window_pair_draw``: every call of the
+   fused path, all five outputs exactly, the first timed beside the plain
+   version and its bytes bound, then 8,192 walks and an all-dead round;
+   ``window_pairs`` (the gather alone, which no path launches now): through
+   ``ops.window_pair_ids`` on the walks of every recorded draw call, launches
+   counted, exactly;
    ``ivf_list_topk``: every
    call of the three IVF runs, rows exactly, with the launch plan each took,
    and a synthetic call past a cluster's shared memory on the kernel's
@@ -273,6 +281,7 @@ nothing of JAX or of the JAX package ``repro``. Phases, each failing loudly:
 """
 from __future__ import annotations
 
+import bisect
 import collections
 import contextlib
 import dataclasses
@@ -723,6 +732,7 @@ def _zero(modules) -> None:
     for m in modules.values():
         m.launches = 0
     modules["seg_aggr"].bwd_launches = 0
+    modules["window_pairs"].draw_launches = 0
 
 
 def _u2i_queries(np, ds, train):
@@ -1339,17 +1349,26 @@ def _trained_u2i(res) -> dict:
             "u2i_ndcg_trained": u2i["u2i_ndcg"]}
 
 
-def _train_profile(torch, train_torch, args, phase: str, **overrides) -> dict:
+def _train_profile(torch, train_torch, args, phase: str, ranges=(), **overrides) -> dict:
     """Where the step time goes: a separate 40-step run under torch.profiler
-    (not the timed run, whose times the profiler would disturb)."""
+    (not the timed run, whose times the profiler would disturb). Each of
+    ``ranges``, (owner, attribute, label), runs its every call inside
+    ``record_function(label)``: the kernels launched in those calls, a step,
+    and their device time, with the kernels of the first call in order (the
+    ranges' own spans on the device timeline are not kernels: the busy time
+    leaves them out)."""
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        pres = train_torch.run(args, eval_at_end=False, **overrides)["result"]
-        torch.cuda.synchronize()
+    with contextlib.ExitStack() as stack:
+        for owner, name, label in ranges:
+            stack.enter_context(annotated(torch, owner, name, label))
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            pres = train_torch.run(args, eval_at_end=False, **overrides)["result"]
+            torch.cuda.synchronize()
     steps = len(pres.losses)
+    labels = {label for _, _, label in ranges}
     kern = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA
-            and e.self_device_time_total > 0]
+            and e.self_device_time_total > 0 and e.key not in labels]
     busy_us = sum(e.self_device_time_total for e in kern)
     top = sorted(kern, key=lambda e: -e.self_device_time_total)[:8]
     rec = {"phase": phase, "steps": steps, "wall_s": pres.wall_time_s,
@@ -1357,6 +1376,14 @@ def _train_profile(torch, train_torch, args, phase: str, **overrides) -> dict:
            "device_busy_share": busy_us / 1e6 / pres.wall_time_s,
            "top_device_ms_per_step": {e.key[:80]: e.self_device_time_total / 1e3 / steps
                                       for e in top}}
+    if ranges:
+        rec["ranges"] = {}
+        for label, calls in _range_kernels(torch, prof, labels).items():
+            rec["ranges"][label] = {
+                "calls": len(calls),
+                "launches_per_step": sum(len(c) for c in calls) / steps,
+                "device_us_per_step": sum(us for c in calls for _, us in c) / steps,
+                "kernels_first_call": [name[:60] for name, _ in calls[0]] if calls else []}
     emit(rec)
     return rec
 
@@ -1412,39 +1439,50 @@ def training_path(torch, np, modules, serving_u2i: float) -> dict:
     return dict(out, kept=rec.kept, params=r.params)
 
 
+def fused_args(train_torch, seed: int, steps: int, backend: str = "fused"):
+    """The fused phase's flags: UB, LightGCN at dim 64 with side info, 512
+    pairs a step; no prefetcher on the fused path ("auto" leaves it to the
+    calibration)."""
+    flags = ["--dataset", "ub", "--model", "lightgcn", "--dim", "64", "--side-info",
+             "--batch-pairs", "512", "--seed", str(seed), "--steps", str(steps),
+             "--sampling-backend", backend]
+    return train_torch.parser().parse_args(
+        flags + (["--prefetch-batches", "0"] if backend == "fused" else []))
+
+
+def fused_profile_ranges(ops, fused_mod) -> list:
+    """The ranges a fused step's profile sums: ``sample_from`` and its pair
+    stage (the ``window_pair_draw`` call; a tree that predates it, the
+    gather ``window_pair_ids``, the first of the stage's launches)."""
+    stage = "window_pair_draw" if hasattr(ops, "window_pair_draw") else "window_pair_ids"
+    return [(fused_mod.FusedSampler, "sample_from", "fused.sample_from"),
+            (ops, stage, f"fused.{stage}")]
+
+
 def fused_training_path(torch, np, modules, serving_u2i: float) -> dict:
     """The training path with the fused device sampler (phase 5)."""
     import train_torch
     from repro_torch.kernels import ops
+    from repro_torch.sampling import fused as fused_mod
     from repro_torch.train.trainer import Graph4RecTrainer
 
-    def args(seed: int, steps: int, backend: str = "fused"):
-        flags = ["--dataset", "ub", "--model", "lightgcn", "--dim", "64", "--side-info",
-                 "--batch-pairs", "512", "--seed", str(seed), "--steps", str(steps),
-                 "--sampling-backend", backend]
-        # no prefetcher on the fused path; "auto" leaves it to the calibration
-        return train_torch.parser().parse_args(
-            flags + (["--prefetch-batches", "0"] if backend == "fused" else []))
-
-    rec, events, wp_calls = TrainRecorder(), [], []
-    with rec.spying(ops), recording(ops, "window_pair_ids", wp_calls), \
+    rec, events, wd_calls = TrainRecorder(), [], []
+    with rec.spying(ops), recording(ops, "window_pair_draw", wd_calls), \
             step_events(torch, Graph4RecTrainer, "_fused_step", events):
         _zero(modules)
-        res = train_torch.run(args(0, 200), eval_at_end=False)
+        res = train_torch.run(fused_args(train_torch, 0, 200), eval_at_end=False)
         torch.cuda.synchronize()
-        launches = {"seg_aggr": modules["seg_aggr"].launches,
-                    "seg_aggr_bwd": modules["seg_aggr"].bwd_launches,
-                    "inbatch_loss": modules["inbatch_loss"].launches,
-                    "row_adagrad": modules["row_adagrad"].launches,
-                    "window_pairs": modules["window_pairs"].launches,
-                    "topk": modules["topk"].launches}
+        launches = _launch_counts(modules)
     r, sampler = res["result"], res["trainer"]._fused_sampler
     if r.plan["sampling"] != "fused":
         fail(f"fused training planned {r.plan['sampling']!r}: {r.plan['reason']}")
     first, last = _losses_fell(np, r, 200, "fused training")
-    if launches["window_pairs"] != 200 or len(wp_calls) != 200:
-        fail(f"fused training launched window_pairs {launches['window_pairs']} times over "
-             f"{len(wp_calls)} calls; want one a step, 200")
+    if launches["window_pair_draw"] != 200 or len(wd_calls) != 200:
+        fail(f"fused training launched window_pair_draw {launches['window_pair_draw']} times "
+             f"over {len(wd_calls)} calls; want one a step, 200")
+    if launches["window_pairs"]:
+        fail(f"fused training launched the gather alone {launches['window_pairs']} times: the "
+             "pair stage is one window_pair_draw launch")
     for n in ("seg_aggr", "seg_aggr_bwd", "inbatch_loss"):
         if launches[n] == 0:
             fail(f"the fused training path launched no {n} kernel")
@@ -1455,7 +1493,9 @@ def fused_training_path(torch, np, modules, serving_u2i: float) -> dict:
     if not recall["u2i_trained"] > serving_u2i:
         fail(f"fused training: trained U2I {recall['u2i_trained']} not above the "
              f"random-weight {serving_u2i}")
-    prof = _train_profile(torch, train_torch, args(1, 40), "fused_training_profile")
+    prof = _train_profile(torch, train_torch, fused_args(train_torch, 1, 40),
+                          "fused_training_profile",
+                          ranges=fused_profile_ranges(ops, fused_mod))
 
     out = {
         "phase": "fused_training", "dataset": "ub", "model": "lightgcn", "dim": 64,
@@ -1467,15 +1507,17 @@ def fused_training_path(torch, np, modules, serving_u2i: float) -> dict:
         "step_wall_ms": r.wall_time_s / len(r.losses) * 1e3, **split,
         "device_busy_share": prof["device_busy_share"],
         "device_busy_ms_per_step": prof["device_busy_ms_per_step"],
+        "profile_ranges": {k: {m: v[m] for m in ("launches_per_step", "device_us_per_step")}
+                           for k, v in prof["ranges"].items()},
         "loss_first20_mean": first, "loss_last20_mean": last,
-        "launches": launches, "wrapper_calls": dict(rec.calls, window_pairs=len(wp_calls)),
+        "launches": launches, "wrapper_calls": dict(rec.calls, window_pair_draw=len(wd_calls)),
         **recall, "u2i_random_weights": serving_u2i,
     }
     emit(out)
 
     # sampling_backend="auto": calibration picks host or fused (either is
     # accepted); its plan and measurements are the result
-    ares = train_torch.run(args(0, 40, "auto"), eval_at_end=False)["result"]
+    ares = train_torch.run(fused_args(train_torch, 0, 40, "auto"), eval_at_end=False)["result"]
     auto = {"phase": "auto_sampling", "steps": len(ares.losses),
             "sampling": ares.plan["sampling"], "prefetch": ares.plan["prefetch"],
             "reason": ares.plan["reason"], "measurements": ares.plan.get("measurements"),
@@ -1484,7 +1526,7 @@ def fused_training_path(torch, np, modules, serving_u2i: float) -> dict:
     if not ares.plan["calibrated"] or "fused_step_s" not in auto["measurements"]:
         fail(f"auto sampling did not time the fused step: {ares.plan}")
     emit(auto)
-    return dict(out, kept=rec.kept, window_pairs_calls=wp_calls, auto=auto)
+    return dict(out, kept=rec.kept, window_pair_draw_calls=wd_calls, auto=auto)
 
 
 def fused_conformance(torch, np) -> dict:
@@ -1581,6 +1623,7 @@ def conformance_phase(torch, np) -> dict:
 def _launch_counts(modules) -> dict:
     return {"seg_aggr": modules["seg_aggr"].launches,
             "seg_aggr_bwd": modules["seg_aggr"].bwd_launches,
+            "window_pair_draw": modules["window_pairs"].draw_launches,
             **{n: modules[n].launches for n in ("inbatch_loss", "row_adagrad", "window_pairs",
                                                  "topk", "ivf_list_topk")}}
 
@@ -1900,18 +1943,15 @@ def mp_training(torch, np, modules, tr: dict) -> dict:
 
 def observed_fused(torch, np, modules, fu: dict) -> dict:
     """The fused training path with the three hooks on, 200 dense steps;
-    ``window_pairs`` launches once a step, as in the fused phase."""
+    ``window_pair_draw`` launches once a step, as in the fused phase."""
     import train_torch
 
-    args = train_torch.parser().parse_args(
-        ["--dataset", "ub", "--model", "lightgcn", "--dim", "64", "--side-info",
-         "--batch-pairs", "512", "--seed", "0", "--steps", "200",
-         "--sampling-backend", "fused", "--prefetch-batches", "0"])
-    out = _observed_run(torch, np, modules, train_torch, args, "observed_fused", 200)
-    if out["launches"]["window_pairs"] != 200:
-        fail(f"observed fused training launched window_pairs {out['launches']['window_pairs']} "
-             "times; want one a step, 200")
-    for n in ("seg_aggr", "seg_aggr_bwd", "inbatch_loss", "window_pairs"):
+    out = _observed_run(torch, np, modules, train_torch, fused_args(train_torch, 0, 200),
+                        "observed_fused", 200)
+    if out["launches"]["window_pair_draw"] != 200:
+        fail(f"observed fused training launched window_pair_draw "
+             f"{out['launches']['window_pair_draw']} times; want one a step, 200")
+    for n in ("seg_aggr", "seg_aggr_bwd", "inbatch_loss", "window_pair_draw", "window_pairs"):
         if out["launches"][n] != fu["launches"][n]:
             fail(f"observed fused training launched {n} {out['launches'][n]} times; the fused "
                  f"phase {fu['launches'][n]}")
@@ -2302,25 +2342,32 @@ def _wp_record(torch, ref, window_pair_ids_cuda, paths, pos, source: str, iters:
     return rec
 
 
-def window_pairs_phase(torch, ref, window_pair_ids_cuda, calls: list) -> dict:
-    """Every main-path call against the plain version, exactly (int ids);
-    its shape timed on the first call's inputs; then edge shapes: B not a
-    multiple of the block, all-PAD rows, L = 32 with a window of 5, and
-    B = 65,536 for a time that is not launch-sized."""
+def window_pairs_phase(torch, ops, ref, wp_mod, calls: list) -> dict:
+    """The gather alone, which no path launches since the pair stage became
+    one ``window_pair_draw`` launch: through ``ops.window_pair_ids`` (its
+    launches zeroed before and read after) on the walks of every recorded
+    draw call, against the plain version, exactly; its shape timed on the
+    first; then edge shapes: B not a multiple of the block, all-PAD rows,
+    L = 32 with a window of 5, and B = 65,536 for a time that is not
+    launch-sized."""
     from repro_torch.sampling.pairs import window_positions
 
-    for (paths, pos), _ in calls:
-        p32 = paths.to(torch.int32).contiguous()
-        got, want = window_pair_ids_cuda(p32, pos), ref.window_pair_ids_ref(paths, pos)
+    wp_mod.launches = 0
+    for (paths, pos, *_), _ in calls:
+        got, want = ops.window_pair_ids(paths, pos), ref.window_pair_ids_ref(paths, pos)
         torch.cuda.synchronize()
         if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
-            fail(f"window_pairs {tuple(paths.shape)}: a fused training call is not equal to "
-                 "its plain version")
-    emit({"phase": "kernel", "name": "window_pairs", "source": "fused training path, every call",
-          "calls": len(calls), "max_abs_err": 0})
-    (paths, pos), _ = calls[0]
-    main = _wp_record(torch, ref, window_pair_ids_cuda, paths.to(torch.int32).contiguous(), pos,
-                      "fused training path", 200)
+            fail(f"window_pairs {tuple(paths.shape)}: the walks of a fused training call are "
+                 "not gathered as the plain version gathers them")
+    launches = wp_mod.launches
+    if launches != len(calls):
+        fail(f"window_pairs: {launches} launches for {len(calls)} calls")
+    emit({"phase": "kernel", "name": "window_pairs",
+          "source": "fused training path's walks, every draw call", "calls": len(calls),
+          "launches": launches, "max_abs_err": 0})
+    (paths, pos, *_), _ = calls[0]
+    main = _wp_record(torch, ref, wp_mod.window_pair_ids_cuda, paths.to(torch.int32).contiguous(),
+                      pos, "fused training path's walks", 200)
 
     gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
     for B, L, win, all_pad in ((1000, 6, 2, False), (1000, 6, 2, True), (4096, 32, 5, False),
@@ -2332,8 +2379,72 @@ def window_pairs_phase(torch, ref, window_pair_ids_cuda, calls: list) -> dict:
         if all_pad:
             paths[::3] = -1
         pos = torch.from_numpy(window_positions(L, win).astype("int32")).to("cuda")
-        _wp_record(torch, ref, window_pair_ids_cuda, paths, pos,
+        _wp_record(torch, ref, wp_mod.window_pair_ids_cuda, paths, pos,
                    f"synthetic{', all-PAD rows' if all_pad else ''}", 200)
+    return dict(main, launches=launches)
+
+
+def _wd_equal(torch, got, want) -> bool:
+    return len(got) == len(want) == 5 and all(
+        g.dtype == w.dtype and g.shape == w.shape and torch.equal(g, w)
+        for g, w in zip(got, want))
+
+
+def _wd_record(torch, ref, draw_cuda, args, source: str, iters: int) -> dict:
+    paths, pos, spos, dpos, sel, walk_len = args
+    B, L = paths.shape
+    npos, P = pos.shape[0], sel.shape[0]
+    got, want = draw_cuda(*args), ref.window_pair_draw_ref(*args)
+    again = draw_cuda(*args)
+    torch.cuda.synchronize()
+    if not (_wd_equal(torch, got, want) and _wd_equal(torch, again, got)):
+        fail(f"window_pair_draw {(B, L, npos, P)} ({source}) is not bitwise its plain version "
+             "or a re-run")
+    kern = measure(lambda: draw_cuda(*args), iters)
+    plain = measure(lambda: ref.window_pair_draw_ref(*args), iters)
+    rec = {"phase": "kernel", "name": "window_pair_draw", "source": source,
+           "shape": {"B": B, "L": L, "npos": npos, "P": P}, "max_abs_err": 0,
+           "all_dead": bool(got[4]), "rerun_bitwise": True,
+           # no single PyTorch call computes the gather, the draw and its indices
+           **times(kernel=kern, plain=plain, library=None)}
+    # the walks, the table, spos / dpos and the bits read once; four (P,) int64
+    # outputs and the flag written once
+    rec["bound_ms"], rec["bound_by"] = bound_ms(
+        B * L * 8 + npos * 8 + npos * 16 + P * 8 + 4 * P * 8 + 1, 0)
+    emit(rec)
+    return rec
+
+
+def window_pair_draw_phase(torch, ref, wp_mod, calls: list) -> dict:
+    """The fused path's pair stage: every recorded call against the plain
+    version, all five outputs exactly; the first call's shape timed; then
+    8,192 walks (the candidate list past shared memory, into the scratch,
+    and the walks read where they lie) and an all-dead round."""
+    from repro_torch.sampling.pairs import window_positions
+
+    for (args, _) in calls:
+        got, want = wp_mod.window_pair_draw_cuda(*args), ref.window_pair_draw_ref(*args)
+        torch.cuda.synchronize()
+        if not _wd_equal(torch, got, want):
+            fail(f"window_pair_draw {tuple(args[0].shape)}: a fused training call is not "
+                 "bitwise its plain version")
+    emit({"phase": "kernel", "name": "window_pair_draw",
+          "source": "fused training path, every call", "calls": len(calls), "max_abs_err": 0})
+    main = _wd_record(torch, ref, wp_mod.window_pair_draw_cuda, calls[0][0],
+                      "fused training path", 200)
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
+    for B, L, win, P, dead in ((8192, 6, 2, 65536, False), (57, 6, 2, 512, True)):
+        paths = torch.randint(0, 1 << 20, (B, L), device="cuda", generator=gen)
+        cut = torch.randint(0, L + 1, (B, 1), device="cuda", generator=gen)
+        paths[torch.arange(L, device="cuda")[None, :] >= (cut.clamp(max=1) if dead else cut)] = -1
+        pos = torch.from_numpy(window_positions(L, win).astype("int32")).to("cuda")
+        sel = torch.randint(0, 1 << 32, (P,), device="cuda", generator=gen)
+        args = (paths, pos, pos[:, 0].to(torch.int64), pos[:, 1].to(torch.int64), sel, L)
+        rec = _wd_record(torch, ref, wp_mod.window_pair_draw_cuda, args,
+                         "synthetic, all-dead" if dead else "synthetic", 200)
+        if rec["all_dead"] != dead:
+            fail(f"window_pair_draw {(B, L)}: all_dead {rec['all_dead']}, want {dead}")
     return main
 
 
@@ -2569,6 +2680,34 @@ def annotated(torch, module, name: str, label: str):
         yield
     finally:
         setattr(module, name, real)
+
+
+def _range_kernels(torch, prof, labels) -> dict:
+    """For each label, for each of its ranges in time order, the (name,
+    device us) of every kernel launched inside it, in launch order. A
+    kernel is matched to the runtime call that launched it by CUPTI's
+    correlation id, and that call to the range by time: a kernel launched
+    through the library's C entry points belongs to no aten op, so the
+    profiler's own tree links it to no range. The ranges' own spans on the
+    device timeline carry their labels and ids of another count, which may
+    equal a launch's: they are left out. The ranges must not overlap
+    launches of another thread (the fused step runs on one)."""
+    cpu, cuda = torch.autograd.DeviceType.CPU, torch.autograd.DeviceType.CUDA
+    evs = prof.profiler.kineto_results.events()
+    launches = sorted((e.start_ns(), e.correlation_id()) for e in evs
+                      if e.device_type() == cpu and "LaunchKernel" in e.name())
+    ids = {c for _, c in launches}
+    kernels = {e.correlation_id(): (e.name(), e.duration_ns() / 1e3) for e in evs
+               if e.device_type() == cuda and e.name() not in labels and e.correlation_id() in ids}
+    times = [t for t, _ in launches]
+    out = {}
+    for label in labels:
+        spans = sorted((e.start_ns(), e.end_ns()) for e in evs
+                       if e.name() == label and e.device_type() == cpu)
+        out[label] = [[kernels.get(c, ("(record lost)", 0.0)) for _, c in
+                       launches[bisect.bisect_left(times, a):bisect.bisect_right(times, b)]]
+                      for a, b in spans]
+    return out
 
 
 def _annotated_device_us(prof, label: str) -> float:
@@ -4637,7 +4776,8 @@ def main() -> None:
     inbatch = inbatch_phase(torch, ref, inbatch_mod, tr["kept"]["inbatch_loss"])
     adagrad = row_adagrad_phase(torch, ref, adagrad_mod.row_adagrad_scatter_cuda,
                                 tr["kept"]["row_adagrad"])
-    wp = window_pairs_phase(torch, ref, wp_mod.window_pair_ids_cuda, fu["window_pairs_calls"])
+    wd = window_pair_draw_phase(torch, ref, wp_mod, fu["window_pair_draw_calls"])
+    wp = window_pairs_phase(torch, ops, ref, wp_mod, fu["window_pair_draw_calls"])
     ivf = ivf_phase(torch, ref, ivf_mod,
                     {"ivf serving": iv["calls"]["ivf serving"],
                      "ivf exhaustive": iv["calls"]["ivf exhaustive"], "1M arm": m1["calls"]})
@@ -4782,8 +4922,12 @@ def main() -> None:
               "src/repro/kernels/row_adagrad.py:41",
               {"training": tl["row_adagrad"], "mp training": ml["row_adagrad"],
                "fused training": fl["row_adagrad"]}),
+        entry("window_pair_draw", wd, "src/repro_torch/kernels/csrc/window_pairs.cu",
+              "src/repro/kernels/window_pairs.py:38",
+              {"fused training": fl["window_pair_draw"]}),
         entry("window_pairs", wp, "src/repro_torch/kernels/csrc/window_pairs.cu",
-              "src/repro/kernels/window_pairs.py:38", {"fused training": fl["window_pairs"]}),
+              "src/repro/kernels/window_pairs.py:38",
+              {"fused training's walks, recorded": wp["launches"]}),
         entry("ivf_list_topk", ivf, "src/repro_torch/kernels/csrc/ivf.cu",
               "src/repro/kernels/ivf.py:97",
               {"ivf serving": iv["launches"]["ivf_list_topk"],

@@ -6,7 +6,7 @@
 The port's counterpart of ``examples/train_recsys.py``, with the flags of it
 that the port supports: walk → pair → ego sampling on the host or, with
 ``--sampling-backend fused``, on the device inside the step (the
-``window_pairs`` kernel for the pairs), the GNN forward and
+``window_pair_draw`` kernel for the pairs), the GNN forward and
 backward with the ``seg_aggr`` kernels, the in-batch softmax loss on the
 ``inbatch_loss`` kernel, row-wise AdaGrad on the tables (the ``row_adagrad``
 kernel on the sparse path) and Adam on the GNN weights, then recall of the

@@ -16,7 +16,7 @@ with warm start (``embedding.warm_start``), the LM substrate's serving side
 ``train.attribution``). This module and ``graph`` import no torch, so a
 spawned graph-service worker never loads it. The kernels (``seg_aggr``
 and its backward, ``topk``, ``inbatch_loss``, ``row_adagrad``,
-``window_pairs``, ``ivf_list_topk``) are CUDA C++ for ``sm_90a`` under
+``window_pairs`` and ``window_pair_draw``, ``ivf_list_topk``) are CUDA C++ for ``sm_90a`` under
 ``kernels/csrc``; ``kernels/ops`` runs them for CUDA tensors and their plain
 PyTorch versions (``kernels/ref``) for CPU tensors.
 

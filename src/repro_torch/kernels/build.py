@@ -53,6 +53,7 @@ _SIGNATURES = {
     "g4r_topk_f32": (_P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     "g4r_topk_attrs": (_I, _I, _P),
     "g4r_window_pairs_i32": (_P, _P, _P, _P, _LL, _I, _I, _P),
+    "g4r_window_pair_draw_i64": (*(_P,) * 11, _I, _I, _I, _I, _LL, _P),
     "g4r_ivf_list_topk_i8": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _LL, _I, _P),
     "g4r_ivf_attrs": (_I, _I, _I, _I, _I, _I, _P),
     "g4r_flash_attn_fwd": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, *(_LL,) * 12, _F,

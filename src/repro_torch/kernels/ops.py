@@ -1,8 +1,9 @@
 """Dispatcher for the port's kernels: the device decides the path.
 
 A CUDA tensor launches the hand-written kernel (``seg_aggr`` and its
-backward, ``topk``, ``inbatch_loss``, ``row_adagrad``, ``window_pairs``,
-``ivf_list_topk``, ``flash_attention``) or raises: a build or launch failure is never caught to
+backward, ``topk``, ``inbatch_loss``, ``row_adagrad``, ``window_pairs``
+and the pair stage's ``window_pair_draw``, ``ivf_list_topk``,
+``flash_attention``) or raises: a build or launch failure is never caught to
 run the plain version instead. A CPU
 tensor runs the plain PyTorch version in ``kernels/ref``, which is what the
 CPU tests exercise. Any other device raises.
@@ -41,7 +42,7 @@ from repro_torch.kernels.ivf import ivf_list_topk_cuda
 from repro_torch.kernels.row_adagrad import row_adagrad_scatter_cuda
 from repro_torch.kernels.seg_aggr import seg_aggr_bwd_cuda, seg_aggr_cuda
 from repro_torch.kernels.topk import streaming_topk_cuda
-from repro_torch.kernels.window_pairs import window_pair_ids_cuda
+from repro_torch.kernels.window_pairs import window_pair_draw_cuda, window_pair_ids_cuda
 
 
 def _route(t: torch.Tensor, what: str) -> bool:
@@ -187,6 +188,18 @@ def window_pair_ids(paths: torch.Tensor,
         return window_pair_ids_cuda(paths.to(torch.int32).contiguous(),
                                     positions.to(torch.int32).contiguous())
     return ref.window_pair_ids_ref(paths, positions)
+
+
+def window_pair_draw(paths: torch.Tensor, positions: torch.Tensor, spos: torch.Tensor,
+                     dpos: torch.Tensor, sel: torch.Tensor,
+                     walk_len: int) -> Tuple[torch.Tensor, ...]:
+    """The fused sampler's pair stage: (B, L) int64 walks, the (npos, 2)
+    int32 window table and its (npos,) int64 columns, (P,) int64 draw bits
+    -> (src, dst, src_sel, dst_sel) (P,) int64 and the 0-d bool
+    ``all_dead`` (``ref.window_pair_draw_ref``): one launch on the card."""
+    if _route(paths, "window_pair_draw"):
+        return window_pair_draw_cuda(paths, positions, spos, dpos, sel, walk_len)
+    return ref.window_pair_draw_ref(paths, positions, spos, dpos, sel, walk_len)
 
 
 # ----------------------------------------------------------------- attention

@@ -142,6 +142,40 @@ def window_pair_ids_ref(
     return torch.where(valid, src, pad), torch.where(valid, dst, pad)
 
 
+def window_pair_draw_ref(
+    paths: torch.Tensor,  # (B, L) int64 walk paths, PAD = -1
+    positions: torch.Tensor,  # (npos, 2) int (src_col, dst_col) table
+    spos: torch.Tensor,  # (npos,) int64, positions[:, 0]
+    dpos: torch.Tensor,  # (npos,) int64, positions[:, 1]
+    sel: torch.Tensor,  # (P,) int64 draw bits in [0, 2**32)
+    walk_len: int,
+) -> Tuple[torch.Tensor, ...]:
+    """The fused sampler's pair stage -> (src, dst, src_sel, dst_sel, all_dead).
+
+    The window gather (``window_pair_ids_ref``), then a uniform draw of P
+    of the B * npos candidates from the valid ones by inverse CDF, with
+    replacement, as ``repro/sampling/fused.py`` composes it: ``src`` and
+    ``dst`` (P,) int64, PAD when no candidate is valid; ``src_sel`` and
+    ``dst_sel`` (P,) int64, each draw's (walk, column) as ``row * walk_len +
+    col``; ``all_dead`` a 0-d bool. ``searchsorted`` finds nothing when
+    ``n_valid == 0``, so the clamp to n - 1 makes an all-dead round's
+    ``src_sel`` / ``dst_sel`` those of the last candidate.
+    """
+    src_all, dst_all = window_pair_ids_ref(paths, positions)
+    src_f, dst_f = src_all.reshape(-1), dst_all.reshape(-1)
+    cum = torch.cumsum(src_f != -1, dim=0)
+    n_valid = cum[-1]
+    r = sel % n_valid.clamp(min=1)
+    idx = torch.searchsorted(cum, r + 1).clamp(max=src_f.shape[0] - 1)
+    all_dead = n_valid == 0
+    src = torch.where(all_dead, -1, src_f[idx].to(torch.int64))
+    dst = torch.where(all_dead, -1, dst_f[idx].to(torch.int64))
+    npos = positions.shape[0]
+    row = idx // npos
+    pcol = idx % npos
+    return src, dst, row * walk_len + spos[pcol], row * walk_len + dpos[pcol], all_dead
+
+
 # ----------------------------------------------------------------- topk MIPS
 def chunked_topk_ref(
     queries: torch.Tensor,  # (Q, d)

@@ -8,9 +8,9 @@ inside the training step, with no host work per step:
 - **walk**: ``walk.metapath.walk_multi_from_bits`` over a stacked
   (R, N, max_degree) padded adjacency, with a per-walk metapath draw
   (uniform over the configured metapaths) and per-metapath start ranges;
-- **pair**: the static skip-gram window gather (the ``window_pairs`` kernel
-  on the card, its plain version on the CPU), then a uniform inverse-CDF
-  draw of ``batch_pairs`` valid pairs;
+- **pair**: the static skip-gram window gather, then a uniform inverse-CDF
+  draw of ``batch_pairs`` valid pairs (one ``window_pair_draw`` kernel on
+  the card, its plain version on the CPU);
 - **ego**: relation-wise K-hop gathers from the same padded adjacency,
   PAD-propagating exactly like ``sampling.ego.sample_ego_batch``;
 - **side info**: value slots as a resident (N, max_values) padded table, bag
@@ -61,7 +61,7 @@ class FusedConfig:
 
     ``use_kernel_pairs`` is ``repro``'s flag, kept so configs are
     interchangeable; it selects nothing: the device decides (the
-    ``window_pairs`` kernel on the card, its plain version on the CPU)."""
+    ``window_pair_draw`` kernel on the card, its plain version on the CPU)."""
 
     # Padded-adjacency width: rows wider than this are uniformly subsampled
     # once at build time (HeteroGraph.padded_adjacency).
@@ -372,36 +372,25 @@ class FusedSampler:
         paths = walk_multi_from_bits(draws.walk, self._adj, self._deg, starts,
                                      self._sched, path_of, L)
 
-        # pair: static window gather, then draw batch_pairs valid candidates
-        src_all, dst_all = kernel_ops.window_pair_ids(paths, self._pos)
-        src_f, dst_f = src_all.reshape(-1), dst_all.reshape(-1)
-        # Uniform draw of batch_pairs candidates from the VALID ones by
-        # inverse CDF (with replacement: the host pipeline also repeats a
-        # pair that appears in several walks). n_valid stays on the device.
-        cum = torch.cumsum(src_f != PAD, dim=0)
-        n_valid = cum[-1]
-        r = draws.sel % n_valid.clamp(min=1)
-        idx = torch.searchsorted(cum, r + 1).clamp(max=src_f.shape[0] - 1)
-        # an all-dead round keeps the pairs PAD: they embed to zero rows
-        all_dead = n_valid == 0
-        src = torch.where(all_dead, PAD, src_f[idx].to(torch.int64))
-        dst = torch.where(all_dead, PAD, dst_f[idx].to(torch.int64))
+        # pair: static window gather, then a uniform draw of batch_pairs of
+        # the VALID candidates by inverse CDF (with replacement: the host
+        # pipeline also repeats a pair that appears in several walks), one
+        # launch on the card. An all-dead round keeps the pairs PAD: they
+        # embed to zero rows. Nothing is read back to the host.
+        src, dst, src_sel, dst_sel, all_dead = kernel_ops.window_pair_draw(
+            paths, self._pos, self._spos, self._dpos, draws.sel, L)
 
         out: Dict = {}
         if self.ego is not None and cfg.order == "walk_ego_pair":
             # One ego per (walk, position), and the selected pairs index the
             # shared towers, as the host ego-first pipeline does; an
             # all-dead round PADs the towers themselves.
-            npos = len(self._positions)
             flat_levels = [torch.where(all_dead, PAD, l)
                            for l in self._ego_levels(draws.ego["shared"], paths.reshape(-1))]
             slots = ([self._slot_values(l) for l in flat_levels]
                      if self.value_slots else None)
             out["shared"] = (flat_levels, slots)
-            row = idx // npos
-            pcol = idx % npos
-            out["src_sel"] = row * L + self._spos[pcol]
-            out["dst_sel"] = row * L + self._dpos[pcol]
+            out["src_sel"], out["dst_sel"] = src_sel, dst_sel
         else:
             out["src"] = self._part(draws.ego.get("src"), src)
             out["dst"] = self._part(draws.ego.get("dst"), dst)

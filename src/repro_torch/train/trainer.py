@@ -26,7 +26,7 @@ The port of ``repro.train.trainer``, for both sampling backends:
   a window later.
 - **Fused step** (``sampling_backend="fused"``): the batch is sampled on
   the device inside the step (``sampling.fused.FusedSampler``: walk, the
-  ``window_pairs`` kernel, ego gathers) from draws of one device
+  ``window_pair_draw`` kernel for the pair stage, ego gathers) from draws of one device
   ``torch.Generator`` seeded by ``cfg.seed``, then the dense step runs on
   it, as ``repro``'s fused step uses the dense full-table rule. No
   prefetcher and no stager: there is no host batch. A graph whose padded

@@ -10,8 +10,10 @@ frameworks sum in other orders). The port's own ``sample(generator)`` is
 held against the port's host pipeline the way ``tests/test_fused_sampling.py``
 holds ``repro``'s: support sets, a chi-square bound on the pair
 distribution, per-center ego children, PAD propagation, and the trainer's
-fused, fallback and auto plans. The ``window_pairs`` kernel itself runs on
-the card only (``cuda`` marker).
+fused, fallback and auto plans. The pair stage's plain version
+(``window_pair_draw_ref``) is held bitwise against ``repro``'s stage composed
+from its gather oracle and jnp lines. The ``window_pairs`` kernels (the
+gather and the pair stage's draw) run on the card only (``cuda`` marker).
 """
 import ctypes
 import dataclasses
@@ -177,6 +179,109 @@ def test_window_pair_ids_support_matches_host_pairs():
     got = {(r, int(pos[p, 0]), int(pos[p, 1]))
            for r in range(12) for p in range(len(pos)) if s[r, p] != PAD}
     assert got == {tuple(map(int, row)) for row in twindow_pairs(paths, 2)}
+
+
+# ------------------------------------------------------- the pair stage's draw
+# (B, L, win, P, walks): "random" walks have random PAD suffixes and all-PAD
+# rows; "pad-heavy" ones die at their first or second step; "one-valid" has
+# one row of two live nodes under a forward-only table, so exactly one
+# candidate is valid; "all-dead" walks have no live pair. P > B * npos in
+# "tiny" and "p-over-n".
+DRAW_CASES = {
+    "tiny": (1, 2, 1, 7, "random"),
+    "small": (7, 6, 2, 64, "random"),
+    "recorded": (57, 6, 2, 512, "random"),
+    "wide": (457, 8, 3, 1024, "random"),
+    "pad-heavy": (120, 6, 2, 512, "pad-heavy"),
+    "one-valid": (33, 5, 2, 100, "one-valid"),
+    "all-dead": (20, 6, 2, 64, "all-dead"),
+    "p-over-n": (2, 3, 1, 50, "random"),
+    # the kernel's layouts: walks past its shared memory with the candidate
+    # list inside it, and the list in the scratch with the walks staged
+    "walks-global": (280, 8, 1, 512, "random"),
+    "list-scratch": (300, 6, 2, 2048, "random"),
+}
+# the card only: the fused path's width at 8,192 walks
+DRAW_CARD_CASES = {**DRAW_CASES, "8k-walks": (8192, 6, 2, 65536, "random")}
+
+
+def draw_case(B, L, win, P, walks, seed=0):
+    """Seeded numpy inputs of the pair stage: (B, L) int64 paths, the
+    (npos, 2) window table, (P,) draw bits in [0, 2**32)."""
+    rng = np.random.default_rng([B, L, win, P, seed])
+    paths = rng.integers(0, 1 << 20, size=(B, L)).astype(np.int64)
+    pos = twindow_positions(L, win).astype(np.int32).reshape(-1, 2)
+    if walks == "random":
+        for b in range(B):
+            paths[b, rng.integers(0, L + 1):] = PAD
+        paths[::5] = PAD
+    elif walks == "pad-heavy":
+        for b in range(B):
+            paths[b, rng.integers(0, 3) if b % 16 else 2:] = PAD
+    elif walks == "one-valid":
+        pos = pos[pos[:, 0] < pos[:, 1]]
+        paths[:] = PAD
+        paths[B // 2, :2] = rng.integers(0, 1 << 20, size=2)
+    elif walks == "all-dead":
+        paths[:, 1:] = PAD
+    bits = rng.integers(0, 1 << 32, size=P, dtype=np.uint64)
+    return paths, np.ascontiguousarray(pos), bits
+
+
+def repro_pair_stage(paths, pos, bits, L):
+    """``repro``'s pair stage on the same inputs: its gather oracle, then the
+    jnp lines of ``repro/sampling/fused.py:346-367`` and ``:393-396``."""
+    src_all, dst_all = jref.window_pair_ids_ref(jnp.asarray(paths.astype(np.int32)), pos)
+    src_f, dst_f = src_all.reshape(-1), dst_all.reshape(-1)
+    valid = src_f != PAD
+    cum = jnp.cumsum(valid.astype(jnp.int32))
+    n_valid = cum[-1]
+    r = (jnp.asarray(bits.astype(np.uint32)) % jnp.maximum(n_valid, 1).astype(jnp.uint32)
+         ).astype(jnp.int32)
+    idx = jnp.minimum(jnp.searchsorted(cum, r + 1), src_f.shape[0] - 1)
+    src, dst = src_f[idx], dst_f[idx]
+    all_dead = n_valid == 0
+    src = jnp.where(all_dead, PAD, src)
+    dst = jnp.where(all_dead, PAD, dst)
+    npos = len(pos)
+    spos, dpos = jnp.asarray(pos[:, 0]), jnp.asarray(pos[:, 1])
+    row = idx // npos
+    pcol = idx % npos
+    return src, dst, row * L + spos[pcol], row * L + dpos[pcol], all_dead, int(n_valid)
+
+
+def _torch_draw_inputs(paths, pos, bits, device="cpu"):
+    pos_t = torch.from_numpy(pos).to(device)
+    return (torch.from_numpy(paths).to(device), pos_t, pos_t[:, 0].to(torch.int64),
+            pos_t[:, 1].to(torch.int64), torch.from_numpy(bits.astype(np.int64)).to(device))
+
+
+@pytest.mark.parametrize("case", list(DRAW_CASES))
+def test_window_pair_draw_ref_bitwise_repro(case):
+    B, L, win, P, walks = DRAW_CASES[case]
+    paths, pos, bits = draw_case(*DRAW_CASES[case])
+    *want, n_valid = repro_pair_stage(paths, pos, bits, L)
+    if walks == "one-valid":
+        assert n_valid == 1
+    if walks == "all-dead":
+        assert n_valid == 0
+    if case in ("tiny", "p-over-n"):
+        assert P > B * len(pos)
+    inputs = _torch_draw_inputs(paths, pos, bits)
+    got = tref.window_pair_draw_ref(*inputs, L)
+    assert len(got) == 5
+    for g, w in zip(got, want):
+        assert g.dtype == (torch.bool if g.dim() == 0 else torch.int64)
+        assert g.shape == tuple(np.shape(w))
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+    for g, d in zip(tops.window_pair_draw(*inputs, L), got):  # the CPU route
+        assert torch.equal(g, d)
+    if n_valid == 0:  # an all-dead round: PAD ids, the last candidate's indices
+        row, col = divmod(B * len(pos) - 1, len(pos))
+        assert (got[0] == PAD).all() and (got[1] == PAD).all() and bool(got[4])
+        assert (got[2] == row * L + pos[col, 0]).all() and (got[3] == row * L + pos[col, 1]).all()
+    else:
+        assert (got[0] != PAD).all() and (got[1] != PAD).all() and not bool(got[4])
 
 
 # ------------------------------------------------------------------ walker
@@ -608,6 +713,39 @@ class TestOnCard:
         for g, w in zip(got, want):
             assert torch.equal(g, w)
 
+    @pytest.mark.parametrize("case", list(DRAW_CARD_CASES))
+    def test_window_pair_draw_kernel_bitwise_plain(self, cuda, case):
+        from repro_torch.kernels import window_pairs as wp
+
+        B, L, win, P, walks = DRAW_CARD_CASES[case]
+        inputs = _torch_draw_inputs(*draw_case(B, L, win, P, walks), device=cuda)
+        before = wp.draw_launches
+        got = tops.window_pair_draw(*inputs, L)
+        assert wp.draw_launches == before + 1  # one launch a call
+        want = tref.window_pair_draw_ref(*inputs, L)
+        again = wp.window_pair_draw_cuda(*inputs, L)
+        torch.cuda.synchronize()
+        assert len(got) == len(want) == 5
+        for g, w, a in zip(got, want, again):
+            assert g.dtype == w.dtype and g.shape == w.shape
+            assert torch.equal(g, w) and torch.equal(a, g)
+
+    def test_window_pair_draw_kernel_raises(self, cuda):
+        from repro_torch.kernels.window_pairs import window_pair_draw_cuda
+
+        paths, pos, bits = draw_case(*DRAW_CASES["small"])
+        inputs = _torch_draw_inputs(paths, pos, bits, device=cuda)
+        with pytest.raises(TypeError, match="int64 paths"):
+            window_pair_draw_cuda(inputs[0].to(torch.int32), *inputs[1:], 6)
+        with pytest.raises(ValueError, match="CUDA"):
+            window_pair_draw_cuda(*_torch_draw_inputs(paths, pos, bits), 6)
+        strided = inputs[0].T.contiguous().T  # the same values, column-major
+        assert not strided.is_contiguous()
+        with pytest.raises(ValueError, match="contiguous"):
+            window_pair_draw_cuda(strided, *inputs[1:], 6)
+        with pytest.raises(ValueError, match="contiguous"):
+            window_pair_draw_cuda(inputs[0], *inputs[1:4], torch.cat([inputs[4]] * 2)[::2], 6)
+
     def test_fused_sample_on_card_equals_cpu_without_syncs(self, cuda, both):
         _, tpc = _pipes(order="walk_ego_pair")
         kw = dict(value_slots=(TSlot("slot0", 64, 3),), seed=1)
@@ -615,11 +753,16 @@ class TestOnCard:
         card = tfused.FusedSampler(both[1].graph, tpc, device=cuda, **kw)
         draws = cpu.draw(torch.Generator().manual_seed(0))
         draws_card = draws.to(cuda)  # a blocking H2D copy: outside the guard
+        from repro_torch.kernels import window_pairs as wp
+
+        before = (wp.launches, wp.draw_launches)
         torch.cuda.set_sync_debug_mode("error")
         try:
             got = card.sample_from(draws_card)
         finally:
             torch.cuda.set_sync_debug_mode(0)
+        # the pair stage is one draw launch; the gather alone is not launched
+        assert (wp.launches, wp.draw_launches) == (before[0], before[1] + 1)
         want = cpu.sample_from(draws)
         flat_g, flat_w = [], []
         for tree, out in ((got, flat_g), (want, flat_w)):
